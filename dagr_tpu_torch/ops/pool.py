@@ -77,6 +77,14 @@ def _pool_graph_cuda(feat, pos, mask, nbr, nbr_mask, nbr_dpos, *, grid_ny,
     dev = feat.device
     if feat.dtype != torch.float32 or pos.dtype != torch.float32:
         raise ValueError("feat and pos must be f32")
+    if pos.shape != (B, N, 3) or mask.shape != (B, N) \
+            or nbr.shape != (B, N, K) or nbr_mask.shape != (B, N, K) \
+            or mask.dtype != torch.bool or nbr_mask.dtype != torch.bool:
+        raise ValueError("pool_graph: pos [B,N,3] f32, mask [B,N] bool, "
+                         "nbr and nbr_mask [B,N,K] (bool mask) expected")
+    if nbr_dpos is not None and (nbr_dpos.shape != (B, N, K, 2)
+                                 or nbr_dpos.dtype != torch.float32):
+        raise ValueError("pool_graph: nbr_dpos must be f32 [B, N, K, 2]")
     feat, pos = feat.contiguous(), pos.contiguous()
     mask, nbr_mask = mask.contiguous(), nbr_mask.contiguous()
     if nbr_dpos is not None:
