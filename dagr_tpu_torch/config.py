@@ -2,9 +2,11 @@
 
 Field names and defaults follow ``dagr_tpu.config.DagrConfig`` (and so
 the reference YAML schema, ``config/dagr-*.yaml``), so the same YAML
-files load unmodified.  The JAX package's TPU formulation switches
-(``node_chunk``, ``graph_fast_path``, ``stream_chunk``, ``dp``) have no
-counterpart here; YAML keys the dataclass does not know are ignored.
+files load unmodified.  ``stream_chunk`` is the streaming engine's
+default chunk (``streaming.engine.StreamingDetector``).  The JAX
+package's TPU formulation switches (``node_chunk``, ``graph_fast_path``,
+``dp``) have no counterpart here; YAML keys the dataclass does not know
+are ignored.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ class DagrConfig:
     max_neighbors: int = 16
     n_nodes: int = 50_000
     max_queue_size: int = 128
+    stream_chunk: int = 1024     # events per streaming step
 
     # network params
     activation: str = "relu"

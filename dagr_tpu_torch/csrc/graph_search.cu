@@ -29,10 +29,61 @@
 // no fallback, unlike the TPU's slab path.  The (dx/W, dy/H) of each
 // spiral cell comes from a host table, so the float division is the
 // same one the plain PyTorch version uses.
+//
+// K6: the streaming engine's chunk-against-store search.  Replaces
+// dagr_tpu/graph/build.py:389 search_edges_into_store.  The same
+// contract for C query events against an N-slot event store that
+// already holds them (insert-then-search): older means a smaller
+// virtual id (vid), not an earlier slot, because the ring store reuses
+// slots; the queue cap is the pixel run's last Q store entries, newer
+// ones included.  Store slots are returned, with no self slot.  The
+// caller sorts the store by (pixel, vid) every step (an int64 key;
+// torch.sort + searchsorted, 50k keys), so each pixel's run is in vid
+// order, which is time order; one thread per query walks the spiral
+// through the same helper as K1, binary-searching each run for
+// vid < q_vid.  No store time sentinel: dead slots sort past the last
+// pixel.  Bound like K1 by dependent L2 loads, for C (256 to 1024)
+// threads only, so a step launches too few threads to fill the card;
+// a persistent per-pixel FIFO that saves the per-step sort is later
+// work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// The spiral walk shared by K1 and K6.  Appends to slots n.. of one
+// event's row the older events (older(slot) true) of each in-frame
+// spiral cell's run, newest first, at most the run's last Q entries,
+// while t - t_src <= dt, until the row holds K entries; returns the new
+// count.  The run's entries must be in time order, older ones first.
+template <class Older, class Emit>
+__device__ __forceinline__ int spiral_walk(
+    int x, int y, int t, int base, int W, int H,
+    const int* __restrict__ pos, const int* __restrict__ order,
+    const int* __restrict__ run_start, const int* __restrict__ spiral,
+    int S, int K, int Q, int dt, int n, Older older, Emit emit) {
+  for (int s = 0; s < S && n < K; ++s) {
+    const int xn = x + spiral[2 * s], yn = y + spiral[2 * s + 1];
+    if (xn < 0 || xn >= W || yn < 0 || yn >= H) continue;
+    const int p = base + yn * W + xn;
+    const int st = run_start[p], en = run_start[p + 1];
+    if (st == en) continue;
+    const int lo = max(st, en - Q);
+    // first run position holding an entry that is not older
+    int a = st, z = en;
+    while (a < z) {
+      const int mid = (a + z) >> 1;
+      if (older(order[mid])) a = mid + 1; else z = mid;
+    }
+    for (int j = a - 1; j >= lo && n < K; --j) {
+      const int src = order[j];
+      if (t - pos[3 * src + 2] > dt) break;
+      emit(n, src, s);
+      ++n;
+    }
+  }
+  return n;
+}
 
 __global__ void graph_search_kernel(
     const int* __restrict__ pos,          // [M, 3] (x, y, t)
@@ -58,38 +109,59 @@ __global__ void graph_search_kernel(
   od[1] = 0.f;
   int n = 1;
   if (mask[e]) {
-    const int x = pos[3 * e], y = pos[3 * e + 1], t = pos[3 * e + 2];
-    const int base = b * H * W;
-    for (int s = 0; s < S && n < K; ++s) {
-      const int dx = spiral[2 * s], dy = spiral[2 * s + 1];
-      const int xn = x + dx, yn = y + dy;
-      if (xn < 0 || xn >= W || yn < 0 || yn >= H) continue;
-      const int p = base + yn * W + xn;
-      const int st = run_start[p], en = run_start[p + 1];
-      if (st == en) continue;
-      const int lo = max(st, en - Q);
-      // hi = first run position holding an event not older than e
-      int a = st, z = en;
-      while (a < z) {
-        const int mid = (a + z) >> 1;
-        if (order[mid] < e) a = mid + 1; else z = mid;
-      }
-      for (int j = a - 1; j >= lo && n < K; --j) {
-        const int src = order[j];
-        if (t - pos[3 * src + 2] > dt) break;
-        out[n] = src - b * N;
-        om[n] = 1;
-        od[2 * n] = spiral_dpos[2 * s];
-        od[2 * n + 1] = spiral_dpos[2 * s + 1];
-        ++n;
-      }
-    }
+    n = spiral_walk(
+        pos[3 * e], pos[3 * e + 1], pos[3 * e + 2], b * H * W, W, H, pos,
+        order, run_start, spiral, S, K, Q, dt, n,
+        [=](int o) { return o < e; },
+        [=](int i, int src, int s) {
+          out[i] = src - b * N;
+          om[i] = 1;
+          od[2 * i] = spiral_dpos[2 * s];
+          od[2 * i + 1] = spiral_dpos[2 * s + 1];
+        });
   }
   for (; n < K; ++n) {
     out[n] = 0;
     om[n] = 0;
     od[2 * n] = fill_dx;
     od[2 * n + 1] = fill_dy;
+  }
+}
+
+// K6: C query events against an N-slot store that already holds them.
+// Older means a smaller virtual id (vid; the slot itself when the store
+// is append-only, store_vid == null).  Row q gets up to K store slots.
+__global__ void graph_search_store_kernel(
+    const int* __restrict__ store_pos,    // [N, 3] (x, y, t)
+    const int* __restrict__ store_vid,    // [N] or null: vid == slot
+    const int* __restrict__ order,        // [N] slots by (pixel, vid)
+    const int* __restrict__ run_start,    // [H*W + 1]
+    const int* __restrict__ q_pos,        // [C, 3]
+    const int* __restrict__ q_vid,        // [C]
+    const uint8_t* __restrict__ q_valid,  // [C]
+    const int* __restrict__ spiral,       // [S, 2]
+    int C, int W, int H, int S, int K, int Q, int dt,
+    int* __restrict__ nbr,                // [C, K]
+    uint8_t* __restrict__ nbr_mask) {     // [C, K]
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= C) return;
+  int* out = nbr + (size_t)q * K;
+  uint8_t* om = nbr_mask + (size_t)q * K;
+  int n = 0;
+  if (q_valid[q]) {
+    const int v = q_vid[q];
+    n = spiral_walk(
+        q_pos[3 * q], q_pos[3 * q + 1], q_pos[3 * q + 2], 0, W, H,
+        store_pos, order, run_start, spiral, S, K, Q, dt, n,
+        [=](int o) { return (store_vid ? store_vid[o] : o) < v; },
+        [=](int i, int src, int) {
+          out[i] = src;
+          om[i] = 1;
+        });
+  }
+  for (; n < K; ++n) {
+    out[n] = 0;
+    om[n] = 0;
   }
 }
 
@@ -109,6 +181,23 @@ extern "C" int dagr_graph_search(
         (const int*)run_start, (const int*)spiral,
         (const float*)spiral_dpos, fill_dx, fill_dy, M, N, W, H, S, K, Q,
         dt, (int*)nbr, (uint8_t*)nbr_mask, (float*)nbr_dpos);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dagr_graph_search_store(
+    const void* store_pos, const void* store_vid, const void* order,
+    const void* run_start, const void* q_pos, const void* q_vid,
+    const void* q_valid, const void* spiral, int C, int W, int H, int S,
+    int K, int Q, int dt, void* nbr, void* nbr_mask, void* stream) {
+  const int threads = 128;
+  const int blocks = (C + threads - 1) / threads;
+  if (blocks > 0) {
+    graph_search_store_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int*)store_pos, (const int*)store_vid, (const int*)order,
+        (const int*)run_start, (const int*)q_pos, (const int*)q_vid,
+        (const uint8_t*)q_valid, (const int*)spiral, C, W, H, S, K, Q, dt,
+        (int*)nbr, (uint8_t*)nbr_mask);
   }
   return (int)cudaGetLastError();
 }

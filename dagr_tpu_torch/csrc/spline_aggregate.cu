@@ -31,10 +31,63 @@
 // shared buffer, so it is written back as one coalesced copy.  The
 // GEMM is left to cuBLAS; fusing it (wgmma on the shared tile) is
 // later work.
+//
+// K7: the streaming engine's gathered aggregation.  Replaces
+// dagr_tpu/models/functional.py:109 spline_conv_gather (its gathers of
+// the source rows and positions, the attribute and basis, and the
+// batched dot before the node-level matmul).  C chunk destinations
+// (256 to 1024, or 1) read K = 16 sources each from the 50k-row event
+// store.  The edge attribute is made in the kernel from the store's and
+// the destinations' positions, so no [C, K, 2] table is written; the
+// taps then go through the same add_edge as K2.  Bound by the latency
+// of the C*K scattered source rows (a 1024-event chunk at Cin = 16 is
+// 1 MB of gathers and 1.6 MB of output); at C = 1 one block does it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// Adds one edge (source row xs, attribute (ax, ay)) into a destination's
+// [P, C] tap tile: this thread's channels lane, lane + tpd, ...
+__device__ __forceinline__ void add_edge(
+    float* acc, const float* __restrict__ xs, float ax, float ay, int ks,
+    int C, int lane, int tpd) {
+  const float kmax = (float)(ks - 1);
+  const float px = fminf(fmaxf(ax, 0.f), 1.f) * kmax;
+  const float py = fminf(fmaxf(ay, 0.f), 1.f) * kmax;
+  const float bx = fminf(fmaxf(floorf(px), 0.f), kmax - 1.f);
+  const float by = fminf(fmaxf(floorf(py), 0.f), kmax - 1.f);
+  const float fx = px - bx, fy = py - by;
+  const float w00 = (1.f - fy) * (1.f - fx), w01 = (1.f - fy) * fx;
+  const float w10 = fy * (1.f - fx), w11 = fy * fx;
+  const int t00 = ((int)by * ks + (int)bx) * C;
+  const int t10 = t00 + ks * C;
+  for (int c = lane; c < C; c += tpd) {
+    const float v = xs[c];
+    acc[t00 + c] += w00 * v;
+    acc[t00 + C + c] += w01 * v;
+    acc[t10 + c] += w10 * v;
+    acc[t10 + C + c] += w11 * v;
+  }
+}
+
+// The block's [nd, P, C] tile in shared memory, zeroed; its global tile
+// is the same layout, contiguous, so it is written back as one copy.
+__device__ __forceinline__ int zero_tile(float* sg, int m0, int M, int dpb,
+                                         int P, int C) {
+  const int nd = min(dpb, M - m0);
+  const int tile = nd * P * C;
+  for (int i = threadIdx.x; i < tile; i += blockDim.x) sg[i] = 0.f;
+  __syncthreads();
+  return nd;
+}
+
+__device__ __forceinline__ void store_tile(const float* sg, float* g, int m0,
+                                           int nd, int P, int C) {
+  __syncthreads();
+  float* gout = g + (size_t)m0 * P * C;
+  for (int i = threadIdx.x; i < nd * P * C; i += blockDim.x) gout[i] = sg[i];
+}
 
 __global__ void spline_aggregate_kernel(
     const float* __restrict__ x,          // [Msrc, C]
@@ -46,42 +99,61 @@ __global__ void spline_aggregate_kernel(
   extern __shared__ float sg[];           // [dpb, P, C]
   const int P = ks * ks;
   const int m0 = blockIdx.x * dpb;
-  const int nd = min(dpb, M - m0);
-  const int tile = nd * P * C;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) sg[i] = 0.f;
-  __syncthreads();
-
+  const int nd = zero_tile(sg, m0, M, dpb, P, C);
   const int d = threadIdx.x / tpd, lane = threadIdx.x - d * tpd;
   if (d < nd) {
     const int m = m0 + d;
     float* acc = sg + (size_t)d * P * C;
-    const float kmax = (float)(ks - 1);
+    for (int k = 0; k < K; ++k) {
+      const size_t mk = (size_t)m * K + k;
+      if (!mask[mk]) continue;
+      add_edge(acc, x + (size_t)nbr[mk] * C, attr[2 * mk], attr[2 * mk + 1],
+               ks, C, lane, tpd);
+    }
+  }
+  store_tile(sg, g, m0, nd, P, C);
+}
+
+// K7: the same aggregation for M destinations whose sources are rows of
+// a global table, with the edge attribute
+// clip((pos_src - pos_dst) / (2 max_value) + 0.5, 0, 1) made here from
+// the positions instead of read from an [M, K, 2] table.
+__global__ void spline_aggregate_gather_kernel(
+    const float* __restrict__ x,          // [N, C] source table
+    const float* __restrict__ pos,        // [N, pos_stride] (x, y, ...)
+    const float* __restrict__ dst_pos,    // [M, dst_stride]
+    const int* __restrict__ nbr,          // [M, K] table rows
+    const uint8_t* __restrict__ mask,     // [M, K]
+    int M, int K, int C, int ks, int tpd, int dpb, int pos_stride,
+    int dst_stride, float two_mv,
+    float* __restrict__ g) {              // [M, ks*ks*C]
+  extern __shared__ float sg[];
+  const int P = ks * ks;
+  const int m0 = blockIdx.x * dpb;
+  const int nd = zero_tile(sg, m0, M, dpb, P, C);
+  const int d = threadIdx.x / tpd, lane = threadIdx.x - d * tpd;
+  if (d < nd) {
+    const int m = m0 + d;
+    float* acc = sg + (size_t)d * P * C;
+    const float dx = dst_pos[(size_t)m * dst_stride];
+    const float dy = dst_pos[(size_t)m * dst_stride + 1];
     for (int k = 0; k < K; ++k) {
       const size_t mk = (size_t)m * K + k;
       if (!mask[mk]) continue;
       const int src = nbr[mk];
-      const float px = fminf(fmaxf(attr[2 * mk], 0.f), 1.f) * kmax;
-      const float py = fminf(fmaxf(attr[2 * mk + 1], 0.f), 1.f) * kmax;
-      const float bx = fminf(fmaxf(floorf(px), 0.f), kmax - 1.f);
-      const float by = fminf(fmaxf(floorf(py), 0.f), kmax - 1.f);
-      const float fx = px - bx, fy = py - by;
-      const float w00 = (1.f - fy) * (1.f - fx), w01 = (1.f - fy) * fx;
-      const float w10 = fy * (1.f - fx), w11 = fy * fx;
-      const int t00 = ((int)by * ks + (int)bx) * C;
-      const int t10 = t00 + ks * C;
-      const float* xs = x + (size_t)src * C;
-      for (int c = lane; c < C; c += tpd) {
-        const float v = xs[c];
-        acc[t00 + c] += w00 * v;
-        acc[t00 + C + c] += w01 * v;
-        acc[t10 + c] += w10 * v;
-        acc[t10 + C + c] += w11 * v;
-      }
+      const float* ps = pos + (size_t)src * pos_stride;
+      add_edge(acc, x + (size_t)src * C, (ps[0] - dx) / two_mv + 0.5f,
+               (ps[1] - dy) / two_mv + 0.5f, ks, C, lane, tpd);
     }
   }
-  __syncthreads();
-  float* gout = g + (size_t)m0 * P * C;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) gout[i] = sg[i];
+  store_tile(sg, g, m0, nd, P, C);
+}
+
+// threads per destination and destinations per block for C channels
+__host__ __forceinline__ void tile_shape(int C, int threads, int* tpd,
+                                         int* dpb) {
+  *tpd = C < threads ? C : threads;
+  *dpb = threads / *tpd;
 }
 
 }  // namespace
@@ -90,14 +162,33 @@ extern "C" int dagr_spline_aggregate(
     const void* x, const void* nbr, const void* mask, const void* attr,
     int M, int K, int C, int ks, void* g, void* stream) {
   const int threads = 256;
-  const int tpd = C < threads ? C : threads;
-  const int dpb = threads / tpd;
+  int tpd, dpb;
+  tile_shape(C, threads, &tpd, &dpb);
   const size_t smem = (size_t)dpb * ks * ks * C * sizeof(float);
   const int blocks = (M + dpb - 1) / dpb;
   if (blocks > 0) {
     spline_aggregate_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
         (const float*)x, (const int*)nbr, (const uint8_t*)mask,
         (const float*)attr, M, K, C, ks, tpd, dpb, (float*)g);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dagr_spline_aggregate_gather(
+    const void* x, const void* pos, const void* dst_pos, const void* nbr,
+    const void* mask, int M, int K, int C, int ks, int pos_stride,
+    int dst_stride, float two_mv, void* g, void* stream) {
+  const int threads = 256;
+  int tpd, dpb;
+  tile_shape(C, threads, &tpd, &dpb);
+  const size_t smem = (size_t)dpb * ks * ks * C * sizeof(float);
+  const int blocks = (M + dpb - 1) / dpb;
+  if (blocks > 0) {
+    spline_aggregate_gather_kernel<<<blocks, threads, smem,
+                                     (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)pos, (const float*)dst_pos,
+        (const int*)nbr, (const uint8_t*)mask, M, K, C, ks, tpd, dpb,
+        pos_stride, dst_stride, two_mv, (float*)g);
   }
   return (int)cudaGetLastError();
 }

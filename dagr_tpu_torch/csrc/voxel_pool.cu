@@ -29,6 +29,17 @@
 //      destination non-empty (& t_max(dst) > t_max(src) when asked).
 // Divisions by W and H are reciprocal multiplies, as XLA compiles the
 // JAX package's divisions by those constants.
+//
+// K10: the streaming engine's grow-mode level-1 update.  Replaces the
+// segment_max / segment_sum update of dagr_tpu/streaming/engine.py:247-284
+// (cell count, feature max, position sum, max time, and the stencil
+// adjacency OR-ed in from the chunk's new edges).  The same trap as K3:
+// the chunk's position sum must be taken per cell in chunk-index order,
+// from zero, and added to the state once, or the pooled floor flips; so
+// the caller stable-sorts the chunk's cell ids and one warp per cell
+// walks its rows through K3's per-cell reduction, updating the state in
+// place.  Bound by launch latency: a chunk touches a few hundred of the
+// 2240 cells, a few kilobytes.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -89,6 +100,33 @@ __global__ void pool_nodes_kernel(
   bits[i] = out;
 }
 
+// One warp reduces a cell's rows order[st..en), in that order: each
+// lane's feature channels (sum from 0 when mean, else max from
+// -FLT_MAX) go to chan(c, value); lanes 0-2 return their position sum,
+// lane 3 the max time (-inf for an empty run).  Shared by K3 and K10.
+template <class Chan>
+__device__ __forceinline__ float warp_cell_reduce(
+    const int* __restrict__ order, int st, int en,
+    const float* __restrict__ feat, const float* __restrict__ pos, int C,
+    int mean, int lane, Chan chan) {
+  for (int c = lane; c < C; c += 32) {
+    float acc = mean ? 0.f : -FLT_MAX;
+    for (int j = st; j < en; ++j) {
+      const float v = feat[(size_t)order[j] * C + c];
+      if (mean) acc += v; else acc = v > acc ? v : acc;
+    }
+    chan(c, acc);
+  }
+  float r = 0.f;
+  if (lane < 3) {
+    for (int j = st; j < en; ++j) r += pos[3 * order[j] + lane];
+  } else if (lane == 3) {
+    r = -INFINITY;
+    for (int j = st; j < en; ++j) r = fmaxf(r, pos[3 * order[j] + 2]);
+  }
+  return r;
+}
+
 __global__ void pool_cells_kernel(
     const int* __restrict__ order,        // [M] nodes sorted by cell
     const int* __restrict__ cell_start,   // [B*ncells + 1]
@@ -105,34 +143,77 @@ __global__ void pool_cells_kernel(
   const int st = cell_start[warp], en = cell_start[warp + 1];
   const int count = en - st;
   const float denom = (float)max(count, 1);
-  for (int c = lane; c < C; c += 32) {
-    float acc = mean ? 0.f : -FLT_MAX;
-    for (int j = st; j < en; ++j) {
-      const float v = feat[(size_t)order[j] * C + c];
-      if (mean) acc += v; else acc = v > acc ? v : acc;
-    }
-    float r;
-    if (mean) r = acc / denom;
-    else r = count > 0 ? acc : 0.f;
-    pooled[(size_t)warp * C + c] = r;
-  }
+  const float r = warp_cell_reduce(
+      order, st, en, feat, pos, C, mean, lane, [&](int c, float acc) {
+        pooled[(size_t)warp * C + c] =
+            mean ? acc / denom : (count > 0 ? acc : 0.f);
+      });
   if (lane < 3) {
-    float s = 0.f;
-    for (int j = st; j < en; ++j) s += pos[3 * order[j] + lane];
-    float r = s / denom;
-    if (lane == 0) r = floorf((r + 1e-5f) * (float)W) * inv_w;
-    if (lane == 1) r = floorf((r + 1e-5f) * (float)H) * inv_h;
-    pos_out[3 * warp + lane] = count > 0 ? r : 0.f;
+    float m = r / denom;
+    if (lane == 0) m = floorf((m + 1e-5f) * (float)W) * inv_w;
+    if (lane == 1) m = floorf((m + 1e-5f) * (float)H) * inv_h;
+    pos_out[3 * warp + lane] = count > 0 ? m : 0.f;
   } else if (lane == 3) {
-    float t = -INFINITY;
-    for (int j = st; j < en; ++j) t = fmaxf(t, pos[3 * order[j] + 2]);
-    tmax[warp] = t;
+    tmax[warp] = r;
     cmask[warp] = count > 0;
   } else if (lane == 4) {
     int o = 0;
     for (int j = st; j < en; ++j) o |= bits[order[j]];
     adj[warp] = o;
   }
+}
+
+// K10: the grow-mode streaming update of the level-1 cell aggregates by
+// one chunk.  One warp per cell with chunk rows: count, feature max,
+// position sum (chunk rows in index order from 0, then added to the
+// state once), max time, and the 9-bit stencil mask of the rows' edges
+// (lanes own the K edge slots of a row; the source's cell comes from
+// the store's cell table).
+__global__ void stream_accumulate_kernel(
+    const int* __restrict__ order,        // [Cn] chunk rows sorted by cell
+    const int* __restrict__ cell_start,   // [ncells + 1]
+    const float* __restrict__ feat,       // [Cn, C]
+    const float* __restrict__ pos,        // [Cn, 3]
+    const int* __restrict__ nbr,          // [Cn, K] store slots
+    const uint8_t* __restrict__ nbr_mask, // [Cn, K]
+    const int* __restrict__ cells,        // [N] level-1 cell per slot
+    int ncells, int nx, int C, int K,
+    int* __restrict__ cell_cnt, float* __restrict__ cell_max,
+    float* __restrict__ pos_sum, float* __restrict__ tmax,
+    uint8_t* __restrict__ adj) {
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= ncells) return;
+  const int st = cell_start[warp], en = cell_start[warp + 1];
+  if (st == en) return;
+  const float r = warp_cell_reduce(
+      order, st, en, feat, pos, C, 0, lane, [&](int c, float m) {
+        float* dst = cell_max + (size_t)warp * C + c;
+        *dst = fmaxf(*dst, m);
+      });
+  if (lane < 3) {
+    pos_sum[3 * warp + lane] = pos_sum[3 * warp + lane] + r;
+  } else if (lane == 3) {
+    tmax[warp] = fmaxf(tmax[warp], r);
+    cell_cnt[warp] += en - st;
+  }
+  const int cx = warp % nx, cy = warp / nx;
+  int bits = 0;
+  for (int j = st; j < en; ++j) {
+    const int row = order[j];
+    for (int k = lane; k < K; k += 32) {
+      const size_t rk = (size_t)row * K + k;
+      if (!nbr_mask[rk]) continue;
+      const int sc = cells[nbr[rk]];
+      if (sc >= ncells) continue;
+      const int dx = sc % nx - cx, dy = sc / nx - cy;
+      if (dx < -1 || dx > 1 || dy < -1 || dy > 1 || (dx == 0 && dy == 0))
+        continue;
+      bits |= 1 << ((dy + 1) * 3 + (dx + 1));
+    }
+  }
+  bits = __reduce_or_sync(0xffffffffu, bits);
+  if (lane < 9 && ((bits >> lane) & 1)) adj[9 * warp + lane] = 1;
 }
 
 __global__ void pool_stencil_kernel(
@@ -192,6 +273,23 @@ extern "C" int dagr_voxel_pool_cells(
     pool_stencil_kernel<<<(total * 9 + threads - 1) / threads, threads, 0, s>>>(
         (const uint8_t*)cmask, (const float*)tmax, (const int*)adj, total,
         ny, nx, temporal, (int*)nbr_out, (uint8_t*)mask_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dagr_stream_accumulate(
+    const void* order, const void* cell_start, const void* feat,
+    const void* pos, const void* nbr, const void* nbr_mask,
+    const void* cells, int ncells, int nx, int C, int K, void* cell_cnt,
+    void* cell_max, void* pos_sum, void* tmax, void* adj, void* stream) {
+  if (ncells > 0) {
+    const int threads = 256;   // 8 warps, one cell each
+    stream_accumulate_kernel<<<(ncells + 7) / 8, threads, 0,
+                               (cudaStream_t)stream>>>(
+        (const int*)order, (const int*)cell_start, (const float*)feat,
+        (const float*)pos, (const int*)nbr, (const uint8_t*)nbr_mask,
+        (const int*)cells, ncells, nx, C, K, (int*)cell_cnt,
+        (float*)cell_max, (float*)pos_sum, (float*)tmax, (uint8_t*)adj);
   }
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,13 @@
-"""Event-graph construction: spiral/queue neighbour search (kernel K1).
+"""Event-graph construction: spiral/queue neighbour search (kernels K1
+and K6).
 
 ``build_graph`` is the counterpart of ``dagr_tpu.graph.build.build_graph``
 and gives the same ``nbr``, ``nbr_mask`` and ``nbr_dpos``, bit for bit.
-On a CUDA tensor it launches ``csrc/graph_search.cu``; on a CPU tensor
-it runs ``build_graph_plain``, the same selection as whole-array
-PyTorch ops.
+``search_edges_into_store`` is the counterpart of the streaming engine's
+``dagr_tpu.graph.build.search_edges_into_store`` (a chunk of new events
+against the event store), bit for bit as well.  On a CUDA tensor each
+launches its entry of ``csrc/graph_search.cu``; on a CPU tensor it runs
+its ``*_plain`` twin, the same selection as whole-array PyTorch ops.
 
 Preconditions, as in the JAX package: events are time-sorted per
 sample, valid events form a prefix, timestamps are window-relative
@@ -20,6 +23,8 @@ import torch
 from dagr_tpu_torch.core.types import EventGraph
 from dagr_tpu_torch.graph.spiral import spiral_offsets
 from dagr_tpu_torch.kernels import _build
+
+_VID_BITS = 31   # store sort key: pixel * 2**31 + vid
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,22 +48,60 @@ def _spiral_tables(radius: int, width: int, height: int,
             (float(fill[0]), float(fill[1])))
 
 
+def sorted_runs(key: torch.Tensor, n: int, shift: int = 0):
+    """The stable sort of ``key`` and the run offsets ``start`` [n + 1]
+    of the ids 0..n-1 (id = ``key >> shift``; larger ids sort after
+    them): id p's rows are ``order[start[p]:start[p+1]]`` in index order.
+    Returns (sorted keys, order i32, start i32); no host synchronisation
+    (unlike ``bincount``)."""
+    key_s, order = torch.sort(key, stable=True)
+    ids = torch.arange(n + 1, device=key.device, dtype=key.dtype)
+    start = torch.searchsorted(key_s, ids << shift if shift else ids)
+    return key_s, order.to(torch.int32), start.to(torch.int32)
+
+
 def _pixel_runs(pos_px: torch.Tensor, mask: torch.Tensor, width: int,
                 height: int):
-    """Sorted pixel ids (invalid events sort past the last pixel), the
-    stable pixel-major order of the events, and the run offsets
-    ``start`` [B*H*W + 1]: pixel p's events are ``order[start[p]:start[p+1]]``
-    in index order.  No host synchronisation (unlike ``bincount``)."""
+    """``sorted_runs`` of the events by pixel id (invalid events sort past
+    the last pixel), over [B*H*W] pixels."""
     B, N, _ = pos_px.shape
     HW = width * height
-    dev = pos_px.device
-    b = torch.arange(B, device=dev, dtype=torch.int32)[:, None]
+    b = torch.arange(B, device=pos_px.device, dtype=torch.int32)[:, None]
     lin = torch.where(mask, b * HW + pos_px[..., 1] * width + pos_px[..., 0],
                       B * HW).reshape(B * N)
-    lin_s, order = torch.sort(lin, stable=True)
-    start = torch.searchsorted(
-        lin_s, torch.arange(B * HW + 1, device=dev, dtype=torch.int32))
-    return lin_s, order.to(torch.int32), start.to(torch.int32)
+    return sorted_runs(lin, B * HW)
+
+
+def _spiral_pixels(x, y, valid, offs, width: int, height: int, base):
+    """Pixel id ``base + y' * W + x'`` of every (query, spiral cell)
+    pair [rows, S] (0 where out of frame) and whether the cell is in the
+    frame and the query valid."""
+    xn = x[:, None] + offs[:, 0].long()
+    yn = y[:, None] + offs[:, 1].long()
+    inb = ((xn >= 0) & (xn < width) & (yn >= 0) & (yn < height)
+           & valid[:, None])
+    return torch.where(inb, base + yn * width + xn, 0), inb
+
+
+def _pick_from_runs(order, hi, lo_t, st, en, inb, queue_size: int, K: int):
+    """The K-1 picks of a [rows, S] grid of run slices (the search of K1
+    and K6 as whole-array ops): cell s of a row offers ``order[lo:hi]``,
+    ``hi`` ending the entries older than the query and ``lo`` the larger
+    of the run start ``st``, the queue cap (the run's last Q entries
+    before ``en``) and the dt bound ``lo_t``; picks go newest first, and
+    the k-th lives in the first cell whose cumulative count exceeds k.
+    Returns (source rows [rows, K-1] of ``order``, hit, cell of each
+    pick)."""
+    rows, S = hi.shape
+    lo = torch.maximum(torch.maximum(st, en - queue_size), lo_t)
+    cnt = torch.where(inb, (hi - lo).clamp(min=0), 0)               # [rows, S]
+    cum = torch.cumsum(cnt, dim=1)
+    ks = torch.arange(K - 1, device=hi.device).expand(rows, K - 1).contiguous()
+    hit = cum[:, -1:] > ks                                         # [rows, K-1]
+    s_sel = torch.searchsorted(cum, ks, right=True).clamp(max=S - 1)
+    cum_prev = cum.gather(1, s_sel) - cnt.gather(1, s_sel)
+    j = hi.gather(1, s_sel) - 1 - (ks - cum_prev)
+    return order[j.clamp(0, max(order.shape[0] - 1, 0))], hit, s_sel
 
 
 def _check_args(pos_px, mask, width, height, delta_t_us):
@@ -138,12 +181,8 @@ def build_graph_plain(pos_px, mask, *, width, height, radius, delta_t_us,
     e = torch.arange(M, device=dev)
 
     offs, dpos_tab, fill = _spiral_tables(radius, width, height, dev)
-    offs = offs.long()
-    S = offs.shape[0]
-    xn = x[:, None] + offs[:, 0]
-    yn = y[:, None] + offs[:, 1]
-    inb = (xn >= 0) & (xn < width) & (yn >= 0) & (yn < height) & m[:, None]
-    p = torch.where(inb, b[:, None] * HW + yn * width + xn, 0)     # [M, S]
+    p, inb = _spiral_pixels(x, y, m, offs, width, height,
+                            b[:, None] * HW)                       # [M, S]
     st, en = start[p], start[p + 1]
 
     # older entries of run p: keys (pixel, index) increase along `order`
@@ -151,16 +190,8 @@ def build_graph_plain(pos_px, mask, *, width, height, radius, delta_t_us,
     # dt bound: keys (pixel, time) increase along `order` (time-sorted)
     lo_t = torch.searchsorted(lin_s * 2**31 + t[order],
                               p * 2**31 + (t[:, None] - delta_t_us))
-    lo = torch.maximum(torch.maximum(st, en - queue_size), lo_t)
-    cnt = torch.where(inb, (hi - lo).clamp(min=0), 0)              # [M, S]
-
-    cum = torch.cumsum(cnt, dim=1)
-    ks = torch.arange(K - 1, device=dev).expand(M, K - 1).contiguous()
-    hit = cum[:, -1:] > ks                                         # [M, K-1]
-    s_sel = torch.searchsorted(cum, ks, right=True).clamp(max=S - 1)
-    cum_prev = cum.gather(1, s_sel) - cnt.gather(1, s_sel)
-    j = hi.gather(1, s_sel) - 1 - (ks - cum_prev)
-    src = order[j.clamp(0, M - 1)]
+    src, hit, s_sel = _pick_from_runs(order, hi, lo_t, st, en, inb,
+                                      queue_size, K)
 
     self_idx = (e - b * N)[:, None]
     nbr = torch.cat([self_idx, torch.where(hit, src - b[:, None] * N, 0)], 1)
@@ -172,3 +203,126 @@ def build_graph_plain(pos_px, mask, *, width, height, radius, delta_t_us,
         nbr=nbr.to(torch.int32).reshape(B, N, K),
         nbr_mask=nbr_mask.reshape(B, N, K),
         nbr_dpos=dpos.reshape(B, N, K, 2))
+
+
+def _store_runs(store_pos_px, store_valid, store_vid, width, height):
+    """The store's slots sorted by (pixel, vid), dead slots past the last
+    pixel, as the int64 sort keys ``pixel * 2**31 + vid``, the slot order
+    and the pixel run offsets ``start`` [H*W + 1]."""
+    N = store_pos_px.shape[0]
+    HW = width * height
+    vid = (torch.arange(N, device=store_pos_px.device, dtype=torch.int64)
+           if store_vid is None else store_vid.long())
+    lin = torch.where(store_valid,
+                      store_pos_px[:, 1].long() * width + store_pos_px[:, 0],
+                      HW)
+    key = (lin << _VID_BITS) + torch.where(store_valid, vid, 0)
+    return sorted_runs(key, HW, _VID_BITS)
+
+
+def _check_store_args(store_pos_px, store_valid, q_pos_px, q_vid, q_valid,
+                      store_vid, width, height, delta_t_us, max_neighbors):
+    N, C = store_pos_px.shape[0], q_pos_px.shape[0]
+    for name, t, shape, dtype in (
+            ("store_pos_px", store_pos_px, (N, 3), torch.int32),
+            ("store_valid", store_valid, (N,), torch.bool),
+            ("q_pos_px", q_pos_px, (C, 3), torch.int32),
+            ("q_vid", q_vid, (C,), torch.int32),
+            ("q_valid", q_valid, (C,), torch.bool),
+            ("store_vid", store_vid, (N,), torch.int32)):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype):
+            raise ValueError(f"{name} must be {dtype} {list(shape)}")
+    if not 0 <= delta_t_us < 2**31:
+        raise ValueError("delta_t_us must fit int32")
+    if width * height >= 2**31 - 1 or max_neighbors < 1:
+        raise ValueError("pixel id must fit int32; max_neighbors >= 1")
+
+
+def search_edges_into_store(
+    store_pos_px: torch.Tensor,   # i32 [N, 3] (x, y, t_us) per store slot
+    store_valid: torch.Tensor,    # bool [N]
+    q_pos_px: torch.Tensor,       # i32 [C, 3] the chunk's new events
+    q_vid: torch.Tensor,          # i32 [C] their virtual ids
+    q_valid: torch.Tensor,        # bool [C]
+    *,
+    width: int,
+    height: int,
+    radius: int,
+    delta_t_us: int,
+    max_neighbors: int,
+    queue_size: int = 128,
+    store_vid=None,               # i32 [N] virtual id per slot (ring store)
+):
+    """Edges of C new events into an N-slot event store that already
+    holds them (insert-then-search; kernel K6).  Returns ``nbr``
+    [C, K-1] store slots and ``mask`` [C, K-1]: K1's selection with
+    "older" meaning ``vid < q_vid``.  Without ``store_vid`` the store is
+    append-only and a slot's vid is the slot.  Preconditions, as in the
+    JAX package: store times increase with vid, and ``t + delta_t_us``
+    fits int32 (window- or stream-relative microseconds)."""
+    _check_store_args(store_pos_px, store_valid, q_pos_px, q_vid, q_valid,
+                      store_vid, width, height, delta_t_us, max_neighbors)
+    kw = dict(width=width, height=height, radius=radius,
+              delta_t_us=delta_t_us, max_neighbors=max_neighbors,
+              queue_size=queue_size, store_vid=store_vid)
+    args = (store_pos_px, store_valid, q_pos_px, q_vid, q_valid)
+    if not store_pos_px.is_cuda:
+        return search_edges_into_store_plain(*args, **kw)
+    return _search_store_cuda(*args, **kw)
+
+
+def _search_store_cuda(store_pos_px, store_valid, q_pos_px, q_vid, q_valid, *,
+                       width, height, radius, delta_t_us, max_neighbors,
+                       queue_size, store_vid):
+    C, K = q_pos_px.shape[0], max_neighbors - 1
+    dev = store_pos_px.device
+    store_pos_px, q_pos_px = store_pos_px.contiguous(), q_pos_px.contiguous()
+    q_vid, q_valid = q_vid.contiguous(), q_valid.contiguous()
+    _, order, start = _store_runs(store_pos_px, store_valid, store_vid,
+                                  width, height)
+    spiral = _spiral_tables(radius, width, height, dev)[0]
+    nbr = torch.empty((C, K), dtype=torch.int32, device=dev)
+    mask = torch.empty((C, K), dtype=torch.bool, device=dev)
+    if store_vid is not None:
+        store_vid = store_vid.contiguous()
+        _build.check_cuda("search_edges_into_store", store_vid)
+    _build.check_cuda("search_edges_into_store", store_pos_px, q_pos_px,
+                      q_vid, q_valid, order, start, spiral)
+    i = ctypes.c_int
+    _build.launch(
+        "graph_search_store", "dagr_graph_search_store",
+        _build.ptr(store_pos_px),
+        _build.ptr(store_vid) if store_vid is not None else ctypes.c_void_p(None),
+        _build.ptr(order), _build.ptr(start), _build.ptr(q_pos_px),
+        _build.ptr(q_vid), _build.ptr(q_valid), _build.ptr(spiral), i(C),
+        i(width), i(height), i(spiral.shape[0]), i(K), i(queue_size),
+        i(delta_t_us), _build.ptr(nbr), _build.ptr(mask))
+    return nbr, mask
+
+
+def search_edges_into_store_plain(store_pos_px, store_valid, q_pos_px, q_vid,
+                                  q_valid, *, width, height, radius,
+                                  delta_t_us, max_neighbors, queue_size=128,
+                                  store_vid=None):
+    """The K6 selection as whole-array PyTorch ops (the kernel's twin),
+    the store counterpart of ``build_graph_plain``: for every (query,
+    spiral cell) the visible candidates are the slice ``[lo, hi)`` of the
+    pixel's run in (pixel, vid) order, ``hi`` ending the run entries with
+    a smaller vid, ``lo`` the larger of the queue cap and the dt bound."""
+    key_s, order, start = _store_runs(store_pos_px, store_valid, store_vid,
+                                      width, height)
+    order, start = order.long(), start.long()
+    x, y, t = (q_pos_px[:, c].long() for c in range(3))
+    offs = _spiral_tables(radius, width, height, store_pos_px.device)[0]
+    p, inb = _spiral_pixels(x, y, q_valid, offs, width, height, 0)  # [C, S]
+    st, en = start[p], start[p + 1]
+    # older entries of run p: (pixel, vid) keys increase along `order`
+    hi = torch.searchsorted(key_s, (p << _VID_BITS) + q_vid.long()[:, None])
+    # dt bound: (pixel, time) keys increase along `order` (times grow
+    # with vid); queries at pixel p stay above pixel p - 1's keys
+    t_s = store_pos_px[:, 2].long()[order]
+    lo_t = torch.searchsorted((key_s >> _VID_BITS << 32) + t_s,
+                              (p << 32) + (t[:, None] - delta_t_us))
+    src, hit, _ = _pick_from_runs(order, hi, lo_t, st, en, inb,
+                                  queue_size, max_neighbors)
+    return torch.where(hit, src, 0).to(torch.int32), hit

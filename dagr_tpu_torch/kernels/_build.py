@@ -40,7 +40,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"graph_search": 0, "spline_aggregate": 0, "voxel_pool": 0,
-            "nms": 0}
+            "nms": 0, "graph_search_store": 0, "spline_gather": 0,
+            "stream_accumulate": 0}
 
 _library = None
 

@@ -1,4 +1,5 @@
-"""Voxel-grid graph pooling (kernel K3).
+"""Voxel-grid graph pooling (kernel K3) and the streaming engine's
+level-1 cell update (kernel K10).
 
 Counterpart of ``dagr_tpu.ops.pool``: the pooled level is a dense
 ``ny * nx`` cell table (node id == cell id ``cx + nx * cy``), empty
@@ -10,6 +11,12 @@ op.  Both sum positions in node-index order, so the pooled x, y
 
 Divisions by the frame size are multiplies by ``f32(1/W)``: XLA
 compiles the JAX package's divisions by those constants that way.
+
+``accumulate_cells`` adds one chunk of new events to the streaming
+engine's level-1 aggregates in place (``csrc/voxel_pool.cu``'s
+``dagr_stream_accumulate`` on CUDA tensors, ``accumulate_cells_plain``
+on CPU tensors); the chunk's position sum is taken per cell in chunk
+order and added once, as ``dagr_tpu``'s ``state.pos_sum + segment_sum``.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch.nn.functional as F
 
 from dagr_tpu_torch.core.types import (
     EventGraph, GRID_OFFSETS, GRID_SELF_OFFSET, NodeSet)
+from dagr_tpu_torch.graph.build import sorted_runs
 from dagr_tpu_torch.kernels import _build
 
 _CLIP_HI = 0.9999999
@@ -107,11 +115,7 @@ def _pool_graph_cuda(feat, pos, mask, nbr, nbr_mask, nbr_dpos, *, grid_ny,
         i(M), i(N), i(K), i(grid_ny), i(grid_nx), i(B * ncells), i(width),
         i(height), inv_w, inv_h, _build.ptr(seg), _build.ptr(bits))
 
-    seg_s, order = torch.sort(seg, stable=True)
-    cell_start = torch.searchsorted(
-        seg_s, torch.arange(B * ncells + 1, device=dev, dtype=torch.int32)
-    ).to(torch.int32)
-    order = order.to(torch.int32)
+    _, order, cell_start = sorted_runs(seg, B * ncells)
 
     pooled = torch.empty((B, ncells, C), dtype=torch.float32, device=dev)
     pos_out = torch.empty((B, ncells, 3), dtype=torch.float32, device=dev)
@@ -239,3 +243,94 @@ def pool_nodeset(ns: NodeSet, *, grid_ny: int, grid_nx: int, width: int,
     return NodeSet(feat=feat, pos=pos, mask=mask,
                    graph=EventGraph(nbr=nbr, nbr_mask=nbr_mask),
                    tmax=tmax, grid_hw=(grid_ny, grid_nx))
+
+
+def accumulate_cells(
+    cell_cnt: torch.Tensor,    # i32 [G]       updated in place
+    cell_max: torch.Tensor,    # f32 [G, C]    updated in place
+    pos_sum: torch.Tensor,     # f32 [G, 3]    updated in place
+    tmax: torch.Tensor,        # f32 [G]       updated in place
+    adj: torch.Tensor,         # bool [G, 9]   updated in place
+    cell: torch.Tensor,        # i32 [Cn] chunk row's cell, G for invalid rows
+    feat: torch.Tensor,        # f32 [Cn, C]
+    pos: torch.Tensor,         # f32 [Cn, 3]
+    nbr: torch.Tensor,         # i32 [Cn, K] store slots of the rows' edges
+    nbr_mask: torch.Tensor,    # bool [Cn, K]
+    cells: torch.Tensor,       # i32 [N] the store's cell per slot (G: none)
+    *,
+    grid_nx: int,
+) -> None:
+    """Grow-mode level-1 update by one chunk (kernel K10): per cell,
+    ``cnt += count``, ``max = max(max, chunk max)``, ``pos_sum += chunk
+    sum``, ``tmax = max(tmax, chunk max t)``, and ``adj |=`` the stencil
+    offsets of the rows' edges (self and out-of-stencil edges and
+    sources without a cell dropped)."""
+    G, C = cell_max.shape
+    Cn, K = nbr.shape
+    for name, t, shape, dtype in (
+            ("cell_cnt", cell_cnt, (G,), torch.int32),
+            ("pos_sum", pos_sum, (G, 3), torch.float32),
+            ("tmax", tmax, (G,), torch.float32),
+            ("adj", adj, (G, 9), torch.bool),
+            ("cell", cell, (Cn,), torch.int32),
+            ("feat", feat, (Cn, C), torch.float32),
+            ("pos", pos, (Cn, 3), torch.float32),
+            ("nbr_mask", nbr_mask, (Cn, K), torch.bool)):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"accumulate_cells: {name} must be {dtype} "
+                             f"{list(shape)}")
+    if cell_max.dtype != torch.float32 or nbr.dtype != torch.int32 \
+            or cells.dtype != torch.int32 or cells.dim() != 1:
+        raise ValueError("accumulate_cells: cell_max f32, nbr and cells i32")
+    args = (cell_cnt, cell_max, pos_sum, tmax, adj, cell, feat, pos, nbr,
+            nbr_mask, cells)
+    if not cell_max.is_cuda:
+        return accumulate_cells_plain(*args, grid_nx=grid_nx)
+    feat, pos, nbr, nbr_mask = (t.contiguous() for t in (feat, pos, nbr,
+                                                          nbr_mask))
+    _build.check_cuda("accumulate_cells", cell_cnt, cell_max, pos_sum, tmax,
+                      adj, cell, feat, pos, nbr, nbr_mask, cells)
+    _, order, start = sorted_runs(cell, G)
+    i = ctypes.c_int
+    _build.launch(
+        "stream_accumulate", "dagr_stream_accumulate",
+        _build.ptr(order), _build.ptr(start),
+        _build.ptr(feat), _build.ptr(pos), _build.ptr(nbr),
+        _build.ptr(nbr_mask), _build.ptr(cells), i(G), i(grid_nx), i(C),
+        i(K), _build.ptr(cell_cnt), _build.ptr(cell_max), _build.ptr(pos_sum),
+        _build.ptr(tmax), _build.ptr(adj))
+
+
+def accumulate_cells_plain(cell_cnt, cell_max, pos_sum, tmax, adj, cell,
+                           feat, pos, nbr, nbr_mask, cells, *, grid_nx):
+    """The K10 update as PyTorch ops (the kernel's twin).  Rows of cell G
+    land in a dump row; the float sum is ``index_add_``, which on the CPU
+    adds rows in index order."""
+    G, C = cell_max.shape
+    dev = cell_max.device
+    seg = cell.long()
+
+    def seg_reduce(v, init, how):
+        out = torch.full((G + 1,) + v.shape[1:], init, dtype=v.dtype,
+                         device=dev)
+        if how == "sum":
+            out.index_add_(0, seg, v)
+        else:
+            idx = seg.reshape((-1,) + (1,) * (v.dim() - 1)).expand_as(v)
+            out.scatter_reduce_(0, idx, v, "amax", include_self=True)
+        return out[:G]
+
+    cell_cnt += seg_reduce(torch.ones_like(cell), 0, "sum")
+    torch.maximum(cell_max, seg_reduce(feat, -np.inf, "max"), out=cell_max)
+    pos_sum += seg_reduce(pos, 0.0, "sum")
+    torch.maximum(tmax, seg_reduce(pos[:, 2], -np.inf, "max"), out=tmax)
+
+    src = cells[nbr.long()].long()                        # [Cn, K]
+    dx = src % grid_nx - (seg % grid_nx)[:, None]
+    dy = src // grid_nx - (seg // grid_nx)[:, None]
+    o = (dy + 1) * 3 + (dx + 1)
+    ev = (nbr_mask & (dx.abs() <= 1) & (dy.abs() <= 1)
+          & (o != GRID_SELF_OFFSET) & (src < G))
+    bits = ((o[..., None] == torch.arange(9, device=dev))
+            & ev[..., None]).any(dim=1)                   # [Cn, 9]
+    adj |= seg_reduce(bits.to(torch.int32), 0, "max") > 0

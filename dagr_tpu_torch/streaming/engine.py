@@ -1,0 +1,437 @@
+"""Streaming (asynchronous) inference over one event stream.
+
+Counterpart of ``dagr_tpu.streaming.engine``: new events arrive in
+fixed-size chunks; the event store, the per-node event-level
+activations and the level-1 pooling aggregates persist in a
+``StreamState``; each step updates the event level for the chunk only
+(edges point from older to newer events, so stored activations never
+change) and recomputes the pooled pyramid and the head densely, so the
+outputs equal the sync forward.
+
+On CUDA tensors every irregular op of a step runs a hand-written kernel:
+the chunk-against-store edge search (K6), the two event-level spline
+convs' gathered aggregation (K7), the grow-mode level-1 update (K10) or,
+in ring mode, voxel pooling of the live store (K3), and the dense tail's
+spline aggregation (K2) and pooling (K3).  ``step`` updates every
+tensor of the state in place (the JAX package donates them) and never
+synchronises with the host: the event count stays a device tensor and
+chunk rows go to their slots through index tensors.
+
+Window modes:
+
+* ``"grow"``: an append-only store for one bounded window; a new window
+  starts from ``init_state``.  Events past the ``n_nodes`` capacity are
+  dropped: the store keeps the first N.  (``dagr_tpu``'s grow mode
+  writes the chunk with a clamped dynamic_update_slice instead, which
+  overwrites stored events once a window overflows.)
+* ``"ring"``: a sliding window over an endless stream; slot = vid % N, so
+  new events evict the oldest.  Max pooling cannot subtract an evicted
+  event, so the level-1 cells are pooled from the live store every step
+  (K3 over the store, edges kept only while their source slot still holds
+  the same event) and the state carries no grow aggregates.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dagr_tpu_torch.core.types import (
+    EventGraph, GRID_OFFSETS, NodeSet)
+from dagr_tpu_torch.graph.build import search_edges_into_store
+from dagr_tpu_torch.models.blocks import activation_fn
+from dagr_tpu_torch.models.dagr import DAGR
+from dagr_tpu_torch.models.functional import bn_eval, spline_conv_gather
+from dagr_tpu_torch.models.net import with_rel_delta
+from dagr_tpu_torch.ops.pool import (
+    _cell, _inv, accumulate_cells, pool_graph, pool_nodeset, stencil_srcs)
+
+_LAYERS = ("layer2", "layer3", "layer4", "layer5")
+
+
+@dataclass
+class StreamState:
+    num: torch.Tensor          # i32 [] events ingested (= next virtual id)
+    pos_px: torch.Tensor       # i32 [N, 3]
+    pos: torch.Tensor          # f32 [N, 3] normalised
+    feat: torch.Tensor         # f32 [N, F] polarity features
+    valid: torch.Tensor        # bool [N]
+    vid: torch.Tensor          # i32 [N] virtual event id per slot
+    cells: torch.Tensor        # i32 [N] level-1 cell per slot (G1: none)
+    x1: torch.Tensor           # f32 [N, C1] conv_block1 activations
+    x2: torch.Tensor           # f32 [N, C1] event-level Layer outputs
+    nbr_slots: torch.Tensor    # i32 [N, K] source slots of each node's edges
+    nbr_vid: torch.Tensor      # i32 [N, K] source vids (ring liveness)
+    nbr_valid: torch.Tensor    # bool [N, K]
+    edges_total: torch.Tensor  # i64 [] edges accumulated
+    # level-1 aggregates of the grow mode (None in ring mode)
+    cell_cnt: Optional[torch.Tensor] = None   # i32 [G1]
+    cell_max: Optional[torch.Tensor] = None   # f32 [G1, C1]
+    pos_sum: Optional[torch.Tensor] = None    # f32 [G1, 3]
+    tmax: Optional[torch.Tensor] = None       # f32 [G1]
+    adj: Optional[torch.Tensor] = None        # bool [G1, 9]
+
+    def replace(self, **kw) -> "StreamState":
+        return dataclasses.replace(self, **kw)
+
+
+class StreamingDetector:
+    """Chunked streaming inference of an eval-mode ``DAGR`` over one
+    event stream (batch 1)."""
+
+    def __init__(self, model: DAGR, height: int, width: int,
+                 chunk: Optional[int] = None, count_flops: bool = True,
+                 window_mode: str = "grow"):
+        if window_mode not in ("grow", "ring"):
+            raise ValueError(f"window_mode must be grow or ring, not "
+                             f"{window_mode!r}")
+        if (model.height, model.width) != (height, width):
+            raise ValueError("the model was built for another frame size")
+        if model.training:
+            raise ValueError("StreamingDetector runs an eval-mode model")
+        cfg = model.cfg
+        self.model, self.cfg = model, cfg
+        self.height, self.width = height, width
+        self.capacity = cfg.n_nodes
+        self.chunk = min(chunk or cfg.stream_chunk, cfg.n_nodes)
+        self.count_flops = count_flops
+        self.window_mode = window_mode
+        self.channels = cfg.channels()
+        self.grids = cfg.grid_shapes()
+        self.ny1, self.nx1 = self.grids[0]
+        self.mv = cfg.cartesian_max_values(width)
+        self.act = activation_fn(cfg.activation)
+        self._consts: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+    # ------------------------------------------------------------------
+    def _const(self, name: str, device: torch.device, make):
+        """A constant table on ``device``, copied there once."""
+        key = (name, device)
+        if key not in self._consts:
+            self._consts[key] = make().to(device)
+        return self._consts[key]
+
+    def _stencil(self, device):
+        """(neighbour cell [G1, 9] i32, in-frame [G1, 9]) of the level-1
+        grid, in GRID_OFFSETS order."""
+        def make():
+            ny, nx = self.ny1, self.nx1
+            cid = np.arange(ny * nx)
+            offs = np.array(GRID_OFFSETS)
+            xn = cid[:, None] % nx + offs[:, 1]
+            yn = cid[:, None] // nx + offs[:, 0]
+            inb = (xn >= 0) & (xn < nx) & (yn >= 0) & (yn < ny)
+            nbr = np.clip(xn + nx * yn, 0, ny * nx - 1).astype(np.int32)
+            return torch.from_numpy(np.stack([nbr, inb.astype(np.int32)]))
+        tab = self._const("stencil", device, make)
+        return tab[0], tab[1].bool()
+
+    # ------------------------------------------------------------------
+    def init_state(self, device=None) -> StreamState:
+        """An empty store on ``device`` (default: the model's)."""
+        dev = torch.device(device) if device is not None else next(
+            self.model.parameters()).device
+        N, G1, K = self.capacity, self.ny1 * self.nx1, self.cfg.max_neighbors
+        c1 = self.channels[1]
+        i32 = dict(dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        state = StreamState(
+            num=torch.zeros((), **i32),
+            pos_px=torch.zeros((N, 3), **i32),
+            pos=torch.zeros((N, 3), **f32),
+            feat=torch.zeros((N, 1), **f32),
+            valid=torch.zeros(N, dtype=torch.bool, device=dev),
+            vid=torch.full((N,), -1, **i32),
+            cells=torch.full((N,), G1, **i32),
+            x1=torch.zeros((N, c1), **f32),
+            x2=torch.zeros((N, c1), **f32),
+            nbr_slots=torch.zeros((N, K), **i32),
+            nbr_vid=torch.full((N, K), -1, **i32),
+            nbr_valid=torch.zeros((N, K), dtype=torch.bool, device=dev),
+            edges_total=torch.zeros((), dtype=torch.int64, device=dev),
+        )
+        if self.window_mode == "grow":
+            state = state.replace(
+                cell_cnt=torch.zeros(G1, **i32),
+                cell_max=torch.full((G1, c1), torch.finfo(torch.float32).min,
+                                    **f32),
+                pos_sum=torch.zeros((G1, 3), **f32),
+                tmax=torch.full((G1,), -np.inf, **f32),
+                adj=torch.zeros((G1, 9), dtype=torch.bool, device=dev))
+        return state
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def step(self, state: StreamState, pos_px: torch.Tensor,
+             feat: torch.Tensor, valid: torch.Tensor
+             ) -> Tuple[StreamState, torch.Tensor, Dict[str, torch.Tensor]]:
+        """Ingest one chunk (``pos_px`` i32 [C, 3] pixel x, y and time in
+        us, ``feat`` f32 [C, F], ``valid`` bool [C], valid rows a prefix,
+        all on the state's device) and return the state, the raw head
+        outputs [1, A, 5 + ncls] and the sparse-equivalent FLOP counts."""
+        cfg, N = self.cfg, self.capacity
+        W, H = self.width, self.height
+        G1, nx1 = self.ny1 * self.nx1, self.nx1
+        C = pos_px.shape[0]
+        if C > N:
+            raise ValueError(f"a chunk holds at most n_nodes = {N} events")
+        dev = state.pos.device
+        ring = self.window_mode == "ring"
+
+        n0 = state.num
+        vids = n0 + self._const(f"arange{C}", dev, lambda: torch.arange(
+            C, dtype=torch.int32))
+        if ring:
+            slots = vids % N
+            cv = valid
+            keep = cv
+        else:
+            # rows past capacity are dropped: the store keeps the first N
+            slots = vids
+            cv = valid & (slots < N)
+            keep = slots < N
+        # slot of each row's write; a dropped row rewrites a stored slot
+        # with its own value (C <= N keeps the chunk's slots distinct)
+        w = (slots % N).long()
+
+        def put(table, values):
+            k = keep.reshape((-1,) + (1,) * (values.dim() - 1))
+            table.index_copy_(0, w, torch.where(
+                k, values.to(table.dtype), table.index_select(0, w)))
+
+        # XLA turns dagr_tpu's division by (W, H, T) into a multiply by
+        # the f32 reciprocals; the same bits feed cells, edges and pos_sum
+        inv_whT = self._const("inv_whT", dev, lambda: torch.tensor(
+            [_inv(W), _inv(H), _inv(cfg.time_window_us)], dtype=torch.float32))
+        pos_norm = pos_px.to(torch.float32) * inv_whT
+        put(state.pos_px, pos_px)
+        put(state.pos, pos_norm)
+        put(state.feat, feat)
+        put(state.valid, cv)
+        put(state.vid, vids)
+        num = n0 + cv.sum(dtype=torch.int32)
+        state.num.copy_(num if ring else num.clamp(max=N))
+
+        # ---- graph: the chunk's edges into the store (insert-then-search)
+        nbr_rest, mask_rest = search_edges_into_store(
+            state.pos_px, state.valid, pos_px, vids, cv, width=W, height=H,
+            radius=cfg.radius_px(W), delta_t_us=cfg.delta_t_us(),
+            max_neighbors=cfg.max_neighbors, queue_size=cfg.max_queue_size,
+            store_vid=state.vid if ring else None)
+        slots_c = slots.clamp(0, N - 1)
+        nbr = torch.cat([slots_c[:, None], nbr_rest], dim=1)       # [C, K]
+        nbr_mask = torch.cat([cv[:, None], mask_rest], dim=1)
+
+        # ---- event level: the chunk only ------------------------------
+        layer = self.model.backbone.conv_block1
+        cb1, cb2 = layer.conv_block1, layer.conv_block2
+        x_in = torch.cat([state.feat, torch.where(
+            state.valid[:, None], state.pos[:, :2], 0.0)], dim=1)  # [N, 3]
+        x_in_dst = x_in.index_select(0, slots_c)
+        h1 = spline_conv_gather(
+            x_in, state.pos, pos_norm, x_in_dst, nbr, nbr_mask,
+            cb1.conv.weight, cb1.conv.root, max_value=self.mv[0])
+        h1 = torch.where(cv[:, None], self.act(bn_eval(h1, cb1.norm)), 0.0)
+        put(state.x1, h1)
+        h2 = spline_conv_gather(
+            state.x1, state.pos, pos_norm, h1, nbr, nbr_mask,
+            cb2.conv.weight, cb2.conv.root, max_value=self.mv[0])
+        h2 = bn_eval(h2, cb2.norm)
+        sk = bn_eval(x_in_dst @ cb2.lin.weight.t(), cb2.norm_skip)
+        x2 = torch.where(cv[:, None], self.act(h2 + sk), 0.0)
+        put(state.x2, x2)
+
+        # ---- the chunk's edges and cells ------------------------------
+        put(state.nbr_slots, nbr)
+        put(state.nbr_vid, state.vid[nbr.long()])
+        put(state.nbr_valid, nbr_mask)
+        state.edges_total += nbr_mask.sum()
+        cell_c = _cell(pos_norm[:, 0], nx1) + nx1 * _cell(pos_norm[:, 1],
+                                                           self.ny1)
+        cell_c = torch.where(cv, cell_c, G1)
+        put(state.cells, cell_c)
+        if not ring:
+            accumulate_cells(
+                state.cell_cnt, state.cell_max, state.pos_sum, state.tmax,
+                state.adj, cell_c, x2, pos_norm, nbr, nbr_mask, state.cells,
+                grid_nx=nx1)
+
+        raw, flops = self._dense_tail(state, nbr_mask, cv, cell_c,
+                                      self.count_flops)
+        return state, raw, flops
+
+    # ------------------------------------------------------------------
+    def level1_nodeset(self, state: StreamState) -> NodeSet:
+        """The level-1 cell table the dense tail starts from: from the
+        grow aggregates, or (ring) pooled from the live store by K3."""
+        cfg = self.cfg
+        ny, nx = self.ny1, self.nx1
+        if self.window_mode == "ring":
+            live = state.nbr_valid & (
+                state.vid[state.nbr_slots.long()] == state.nbr_vid)
+            feat, pos, mask, nbr, nbr_mask, tmax = pool_graph(
+                state.x2[None], state.pos[None], state.valid[None],
+                state.nbr_slots[None], live[None], None, grid_ny=ny,
+                grid_nx=nx, width=self.width, height=self.height,
+                aggr="max", keep_temporal_ordering=cfg.keep_temporal_ordering)
+            return NodeSet(feat=feat, pos=pos, mask=mask,
+                           graph=EventGraph(nbr=nbr, nbr_mask=nbr_mask),
+                           tmax=tmax, grid_hw=(ny, nx))
+        dev = state.pos.device
+        cmask = state.cell_cnt > 0
+        big_neg = torch.finfo(torch.float32).min
+        feat = torch.where(cmask[:, None] & (state.cell_max > big_neg / 2),
+                           state.cell_max, 0.0)
+        pos = state.pos_sum / state.cell_cnt.clamp(min=1)[:, None]
+        # a true division by (W, H), as XLA leaves dagr_tpu's here (K3's
+        # pooled positions multiply by f32(1/W) instead, like its pool)
+        wh = self._const("wh", dev, lambda: torch.tensor(
+            [self.width, self.height], dtype=torch.float32))
+        pxy = torch.floor((pos[:, :2] + 1e-5) * wh) / wh
+        pos = torch.where(cmask[:, None], torch.cat([pxy, pos[:, 2:]], 1), 0.0)
+
+        nbr, inb = self._stencil(dev)
+        src_ok = stencil_srcs(cmask.reshape(1, ny, nx, 1)).reshape(-1, 9)
+        nbr_mask = state.adj & inb & src_ok & cmask[:, None]
+        if cfg.keep_temporal_ordering:
+            t_src = stencil_srcs(state.tmax.reshape(1, ny, nx, 1)).reshape(-1, 9)
+            nbr_mask = nbr_mask & (state.tmax[:, None] > t_src)
+        return NodeSet(feat=feat[None], pos=pos[None], mask=cmask[None],
+                       graph=EventGraph(nbr=nbr[None], nbr_mask=nbr_mask[None]),
+                       tmax=state.tmax[None], grid_hw=(ny, nx))
+
+    def _dense_tail(self, state: StreamState, chunk_nbr_mask, cv, cell_c,
+                    count: bool, collect: Optional[dict] = None):
+        """Levels 2-5 and the head, recomputed densely, with the FLOP
+        census of the chunk when ``count``.  ``collect``, when given,
+        receives every stage under ``consistency.sync_activations``' names
+        (pool1..4, layer2..5, head_scale*, raw)."""
+        cfg, ch, grids = self.cfg, self.channels, self.grids
+        model = self.model
+        dev = state.pos.device
+        ns = self.level1_nodeset(state)
+        if collect is not None:
+            collect["pool1"] = ns.feat
+        flops: Dict[str, torch.Tensor] = {}
+
+        if count:
+            # sparse-equivalent FLOPs of the event level (the reference's
+            # asynchronous/flops/conv.py formulas, as dagr_tpu counts them)
+            e0, n0 = chunk_nbr_mask.sum(), cv.sum()
+            cin0 = ch[0] + 2
+            flops["conv_block1.conv_block1"] = (
+                e0 * (2 * cin0 - 1) * ch[1] + n0 * ch[1] * (2 * cin0 - 1))
+            flops["conv_block1.conv_block2"] = (
+                e0 * (2 * ch[1] - 1) * ch[1]
+                + n0 * (ch[1] * (2 * ch[1] - 1) + ch[1] * (2 * cin0 - 1)))
+            G1 = self.ny1 * self.nx1
+            changed = torch.zeros(G1 + 1, dtype=torch.bool, device=dev)
+            changed = changed.index_fill_(0, cell_c.long(), True)[:G1]
+
+        outs, snaps = [], []
+        for li, name in enumerate(_LAYERS):
+            ns = with_rel_delta(ns)
+            if count:
+                nbrm, nbrs = ns.graph.nbr_mask[0], ns.graph.nbr[0].long()
+                for conv_i in range(2):
+                    aff = changed | (changed[nbrs] & nbrm).any(-1)
+                    e = (nbrm & aff[:, None]).sum()
+                    cin = ns.feat.shape[-1] if conv_i == 0 else ch[li + 2]
+                    cout = ch[li + 2]
+                    flops[f"{name}.conv_block{conv_i + 1}"] = (
+                        e * (2 * cin - 1) * cout
+                        + aff.sum() * cout * (2 * cin - 1))
+                    changed = aff
+            ns = getattr(model.backbone, name)(ns)
+            if collect is not None:
+                collect[name] = ns.feat
+            if name == "layer4":
+                outs.append(ns)
+                if count:
+                    snaps.append((changed, ns))
+            if li < 3:
+                g = grids[li + 1]
+                ns = pool_nodeset(
+                    ns, grid_ny=g[0], grid_nx=g[1], width=self.width,
+                    height=self.height,
+                    aggr="mean" if li == 2 else cfg.pooling_aggr,
+                    keep_temporal_ordering=cfg.keep_temporal_ordering)
+                if collect is not None:
+                    collect[f"pool{li + 2}"] = ns.feat
+                if count:
+                    # pooled changed set: the parents of changed cells
+                    parent = self._const(f"parent{li}", dev, lambda: (
+                        self._parent_cells(li)))
+                    changed = torch.zeros(g[0] * g[1], dtype=torch.int32,
+                                          device=dev).scatter_reduce_(
+                        0, parent, changed.to(torch.int32), "amax") > 0
+        outs.append(ns)
+        if count:
+            snaps.append((changed, ns))
+            snaps = snaps[-cfg.num_scales:]
+        outs = outs[-cfg.num_scales:]
+
+        raws = []
+        n_reg = max(ch[-cfg.num_scales:])
+        for k, o in enumerate(outs):
+            if count:
+                # the head's convs (the reference logs every async conv)
+                aff, ns_k = snaps[k]
+                nbrm, nbrs = ns_k.graph.nbr_mask[0], ns_k.graph.nbr[0].long()
+                plan = [("stem", ns_k.feat.shape[-1], n_reg),
+                        ("cls_conv", n_reg, n_reg), ("reg_conv", n_reg, n_reg),
+                        ("preds", n_reg, cfg.num_classes + 5)]
+                for pname, ci, co in plan:
+                    if pname != "preds":
+                        aff = aff | (aff[nbrs] & nbrm).any(-1)
+                    e = (nbrm & aff[:, None]).sum()
+                    flops[f"head.scale{k + 1}.{pname}"] = (
+                        e * (2 * ci - 1) * co + aff.sum() * co * (2 * ci - 1))
+            cls_o, reg_o, obj_o = getattr(model.head, f"scale{k + 1}")(o)
+            out = torch.cat([reg_o, obj_o, cls_o], dim=-1)
+            if collect is not None:
+                collect[f"head_scale{k + 1}"] = out
+            raws.append(out.reshape(1, -1, out.shape[-1]))
+        raw = torch.cat(raws, dim=1)
+        if collect is not None:
+            collect["raw"] = raw
+        flops["total"] = (sum(flops.values()) if flops else
+                          torch.zeros((), dtype=torch.int64, device=dev))
+        return raw, flops
+
+    def _parent_cells(self, li: int) -> torch.Tensor:
+        """Parent cell on grid li + 1 of every cell of grid li."""
+        ny0, nx0 = self.grids[li]
+        c0 = torch.arange(ny0 * nx0)
+        return (c0 % nx0) // 2 + self.grids[li + 1][1] * ((c0 // nx0) // 2)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def tail_activations(self, state: StreamState) -> Dict[str, torch.Tensor]:
+        """The dense tail on the current state, every stage collected
+        (pool1..4, layer2..5, head_scale*, raw) for the consistency
+        harness.  Not part of the step."""
+        acts: Dict[str, torch.Tensor] = {}
+        self._dense_tail(state, None, None, None, False, collect=acts)
+        return acts
+
+
+def chunk_events(pos_px, feat, chunk: int, device="cpu"):
+    """One stream's events (``pos_px`` [n, 3] pixel x, y, t_us; ``feat``
+    [n, F], numpy or tensors) as padded chunks ``(pos_px i32 [chunk, 3],
+    feat f32 [chunk, F], valid bool [chunk])`` on ``device``."""
+    pos_px = np.asarray(pos_px)
+    feat = np.asarray(feat)
+    n = len(pos_px)
+    out = []
+    for i0 in range(0, max(n, 1), chunk):
+        c = min(i0 + chunk, n) - i0
+        p = np.zeros((chunk, 3), np.int32)
+        f = np.zeros((chunk, feat.shape[-1]), np.float32)
+        v = np.zeros((chunk,), bool)
+        p[:c], f[:c], v[:c] = pos_px[i0:i0 + c], feat[i0:i0 + c], True
+        out.append(tuple(torch.from_numpy(a).to(device) for a in (p, f, v)))
+    return out

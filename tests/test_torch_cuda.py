@@ -6,10 +6,12 @@ CUDA device.  On a GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances as in chip_smoke.py: K1 and K4's discrete outputs and K3's
-masks, ids and positions exact, K2 to 1e-5 relative, K3 features to
-1e-5.  K3 is held against its twin on the CPU, which sums in node
-order as the kernel does (index_add_ on the card uses atomics).
+Tolerances as in chip_smoke.py: K1, K4 and K6's discrete outputs and
+K3's masks, ids and positions exact, K2 and K7 to 1e-5 relative, K3
+features to 1e-5, K10 bit-equal.  K3 and K10 are held against their
+twins on the CPU, which sum in node order as the kernels do (index_add_
+on the card uses atomics).  The streaming engine on the card is held
+against the same engine on the CPU in both window modes, past capacity.
 """
 import numpy as np
 import pytest
@@ -18,16 +20,24 @@ import torch
 from dagr_tpu_torch.config import DagrConfig
 from dagr_tpu_torch.core.types import EventBatch, EventGraph, NodeSet
 from dagr_tpu_torch.data.synthetic import random_event_arrays
-from dagr_tpu_torch.graph.build import build_graph, build_graph_plain
+from dagr_tpu_torch.graph.build import (
+    build_graph, build_graph_plain, search_edges_into_store,
+    search_edges_into_store_plain)
 from dagr_tpu_torch.kernels import _build
+from dagr_tpu_torch.models.functional import spline_gather, spline_gather_plain
 from dagr_tpu_torch.ops.nms import postprocess, postprocess_plain
-from dagr_tpu_torch.ops.pool import pool_graph, pool_graph_plain
+from dagr_tpu_torch.ops.pool import (
+    accumulate_cells, accumulate_cells_plain, pool_graph, pool_graph_plain)
 from dagr_tpu_torch.ops.spline import (
     LevelEdges, spline_aggregate, spline_aggregate_plain)
 from dagr_tpu_torch.serve import Detector
+from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
 
 pytestmark = pytest.mark.cuda
 W, H = 320, 240
+SYNC_KERNELS = ("graph_search", "spline_aggregate", "voxel_pool", "nms")
+STREAM_KERNELS = ("graph_search_store", "spline_gather", "spline_aggregate",
+                  "voxel_pool")
 GRAPH_KW = dict(width=W, height=H, radius=4, delta_t_us=10_000,
                 max_neighbors=16, queue_size=128)
 
@@ -133,7 +143,7 @@ def test_detector_matches_cpu_and_launches_every_kernel(dev):
     raw, dets = det(ev)
     torch.cuda.synchronize()
     after = _build.launch_counts()
-    assert all(after[k] > before[k] for k in after)
+    assert all(after[k] > before[k] for k in SYNC_KERNELS)
     raw_cpu, _ = cpu(ev.to("cpu"))
     torch.testing.assert_close(raw.cpu(), raw_cpu, atol=1e-4, rtol=1e-4)
     assert dets["valid"].shape == (3, 175)
@@ -145,3 +155,126 @@ def test_wrappers_reject_mixed_devices(dev):
                        attr=torch.zeros((4, 2, 2)))
     with pytest.raises(ValueError):
         spline_aggregate(torch.zeros((4, 3), device=dev), edges)
+
+
+def event_stream(seed, n, hot=0):
+    """n time-sorted events (x, y, t_us) i32 at 320x240; ``hot`` of the
+    newest ones (every second event from the last) on one pixel."""
+    rng = np.random.default_rng(seed)
+    pos, _, _ = random_event_arrays(rng, 1, n, W, H, n_valid=n)
+    ev = np.stack([pos[0, :, 0] * W, pos[0, :, 1] * H,
+                   pos[0, :, 2] * 1e5], 1).round().astype(np.int32)
+    ev[np.arange(n - 1, -1, -2)[:hot], :2] = [50, 60]
+    return ev
+
+
+@pytest.mark.parametrize("case", [
+    # (events ingested, capacity, chunk, valid rows, hot-pixel events, ring)
+    (3000, 4096, 1024, 1024, 300, False),   # hot pixel over the cap
+    (4500, 4096, 1024, 1024, 0, False),     # chunk past capacity
+    (3000, 4096, 256, 0, 0, False),         # empty chunk
+    (9000, 4096, 1024, 700, 300, True),     # ring wrap, padded chunk
+    (5001, 4096, 1, 1, 300, True),          # ring, one event, hot pixel
+])
+def test_store_search_edge_cases(dev, case):
+    n, cap, chunk, n_q, hot, ring = case
+    ev = event_stream(n, n, hot)
+    slots = np.arange(n) % cap if ring else np.arange(n)
+    keep = slots < cap
+    pos = np.zeros((cap, 3), np.int32)
+    vid = np.full(cap, -1, np.int32)
+    pos[slots[keep]], vid[slots[keep]] = ev[keep], np.arange(n)[keep]
+    q = ev[n - chunk:]
+    q_vid = np.arange(n - chunk, n, dtype=np.int32)
+    q_valid = (np.arange(chunk) < n_q) & (ring | (q_vid < cap))
+    t = lambda a: torch.from_numpy(a).to(dev)
+    args = (t(pos), t(vid >= 0), t(q), t(q_vid), t(q_valid))
+    kw = dict(GRAPH_KW, store_vid=t(vid) if ring else None)
+    a = search_edges_into_store(*args, **kw)
+    b = search_edges_into_store_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert bool(a[1].any()) == bool(q_valid.any())
+
+
+@pytest.mark.parametrize("cin,rows", [(1, 333), (3, 1024), (16, 1024),
+                                      (16, 1), (66, 200), (3, 0)])
+def test_spline_gather_widths(dev, cin, rows):
+    g = torch.Generator(device="cpu").manual_seed(cin + rows)
+    N, K = 5000, 16
+    x = torch.randn((N, cin), generator=g)
+    pos = torch.rand((N, 3), generator=g)
+    dst = torch.rand((rows, 3), generator=g)
+    nbr = torch.randint(0, N, (rows, K), generator=g, dtype=torch.int32)
+    mask = torch.rand((rows, K), generator=g) < 0.7
+    args = [a.to(dev) for a in (x, pos, dst, nbr, mask)]
+    a = spline_gather(*args, max_value=0.05)
+    b = spline_gather_plain(*args, max_value=0.05)
+    assert a.shape == (rows, 25 * cin)
+    if rows:
+        assert float((a - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("rows,n_valid", [(1024, 900), (1, 1), (256, 0)])
+def test_accumulate_cells_bit_equal(dev, rows, n_valid):
+    """Against the twin on the CPU: a hot cell, invalid rows, an empty
+    chunk; two chunks in a row."""
+    G, nx, C, K, N = 40 * 56, 56, 16, 16, 5000
+    rng = np.random.default_rng(rows)
+    state = [torch.zeros(G, dtype=torch.int32),
+             torch.full((G, C), torch.finfo(torch.float32).min),
+             torch.zeros((G, 3)), torch.full((G,), -np.inf),
+             torch.zeros((G, 9), dtype=torch.bool)]
+    cells = torch.from_numpy(rng.integers(0, G + 1, N).astype(np.int32))
+    got = [s.to(dev) for s in state]
+    for _ in range(2):
+        cell = rng.integers(0, G, rows).astype(np.int32)
+        cell[: rows // 3] = 777                       # a hot cell
+        cell[n_valid:] = G
+        chunk = (torch.from_numpy(cell),
+                 torch.from_numpy(rng.random((rows, C), np.float32)),
+                 torch.from_numpy(rng.random((rows, 3), np.float32)),
+                 torch.from_numpy(rng.integers(0, N, (rows, K)).astype(np.int32)),
+                 torch.from_numpy(rng.random((rows, K)) < 0.8), cells)
+        accumulate_cells_plain(*state, *chunk, grid_nx=nx)
+        accumulate_cells(*got, *(a.to(dev) for a in chunk), grid_nx=nx)
+    for a, b in zip(got, state):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("mode", ["grow", "ring"])
+def test_streaming_engine_matches_cpu(dev, mode):
+    """3000 events into a 2048-event store in chunks of 256 (the grow
+    store fills and drops the rest, the ring wraps): the card's engine
+    against the same engine on the CPU, every streaming kernel launched
+    on every step, and no step after the first waits on the device."""
+    cfg = DagrConfig(n_nodes=2048)
+    det = Detector(cfg, H, W, dev, seed=6)
+    cpu = Detector(cfg, H, W, "cpu", state_dict=det.model.state_dict())
+    eng = StreamingDetector(det.model, H, W, chunk=256, window_mode=mode)
+    ref = StreamingDetector(cpu.model, H, W, chunk=256, window_mode=mode)
+    st, st_ref = eng.init_state(), ref.init_state()
+    ev = event_stream(7, 3000)
+    feat = np.random.default_rng(7).integers(0, 2, (3000, 1)).astype(np.float32)
+    kernels = STREAM_KERNELS + (("stream_accumulate",) if mode == "grow" else ())
+    for i, c in enumerate(chunk_events(ev, feat, 256)):
+        c_dev = [a.to(dev) for a in c]
+        before = _build.launch_counts()
+        torch.cuda.set_sync_debug_mode("error" if i else "default")
+        try:
+            st, raw, flops = eng.step(st, *c_dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        assert all(after[k] > before[k] for k in kernels)
+        st_ref, raw_ref, flops_ref = ref.step(st_ref, *c)
+        torch.testing.assert_close(raw.cpu(), raw_ref, atol=1e-4, rtol=1e-4)
+        assert int(flops["total"]) == int(flops_ref["total"])
+    for f in ("num", "vid", "valid", "cells", "nbr_slots", "nbr_valid"):
+        assert torch.equal(getattr(st, f).cpu(), getattr(st_ref, f)), f
+    if mode == "grow":
+        assert int(st.num) == 2048
+        for f in ("cell_cnt", "adj", "pos_sum", "tmax"):
+            assert torch.equal(getattr(st, f).cpu(), getattr(st_ref, f)), f
