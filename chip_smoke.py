@@ -6,7 +6,7 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
 ``dagr_tpu_torch.serve.Detector``:
 
 1. prints the card's name and power limit; fails without a CUDA device;
-2. builds the four CUDA kernels from ``dagr_tpu_torch/csrc``;
+2. builds the CUDA kernels from ``dagr_tpu_torch/csrc`` (one library);
 3. holds each kernel against its plain PyTorch twin on the same inputs,
    at the shapes the main path gives it, and K1 also against a numpy
    copy of the reference graph oracle on a 2k-event window;
@@ -31,7 +31,24 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
 7. captures one grow step of 256 in a CUDA graph and replays it over
    fresh chunks beside the eager step on a copy of the state: the raw
    outputs must agree (1e-5), and both are timed;
-8. prints the kernel table, the card line and, last, the result line.
+8. serves through ``dagr_tpu_torch.streaming.serve.MultiStreamServer``
+   on the same model: 8 windows as 8 lockstep streams in chunks of 1024
+   (grow, ring 8192; each stream's final raw must equal its window's
+   sync raw, coverage_ok stay True, the search (K8), K2, K3 and K10 run
+   on every step); the same with tail_every=4 and in a decoding chain
+   (K4 once per fresh step); 90k events of one stream through a
+   50176-slot ring window in chunks of 256 (K8's ring update and cell
+   max on every step, K10 never; raw equal to the engine's ring at that
+   capacity, live level-1 cells equal to a numpy recompute).  The
+   kernels of the serving path are held against their twins on the
+   inputs of one of its steps: the search on a grow step and on a ring
+   step after the ring has wrapped, the ring update and cell max on a
+   ring step, and K2 (both event convs and the tail's first conv), K10
+   (the S*G1 folded cells) and K3 (the tail's first pooling) on a grow
+   step.  Times the steps and profiles their device time;
+9. prints the kernel table (every kernel's error, time, twin time,
+   bound and library-call time, and its launches on each path), the
+   card line and, last, the result line.
 
 Usage: ``python3 chip_smoke.py`` from the repository root.
 """
@@ -56,6 +73,15 @@ STREAM_KERNELS = ("graph_search_store", "spline_gather", "stream_accumulate",
                   "spline_aggregate", "voxel_pool")
 RING_KERNELS = ("graph_search_store", "spline_gather", "spline_aggregate",
                 "voxel_pool")
+# the kernels a multi-stream serve step launches, per window mode
+SERVE_KERNELS = ("serve_search", "spline_aggregate", "voxel_pool",
+                 "stream_accumulate")
+SERVE_RING_KERNELS = ("serve_search", "serve_ring_update", "cell_max",
+                      "spline_aggregate", "voxel_pool")
+# the multi-stream phase: S streams of one window each, grow; one ring
+SERVE_S, SERVE_CHUNK, RING_CHUNK, RING_SLOTS = 8, 1024, 256, 50_176
+# H100 SXM peaks: HBM bytes/s, fp32 FLOP/s
+HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 # kernel: (source, the dagr_tpu op it replaces)
 KERNEL_TABLE = {
     "graph_search": ("graph_search.cu", "dagr_tpu/graph/build.py:109"),
@@ -67,6 +93,10 @@ KERNEL_TABLE = {
                       "dagr_tpu/models/functional.py:109"),
     "stream_accumulate": ("voxel_pool.cu",
                           "dagr_tpu/streaming/engine.py:247"),
+    "serve_search": ("graph_search.cu", "dagr_tpu/streaming/serve.py:406"),
+    "serve_ring_update": ("voxel_pool.cu",
+                          "dagr_tpu/streaming/serve.py:1223"),
+    "cell_max": ("voxel_pool.cu", "dagr_tpu/streaming/serve.py:1361"),
 }
 
 
@@ -91,6 +121,57 @@ def cuda_ms(fn, reps: int) -> float:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if torch.is_tensor(t))
+
+
+def record(err, ms, plain_ms, n_bytes, n_ops, library_ms=None) -> dict:
+    """A kernel's row: its error against the twin, its time and the
+    twin's (ms), and its bound: the larger of the bytes it must move
+    (each input read once, each output written once) over the HBM rate
+    and the operations this run's data needs over the fp32 peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+class Capture:
+    """Wraps ``module.name`` so that its calls numbered ``at`` (counting
+    from 0) keep copies of their arguments, taken before the call (the
+    wrapped entries update some of them in place): the inputs the main
+    path gave the kernel, to hold it against its twin and time it
+    afterwards.  ``calls`` holds their (args, kwargs) in call order."""
+
+    def __init__(self, module, name: str, *at: int):
+        self.module, self.name, self.fn = module, name, getattr(module, name)
+        self.at, self.n, self.calls = set(at), 0, []
+
+        def wrapped(*args, **kwargs):
+            if self.n in self.at:
+                self.calls.append(([a.clone() if torch.is_tensor(a) else a
+                                    for a in args], dict(kwargs)))
+            self.n += 1
+            return self.fn(*args, **kwargs)
+
+        setattr(module, name, wrapped)
+
+    @property
+    def args(self):
+        return self.calls[0][0]
+
+    @property
+    def kwargs(self):
+        return self.calls[0][1]
+
+    def close(self):
+        setattr(self.module, self.name, self.fn)
+        require(len(self.calls) == len(self.at),
+                f"{self.name} reached calls {sorted(self.at)}")
 
 
 def oracle_graph(pos_px: np.ndarray, radius: int, dt: int, K: int, Q: int):
@@ -123,7 +204,7 @@ def oracle_graph(pos_px: np.ndarray, radius: int, dt: int, K: int, Q: int):
 
 def check_kernels(cfg, events, det):
     """Phase 3: each kernel against its plain twin at DAGR-S shapes.
-    Returns {kernel: (max_abs_err, ms, plain_ms)}."""
+    Returns {kernel: record(...)}."""
     from dagr_tpu_torch.core.types import EventGraph, NodeSet
     from dagr_tpu_torch.graph.build import build_graph, build_graph_plain
     from dagr_tpu_torch.models.dagr import anchor_geometry
@@ -155,9 +236,12 @@ def check_kernels(cfg, events, det):
             "K1 nbr_mask == oracle")
     require(np.array_equal(np.where(omask, sub.nbr[0].cpu().numpy(), 0),
                            np.where(omask, onbr, 0)), "K1 nbr == oracle")
-    out["graph_search"] = (0.0,
-                           cuda_ms(lambda: build_graph(pos_px, mask, **gkw), 20),
-                           cuda_ms(lambda: build_graph_plain(pos_px, mask, **gkw), 5))
+    # operations: one run lookup per (event, spiral cell)
+    out["graph_search"] = record(
+        0.0, cuda_ms(lambda: build_graph(pos_px, mask, **gkw), 20),
+        cuda_ms(lambda: build_graph_plain(pos_px, mask, **gkw), 5),
+        nbytes(pos_px, mask, g.nbr, g.nbr_mask, g.nbr_dpos),
+        int(mask.sum()) * (2 * R + 1) ** 2)
     print(f"K1 graph_search: bit-equal to twin and oracle; "
           f"{g.nbr_mask.sum().item()} edges", flush=True)
 
@@ -165,13 +249,13 @@ def check_kernels(cfg, events, det):
     ch = cfg.channels()
     mv = cfg.cartesian_max_values(W)
     ns = NodeSet(feat=ev.feat, pos=ev.pos, mask=ev.mask, graph=g)
-    k2_err, k2_ms, k2_plain_ms = 0.0, 0.0, 0.0
-    k3_err, k3_ms, k3_plain_ms = 0.0, 0.0, 0.0
+    k2_err, k2_ms, k2_plain_ms, k2_bytes, k2_ops = 0.0, 0.0, 0.0, 0, 0
+    k3_err, k3_ms, k3_plain_ms, k3_bytes, k3_ops = 0.0, 0.0, 0.0, 0, 0
 
     def k2_check(ns, level, calls):
         """One (level, Cin) shape of K2; ``calls``: how many convs of one
         window run at this shape (so the times sum to a window's)."""
-        nonlocal k2_err, k2_ms, k2_plain_ms
+        nonlocal k2_err, k2_ms, k2_plain_ms, k2_bytes, k2_ops
         edges = level_edges(ns, max_value=mv[level])
         x = ns.feat.reshape(-1, ns.feat.shape[-1])
         a = spline_aggregate(x, edges)
@@ -183,6 +267,9 @@ def check_kernels(cfg, events, det):
         k2_ms += calls * cuda_ms(lambda: spline_aggregate(x, edges), 20)
         k2_plain_ms += calls * cuda_ms(
             lambda: spline_aggregate_plain(x, edges), 5)
+        # a masked edge adds 4 basis taps x Cin (a multiply and an add)
+        k2_bytes += calls * nbytes(x, *edges, a)
+        k2_ops += calls * 8 * x.shape[1] * int(edges.mask.sum())
         print(f"K2 spline_aggregate level {level}: M={x.shape[0]} "
               f"K={edges.nbr.shape[1]} Cin={x.shape[1]} x{calls} "
               f"err={err:.3g}", flush=True)
@@ -219,6 +306,8 @@ def check_kernels(cfg, events, det):
                         f"{name} bit-equal to twin")
         k3_ms += cuda_ms(lambda: pool_graph(*args, **kw), 20)
         k3_plain_ms += cuda_ms(lambda: pool_graph_plain(*args, **kw), 5)
+        k3_bytes += nbytes(*args, *got)
+        k3_ops += ns.feat.numel()
         feat, pos, pmask, nbr, nbr_mask, tmax = got
         ns = NodeSet(feat=feat, pos=pos, mask=pmask,
                      graph=EventGraph(nbr=nbr, nbr_mask=nbr_mask),
@@ -229,8 +318,9 @@ def check_kernels(cfg, events, det):
         k2_check(with_rel_delta(ns), level + 1, 1)         # Cin 18 / 66
         ns = with_width(ns, ch[level + 2])
         k2_check(ns, level + 1, 1 + head_calls.get(level + 1, 0))
-    out["spline_aggregate"] = (k2_err, k2_ms, k2_plain_ms)
-    out["voxel_pool"] = (k3_err, k3_ms, k3_plain_ms)
+    out["spline_aggregate"] = record(k2_err, k2_ms, k2_plain_ms, k2_bytes,
+                                     k2_ops)
+    out["voxel_pool"] = record(k3_err, k3_ms, k3_plain_ms, k3_bytes, k3_ops)
 
     # K4: on the decoded head outputs of 8 windows, and on 8 images of
     # crowded, overlapping boxes with tied scores (random weights
@@ -250,8 +340,11 @@ def check_kernels(cfg, events, det):
         kept.append(f"{int(a['valid'].sum())} of {a['valid'].numel()}")
     require(err <= 1e-6, f"K4 boxes/scores err {err}")
     one = dec[:1].contiguous()
-    out["nms"] = (err, cuda_ms(lambda: postprocess(one, **pkw), 50),
-                  cuda_ms(lambda: postprocess_plain(one, **pkw), 5))
+    # operations: ~16 per anchor pair (IoU and its test)
+    out["nms"] = record(err, cuda_ms(lambda: postprocess(one, **pkw), 50),
+                        cuda_ms(lambda: postprocess_plain(one, **pkw), 5),
+                        nbytes(one, *postprocess(one, **pkw).values()),
+                        16 * one.shape[1] ** 2)
     print(f"K4 nms: keep/labels/order equal to twin; kept {kept[0]} "
           f"(head outputs), {kept[1]} (crowded)", flush=True)
     return out
@@ -361,7 +454,7 @@ def stream_events(window, shift_us: int = 0):
 def check_stream_kernels(cfg, window):
     """Phase 6a: K6, K7 and K10 against their twins at the streaming
     engine's shapes: a 1024-event chunk against a 45k-event store.
-    Returns {kernel: (max_abs_err, ms, plain_ms)}, ms per grow step."""
+    Returns {kernel: record(...)}, ms per grow step."""
     from dagr_tpu_torch.graph.build import (
         search_edges_into_store, search_edges_into_store_plain)
     from dagr_tpu_torch.models.functional import (
@@ -399,7 +492,9 @@ def check_stream_kernels(cfg, window):
               f"bit-equal to twin; {int(a[1].sum())} edges; kernel {ms:.4f} "
               f"ms, twin {plain_ms:.4f} ms", flush=True)
         if not ring:
-            out["graph_search_store"] = (0.0, ms, plain_ms)
+            out["graph_search_store"] = record(
+                0.0, ms, plain_ms, nbytes(*args, *a),
+                C * (2 * cfg.radius_px(W) + 1) ** 2)
             self_slot = torch.arange(N_VALID - C, N_VALID, dtype=torch.int32,
                                      device="cuda")
             nbr = torch.cat([self_slot[:, None], a[0]], 1)
@@ -409,7 +504,7 @@ def check_stream_kernels(cfg, window):
     # K7 at the two event-level widths: Cin 3 (feat, x, y) and 16
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dst = store_pos[N_VALID - C:N_VALID]
-    err, ms, plain_ms = 0.0, 0.0, 0.0
+    err, ms, plain_ms, k7_bytes, k7_ops = 0.0, 0.0, 0.0, 0, 0
     for cin in (3, 16):
         x = torch.rand((N_NODES, cin), generator=gen, device="cuda")
         args = (x, store_pos, dst, nbr, nbr_mask)
@@ -422,9 +517,11 @@ def check_stream_kernels(cfg, window):
         mv = cfg.cartesian_max_values(W)[0]
         ms += cuda_ms(lambda: spline_gather(*args, max_value=mv), 50)
         plain_ms += cuda_ms(lambda: spline_gather_plain(*args, max_value=mv), 10)
+        k7_bytes += nbytes(*args, a)
+        k7_ops += 8 * cin * int(nbr_mask.sum())
         print(f"K7 spline_gather Cin {cin}: C={C} K={K} N={N_NODES} "
               f"err={e:.3g}", flush=True)
-    out["spline_gather"] = (err, ms, plain_ms)
+    out["spline_gather"] = record(err, ms, plain_ms, k7_bytes, k7_ops)
 
     # K10: two chunks into fresh level-1 tables, against the twin on the
     # CPU (which adds in chunk order, as the kernel does)
@@ -447,22 +544,27 @@ def check_stream_kernels(cfg, window):
         require(torch.equal(a.cpu(), b), f"K10 {name} bit-equal to twin")
     ms = cuda_ms(lambda: accumulate_cells(*got, *chunk, grid_nx=nx), 50)
     plain_ms = cuda_ms(lambda: accumulate_cells_plain(*got, *chunk, grid_nx=nx), 10)
-    out["stream_accumulate"] = (0.0, ms, plain_ms)
+    # the level-1 tables are read and written
+    out["stream_accumulate"] = record(0.0, ms, plain_ms,
+                                      nbytes(*chunk) + 2 * nbytes(*got), C * c1)
     print(f"K10 stream_accumulate: bit-equal to twin; "
           f"{int(tables[0].gt(0).sum())} cells", flush=True)
     return out
 
 
 def ring_level1_oracle(cfg, fed_px, v0, nbr_vid, nbr_valid, x2, width,
-                       height):
-    """Level 1 of a ring that holds events ``v0 .. v0 + N - 1`` of the fed
-    stream ``fed_px`` [n, 3], recomputed in numpy from the fed events:
+                       height, n_slots=None, divide=False):
+    """Level 1 of a ring of ``n_slots`` slots (default N) that holds
+    events ``v0 .. v0 + N - 1`` of the fed stream ``fed_px`` [n, 3] in
+    slots ``vid % n_slots``, recomputed in numpy from the fed events:
     cells, counts, positions (summed per cell in slot order, floored to
     pixel centres), tmax, and the stencil adjacency of the edges whose
     source is still in the window (vid >= v0).  ``nbr_vid``, ``nbr_valid``
     and ``x2`` are the ring's per-event edge sources and activations,
-    row v - v0 for event v.  Returns (feat, pos, mask, nbr_mask, tmax) of
-    the [G] cell table."""
+    row v - v0 for event v.  The floored pixel is multiplied by f32(1/W)
+    as K3 does, or with ``divide`` divided by W as the server's level 1
+    does (dagr_tpu's).  Returns (feat, pos, mask, nbr_mask, tmax) of the
+    [G] cell table."""
     N = len(x2)
     ny, nx = cfg.grid_shapes()[0]
     G = ny * nx
@@ -481,14 +583,14 @@ def ring_level1_oracle(cfg, fed_px, v0, nbr_vid, nbr_valid, x2, width,
     cell = cx + nx * cy
     cnt = np.bincount(cell, minlength=G)
     cmask = cnt > 0
-    by_slot = np.argsort(vids % N, kind="stable")
+    by_slot = np.argsort(vids % (n_slots or N), kind="stable")
     psum = np.zeros((G, 3), f32)
     np.add.at(psum, cell[by_slot], (px.astype(f32) * inv)[by_slot])
     mean = psum / np.maximum(cnt, 1).astype(f32)[:, None]
     wh = np.array([width, height], f32)
+    floor = np.floor((mean[:, :2] + f32(1e-5)) * wh)
     pos = np.concatenate(
-        [np.floor((mean[:, :2] + f32(1e-5)) * wh) * (f32(1) / wh),
-         mean[:, 2:]], 1)
+        [floor / wh if divide else floor * (f32(1) / wh), mean[:, 2:]], 1)
     pos = np.where(cmask[:, None], pos, f32(0))
     tmax = np.full(G, -np.inf, f32)
     np.maximum.at(tmax, cell, (px[:, 2].astype(f32) * inv[2]))
@@ -727,6 +829,402 @@ def graph_replay(eng, state, chunks, card):
           f"{err:.3g} [{card}]", flush=True)
 
 
+
+def timed_step(srv, state, chunk, **kw):
+    """One serve step between CUDA events, synchronised; returns (state,
+    raw, info, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, raw, info = srv.step(state, *chunk, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    return state, raw, info, start.elapsed_time(end)
+
+
+def profile_steps(srv, state, chunks):
+    """Device busy ms per step and the kernels with the most device time,
+    from torch.profiler over ``chunks``; returns (state, busy, top)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for c in chunks:
+            state, _, _ = srv.step(state, *c)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    n = len(chunks)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return state, busy, [(e.key[:70], e.self_device_time_total / 1e3 / n,
+                          e.count // n) for e in top]
+
+
+def print_timing(what, ms, p50_of, card, events=None):
+    p50 = float(np.median(ms))
+    rate = f", {events / p50 / 1e3:.3f} Mevents/s" if events else ""
+    print(f"DAGR-S multi-stream serving, {what}: p50 {p50:.3f} ms (min "
+          f"{min(ms):.3f}, max {max(ms):.3f}, {len(ms)} steps){rate} "
+          f"[{card}]", flush=True)
+    busy, top = p50_of
+    if busy > 0:
+        print(f"profile, per step: device busy {busy:.3f} ms, idle share "
+              f"{1 - busy / p50:.3f} of the p50 step [{card}]", flush=True)
+        for name, t, n in top:
+            print(f"  {t:8.4f} ms  x{n:<4d} {name}", flush=True)
+    else:
+        print("profile: the profiler saw no device kernels; device busy "
+              "time not measured", flush=True)
+
+
+def hold_serve_step(k2_events, k10, k2_tail, k3_tail, what, card):
+    """Kernels of one multi-stream serve step held against their twins on
+    the inputs the step gave them (``Capture``s): the two event convs' K2
+    (destinations of every stream against the ring tables) and the
+    tail's first K2 (level 1 at batch S) to 1e-5 relative, K10 on the
+    S*G1 folded cells and the tail's first K3 bit for bit against the
+    twin on the CPU (which adds in index order, as the kernels do).
+    Returns {kernel: [{"at", "max_abs_err", "ms", "plain_ms"}]}."""
+    from dagr_tpu_torch.ops.pool import (
+        accumulate_cells, accumulate_cells_plain, pool_graph, pool_graph_plain)
+    from dagr_tpu_torch.ops.spline import (
+        spline_aggregate, spline_aggregate_plain)
+
+    checks = {"spline_aggregate": [], "stream_accumulate": [],
+              "voxel_pool": []}
+    for where, (args, kw) in zip(("event conv 1", "event conv 2", "tail"),
+                                 k2_events.calls + k2_tail.calls):
+        a, b = spline_aggregate(*args, **kw), spline_aggregate_plain(*args, **kw)
+        err = max_err(a, b)
+        require(err <= 1e-5 * max(1.0, float(b.abs().max())),
+                f"K2 {what} {where}: max |g - twin| = {err}")
+        checks["spline_aggregate"].append({
+            "at": f"{what} {where}", "max_abs_err": err,
+            "ms": cuda_ms(lambda: spline_aggregate(*args, **kw), 20),
+            "plain_ms": cuda_ms(lambda: spline_aggregate_plain(*args, **kw), 5)})
+        x, edges = args[0], args[1]
+        print(f"K2 spline_aggregate, {what} {where}: M={edges.nbr.shape[0]} "
+              f"from {x.shape[0]} rows, K={edges.nbr.shape[1]} Cin={x.shape[1]}"
+              f" err={err:.3g}", flush=True)
+
+    args, kw = k10.args, k10.kwargs
+    state, rest = args[:5], args[5:]
+    got = [t.clone() for t in state]
+    want = [t.cpu() for t in state]
+    accumulate_cells(*got, *rest, **kw)
+    accumulate_cells_plain(*want, *(t.cpu() for t in rest), **kw)
+    for name, x, y in zip(("cell_cnt", "cell_max", "pos_sum", "tmax", "adj"),
+                          got, want):
+        require(torch.equal(x.cpu(), y), f"K10 {what} {name} bit-equal to twin")
+    scratch = [t.clone() for t in state]
+    checks["stream_accumulate"].append({
+        "at": what, "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: accumulate_cells(*scratch, *rest, **kw), 50),
+        "plain_ms": cuda_ms(
+            lambda: accumulate_cells_plain(*scratch, *rest, **kw), 10)})
+    print(f"K10 stream_accumulate, {what}: bit-equal to twin on "
+          f"{state[0].numel()} folded cells, {rest[0].numel()} rows",
+          flush=True)
+
+    args, kw = k3_tail.args, k3_tail.kwargs
+    got = pool_graph(*args, **kw)
+    want = pool_graph_plain(*[a.cpu() if torch.is_tensor(a) else a
+                              for a in args], **kw)
+    err = 0.0
+    for name, a, b in zip(("feat", "pos", "mask", "nbr", "nbr_mask", "tmax"),
+                          got, want):
+        if name == "feat":
+            err = max_err(a, b)
+            require(err <= 1e-5, f"K3 {what} tail feat err {err}")
+        else:
+            require(torch.equal(a.cpu(), b),
+                    f"K3 {what} tail {name} bit-equal to twin")
+    checks["voxel_pool"].append({
+        "at": f"{what} tail", "max_abs_err": err,
+        "ms": cuda_ms(lambda: pool_graph(*args, **kw), 20),
+        "plain_ms": cuda_ms(lambda: pool_graph_plain(*args, **kw), 5)})
+    print(f"K3 voxel_pool, {what} tail: batch {args[0].shape[0]} x "
+          f"{args[0].shape[1]} cells -> {kw['grid_ny']}x{kw['grid_nx']}; "
+          f"equal to twin (feat err {err:.3g})", flush=True)
+    for name, cs in checks.items():
+        for c in cs:
+            print(f"  {name} at {c['at']}: kernel {c['ms']:.4f} ms, twin "
+                  f"{c['plain_ms']:.4f} ms [{card}]", flush=True)
+    return checks
+
+
+def serve_streams(cfg, det, events, card):
+    """Phase 8: MultiStreamServer on the same model.  (1) 8 streams of
+    one 45k-event window each, grow, chunks of 1024 (ring 8192): launches
+    on every step, coverage_ok True, each stream's final raw == its
+    window's sync raw; the search, K2, K10 and K3 against their twins
+    on one step's own inputs.  (2) The same with tail_every=4 (fresh
+    steps == (1), skipped steps zero) and run_chain(decode=True) (K4 once
+    per fresh step, boxes == detect on the stepwise raw).  (3) One stream
+    of 90k events (two windows, 1 s apart) through a 50176-slot ring
+    window in chunks of 256: launches, raw == the engine's ring at that
+    capacity, the live level 1 against ring_level1_oracle; the ring
+    update, cell max and search against their twins on the inputs of a
+    step after the wrap.  (4) Timings.  Returns ({kernel: record of the
+    K8 entries}, {kernel: [checks at the serving path's shapes]}, grow
+    launches, ring launches)."""
+    from dagr_tpu_torch.graph.build import (
+        _ring_runs, search_edges_streams, search_edges_streams_plain)
+    from dagr_tpu_torch.kernels import _build
+    from dagr_tpu_torch.models.dagr import DAGR, detect
+    from dagr_tpu_torch.ops import pool as pool_mod
+    from dagr_tpu_torch.ops import spline as spline_mod
+    from dagr_tpu_torch.ops.pool import (
+        cell_max, cell_max_plain, ring_update_cells, ring_update_cells_plain)
+    from dagr_tpu_torch.streaming import serve as serve_mod
+    from dagr_tpu_torch.streaming.engine import StreamingDetector
+    from dagr_tpu_torch.streaming.serve import MultiStreamServer, chunk_streams
+
+    out = {}
+    model, S, C = det.model, SERVE_S, SERVE_CHUNK
+    windows = events[1:1 + S]
+    fed = [stream_events(w) for w in windows]
+    chunks = chunk_streams(np.stack([p for p, _ in fed]),
+                           np.stack([f for _, f in fed]), C, device="cuda")
+    raw_sync, _ = det(events_batch(windows))
+    ns_cells = (2 * cfg.radius_px(W) + 1) ** 2
+
+    # (1) grow, every step; the inputs of the kernels of one step are
+    # captured (that step is not timed: the copies slow it)
+    srv = MultiStreamServer(model, H, W, S, C)
+    mid = len(chunks) // 2
+    st = srv.init_state()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    raws, grow_ms = [], []
+    for i, c in enumerate(chunks):
+        before = _build.launch_counts()
+        if i == mid:
+            # the search, the two event convs and the level-1 update, and
+            # the tail's first conv and pooling (level 1 at batch S)
+            caps = [Capture(serve_mod, "search_edges_streams", 0),
+                    Capture(serve_mod, "spline_aggregate", 0, 1),
+                    Capture(serve_mod, "accumulate_cells", 0),
+                    Capture(spline_mod, "spline_aggregate", 0),
+                    Capture(pool_mod, "pool_graph", 0)]
+        st, raw, info, ms = timed_step(srv, st, c)
+        if i == mid:
+            for cp in caps:
+                cp.close()
+        else:
+            grow_ms.append(ms)
+        after = _build.launch_counts()
+        for k in SERVE_KERNELS:
+            require(after[k] > before[k], f"kernel {k} launched on a serve step")
+        raws.append(raw)
+    grow_launches = _build.launch_counts()
+    cap, k2_events, k10, k2_tail, k3_tail = caps
+    err = max_err(raw, raw_sync)
+    require(bool(st.coverage_ok), "serve grow: coverage_ok stays True")
+    require(torch.allclose(raw, raw_sync, atol=1e-4, rtol=1e-4),
+            f"serve grow vs sync raw per stream: max err {err}")
+    print(f"serve grow: {S} streams x {len(chunks)} steps of {C} (ring "
+          f"{srv.NR}); coverage_ok True; final raw vs each window's sync "
+          f"raw max abs err {err:.3g}", flush=True)
+
+    args, kw = cap.args, cap.kwargs
+    a = search_edges_streams(*args, **kw)
+    b = search_edges_streams_plain(*args, **kw)
+    for name, x, y in zip(("nbr", "mask", "spiral"), a, b):
+        require(torch.equal(x, y), f"serve_search {name} == twin")
+    checks = hold_serve_step(k2_events, k10, k2_tail, k3_tail,
+                             f"serve grow S={S} C={C}", card)
+    E = S * C
+    runs_ms = cuda_ms(lambda: _ring_runs(args[0], args[2], S * H * W), 50)
+    key_s = _ring_runs(args[0], args[2], S * H * W)[0]
+    pixels = torch.arange(S * H * W + 1, device="cuda") << 31
+    offsets_ms = cuda_ms(lambda: torch.searchsorted(key_s, pixels), 50)
+    out["serve_search"] = record(
+        0.0, cuda_ms(lambda: search_edges_streams(*args, **kw), 50),
+        cuda_ms(lambda: search_edges_streams_plain(*args, **kw), 5),
+        nbytes(*args, *a), E * ns_cells)
+    print(f"K8 serve_search: bit-equal to twin at S={S}, C={C}, "
+          f"{args[0].numel()} ring slots; {int(a[1].sum())} edges; the "
+          f"ring sort and run offsets take {runs_ms:.4f} ms of its "
+          f"{out['serve_search']['ms']:.4f} ms, the offsets' searchsorted "
+          f"over {S * H * W + 1} pixels {offsets_ms:.4f} ms [{card}]",
+          flush=True)
+
+    # (2) tail_every=4, then the chain with decode
+    te = 4
+    srv4 = MultiStreamServer(model, H, W, S, C, tail_every=te)
+    st4 = srv4.init_state()
+    err4 = 0.0
+    for i, c in enumerate(chunks):
+        st4, raw4, info4 = srv4.step(st4, *c)
+        require(info4["raw_fresh"] == (i % te == te - 1), "tail_every cadence")
+        if info4["raw_fresh"]:
+            err4 = max(err4, max_err(raw4, raws[i]))
+        else:
+            require(not bool(raw4.any()), "a skipped step's raw is zero")
+    require(err4 <= 1e-6, f"tail_every=4 fresh steps vs every step: {err4}")
+    require(len(chunks) % te == 0, "the chain ends on a fresh step")
+    n_fresh = len(chunks) // te
+    nms_before = _build.launch_counts()["nms"]
+    _, (boxes, scores), cover = srv4.run_chain(srv4.init_state(), chunks,
+                                               decode=True)
+    require(_build.launch_counts()["nms"] - nms_before == n_fresh,
+            "K4 launched once per fresh chain step")
+    want = detect(raw4, cfg, H, W)
+    derr = max(max_err(boxes, want["boxes"]), max_err(scores, want["scores"]))
+    require(bool(cover) and derr <= 1e-5,
+            f"chain decode vs detect on the stepwise raw: {derr}")
+    print(f"serve tail_every={te}: fresh steps vs every step max abs err "
+          f"{err4:.3g}; run_chain(decode=True): {n_fresh} K4 launches, "
+          f"boxes and scores vs detect max abs err {derr:.3g}", flush=True)
+
+    # (3) ring window, one stream of 90k events, 50176 slots; whole
+    # chunks only: a padded chunk advances the server's vids (and evicts)
+    # by the chunk, the engine's by its valid rows
+    p1, f1 = stream_events(events[1])
+    p2, f2 = stream_events(events[2], 1_000_000)
+    n_fed = 2 * N_VALID // RING_CHUNK * RING_CHUNK
+    fed_px = np.concatenate([p1, p2])[:n_fed]
+    fed_f = np.concatenate([f1, f2])[:n_fed]
+    ring_chunks = chunk_streams(fed_px[None], fed_f[None], RING_CHUNK,
+                                device="cuda")
+    rsrv = MultiStreamServer(model, H, W, 1, RING_CHUNK, window_mode="ring")
+    NR = rsrv.NR
+    require(NR == RING_SLOTS, f"ring slots {NR}")
+    at = NR // RING_CHUNK + 100                     # a step that evicts
+    caps = [Capture(serve_mod, n, at) for n in (
+        "ring_update_cells", "cell_max", "search_edges_streams")]
+    rs = rsrv.init_state()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    ring_raws, nbr_vid, nbr_mask = [], [], []
+    for c in ring_chunks:
+        before = _build.launch_counts()
+        rs, rraw, info = rsrv.step(rs, *c, debug=True)
+        after = _build.launch_counts()
+        for k in SERVE_RING_KERNELS:
+            require(after[k] > before[k], f"kernel {k} launched on a ring step")
+        require(after["stream_accumulate"] == before["stream_accumulate"],
+                "no K10 launch on a serve ring step")
+        ring_raws.append(rraw)
+        nbr_vid.append(info["nbr_vid"][0])
+        nbr_mask.append(info["nbr_mask"][0])
+    torch.cuda.synchronize()
+    ring_launches = _build.launch_counts()
+    for cp in caps:
+        cp.close()
+    require(bool(rs.coverage_ok), "serve ring: coverage_ok stays True")
+
+    ring_model = DAGR(cfg.replace(n_nodes=NR), H, W)
+    ring_model.load_state_dict(model.state_dict())
+    eng = StreamingDetector(ring_model.to("cuda").eval(), H, W,
+                            chunk=RING_CHUNK, count_flops=False,
+                            window_mode="ring")
+    es = eng.init_state()
+    eng_err = 0.0
+    for c, r in zip(ring_chunks, ring_raws):
+        es, eraw, _ = eng.step(es, c[0][0], c[1][0], c[2][0])
+        eng_err = max(eng_err, max_err(r, eraw))
+    require(eng_err <= 1e-4, f"serve ring vs engine ring raw: {eng_err}")
+
+    n = rs.steps * RING_CHUNK
+    v0, v1 = n - NR, len(fed_px)                    # live valid vids
+    x2 = rs.x2r[0, torch.arange(v0, v1, device="cuda") % NR].cpu().numpy()
+    want = ring_level1_oracle(
+        cfg, fed_px, v0, torch.cat(nbr_vid)[v0:v1].cpu().numpy(),
+        torch.cat(nbr_mask)[v0:v1].cpu().numpy(), x2, W, H, n_slots=NR,
+        divide=True)
+    ns = rsrv.level1_nodeset(rs)
+    feat, pos, cmask, adj, tmax = (t[0].cpu().numpy() for t in (
+        ns.feat, ns.pos, ns.mask, ns.graph.nbr_mask, ns.tmax))
+    for name, ok in (
+            ("feat", np.array_equal(feat, want[0])),
+            ("pos x, y", np.array_equal(pos[:, :2], want[1][:, :2])),
+            # the sums are (state - evicted) + new, as in dagr_tpu, not a
+            # fresh sum: the mean time agrees to rounding
+            ("pos t", np.allclose(pos[:, 2], want[1][:, 2], atol=1e-5, rtol=0)),
+            ("mask", np.array_equal(cmask, want[2])),
+            ("nbr_mask", np.array_equal(adj, want[3])),
+            # tmax is a running max: it equals the live max where a cell
+            # holds events
+            ("tmax", np.array_equal(tmax[cmask], want[4][want[2]]))):
+        require(ok, f"serve ring level-1 {name} == numpy recompute")
+    t_err = float(np.abs(pos[:, 2] - want[1][:, 2]).max())
+    print(f"serve ring: {len(fed_px)} events into {NR} slots in "
+          f"{len(ring_chunks)} steps of {RING_CHUNK}; raw vs the engine's "
+          f"ring at capacity {NR} max abs err {eng_err:.3g}; live level-1 "
+          f"cells equal a numpy recompute (mean time within {t_err:.3g})",
+          flush=True)
+
+    upd, cmx, rsearch = caps
+    # the search after the ring has wrapped: slot order is not vid order
+    args, kw = rsearch.args, rsearch.kwargs
+    a = search_edges_streams(*args, **kw)
+    for name, x, y in zip(("nbr", "mask", "spiral"), a,
+                          search_edges_streams_plain(*args, **kw)):
+        require(torch.equal(x, y), f"serve_search ring {name} == twin")
+    checks["serve_search"] = [{
+        "at": f"serve ring S=1 C={RING_CHUNK} NR={NR}, step {at}",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: search_edges_streams(*args, **kw), 50),
+        "plain_ms": cuda_ms(lambda: search_edges_streams_plain(*args, **kw),
+                            5)}]
+    print(f"K8 serve_search on ring step {at} (wrapped {at * RING_CHUNK // NR}"
+          f" times): bit-equal to twin; {int(a[1].sum())} edges", flush=True)
+    state0, rest = upd.args[:4], upd.args[4:]
+    got = [t.clone() for t in state0]
+    plain = [t.cpu() for t in state0]
+    ring_update_cells(*got, *rest, **upd.kwargs)
+    ring_update_cells_plain(*plain, *(t.cpu() for t in rest), **upd.kwargs)
+    for name, x, y in zip(("cell_cnt", "pos_sum", "tmax", "adj_death"),
+                          got, plain):
+        require(torch.equal(x.cpu(), y), f"serve_ring_update {name} == twin")
+    scratch = [t.clone() for t in state0]
+    out["serve_ring_update"] = record(
+        0.0, cuda_ms(lambda: ring_update_cells(*scratch, *rest, **upd.kwargs),
+                     50),
+        cuda_ms(lambda: ring_update_cells_plain(*scratch, *rest, **upd.kwargs),
+                10),
+        nbytes(*rest) + 2 * nbytes(*state0),
+        rest[4].numel() + 8 * rest[0].numel())
+    cells, x2r, n_cells = cmx.args
+    a, b = cell_max(cells, x2r, n_cells), cell_max_plain(cells, x2r, n_cells)
+    require(torch.equal(a, b), "cell_max == twin")
+    lib_out = torch.empty((n_cells + 1, x2r.shape[1]), device="cuda")
+    idx = cells.long()[:, None].expand_as(x2r)
+    out["cell_max"] = record(
+        0.0, cuda_ms(lambda: cell_max(cells, x2r, n_cells), 50),
+        cuda_ms(lambda: cell_max_plain(cells, x2r, n_cells), 10),
+        nbytes(cells, x2r, a), x2r.numel(),
+        cuda_ms(lambda: lib_out.scatter_reduce_(0, idx, x2r, "amax",
+                                                include_self=False), 50))
+    print(f"K8 serve_ring_update and cell_max: bit-equal to their twins on "
+          f"step {at}'s inputs ({int(rest[0].ne(n_cells).sum())} evicted "
+          f"rows)", flush=True)
+
+    # (4) timings: the grow steps of (1); ring steps of 256 on the full
+    # ring, events going on 1 s after the fed ones; profiles of both
+    p3, f3 = stream_events(events[3], 2_000_000)
+    more = chunk_streams(p3[None, :22 * RING_CHUNK], f3[None, :22 * RING_CHUNK],
+                         RING_CHUNK, device="cuda")
+    ring_ms = []
+    for c in more[:18]:
+        rs, _, _, ms = timed_step(rsrv, rs, c)
+        ring_ms.append(ms)
+    rs, rbusy, rtop = profile_steps(rsrv, rs, more[18:])
+    gst = srv.init_state()
+    for c in chunks[:4]:
+        gst, _, _ = srv.step(gst, *c)
+    _, gbusy, gtop = profile_steps(srv, gst, chunks[4:8])
+    print_timing(f"grow, {S} streams, chunk {C}, steps 3-{len(chunks)} of "
+                 f"one window", grow_ms[2:], (gbusy, gtop), card, S * C)
+    print_timing(f"ring, 1 stream, chunk {RING_CHUNK}, full {NR}-slot ring",
+                 ring_ms[2:], (rbusy, rtop), card, RING_CHUNK)
+    return out, checks, grow_launches, ring_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the GPU",
@@ -786,18 +1284,39 @@ def main() -> int:
         print("profile: the profiler saw no device kernels; device busy "
               "time not measured", flush=True)
     grow_launches, ring_launches = stream(cfg, det, events, card)
+    served, checks, serve_launches, serve_ring_launches = serve_streams(
+        cfg, det, events, card)
+    kernels.update(served)
+    # the kernels held against their twins again at the serving path's
+    # shapes: the row's error is the largest of all its checks
+    for name, cs in checks.items():
+        rec = kernels[name]
+        rec["serve_checks"] = cs
+        rec["max_abs_err"] = max([rec["max_abs_err"]]
+                                 + [c["max_abs_err"] for c in cs])
+    # each kernel's launches on its own path: the sync requests, the
+    # engine's grow run, or the server's grow (search) or ring run
     launches.update({k: v for k, v in grow_launches.items()
                      if k not in SYNC_KERNELS})
+    launches["serve_search"] = serve_launches["serve_search"]
+    for k in ("serve_ring_update", "cell_max"):
+        launches[k] = serve_ring_launches[k]
     rows = []
-    for name, (err, ms, plain_ms) in kernels.items():
-        print(f"{name}: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms "
-              f"[{card}]", flush=True)
+    for name, rec in kernels.items():
+        require(launches[name] > 0, f"kernel {name} launched on its path")
+        lib = rec["library_ms"]
+        lib = "none" if lib is None else f"{lib:.4f} ms"
+        print(f"{name}: kernel {rec['ms']:.4f} ms, plain twin "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}), library call {lib} [{card}]", flush=True)
         source, replaces = KERNEL_TABLE[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"dagr_tpu_torch/csrc/{source}",
                      "replaces": replaces, "launches": launches[name],
                      "ring_launches": ring_launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "serve_launches": serve_launches[name],
+                     "serve_ring_launches": serve_ring_launches[name],
+                     **rec})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

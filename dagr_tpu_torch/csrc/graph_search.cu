@@ -46,22 +46,39 @@
 // threads only, so a step launches too few threads to fill the card;
 // a persistent per-pixel FIFO that saves the per-step sort is later
 // work.
+//
+// K8 search: the multi-stream server's chunk against its event rings.
+// Replaces dagr_tpu/streaming/serve.py:406 _search_sort (the insert /
+// expire / query lex merge join, its queue-cap gather) and the picks of
+// dagr_tpu/graph/build.py:67 _select_first_k.  K6's contract over S
+// lockstep streams: the rings hold the last NR events of each stream
+// (slot s*NR + vid % NR), every stream's chunk carries the same vids, so
+// the pixel is folded with the stream (s*H*W + pixel) and a query only
+// walks its own stream's runs (base = s*H*W).  Each pick also returns
+// its spiral index, from which the caller takes the edge's (dx/W, dy/H).
+// The caller sorts the S*NR ring slots on the int64 key
+// folded pixel * 2^31 + vid and takes the run offsets over S*H*W + 1
+// pixels (torch.sort + searchsorted).  Bound like K6 by dependent L2
+// loads (the ring tables, 12 bytes a slot, and the 4.9 MB run table at
+// S=8 fit the 50 MB L2); S*C threads (8192 at S=8, chunk 1024) fill the
+// card better than K6's C.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// The spiral walk shared by K1 and K6.  Appends to slots n.. of one
+// The spiral walk shared by K1, K6 and K8.  Appends to slots n.. of one
 // event's row the older events (older(slot) true) of each in-frame
 // spiral cell's run, newest first, at most the run's last Q entries,
-// while t - t_src <= dt, until the row holds K entries; returns the new
-// count.  The run's entries must be in time order, older ones first.
-template <class Older, class Emit>
+// while t - time_of(src) <= dt, until the row holds K entries; returns
+// the new count.  The run's entries must be in time order, older ones
+// first.
+template <class TimeOf, class Older, class Emit>
 __device__ __forceinline__ int spiral_walk(
-    int x, int y, int t, int base, int W, int H,
-    const int* __restrict__ pos, const int* __restrict__ order,
-    const int* __restrict__ run_start, const int* __restrict__ spiral,
-    int S, int K, int Q, int dt, int n, Older older, Emit emit) {
+    int x, int y, int t, int base, int W, int H, TimeOf time_of,
+    const int* __restrict__ order, const int* __restrict__ run_start,
+    const int* __restrict__ spiral, int S, int K, int Q, int dt, int n,
+    Older older, Emit emit) {
   for (int s = 0; s < S && n < K; ++s) {
     const int xn = x + spiral[2 * s], yn = y + spiral[2 * s + 1];
     if (xn < 0 || xn >= W || yn < 0 || yn >= H) continue;
@@ -77,7 +94,7 @@ __device__ __forceinline__ int spiral_walk(
     }
     for (int j = a - 1; j >= lo && n < K; --j) {
       const int src = order[j];
-      if (t - pos[3 * src + 2] > dt) break;
+      if (t - time_of(src) > dt) break;
       emit(n, src, s);
       ++n;
     }
@@ -110,8 +127,9 @@ __global__ void graph_search_kernel(
   int n = 1;
   if (mask[e]) {
     n = spiral_walk(
-        pos[3 * e], pos[3 * e + 1], pos[3 * e + 2], b * H * W, W, H, pos,
-        order, run_start, spiral, S, K, Q, dt, n,
+        pos[3 * e], pos[3 * e + 1], pos[3 * e + 2], b * H * W, W, H,
+        [=](int o) { return pos[3 * o + 2]; }, order, run_start, spiral, S,
+        K, Q, dt, n,
         [=](int o) { return o < e; },
         [=](int i, int src, int s) {
           out[i] = src - b * N;
@@ -152,7 +170,8 @@ __global__ void graph_search_store_kernel(
     const int v = q_vid[q];
     n = spiral_walk(
         q_pos[3 * q], q_pos[3 * q + 1], q_pos[3 * q + 2], 0, W, H,
-        store_pos, order, run_start, spiral, S, K, Q, dt, n,
+        [=](int o) { return store_pos[3 * o + 2]; }, order, run_start,
+        spiral, S, K, Q, dt, n,
         [=](int o) { return (store_vid ? store_vid[o] : o) < v; },
         [=](int i, int src, int) {
           out[i] = src;
@@ -162,6 +181,47 @@ __global__ void graph_search_store_kernel(
   for (; n < K; ++n) {
     out[n] = 0;
     om[n] = 0;
+  }
+}
+
+// K8: E = S*C query events (stream-major, query q in stream q / C)
+// against the S*NR-slot rings that already hold them.  Row q gets up to
+// K ring slots, their mask and their spiral indices.
+__global__ void serve_search_kernel(
+    const int* __restrict__ ring_t,       // [S*NR] event time per slot
+    const int* __restrict__ ring_vid,     // [S*NR] vid per slot
+    const int* __restrict__ order,        // [S*NR] slots by (folded pixel, vid)
+    const int* __restrict__ run_start,    // [S*H*W + 1]
+    const int* __restrict__ q_pos,        // [E, 3]
+    const int* __restrict__ q_vid,        // [C], the same in every stream
+    const uint8_t* __restrict__ q_valid,  // [E]
+    const int* __restrict__ spiral,       // [NS, 2]
+    int E, int C, int W, int H, int NS, int K, int Q, int dt,
+    int* __restrict__ nbr,                // [E, K]
+    uint8_t* __restrict__ nbr_mask,       // [E, K]
+    int* __restrict__ nbr_spiral) {       // [E, K]
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= E) return;
+  int* out = nbr + (size_t)q * K;
+  uint8_t* om = nbr_mask + (size_t)q * K;
+  int* os = nbr_spiral + (size_t)q * K;
+  int n = 0;
+  if (q_valid[q]) {
+    const int v = q_vid[q % C];
+    n = spiral_walk(
+        q_pos[3 * q], q_pos[3 * q + 1], q_pos[3 * q + 2], (q / C) * W * H, W,
+        H, [=](int o) { return ring_t[o]; }, order, run_start, spiral, NS, K,
+        Q, dt, n, [=](int o) { return ring_vid[o] < v; },
+        [=](int i, int src, int s) {
+          out[i] = src;
+          om[i] = 1;
+          os[i] = s;
+        });
+  }
+  for (; n < K; ++n) {
+    out[n] = 0;
+    om[n] = 0;
+    os[n] = 0;
   }
 }
 
@@ -198,6 +258,24 @@ extern "C" int dagr_graph_search_store(
         (const int*)run_start, (const int*)q_pos, (const int*)q_vid,
         (const uint8_t*)q_valid, (const int*)spiral, C, W, H, S, K, Q, dt,
         (int*)nbr, (uint8_t*)nbr_mask);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dagr_serve_search(
+    const void* ring_t, const void* ring_vid, const void* order,
+    const void* run_start, const void* q_pos, const void* q_vid,
+    const void* q_valid, const void* spiral, int E, int C, int W, int H,
+    int NS, int K, int Q, int dt, void* nbr, void* nbr_mask,
+    void* nbr_spiral, void* stream) {
+  const int threads = 128;
+  const int blocks = (E + threads - 1) / threads;
+  if (blocks > 0) {
+    serve_search_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int*)ring_t, (const int*)ring_vid, (const int*)order,
+        (const int*)run_start, (const int*)q_pos, (const int*)q_vid,
+        (const uint8_t*)q_valid, (const int*)spiral, E, C, W, H, NS, K, Q,
+        dt, (int*)nbr, (uint8_t*)nbr_mask, (int*)nbr_spiral);
   }
   return (int)cudaGetLastError();
 }

@@ -40,8 +40,35 @@
 // walks its rows through K3's per-cell reduction, updating the state in
 // place.  Bound by launch latency: a chunk touches a few hundred of the
 // 2240 cells, a few kilobytes.
+//
+// K8, level 1 of the multi-stream server's ring window.  Replaces the
+// sliding-window update of dagr_tpu/streaming/serve.py:1223-1308: the C
+// slots a chunk overwrites leave the cell counts and position sums, the
+// chunk's rows enter them, tmax is a running max, and adj_death[cell, o]
+// becomes the max source vid over the chunk's edges into stencil offset o
+// (an edge is alive while its source still holds its ring slot).  S
+// streams fold into the cell id (s*G1 + cell).  dagr_tpu writes the sums
+// as (state - sub) + add, each of sub and add taken per cell in slot
+// order from zero; any other order can flip the pooled floor (F4), so no
+// float atomics: the caller stable-sorts the 2*S*C rows (evicted first,
+// then new) by cell and one warp per cell walks them through K3's
+// per-cell loop.  Work is in proportion to the chunk, not the ring.
+// Bound by launch latency, like K10.  adj_death is an integer max, taken
+// per lane over the edge slots and then across the warp.
+//
+// K8, the ring's feature max.  Replaces dagr_tpu/streaming/serve.py:
+// 1361-1376, the segment max of the live x2 ring per level-1 cell, which
+// max pooling cannot keep incrementally (an evicted event cannot leave a
+// max).  Bound by reading the ring once: S*NR*C1*4 bytes (3.2 MB at S=1,
+// NR 50176, C1 16), 1 us at 3.35 TB/s.  A max does not depend on the
+// order of its operands, so no sort and no per-cell walk: one thread per
+// (row, channel) takes an integer atomicMax on an order-preserving int32
+// encoding of the float (exact and deterministic; not a float atomic),
+// neighbouring threads on neighbouring channels of one cell.  Three
+// launches: fill with the encoded -FLT_MAX, scatter, decode in place.
 #include <cuda_runtime.h>
 #include <float.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -103,7 +130,8 @@ __global__ void pool_nodes_kernel(
 // One warp reduces a cell's rows order[st..en), in that order: each
 // lane's feature channels (sum from 0 when mean, else max from
 // -FLT_MAX) go to chan(c, value); lanes 0-2 return their position sum,
-// lane 3 the max time (-inf for an empty run).  Shared by K3 and K10.
+// lane 3 the max time (-inf for an empty run); 0 when pos is null.
+// Shared by K3, K10 and K8's cell max.
 template <class Chan>
 __device__ __forceinline__ float warp_cell_reduce(
     const int* __restrict__ order, int st, int en,
@@ -118,6 +146,7 @@ __device__ __forceinline__ float warp_cell_reduce(
     chan(c, acc);
   }
   float r = 0.f;
+  if (pos == nullptr) return r;
   if (lane < 3) {
     for (int j = st; j < en; ++j) r += pos[3 * order[j] + lane];
   } else if (lane == 3) {
@@ -216,6 +245,100 @@ __global__ void stream_accumulate_kernel(
   if (lane < 9 && ((bits >> lane) & 1)) adj[9 * warp + lane] = 1;
 }
 
+// K8: the ring window's level-1 update by one chunk.  Rows order[j] < E
+// are the slots the chunk evicts (their stored cell and position), rows
+// >= E the chunk's events (row - E); the stable sort puts a cell's
+// evicted rows first.  Lanes 0-2 own the position sums, lane 3 the
+// count and tmax; every lane then takes edge slots of the new rows for
+// adj_death.
+__global__ void serve_ring_update_kernel(
+    const int* __restrict__ order,        // [2E] rows sorted by cell
+    const int* __restrict__ cell_start,   // [ncells + 1]
+    const float* __restrict__ ev_pos,     // [E, 3]
+    const float* __restrict__ pos,        // [E, 3]
+    const int* __restrict__ nbr,          // [E, K] ring slots of the edges
+    const uint8_t* __restrict__ nbr_mask, // [E, K]
+    const int* __restrict__ cells,        // [S*NR] cell per slot (ncells: none)
+    const int* __restrict__ vid,          // [S*NR] vid per slot
+    int E, int ncells, int nx, int K,
+    int* __restrict__ cell_cnt, float* __restrict__ pos_sum,
+    float* __restrict__ tmax, int* __restrict__ adj_death) {
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= ncells) return;
+  const int st = cell_start[warp], en = cell_start[warp + 1];
+  if (st == en) return;
+  int mid = st;   // evicted rows order[st..mid), new rows order[mid..en)
+  while (mid < en && order[mid] < E) ++mid;
+  if (lane < 3) {
+    float sub = 0.f, add = 0.f;
+    for (int j = st; j < mid; ++j) sub += ev_pos[3 * order[j] + lane];
+    for (int j = mid; j < en; ++j) add += pos[3 * (order[j] - E) + lane];
+    float* p = pos_sum + 3 * warp + lane;
+    *p = (*p - sub) + add;
+  } else if (lane == 3) {
+    float m = -INFINITY;
+    for (int j = mid; j < en; ++j) m = fmaxf(m, pos[3 * (order[j] - E) + 2]);
+    tmax[warp] = fmaxf(tmax[warp], m);
+    cell_cnt[warp] += (en - mid) - (mid - st);
+  }
+  const int cx = warp % nx, cy = warp / nx;
+  int best[9];
+#pragma unroll
+  for (int o = 0; o < 9; ++o) best[o] = INT_MIN;
+  for (int j = mid; j < en; ++j) {
+    const int row = order[j] - E;
+    for (int k = lane; k < K; k += 32) {
+      const size_t rk = (size_t)row * K + k;
+      if (!nbr_mask[rk]) continue;
+      const int src = nbr[rk];
+      const int sc = cells[src];
+      if (sc >= ncells) continue;
+      const int dx = sc % nx - cx, dy = sc / nx - cy;
+      if (dx < -1 || dx > 1 || dy < -1 || dy > 1 || (dx == 0 && dy == 0))
+        continue;
+      const int o = (dy + 1) * 3 + (dx + 1);
+      const int v = vid[src];
+#pragma unroll
+      for (int i = 0; i < 9; ++i)
+        if (i == o) best[i] = max(best[i], v);
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < 9; ++o) {
+    const int m = __reduce_max_sync(0xffffffffu, best[o]);
+    if (lane == o && m > adj_death[9 * warp + o]) adj_death[9 * warp + o] = m;
+  }
+}
+
+// K8: the feature max of each cell over its rows; -FLT_MAX for a cell
+// without rows.  float_ord maps floats (no NaN) to int32 in the same
+// order, so an int max is the float max; it is its own inverse.
+__device__ __forceinline__ int float_ord(int bits) {
+  return bits >= 0 ? bits : bits ^ 0x7fffffff;
+}
+
+__global__ void cell_max_fill_kernel(int* __restrict__ out, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = float_ord(__float_as_int(-FLT_MAX));
+}
+
+__global__ void cell_max_kernel(
+    const int* __restrict__ cells,        // [N] cell per row (ncells: none)
+    const float* __restrict__ feat,       // [N, C]
+    size_t n, int ncells, int C, int* __restrict__ out) {   // [ncells, C]
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int cell = cells[i / C];
+  if (cell < 0 || cell >= ncells) return;
+  atomicMax(out + (size_t)cell * C + i % C, float_ord(__float_as_int(feat[i])));
+}
+
+__global__ void cell_max_decode_kernel(int* __restrict__ out, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = float_ord(out[i]);
+}
+
 __global__ void pool_stencil_kernel(
     const uint8_t* __restrict__ cmask, const float* __restrict__ tmax,
     const int* __restrict__ adj, int n_cells_total, int ny, int nx,
@@ -291,5 +414,41 @@ extern "C" int dagr_stream_accumulate(
         (const int*)cells, ncells, nx, C, K, (int*)cell_cnt,
         (float*)cell_max, (float*)pos_sum, (float*)tmax, (uint8_t*)adj);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dagr_serve_ring_update(
+    const void* order, const void* cell_start, const void* ev_pos,
+    const void* pos, const void* nbr, const void* nbr_mask,
+    const void* cells, const void* vid, int E, int ncells, int nx, int K,
+    void* cell_cnt, void* pos_sum, void* tmax, void* adj_death,
+    void* stream) {
+  if (ncells > 0) {
+    const int threads = 256;   // 8 warps, one cell each
+    serve_ring_update_kernel<<<(ncells + 7) / 8, threads, 0,
+                               (cudaStream_t)stream>>>(
+        (const int*)order, (const int*)cell_start, (const float*)ev_pos,
+        (const float*)pos, (const int*)nbr, (const uint8_t*)nbr_mask,
+        (const int*)cells, (const int*)vid, E, ncells, nx, K,
+        (int*)cell_cnt, (float*)pos_sum, (float*)tmax, (int*)adj_death);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dagr_cell_max(
+    const void* cells, const void* feat, int N, int ncells, int C, void* out,
+    void* stream) {
+  const int threads = 256;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t n_out = (size_t)ncells * C, n_in = (size_t)N * C;
+  if (n_out == 0) return (int)cudaGetLastError();
+  const unsigned out_blocks = (unsigned)((n_out + threads - 1) / threads);
+  cell_max_fill_kernel<<<out_blocks, threads, 0, s>>>((int*)out, n_out);
+  if (n_in > 0) {
+    cell_max_kernel<<<(unsigned)((n_in + threads - 1) / threads), threads, 0,
+                      s>>>((const int*)cells, (const float*)feat, n_in,
+                           ncells, C, (int*)out);
+  }
+  cell_max_decode_kernel<<<out_blocks, threads, 0, s>>>((int*)out, n_out);
   return (int)cudaGetLastError();
 }

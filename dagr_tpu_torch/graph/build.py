@@ -1,13 +1,16 @@
-"""Event-graph construction: spiral/queue neighbour search (kernels K1
-and K6).
+"""Event-graph construction: spiral/queue neighbour search (kernels K1,
+K6 and K8's search).
 
 ``build_graph`` is the counterpart of ``dagr_tpu.graph.build.build_graph``
 and gives the same ``nbr``, ``nbr_mask`` and ``nbr_dpos``, bit for bit.
 ``search_edges_into_store`` is the counterpart of the streaming engine's
 ``dagr_tpu.graph.build.search_edges_into_store`` (a chunk of new events
-against the event store), bit for bit as well.  On a CUDA tensor each
-launches its entry of ``csrc/graph_search.cu``; on a CPU tensor it runs
-its ``*_plain`` twin, the same selection as whole-array PyTorch ops.
+against the event store), bit for bit as well.  ``search_edges_streams``
+is the multi-stream server's search (``dagr_tpu.streaming.serve``'s
+``_search_sort`` with ``_select_first_k``): K6 over S lockstep streams
+whose event rings fold the stream into the pixel id.  On a CUDA tensor
+each launches its entry of ``csrc/graph_search.cu``; on a CPU tensor it
+runs its ``*_plain`` twin, the same selection as whole-array PyTorch ops.
 
 Preconditions, as in the JAX package: events are time-sorted per
 sample, valid events form a prefix, timestamps are window-relative
@@ -326,3 +329,123 @@ def search_edges_into_store_plain(store_pos_px, store_valid, q_pos_px, q_vid,
     src, hit, _ = _pick_from_runs(order, hi, lo_t, st, en, inb,
                                   queue_size, max_neighbors)
     return torch.where(hit, src, 0).to(torch.int32), hit
+
+
+def _ring_runs(ring_pix, ring_vid, n_pix: int):
+    """The ring slots sorted by (folded pixel, vid), dead slots (pixel
+    ``n_pix``) last, as the int64 keys ``pixel * 2**31 + vid``, the slot
+    order and the run offsets ``start`` [n_pix + 1]."""
+    live = ring_pix < n_pix
+    key = (ring_pix.long() << _VID_BITS) + torch.where(live, ring_vid.long(), 0)
+    return sorted_runs(key, n_pix, _VID_BITS)
+
+
+def _check_ring_args(ring_pix, ring_t, ring_vid, q_pos_px, q_vid, q_valid,
+                     width, height, delta_t_us, max_neighbors):
+    S, C = q_pos_px.shape[:2]
+    n = ring_pix.shape[0]
+    for name, t, shape, dtype in (
+            ("ring_pix", ring_pix, (n,), torch.int32),
+            ("ring_t", ring_t, (n,), torch.int32),
+            ("ring_vid", ring_vid, (n,), torch.int32),
+            ("q_pos_px", q_pos_px, (S, C, 3), torch.int32),
+            ("q_vid", q_vid, (C,), torch.int32),
+            ("q_valid", q_valid, (S, C), torch.bool)):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {list(shape)}")
+    if not 0 <= delta_t_us < 2**31:
+        raise ValueError("delta_t_us must fit int32")
+    if S * width * height >= 2**31 - 1 or max_neighbors < 1:
+        raise ValueError("folded pixel id must fit int32; max_neighbors >= 1")
+
+
+def search_edges_streams(
+    ring_pix: torch.Tensor,    # i32 [S*NR] folded pixel s*H*W + y*W + x, S*H*W: dead
+    ring_t: torch.Tensor,      # i32 [S*NR] event time (us) per slot
+    ring_vid: torch.Tensor,    # i32 [S*NR] virtual id per slot
+    q_pos_px: torch.Tensor,    # i32 [S, C, 3] the chunk of every stream
+    q_vid: torch.Tensor,       # i32 [C] their vids, the same in every stream
+    q_valid: torch.Tensor,     # bool [S, C]
+    *,
+    width: int,
+    height: int,
+    radius: int,
+    delta_t_us: int,
+    max_neighbors: int,
+    queue_size: int = 128,
+):
+    """Edges of S lockstep chunks into the S streams' event rings, which
+    already hold them (insert-then-search; K8's search).  Row ``s*C + i``
+    is event i of stream s.  Returns ``nbr`` [S*C, K-1] ring slots,
+    ``mask`` and ``spiral`` [S*C, K-1], the spiral index of each pick
+    (0 where unfilled): K6's selection per stream, "older" meaning
+    ``vid < q_vid``, the queue cap the pixel run's last Q ring entries.
+    Preconditions, as in the JAX package: per stream, ring times increase
+    with vid, and ``t + delta_t_us`` fits int32 (F3)."""
+    _check_ring_args(ring_pix, ring_t, ring_vid, q_pos_px, q_vid, q_valid,
+                     width, height, delta_t_us, max_neighbors)
+    kw = dict(width=width, height=height, radius=radius,
+              delta_t_us=delta_t_us, max_neighbors=max_neighbors,
+              queue_size=queue_size)
+    args = (ring_pix, ring_t, ring_vid, q_pos_px, q_vid, q_valid)
+    if not ring_pix.is_cuda:
+        return search_edges_streams_plain(*args, **kw)
+    return _search_streams_cuda(*args, **kw)
+
+
+def _search_streams_cuda(ring_pix, ring_t, ring_vid, q_pos_px, q_vid, q_valid,
+                         *, width, height, radius, delta_t_us, max_neighbors,
+                         queue_size):
+    S, C, _ = q_pos_px.shape
+    E, K = S * C, max_neighbors - 1
+    dev = ring_pix.device
+    _, order, start = _ring_runs(ring_pix, ring_vid, S * width * height)
+    spiral = _spiral_tables(radius, width, height, dev)[0]
+    ring_t, ring_vid = ring_t.contiguous(), ring_vid.contiguous()
+    q_pos_px, q_vid = q_pos_px.contiguous(), q_vid.contiguous()
+    q_valid = q_valid.contiguous()
+    nbr = torch.empty((E, K), dtype=torch.int32, device=dev)
+    mask = torch.empty((E, K), dtype=torch.bool, device=dev)
+    spiral_idx = torch.empty((E, K), dtype=torch.int32, device=dev)
+    _build.check_cuda("search_edges_streams", ring_t, ring_vid, order, start,
+                      q_pos_px, q_vid, q_valid, spiral)
+    i = ctypes.c_int
+    _build.launch(
+        "serve_search", "dagr_serve_search",
+        _build.ptr(ring_t), _build.ptr(ring_vid), _build.ptr(order),
+        _build.ptr(start), _build.ptr(q_pos_px), _build.ptr(q_vid),
+        _build.ptr(q_valid), _build.ptr(spiral), i(E), i(C), i(width),
+        i(height), i(spiral.shape[0]), i(K), i(queue_size), i(delta_t_us),
+        _build.ptr(nbr), _build.ptr(mask), _build.ptr(spiral_idx))
+    return nbr, mask, spiral_idx
+
+
+def search_edges_streams_plain(ring_pix, ring_t, ring_vid, q_pos_px, q_vid,
+                               q_valid, *, width, height, radius, delta_t_us,
+                               max_neighbors, queue_size=128):
+    """The K8 search as whole-array PyTorch ops (the kernel's twin):
+    ``search_edges_into_store_plain`` over the folded rings, each query's
+    spiral pixels offset by its stream's base ``s*H*W``."""
+    S, C, _ = q_pos_px.shape
+    E, HW = S * C, width * height
+    dev = ring_pix.device
+    key_s, order, start = _ring_runs(ring_pix, ring_vid, S * HW)
+    order, start = order.long(), start.long()
+    x, y, t = (q_pos_px.reshape(E, 3)[:, c].long() for c in range(3))
+    vid = q_vid.long().repeat(S)
+    base = torch.arange(S, device=dev).repeat_interleave(C)[:, None] * HW
+    offs = _spiral_tables(radius, width, height, dev)[0]
+    p, inb = _spiral_pixels(x, y, q_valid.reshape(E), offs, width, height,
+                            base)                                   # [E, NS]
+    st, en = start[p], start[p + 1]
+    # older entries of run p: (pixel, vid) keys increase along `order`
+    hi = torch.searchsorted(key_s, (p << _VID_BITS) + vid[:, None])
+    # dt bound: (pixel, time) keys increase along `order` up to the dead
+    # slots, whose keys lie above every query's
+    t_s = ring_t.long()[order]
+    lo_t = torch.searchsorted((key_s >> _VID_BITS << 32) + t_s,
+                              (p << 32) + (t[:, None] - delta_t_us))
+    src, hit, s_sel = _pick_from_runs(order, hi, lo_t, st, en, inb,
+                                      queue_size, max_neighbors)
+    return (torch.where(hit, src, 0).to(torch.int32), hit,
+            torch.where(hit, s_sel, 0).to(torch.int32))

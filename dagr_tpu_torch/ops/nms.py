@@ -16,6 +16,7 @@ import torch
 from dagr_tpu_torch.kernels import _build
 
 _MAX_ANCHORS = 384   # csrc/nms.cu kMaxAnchors
+MAX_DETECTIONS = 300  # rows kept per image by default
 
 
 def iou_xyxy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -39,7 +40,7 @@ def postprocess(
     nms_thresh: float = 0.65,
     height: int = 480,
     width: int = 640,
-    max_out: int = 300,
+    max_out: int = MAX_DETECTIONS,
 ) -> Dict[str, torch.Tensor]:
     """Returns fixed-size {boxes [B,K,4] xyxy, scores [B,K], labels [B,K]
     i32, valid [B,K]} sorted by score descending, K = min(max_out, A)."""
@@ -77,7 +78,8 @@ def _postprocess_cuda(pred, *, num_classes, conf_thresh, nms_thresh, height,
 
 
 def postprocess_plain(pred, *, num_classes, conf_thresh=0.001,
-                      nms_thresh=0.65, height=480, width=640, max_out=300):
+                      nms_thresh=0.65, height=480, width=640,
+                      max_out=MAX_DETECTIONS):
     """The K4 postprocess as PyTorch ops (the kernel's twin)."""
     B, A, _ = pred.shape
     K = min(max_out, A)

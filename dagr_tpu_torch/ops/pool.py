@@ -17,10 +17,20 @@ engine's level-1 aggregates in place (``csrc/voxel_pool.cu``'s
 ``dagr_stream_accumulate`` on CUDA tensors, ``accumulate_cells_plain``
 on CPU tensors); the chunk's position sum is taken per cell in chunk
 order and added once, as ``dagr_tpu``'s ``state.pos_sum + segment_sum``.
+The multi-stream server's grow window calls it on S streams' cells
+folded into one table (cell id ``s * G1 + cell``).
+
+``ring_update_cells`` (K8) is the server's ring-window counterpart: the
+slots a chunk overwrites leave the counts and position sums and the
+chunk enters them, as ``(state - sub) + add`` with each sum taken per
+cell in slot order (``dagr_serve_ring_update`` /
+``ring_update_cells_plain``).  ``cell_max`` (K8) is the feature max of
+the live ring per cell (``dagr_cell_max`` / ``cell_max_plain``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -38,6 +48,20 @@ def _inv(n: int) -> float:
     """f32(1/n), exactly representable, so a Python-float multiply
     rounds once in float32 on either device."""
     return float(np.float32(1.0) / np.float32(n))
+
+
+@functools.lru_cache(maxsize=None)
+def stencil_table(ny: int, nx: int, device: torch.device):
+    """(neighbour cell [ny*nx, 9] i32, in-frame [ny*nx, 9] bool) of the
+    ny x nx grid in GRID_OFFSETS order, on ``device`` (copied there
+    once)."""
+    cid = np.arange(ny * nx)
+    offs = np.array(GRID_OFFSETS)
+    xn = cid[:, None] % nx + offs[:, 1]
+    yn = cid[:, None] // nx + offs[:, 0]
+    inb = (xn >= 0) & (xn < nx) & (yn >= 0) & (yn < ny)
+    nbr = np.clip(xn + nx * yn, 0, ny * nx - 1).astype(np.int32)
+    return torch.from_numpy(nbr).to(device), torch.from_numpy(inb).to(device)
 
 
 def stencil_srcs(c: torch.Tensor) -> torch.Tensor:
@@ -325,12 +349,148 @@ def accumulate_cells_plain(cell_cnt, cell_max, pos_sum, tmax, adj, cell,
     pos_sum += seg_reduce(pos, 0.0, "sum")
     torch.maximum(tmax, seg_reduce(pos[:, 2], -np.inf, "max"), out=tmax)
 
-    src = cells[nbr.long()].long()                        # [Cn, K]
-    dx = src % grid_nx - (seg % grid_nx)[:, None]
-    dy = src // grid_nx - (seg // grid_nx)[:, None]
-    o = (dy + 1) * 3 + (dx + 1)
-    ev = (nbr_mask & (dx.abs() <= 1) & (dy.abs() <= 1)
-          & (o != GRID_SELF_OFFSET) & (src < G))
+    o, ev = _stencil_offset(cells[nbr.long()].long(), seg, grid_nx, G,
+                            nbr_mask)                     # [Cn, K]
     bits = ((o[..., None] == torch.arange(9, device=dev))
             & ev[..., None]).any(dim=1)                   # [Cn, 9]
     adj |= seg_reduce(bits.to(torch.int32), 0, "max") > 0
+
+
+def _stencil_offset(src_cell, dst_cell, grid_nx: int, n_cells: int, mask):
+    """Stencil offset o of each edge ``src_cell -> dst_cell`` (cell ids
+    ``cx + grid_nx * cy``, folded streams included) and whether it counts:
+    masked in, source a cell, within the 3x3 stencil, not the self
+    offset."""
+    dx = src_cell % grid_nx - (dst_cell % grid_nx)[:, None]
+    dy = src_cell // grid_nx - (dst_cell // grid_nx)[:, None]
+    o = (dy + 1) * 3 + (dx + 1)
+    ok = (mask & (dx.abs() <= 1) & (dy.abs() <= 1)
+          & (o != GRID_SELF_OFFSET) & (src_cell < n_cells))
+    return o, ok
+
+
+def ring_update_cells(
+    cell_cnt: torch.Tensor,    # i32 [G]       updated in place
+    pos_sum: torch.Tensor,     # f32 [G, 3]    updated in place
+    tmax: torch.Tensor,        # f32 [G]       updated in place
+    adj_death: torch.Tensor,   # i32 [G, 9]    updated in place
+    ev_cell: torch.Tensor,     # i32 [E] cell of each evicted slot, G: none
+    ev_pos: torch.Tensor,      # f32 [E, 3] its stored position
+    cell: torch.Tensor,        # i32 [E] cell of each new row, G: invalid
+    pos: torch.Tensor,         # f32 [E, 3]
+    nbr: torch.Tensor,         # i32 [E, K] ring slots of the rows' edges
+    nbr_mask: torch.Tensor,    # bool [E, K]
+    cells: torch.Tensor,       # i32 [N] the ring's cell per slot, after the write
+    vid: torch.Tensor,         # i32 [N] the ring's vid per slot
+    *,
+    grid_nx: int,
+) -> None:
+    """Ring-window level-1 update by one chunk (kernel K8): ``cnt =
+    (cnt - evicted) + new``, ``pos_sum = (pos_sum - sub) + add`` with
+    ``sub`` and ``add`` summed per cell in row order from zero, ``tmax =
+    max(tmax, chunk max t)``, and ``adj_death[c, o] = max(adj_death[c,
+    o], source vid)`` over the rows' edges at stencil offset o (self and
+    out-of-stencil edges dropped)."""
+    G = cell_cnt.shape[0]
+    E, K = nbr.shape
+    N = cells.shape[0]
+    for name, t, shape, dtype in (
+            ("cell_cnt", cell_cnt, (G,), torch.int32),
+            ("pos_sum", pos_sum, (G, 3), torch.float32),
+            ("tmax", tmax, (G,), torch.float32),
+            ("adj_death", adj_death, (G, 9), torch.int32),
+            ("ev_cell", ev_cell, (E,), torch.int32),
+            ("ev_pos", ev_pos, (E, 3), torch.float32),
+            ("cell", cell, (E,), torch.int32),
+            ("pos", pos, (E, 3), torch.float32),
+            ("nbr", nbr, (E, K), torch.int32),
+            ("nbr_mask", nbr_mask, (E, K), torch.bool),
+            ("cells", cells, (N,), torch.int32),
+            ("vid", vid, (N,), torch.int32)):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"ring_update_cells: {name} must be {dtype} "
+                             f"{list(shape)}")
+    args = (cell_cnt, pos_sum, tmax, adj_death, ev_cell, ev_pos, cell, pos,
+            nbr, nbr_mask, cells, vid)
+    if not cell_cnt.is_cuda:
+        return ring_update_cells_plain(*args, grid_nx=grid_nx)
+    args = tuple(t.contiguous() for t in args[4:])
+    _build.check_cuda("ring_update_cells", cell_cnt, pos_sum, tmax,
+                      adj_death, *args)
+    ev_cell, ev_pos, cell, pos, nbr, nbr_mask, cells, vid = args
+    # evicted rows first, then the new ones: a stable sort keeps that
+    # order inside each cell
+    _, order, start = sorted_runs(torch.cat([ev_cell, cell]), G)
+    i = ctypes.c_int
+    _build.launch(
+        "serve_ring_update", "dagr_serve_ring_update",
+        _build.ptr(order), _build.ptr(start), _build.ptr(ev_pos),
+        _build.ptr(pos), _build.ptr(nbr), _build.ptr(nbr_mask),
+        _build.ptr(cells), _build.ptr(vid), i(E), i(G), i(grid_nx), i(K),
+        _build.ptr(cell_cnt), _build.ptr(pos_sum), _build.ptr(tmax),
+        _build.ptr(adj_death))
+
+
+def ring_update_cells_plain(cell_cnt, pos_sum, tmax, adj_death, ev_cell,
+                            ev_pos, cell, pos, nbr, nbr_mask, cells, vid, *,
+                            grid_nx):
+    """The K8 ring update as PyTorch ops (the kernel's twin).  Rows of
+    cell G land in a dump row; the float sums are ``index_add_``, which
+    on the CPU adds rows in index order."""
+    G = cell_cnt.shape[0]
+    dev = cell_cnt.device
+
+    def seg_sum(seg, v):
+        out = torch.zeros((G + 1,) + v.shape[1:], dtype=v.dtype, device=dev)
+        return out.index_add_(0, seg.long(), v)[:G]
+
+    def seg_max(seg, v, init):
+        out = torch.full((G + 1,) + v.shape[1:], init, dtype=v.dtype,
+                         device=dev)
+        idx = seg.long().reshape((-1,) + (1,) * (v.dim() - 1)).expand_as(v)
+        return out.scatter_reduce_(0, idx, v, "amax", include_self=True)[:G]
+
+    ones = torch.ones_like(cell)
+    cell_cnt.copy_((cell_cnt - seg_sum(ev_cell, ones)) + seg_sum(cell, ones))
+    pos_sum.copy_((pos_sum - seg_sum(ev_cell, ev_pos)) + seg_sum(cell, pos))
+    torch.maximum(tmax, seg_max(cell, pos[:, 2], -np.inf), out=tmax)
+
+    src = nbr.long()
+    o, ok = _stencil_offset(cells[src].long(), cell.long(), grid_nx, G,
+                            nbr_mask)
+    low = torch.iinfo(torch.int32).min
+    at = (o[..., None] == torch.arange(9, device=dev)) & ok[..., None]
+    dval = torch.where(at, vid[src][..., None], low).amax(dim=1)   # [E, 9]
+    torch.maximum(adj_death, seg_max(cell, dval, low), out=adj_death)
+
+
+def cell_max(cells: torch.Tensor, feat: torch.Tensor,
+             n_cells: int) -> torch.Tensor:
+    """Feature max [n_cells, C] of the rows of each cell (``cells`` i32
+    [N], ``n_cells`` for a row of no cell; ``feat`` f32 [N, C]); a cell
+    without rows holds the float32 minimum (kernel K8's ring feature
+    max)."""
+    if cells.dim() != 1 or cells.dtype != torch.int32 or feat.dim() != 2 \
+            or feat.shape[0] != cells.shape[0] or feat.dtype != torch.float32:
+        raise ValueError("cell_max: cells i32 [N] and feat f32 [N, C]")
+    if not feat.is_cuda:
+        return cell_max_plain(cells, feat, n_cells)
+    cells, feat = cells.contiguous(), feat.contiguous()
+    _build.check_cuda("cell_max", cells, feat)
+    # the kernel takes int32 maxima of an order-preserving encoding and
+    # decodes them in place: the buffer is float32 when it returns
+    out = torch.empty((n_cells, feat.shape[1]), dtype=torch.int32,
+                      device=feat.device)
+    i = ctypes.c_int
+    _build.launch("cell_max", "dagr_cell_max", _build.ptr(cells),
+                  _build.ptr(feat), i(feat.shape[0]), i(n_cells),
+                  i(feat.shape[1]), _build.ptr(out))
+    return out.view(torch.float32)
+
+
+def cell_max_plain(cells, feat, n_cells):
+    """The K8 cell max as one ``scatter_reduce`` (the kernel's twin)."""
+    out = torch.full((n_cells + 1, feat.shape[1]),
+                     torch.finfo(torch.float32).min, device=feat.device)
+    idx = cells.long()[:, None].expand_as(feat)
+    return out.scatter_reduce_(0, idx, feat, "amax", include_self=True)[:n_cells]

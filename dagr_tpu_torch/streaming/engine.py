@@ -34,22 +34,72 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from dagr_tpu_torch.core.types import (
-    EventGraph, GRID_OFFSETS, NodeSet)
+from dagr_tpu_torch.core.types import EventGraph, NodeSet
 from dagr_tpu_torch.graph.build import search_edges_into_store
 from dagr_tpu_torch.models.blocks import activation_fn
 from dagr_tpu_torch.models.dagr import DAGR
 from dagr_tpu_torch.models.functional import bn_eval, spline_conv_gather
 from dagr_tpu_torch.models.net import with_rel_delta
 from dagr_tpu_torch.ops.pool import (
-    _cell, _inv, accumulate_cells, pool_graph, pool_nodeset, stencil_srcs)
+    _cell, _inv, accumulate_cells, pool_graph, pool_nodeset, stencil_srcs,
+    stencil_table)
 
 _LAYERS = ("layer2", "layer3", "layer4", "layer5")
+
+
+class DeviceConsts:
+    """Constant tables, each made once per (name, device) and copied
+    there once: a step reads them without a host-to-device copy."""
+
+    def __init__(self):
+        self._tables: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+    def __call__(self, name: str, device: torch.device, make) -> torch.Tensor:
+        key = (name, device)
+        if key not in self._tables:
+            self._tables[key] = make().to(device)
+        return self._tables[key]
+
+
+def level1_from_aggregates(cell_cnt, pos_sum, feat_max, adj, tmax, wh, *,
+                           grid_ny: int, grid_nx: int,
+                           keep_temporal_ordering: bool) -> NodeSet:
+    """The level-1 cell table [B, G1] that the dense tail starts from,
+    made from per-cell aggregates of B streams: ``cell_cnt`` i32, the
+    position sum ``pos_sum`` f32 [.., 3], the feature max ``feat_max``
+    (float32 minimum where a cell has no rows), the stencil adjacency
+    ``adj`` bool [.., 9] and the max time ``tmax``.  ``wh`` is the f32
+    tensor (W, H) on the aggregates' device: the mean pixel is floored and
+    divided by it, a true division, as XLA leaves ``dagr_tpu``'s (K3's
+    pooled positions multiply by f32(1/W) instead, like its pool).  The
+    engine's grow window calls it with B = 1, the multi-stream server
+    with B = S."""
+    B = cell_cnt.shape[0]
+    ny, nx = grid_ny, grid_nx
+    G1 = ny * nx
+    cmask = cell_cnt > 0
+    big_neg = torch.finfo(torch.float32).min
+    feat = torch.where(cmask[..., None] & (feat_max > big_neg / 2), feat_max,
+                       0.0)
+    pos = pos_sum / cell_cnt.clamp(min=1)[..., None]
+    pxy = torch.floor((pos[..., :2] + 1e-5) * wh) / wh
+    pos = torch.where(cmask[..., None], torch.cat([pxy, pos[..., 2:]], -1),
+                      0.0)
+    nbr, inb = stencil_table(ny, nx, cell_cnt.device)
+    src_ok = stencil_srcs(cmask.reshape(B, ny, nx, 1)).reshape(B, G1, 9)
+    nbr_mask = adj & inb & src_ok & cmask[..., None]
+    if keep_temporal_ordering:
+        t_src = stencil_srcs(tmax.reshape(B, ny, nx, 1)).reshape(B, G1, 9)
+        nbr_mask = nbr_mask & (tmax[..., None] > t_src)
+    return NodeSet(feat=feat, pos=pos, mask=cmask,
+                   graph=EventGraph(nbr=nbr.expand(B, G1, 9),
+                                    nbr_mask=nbr_mask),
+                   tmax=tmax, grid_hw=(ny, nx))
 
 
 @dataclass
@@ -104,30 +154,7 @@ class StreamingDetector:
         self.ny1, self.nx1 = self.grids[0]
         self.mv = cfg.cartesian_max_values(width)
         self.act = activation_fn(cfg.activation)
-        self._consts: Dict[Tuple[str, torch.device], torch.Tensor] = {}
-
-    # ------------------------------------------------------------------
-    def _const(self, name: str, device: torch.device, make):
-        """A constant table on ``device``, copied there once."""
-        key = (name, device)
-        if key not in self._consts:
-            self._consts[key] = make().to(device)
-        return self._consts[key]
-
-    def _stencil(self, device):
-        """(neighbour cell [G1, 9] i32, in-frame [G1, 9]) of the level-1
-        grid, in GRID_OFFSETS order."""
-        def make():
-            ny, nx = self.ny1, self.nx1
-            cid = np.arange(ny * nx)
-            offs = np.array(GRID_OFFSETS)
-            xn = cid[:, None] % nx + offs[:, 1]
-            yn = cid[:, None] // nx + offs[:, 0]
-            inb = (xn >= 0) & (xn < nx) & (yn >= 0) & (yn < ny)
-            nbr = np.clip(xn + nx * yn, 0, ny * nx - 1).astype(np.int32)
-            return torch.from_numpy(np.stack([nbr, inb.astype(np.int32)]))
-        tab = self._const("stencil", device, make)
-        return tab[0], tab[1].bool()
+        self._const = DeviceConsts()
 
     # ------------------------------------------------------------------
     def init_state(self, device=None) -> StreamState:
@@ -280,28 +307,12 @@ class StreamingDetector:
             return NodeSet(feat=feat, pos=pos, mask=mask,
                            graph=EventGraph(nbr=nbr, nbr_mask=nbr_mask),
                            tmax=tmax, grid_hw=(ny, nx))
-        dev = state.pos.device
-        cmask = state.cell_cnt > 0
-        big_neg = torch.finfo(torch.float32).min
-        feat = torch.where(cmask[:, None] & (state.cell_max > big_neg / 2),
-                           state.cell_max, 0.0)
-        pos = state.pos_sum / state.cell_cnt.clamp(min=1)[:, None]
-        # a true division by (W, H), as XLA leaves dagr_tpu's here (K3's
-        # pooled positions multiply by f32(1/W) instead, like its pool)
-        wh = self._const("wh", dev, lambda: torch.tensor(
+        wh = self._const("wh", state.pos.device, lambda: torch.tensor(
             [self.width, self.height], dtype=torch.float32))
-        pxy = torch.floor((pos[:, :2] + 1e-5) * wh) / wh
-        pos = torch.where(cmask[:, None], torch.cat([pxy, pos[:, 2:]], 1), 0.0)
-
-        nbr, inb = self._stencil(dev)
-        src_ok = stencil_srcs(cmask.reshape(1, ny, nx, 1)).reshape(-1, 9)
-        nbr_mask = state.adj & inb & src_ok & cmask[:, None]
-        if cfg.keep_temporal_ordering:
-            t_src = stencil_srcs(state.tmax.reshape(1, ny, nx, 1)).reshape(-1, 9)
-            nbr_mask = nbr_mask & (state.tmax[:, None] > t_src)
-        return NodeSet(feat=feat[None], pos=pos[None], mask=cmask[None],
-                       graph=EventGraph(nbr=nbr[None], nbr_mask=nbr_mask[None]),
-                       tmax=state.tmax[None], grid_hw=(ny, nx))
+        return level1_from_aggregates(
+            state.cell_cnt[None], state.pos_sum[None], state.cell_max[None],
+            state.adj[None], state.tmax[None], wh, grid_ny=ny, grid_nx=nx,
+            keep_temporal_ordering=cfg.keep_temporal_ordering)
 
     def _dense_tail(self, state: StreamState, chunk_nbr_mask, cv, cell_c,
                     count: bool, collect: Optional[dict] = None):
@@ -418,20 +429,50 @@ class StreamingDetector:
         self._dense_tail(state, None, None, None, False, collect=acts)
         return acts
 
+    # ------------------------------------------------------------------
+    def init_states(self, n_streams: int, device=None) -> List[StreamState]:
+        """One empty state per stream (see ``init_state``)."""
+        return [self.init_state(device) for _ in range(n_streams)]
+
+    def step_multistream(self, states: List[StreamState], pos_px: torch.Tensor,
+                         feat: torch.Tensor, valid: torch.Tensor
+                         ) -> Tuple[List[StreamState], torch.Tensor,
+                                    Dict[str, torch.Tensor]]:
+        """``step`` for S independent streams (``pos_px`` [S, C, 3], ``feat``
+        [S, C, F], ``valid`` [S, C]); returns the states, raw [S, 1, A,
+        5 + ncls] and each FLOP count stacked [S], as ``dagr_tpu``'s
+        ``make_step_multistream``.  A loop over the streams: the batched
+        multi-stream path, one search and one tail for all streams, is
+        ``streaming.serve.MultiStreamServer``."""
+        outs = [self.step(*a) for a in zip(states, pos_px, feat, valid)]
+        flops = {k: torch.stack([o[2][k] for o in outs]) for k in outs[0][2]}
+        return ([o[0] for o in outs], torch.stack([o[1] for o in outs]),
+                flops)
+
+
+def chunk_streams(pos_px, feat, chunk: int, device="cpu"):
+    """S lockstep streams (``pos_px`` [S, n, 3] pixel x, y, t_us; ``feat``
+    [S, n, F]; numpy or tensors) as padded chunks ``(pos_px i32 [S, chunk,
+    3], feat f32 [S, chunk, F], valid bool [S, chunk])`` on ``device``;
+    every stream's valid prefix has the same length."""
+    pos_px = np.asarray(pos_px)
+    feat = np.asarray(feat)
+    S, n = pos_px.shape[:2]
+    out = []
+    for i0 in range(0, max(n, 1), chunk):
+        c = min(i0 + chunk, n) - i0
+        p = np.zeros((S, chunk, 3), np.int32)
+        f = np.zeros((S, chunk, feat.shape[-1]), np.float32)
+        v = np.zeros((S, chunk), bool)
+        p[:, :c], f[:, :c], v[:, :c] = (pos_px[:, i0:i0 + c],
+                                        feat[:, i0:i0 + c], True)
+        out.append(tuple(torch.from_numpy(a).to(device) for a in (p, f, v)))
+    return out
+
 
 def chunk_events(pos_px, feat, chunk: int, device="cpu"):
     """One stream's events (``pos_px`` [n, 3] pixel x, y, t_us; ``feat``
     [n, F], numpy or tensors) as padded chunks ``(pos_px i32 [chunk, 3],
     feat f32 [chunk, F], valid bool [chunk])`` on ``device``."""
-    pos_px = np.asarray(pos_px)
-    feat = np.asarray(feat)
-    n = len(pos_px)
-    out = []
-    for i0 in range(0, max(n, 1), chunk):
-        c = min(i0 + chunk, n) - i0
-        p = np.zeros((chunk, 3), np.int32)
-        f = np.zeros((chunk, feat.shape[-1]), np.float32)
-        v = np.zeros((chunk,), bool)
-        p[:c], f[:c], v[:c] = pos_px[i0:i0 + c], feat[i0:i0 + c], True
-        out.append(tuple(torch.from_numpy(a).to(device) for a in (p, f, v)))
-    return out
+    return [tuple(a[0] for a in c) for c in chunk_streams(
+        np.asarray(pos_px)[None], np.asarray(feat)[None], chunk, device)]

@@ -6,12 +6,14 @@ CUDA device.  On a GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances as in chip_smoke.py: K1, K4 and K6's discrete outputs and
-K3's masks, ids and positions exact, K2 and K7 to 1e-5 relative, K3
-features to 1e-5, K10 bit-equal.  K3 and K10 are held against their
-twins on the CPU, which sum in node order as the kernels do (index_add_
-on the card uses atomics).  The streaming engine on the card is held
-against the same engine on the CPU in both window modes, past capacity.
+Tolerances as in chip_smoke.py: K1, K4, K6 and K8's search's discrete
+outputs and K3's masks, ids and positions exact, K2 and K7 to 1e-5
+relative, K3 features to 1e-5, K10 and K8's ring update and cell max
+bit-equal.  K3, K10 and K8's ring update are held against their twins on
+the CPU, which sum in node order as the kernels do (index_add_ on the
+card uses atomics).  The streaming engine and the multi-stream server on
+the card are held against the same on the CPU in both window modes, past
+capacity.
 """
 import numpy as np
 import pytest
@@ -22,16 +24,19 @@ from dagr_tpu_torch.core.types import EventBatch, EventGraph, NodeSet
 from dagr_tpu_torch.data.synthetic import random_event_arrays
 from dagr_tpu_torch.graph.build import (
     build_graph, build_graph_plain, search_edges_into_store,
-    search_edges_into_store_plain)
+    search_edges_into_store_plain, search_edges_streams,
+    search_edges_streams_plain)
 from dagr_tpu_torch.kernels import _build
 from dagr_tpu_torch.models.functional import spline_gather, spline_gather_plain
 from dagr_tpu_torch.ops.nms import postprocess, postprocess_plain
 from dagr_tpu_torch.ops.pool import (
-    accumulate_cells, accumulate_cells_plain, pool_graph, pool_graph_plain)
+    accumulate_cells, accumulate_cells_plain, cell_max, cell_max_plain,
+    pool_graph, pool_graph_plain, ring_update_cells, ring_update_cells_plain)
 from dagr_tpu_torch.ops.spline import (
     LevelEdges, spline_aggregate, spline_aggregate_plain)
 from dagr_tpu_torch.serve import Detector
 from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
+from dagr_tpu_torch.streaming.serve import MultiStreamServer, chunk_streams
 
 pytestmark = pytest.mark.cuda
 W, H = 320, 240
@@ -278,3 +283,124 @@ def test_streaming_engine_matches_cpu(dev, mode):
         assert int(st.num) == 2048
         for f in ("cell_cnt", "adj", "pos_sum", "tmax"):
             assert torch.equal(getattr(st, f).cpu(), getattr(st_ref, f)), f
+
+
+@pytest.mark.parametrize("case", [
+    # (streams, ring slots per stream, chunk, events per stream, valid
+    #  rows of the chunk, hot-pixel events)
+    (1, 2048, 1024, 5000, 1024, 300),    # ring wraps, hot pixel over the cap
+    (8, 4096, 1024, 3000, 700, 0),       # 8 streams, padded chunk
+    (8, 2048, 256, 3000, 0, 0),          # empty chunk
+    (8, 2048, 1, 2500, 1, 300),          # one event, hot pixel
+])
+def test_serve_search_edge_cases(dev, case):
+    S, NR, C, n, n_q, hot = case
+    HW = H * W
+    pix = np.full(S * NR, S * HW, np.int32)
+    ring_t = np.full(S * NR, -(2 ** 30), np.int32)
+    vid = np.full(S * NR, -1, np.int32)
+    q = np.zeros((S, C, 3), np.int32)
+    v = np.arange(max(0, n - NR), n)
+    for s in range(S):
+        ev = event_stream(100 * s + n, n, hot)
+        slot = s * NR + v % NR
+        pix[slot] = s * HW + ev[v, 1] * W + ev[v, 0]
+        ring_t[slot], vid[slot] = ev[v, 2], v
+        q[s] = ev[n - C:]
+    q_valid = np.zeros((S, C), bool)
+    q_valid[:, :n_q] = True
+    t = lambda a: torch.from_numpy(a).to(dev)
+    args = (t(pix), t(ring_t), t(vid), t(q),
+            t(np.arange(n - C, n, dtype=np.int32)), t(q_valid))
+    a = search_edges_streams(*args, **GRAPH_KW)
+    b = search_edges_streams_plain(*args, **GRAPH_KW)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert bool(a[1].any()) == bool(n_q)
+
+
+@pytest.mark.parametrize("rows,n_valid", [(2 * 1024, 1500), (2, 1), (512, 0)])
+def test_ring_update_cells_bit_equal(dev, rows, n_valid):
+    """Two streams' folded cells against the twin on the CPU, two chunks
+    in a row: evicted rows (some dead), a hot cell, invalid rows."""
+    G, nx, K, N = 2 * 40 * 56, 56, 15, 2 * 3072
+    rng = np.random.default_rng(rows)
+    state = [torch.from_numpy(rng.integers(0, 50, G).astype(np.int32)),
+             torch.from_numpy(rng.random((G, 3), np.float32) * 40),
+             torch.from_numpy(rng.random(G, np.float32)),
+             torch.from_numpy(rng.integers(-5, N, (G, 9)).astype(np.int32))]
+    cells = torch.from_numpy(rng.integers(0, G + 1, N).astype(np.int32))
+    vid = torch.from_numpy(rng.integers(0, 10 * N, N).astype(np.int32))
+    got = [s.to(dev) for s in state]
+    for _ in range(2):
+        ev_cell = rng.integers(0, G + 1, rows).astype(np.int32)
+        cell = rng.integers(0, G, rows).astype(np.int32)
+        cell[: rows // 3] = 777                       # a hot cell
+        cell[n_valid:] = G
+        chunk = [torch.from_numpy(a) for a in (
+            ev_cell, rng.random((rows, 3), np.float32), cell,
+            rng.random((rows, 3), np.float32),
+            rng.integers(0, N, (rows, K)).astype(np.int32),
+            rng.random((rows, K)) < 0.8)] + [cells, vid]
+        ring_update_cells_plain(*state, *chunk, grid_nx=nx)
+        ring_update_cells(*got, *(a.to(dev) for a in chunk), grid_nx=nx)
+    for a, b in zip(got, state):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n,c", [(50176, 16), (1, 16), (777, 33), (4096, 8)])
+def test_cell_max_bit_equal(dev, n, c):
+    """The kernel's int max of encoded floats equals the float max; the
+    4096-row case has many ties, both signed zeros and -FLT_MAX itself."""
+    rng = np.random.default_rng(n)
+    G = 40 * 56
+    cells = torch.from_numpy(rng.integers(0, G + 1, n).astype(np.int32)).to(dev)
+    feat = rng.standard_normal((n, c), np.float32)
+    if n == 4096:
+        feat = np.round(feat)
+        feat[::7] = np.finfo(np.float32).min
+    feat = torch.from_numpy(feat).to(dev)
+    a, b = cell_max(cells, feat, G), cell_max_plain(cells, feat, G)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["grow", "ring"])
+def test_server_matches_cpu(dev, mode):
+    """4 streams of 3000 events in chunks of 256 through a grow window
+    and a 2048-slot ring window (which wraps): the card's server against
+    the same server on the CPU, its kernels launched on every step, and
+    no step after the first waits on the device."""
+    cfg = DagrConfig(n_nodes=2048)
+    det = Detector(cfg, H, W, dev, seed=8)
+    cpu = Detector(cfg, H, W, "cpu", state_dict=det.model.state_dict())
+    srv = MultiStreamServer(det.model, H, W, 4, 256, window_mode=mode)
+    ref = MultiStreamServer(cpu.model, H, W, 4, 256, window_mode=mode)
+    st, st_ref = srv.init_state(), ref.init_state()
+    pos = np.stack([event_stream(20 + s, 3000) for s in range(4)])
+    feat = np.random.default_rng(8).integers(0, 2, (4, 3000, 1)).astype(np.float32)
+    kernels = ("serve_search", "spline_aggregate", "voxel_pool") + (
+        ("stream_accumulate",) if mode == "grow" else
+        ("serve_ring_update", "cell_max"))
+    for i, c in enumerate(chunk_streams(pos, feat, 256)):
+        c_dev = [a.to(dev) for a in c]
+        before = _build.launch_counts()
+        torch.cuda.set_sync_debug_mode("error" if i else "default")
+        try:
+            st, raw, info = srv.step(st, *c_dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        assert all(after[k] > before[k] for k in kernels)
+        if mode == "ring":
+            assert after["stream_accumulate"] == before["stream_accumulate"]
+        st_ref, raw_ref, info_ref = ref.step(st_ref, *c)
+        torch.testing.assert_close(raw.cpu(), raw_ref, atol=1e-4, rtol=1e-4)
+        assert bool(info["coverage_ok"]) == bool(info_ref["coverage_ok"])
+    fields = ("num", "pix", "vid", "cells", "cell_cnt", "pos_sum", "tmax") + (
+        ("adj",) if mode == "grow" else ("adj_death",))
+    for f in fields:
+        assert torch.equal(getattr(st, f).cpu(), getattr(st_ref, f)), f
+    if mode == "ring":
+        assert int(st.num) > srv.NR
