@@ -46,11 +46,27 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    ring step, and K2 (both event convs and the tail's first conv), K10
    (the S*G1 folded cells) and K3 (the tail's first pooling) on a grow
    step.  Times the steps and profiles their device time;
-9. prints the kernel table (every kernel's error, time, twin time,
+9. trains DAGR-S through the recipe step (``dagr_tpu_torch.train.state.
+   train_step``: train-mode forward, SimOTA loss, backward through K9a
+   and K9b, NaN scrub, clip, AdamW, EMA) from a fresh init: one window's
+   loss and every gradient on the card against the CPU plain path (1e-4
+   of each leaf's max, the SimOTA assignment identical); 2 + 12 steps on
+   8 windows of 45k events (finite losses and gradients, every parameter
+   moves, the EMA follows; every train kernel launched on every step),
+   with K9a (the event level and the first stencil level) and K9b (all
+   four poolings, max and mean) held against their twins on the inputs
+   of the second step, timed beside the twins and a library call; the
+   p50 step, peak memory and device busy time; two steps at the recipe's
+   batch of 64; the learning gate (the two-box overfit, 400 Adam steps,
+   AP50 >= 0.9 and AP >= 0.5).  No backward kernel may launch in the
+   sync, streaming or serving runs;
+10. prints the kernel table (every kernel's error, time, twin time,
    bound and library-call time, and its launches on each path), the
    card line and, last, the result line.
 
-Usage: ``python3 chip_smoke.py`` from the repository root.
+Usage: ``python3 chip_smoke.py`` from the repository root;
+``python3 chip_smoke.py --train-only`` runs the build and phase 9 alone
+and prints no result line.
 """
 from __future__ import annotations
 
@@ -97,7 +113,16 @@ KERNEL_TABLE = {
     "serve_ring_update": ("voxel_pool.cu",
                           "dagr_tpu/streaming/serve.py:1223"),
     "cell_max": ("voxel_pool.cu", "dagr_tpu/streaming/serve.py:1361"),
+    "spline_aggregate_backward": ("spline_aggregate.cu",
+                                  "dagr_tpu/ops/spline.py:242"),
+    "voxel_pool_backward": ("voxel_pool.cu", "dagr_tpu/ops/pool.py:100"),
 }
+# the training phase: B windows a step (the recipe's batch for two), timed
+# steps after warm-up ones, the learning gate's steps
+TRAIN_B, TRAIN_WARM, TRAIN_TIMED, RECIPE_B, GATE_STEPS = 8, 2, 12, 64, 400
+BACKWARD_KERNELS = ("spline_aggregate_backward", "voxel_pool_backward")
+TRAIN_KERNELS = ("graph_search", "spline_aggregate", "voxel_pool") \
+    + BACKWARD_KERNELS
 
 
 def require(ok: bool, what: str) -> None:
@@ -121,6 +146,18 @@ def cuda_ms(fn, reps: int) -> float:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+
+def kernel_events(prof):
+    """The device kernels of a torch.profiler trace, summed by name: its
+    CUDA-side events less the host ranges (record_function ranges and
+    the optimizer's step are mirrored onto the device timeline)."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == DeviceType.CPU}
+    return [e for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in host]
 
 
 def nbytes(*tensors) -> int:
@@ -424,7 +461,6 @@ def serve(cfg, events, det):
 def profile_windows(det, events):
     """Device busy ms per window and the kernels with the most device
     time, from torch.profiler over 4 single-window requests."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     batches = [events_batch([w]) for w in events[1:5]]
@@ -434,8 +470,7 @@ def profile_windows(det, events):
         for b in batches:
             det(b)
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    kern = kernel_events(prof)
     n = len(batches)
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:15]
@@ -638,7 +673,6 @@ def stream(cfg, det, events, card):
     checked against the sync path and a recompute, then timed, then a
     grow step replayed from a CUDA graph.  Returns the launch counts of
     the grow run and of the ring run."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from dagr_tpu_torch.kernels import _build
@@ -740,7 +774,7 @@ def stream(cfg, det, events, card):
         for c in prof_chunks:
             ts, _, _ = fast.step(ts, *c)
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = kernel_events(prof)
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / len(prof_chunks)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
     ts, ms256 = step_ms(fast, ts, chunk_events(
@@ -845,7 +879,6 @@ def timed_step(srv, state, chunk, **kw):
 def profile_steps(srv, state, chunks):
     """Device busy ms per step and the kernels with the most device time,
     from torch.profiler over ``chunks``; returns (state, busy, top)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -854,7 +887,7 @@ def profile_steps(srv, state, chunks):
         for c in chunks:
             state, _, _ = srv.step(state, *c)
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = kernel_events(prof)
     n = len(chunks)
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
@@ -1225,6 +1258,388 @@ def serve_streams(cfg, det, events, card):
     return out, checks, grow_launches, ring_launches
 
 
+def loss_and_grads(model, events, targets):
+    """Train-mode loss of ``model`` on a copy (its running statistics stay)
+    and the gradient of every parameter: (losses, {name: grad}, raw)."""
+    import copy
+
+    from dagr_tpu_torch.models.dagr import detection_loss
+
+    m = copy.deepcopy(model).train()
+    raw = m(events)
+    losses = detection_loss(raw, torch.as_tensor(targets, device=raw.device),
+                            m.cfg, H)
+    names, params = zip(*m.named_parameters())
+    grads = torch.autograd.grad(losses["total_loss"], params)
+    return ({k: v.detach() for k, v in losses.items()},
+            dict(zip(names, grads)), raw.detach())
+
+
+def card_against_cpu(model, events, targets):
+    """Phase 9a: one window's train-mode loss and every gradient leaf on
+    the card against the same on the CPU plain path: the loss to 1e-5
+    relative, each leaf to 1e-4 of its largest |g|, the SimOTA
+    assignment (fg anchors, matched boxes) identical."""
+    from dagr_tpu_torch.models.dagr import anchor_geometry
+    from dagr_tpu_torch.models.yolox_loss import simota_targets
+
+    got = loss_and_grads(model, events, targets)
+    want = loss_and_grads(model.cpu(), events.to("cpu"), targets)
+    model.cuda()
+    for k, v in want[0].items():
+        require(abs(float(got[0][k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))),
+                f"train loss {k}: card {float(got[0][k])} vs CPU {float(v)}")
+    worst = 0.0
+    for name, g in want[1].items():
+        require(bool(torch.isfinite(got[1][name]).all()), f"grad {name} finite")
+        err = max_err(got[1][name], g) / max(float(g.abs().max()), 1e-30)
+        require(err <= 1e-4, f"grad {name}: card vs CPU {err:.3g} of its max")
+        worst = max(worst, err)
+    grids, strides = (torch.from_numpy(a) for a in anchor_geometry(model.cfg, H))
+    tgt = torch.as_tensor(targets)
+    with torch.no_grad():
+        a = simota_targets(got[2].cpu(), grids, strides, tgt, model.cfg.num_classes)
+        b = simota_targets(want[2], grids, strides, tgt, model.cfg.num_classes)
+    require(torch.equal(a[1], b[1]) and torch.equal(a[2], b[2]),
+            "SimOTA fg and matched boxes: card == CPU")
+    print(f"train, card vs CPU plain path (1 window): total loss "
+          f"{float(got[0]['total_loss']):.6f} vs {float(want[0]['total_loss']):.6f}"
+          f"; {len(want[1])} gradient leaves, worst {worst:.3g} of the "
+          f"leaf's max |g|; fg anchors {int(a[1].sum())}, identical", flush=True)
+
+
+def record_calls(module, name, shape_of):
+    """Wraps ``module.name`` to list ``shape_of(args)`` of every call;
+    returns (list, restore)."""
+    fn, seen = getattr(module, name), []
+
+    def wrapped(*args, **kwargs):
+        seen.append(shape_of(args))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, wrapped)
+    return seen, lambda: setattr(module, name, fn)
+
+
+def check_spline_backward(cap, card):
+    """K9a against its twin on the inputs a train step gave it (1e-5
+    relative: the twin adds a row's edges with index_add_, whose order
+    differs on the card), timed beside the twin and one sparse CSR
+    product (A^T grad_g, cuSPARSE) computing the same function."""
+    from dagr_tpu_torch.ops.spline import (
+        bilinear_basis, spline_aggregate_backward,
+        spline_aggregate_backward_plain)
+
+    checks = []
+    for args, _ in cap.calls:
+        grad_g, edges, n_src = args[:3]
+        M, K = edges.nbr.shape
+        C = grad_g.shape[1] // 25
+        a = spline_aggregate_backward(*args)
+        b = spline_aggregate_backward_plain(*args)
+        err = max_err(a, b)
+        require(err <= 1e-5 * max(1.0, float(b.abs().max())),
+                f"K9a M={M} C={C}: max |grad_x - twin| = {err}")
+        # A^T as a CSR matrix [n_src, M*25]: 4 taps of every masked edge
+        w = bilinear_basis(edges.attr) * edges.mask[..., None]
+        m, k, p = w.nonzero(as_tuple=True)
+        rows = edges.nbr[m, k].long()
+        At = torch.sparse_coo_tensor(torch.stack([rows, m * 25 + p]),
+                                     w[m, k, p], (n_src, M * 25)).coalesce() \
+            .to_sparse_csr()
+        G = grad_g.reshape(M * 25, C)
+        lib = torch.sparse.mm(At, G)
+        require(max_err(lib, b) <= 1e-4 * max(1.0, float(b.abs().max())),
+                "sparse A^T grad_g == K9a's twin")
+        # the data's needs: the grad_g taps the masked edges touch, their
+        # attributes and CSR entries, the offsets, grad_x
+        n_edges = int(edges.mask.sum())
+        n_taps = int(torch.unique(m * 25 + p).numel())
+        rec = record(err, cuda_ms(lambda: spline_aggregate_backward(*args), 20),
+                     cuda_ms(lambda: spline_aggregate_backward_plain(*args), 5),
+                     4 * (n_taps * C + 3 * n_edges + n_src + 1 + n_src * C),
+                     8 * C * n_edges,
+                     cuda_ms(lambda: torch.sparse.mm(At, G), 20))
+        rec["at"] = f"M={M} K={K} C={C} n_src={n_src} edges={n_edges}"
+        checks.append(rec)
+        del At, w, m, k, p, rows, lib
+        print(f"K9a spline_aggregate_backward, {rec['at']}: err {err:.3g}; "
+              f"kernel {rec['ms']:.4f} ms, twin {rec['plain_ms']:.4f} ms, "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), sparse "
+              f"CSR product {rec['library_ms']:.4f} ms [{card}]", flush=True)
+    return checks
+
+
+def check_pool_backward(cap, card):
+    """K9b against its twin on the card, bit for bit, on the inputs each
+    pooling's backward got in a train step, at the pooling's own aggr and
+    the other one; timed (own aggr) beside the twin and autograd through
+    one scatter_reduce (amax or mean) over the same rows."""
+    from dagr_tpu_torch.ops.pool import (
+        pool_features_backward, pool_features_backward_plain)
+
+    checks = []
+    for args, kw in cap.calls:
+        gp, feat, pooled, order, start = args
+        B, N, C = feat.shape
+        G = B * pooled.shape[1]
+        for aggr in (kw["aggr"], {"max": "mean", "mean": "max"}[kw["aggr"]]):
+            a = pool_features_backward(*args, aggr=aggr)
+            b = pool_features_backward_plain(*args, aggr=aggr)
+            require(torch.equal(a, b), f"K9b {aggr} on the {kw['aggr']} "
+                    f"pooling of {pooled.shape[1]} cells: bit-equal to twin")
+        aggr = kw["aggr"]
+        rank = torch.searchsorted(start, torch.arange(
+            B * N, device=feat.device, dtype=start.dtype), right=True) - 1
+        seg = torch.empty(B * N, dtype=torch.long, device=feat.device)
+        seg[order.long()] = rank.long()
+        x = feat.reshape(B * N, C).detach().requires_grad_(True)
+        lib_out = torch.zeros((G + 1, C), device=feat.device).scatter_reduce(
+            0, seg[:, None].expand(B * N, C), x,
+            "amax" if aggr == "max" else "mean", include_self=False)
+        g_lib = torch.cat([gp.reshape(G, C), gp.new_zeros(1, C)])
+        # the data's needs: grad_pooled of the non-empty cells, for max
+        # their pooled rows and the members' features, the members'
+        # order entries, the offsets, grad_feat written whole
+        n_in = int(start[-1])
+        n_cells = int((start[1:] > start[:-1]).sum())
+        per_cell = 2 if aggr == "max" else 1
+        rec = record(
+            0.0, cuda_ms(lambda: pool_features_backward(*args, aggr=aggr), 20),
+            cuda_ms(lambda: pool_features_backward_plain(*args, aggr=aggr), 5),
+            4 * (per_cell * n_cells * C + (per_cell - 1) * n_in * C + n_in
+                 + G + 1 + feat.numel()),
+            n_in * C * (3 if aggr == "max" else 1),
+            cuda_ms(lambda: torch.autograd.grad(lib_out, x, g_lib,
+                                                retain_graph=True), 20))
+        rec["at"] = f"{aggr} pooling B={B} N={N} C={C} -> {pooled.shape[1]} cells"
+        checks.append(rec)
+        print(f"K9b voxel_pool_backward, {rec['at']}: bit-equal to twin (max "
+              f"and mean); kernel {rec['ms']:.4f} ms, twin {rec['plain_ms']:.4f}"
+              f" ms, bound {rec['bound_ms']:.4f} ms, scatter_reduce backward "
+              f"{rec['library_ms']:.4f} ms [{card}]", flush=True)
+    return checks
+
+
+def merge_checks(checks):
+    """A kernel's row from its checks: the largest error, the times and
+    bounds summed over the checked calls (the same work for each)."""
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    rec = {k: sum(c[k] for c in checks) for k in keys}
+    t_bytes = sum(c["bound_ms"] for c in checks if c["bound_by"] == "bytes")
+    rec.update(max_abs_err=max(c["max_abs_err"] for c in checks),
+               bound_by="bytes" if 2 * t_bytes >= rec["bound_ms"]
+               else "operations", train_checks=checks)
+    return rec
+
+
+def learning_gate(card):
+    """Phase 9e: tests/test_learning_gate.py's two-box overfit on the card
+    (64x48, 256 nodes, K=8, Adam(2e-3), GATE_STEPS steps): train-set
+    AP50 >= 0.9 and AP >= 0.5 by the port's coco_map."""
+    from dagr_tpu_torch.config import DagrConfig
+    from dagr_tpu_torch.data.synthetic import box_windows
+    from dagr_tpu_torch.eval.buffers import detections_to_list, targets_to_list
+    from dagr_tpu_torch.eval.coco import coco_map
+    from dagr_tpu_torch.models.dagr import (
+        DAGR, detect, detection_loss, init_fresh)
+
+    gw, gh = 64, 48
+    cfg = DagrConfig(n_nodes=256, max_neighbors=8, batch_size=2, radius=0.05)
+    events, targets = box_windows(np.random.default_rng(0), cfg.n_nodes, gw,
+                                  gh, device="cuda")
+    model = DAGR(cfg, gh, gw)
+    init_fresh(model, torch.Generator().manual_seed(0))
+    model.cuda()
+    opt = torch.optim.Adam(model.parameters(), lr=2e-3)
+    tgt = torch.from_numpy(targets).cuda()
+    t0 = time.perf_counter()
+    for _ in range(GATE_STEPS):
+        loss = detection_loss(model.train()(events), tgt, cfg, gh)["total_loss"]
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    require(bool(torch.isfinite(loss)), "learning gate loss finite")
+    with torch.no_grad():
+        raw = model.eval()(events)
+    m = coco_map(targets_to_list(targets),
+                 detections_to_list(detect(raw, cfg, gh, gw)), cfg.num_classes)
+    require(m["AP_50"] >= 0.9 and m["AP"] >= 0.5, f"learning gate: {m}")
+    print(f"learning gate on the card: {GATE_STEPS} Adam steps in {secs:.1f} "
+          f"s, final loss {float(loss.detach()):.4f}, train-set AP {m['AP']:.4f}, AP50 "
+          f"{m['AP_50']:.4f} [{card}]", flush=True)
+
+
+def train(cfg, card):
+    """Phase 9: training DAGR-S through the port's recipe step.  (a) one
+    window's loss and gradients on the card == the CPU plain path; (b)
+    TRAIN_WARM + TRAIN_TIMED recipe steps on B=TRAIN_B windows of N_VALID
+    events (losses and gradients finite, params move, the EMA follows),
+    the launches of the run counted, K9a and K9b held against their twins
+    on the inputs of the second step (Capture), the timed steps' p50,
+    peak memory, the device busy time and host time by stage of 2
+    profiled steps; (c) two steps at the recipe's batch of RECIPE_B; (d)
+    the learning gate.
+    Returns ({kernel: record}, launches of the train run, its steps)."""
+    import copy
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dagr_tpu_torch.data.synthetic import random_events, random_targets
+    from dagr_tpu_torch.kernels import _build
+    from dagr_tpu_torch.models.dagr import DAGR, init_fresh
+    from dagr_tpu_torch.ops import pool as pool_mod
+    from dagr_tpu_torch.ops import spline as spline_mod
+    from dagr_tpu_torch.train.state import (
+        init_state, make_optimizer, train_step)
+
+    tcfg = cfg.replace(batch_size=TRAIN_B)
+    rng = np.random.default_rng(SEED + 1)
+    events = random_events(rng, TRAIN_B, N_NODES, W, H, n_valid=N_VALID,
+                           device="cuda")
+    targets = random_targets(rng, TRAIN_B, n_boxes=30)
+    model = DAGR(tcfg, H, W)
+    init_fresh(model, torch.Generator().manual_seed(SEED))
+    model.cuda()
+
+    one = dataclasses.replace(events, **{f: getattr(events, f)[:1] for f in (
+        "pos", "feat", "mask")})
+    card_against_cpu(model, one, targets[:1])
+
+    losses, grads, _ = loss_and_grads(model, events, targets)
+    require(all(bool(torch.isfinite(g).all()) for g in grads.values())
+            and bool(torch.isfinite(losses["total_loss"])),
+            f"B={TRAIN_B} train-mode loss and raw gradients finite")
+    del grads
+
+    # num_iters_per_epoch 10: a 3-step warm-up, lr(0) = 0 and lr(1) > 0
+    recipe, sched = make_optimizer(tcfg, 10)
+    state = init_state(model, recipe)
+    p0 = {k: v.clone() for k, v in model.state_dict().items()}
+    ema0 = {k: v.clone() for k, v in state.ema.state_dict().items()}
+    k9a_shapes, restore = record_calls(
+        spline_mod, "spline_aggregate_backward",
+        lambda a: (a[0].shape[0], a[1].nbr.shape[1], a[0].shape[1] // 25))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    step_ms, n_steps = [], TRAIN_WARM + TRAIN_TIMED
+    for i in range(n_steps):
+        if i == 1:
+            # the event level (K = max_neighbors) and the first stencil
+            # level's calls; every pooling's backward
+            restore()
+            G1 = TRAIN_B * cfg.grid_shapes()[0][0] * cfg.grid_shapes()[0][1]
+            at = [j for j, (m, k, _) in enumerate(k9a_shapes)
+                  if k == cfg.max_neighbors or m == G1]
+            caps = [Capture(spline_mod, "spline_aggregate_backward", *at),
+                    Capture(pool_mod, "pool_features_backward",
+                            *range(len(cfg.grid_shapes())))]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = train_step(state, events, targets)
+        end.record()
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(v)) for v in loss.values()),
+                f"train step {i}: losses finite")
+        if i == 1:
+            for cp in caps:
+                cp.close()
+        if i >= TRAIN_WARM:
+            step_ms.append(start.elapsed_time(end))
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for k in TRAIN_KERNELS:
+        require(launches[k] >= n_steps, f"kernel {k} launched on every "
+                f"train step ({launches[k]} in {n_steps})")
+    sd = model.state_dict()
+    require(all(not torch.equal(sd[k], p0[k]) for k, _ in
+                model.named_parameters()), "every parameter moved")
+    ema = state.ema.state_dict()
+    moved = max(max_err(sd[k], p0[k]) for k in sd)
+    lag = max(max_err(ema[k], sd[k]) for k in sd)
+    require(state.ema_updates == n_steps and lag <= 0.05 * moved
+            and all(not torch.equal(ema[k], ema0[k]) for k, _ in
+                    model.named_parameters()),
+            f"EMA follows the weights (lag {lag:.3g}, moved {moved:.3g})")
+    print(f"train: {n_steps} recipe steps at B={TRAIN_B} (lr {sched(1):.3g} "
+          f"at step 1 .. {sched(n_steps - 1):.3g}); last total loss "
+          f"{float(loss['total_loss']):.4f}; weights moved up to {moved:.3g}, "
+          f"EMA within {lag:.3g} of them; launches per step: " + ", ".join(
+              f"{k} {launches[k] / n_steps:g}" for k in TRAIN_KERNELS),
+          flush=True)
+
+    out = {"spline_aggregate_backward": merge_checks(
+               check_spline_backward(caps[0], card)),
+           "voxel_pool_backward": merge_checks(
+               check_pool_backward(caps[1], card))}
+    del caps
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            train_step(state, events, targets)
+        torch.cuda.synchronize()
+    kern = kernel_events(prof)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / 2
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
+    stages = {e.key: e.cpu_time_total / 1e3 / 2 for e in prof.key_averages()
+              if e.key.startswith("train_step.")
+              and e.device_type == DeviceType.CPU}
+    p50 = float(np.median(step_ms))
+    print(f"DAGR-S train step, B={TRAIN_B} x {N_VALID} events: p50 {p50:.3f} "
+          f"ms (min {min(step_ms):.3f}, max {max(step_ms):.3f}, {len(step_ms)}"
+          f" steps), {TRAIN_B / p50 * 1e3:.3f} windows/s, "
+          f"{TRAIN_B * N_VALID / p50 / 1e3:.3f} Mevents/s; peak memory "
+          f"{peak:.3f} GiB [{card}]", flush=True)
+    print("profile, host ms per train step by stage (profiled): " + ", ".join(
+        f"{k.split('.')[1]} {v:.3f}" for k, v in stages.items()), flush=True)
+    if busy > 0:
+        print(f"profile, per train step: device busy {busy:.3f} ms, idle "
+              f"share {1 - busy / p50:.3f} of the p50 step [{card}]", flush=True)
+        for e in top:
+            print(f"  {e.self_device_time_total / 1e3 / 2:8.4f} ms  "
+                  f"x{e.count // 2:<4d} {e.key[:70]}", flush=True)
+    else:
+        print("profile: the profiler saw no device kernels; device busy "
+              "time not measured", flush=True)
+
+    # (c) the recipe's batch
+    big = random_events(rng, RECIPE_B, N_NODES, W, H, n_valid=N_VALID,
+                        device="cuda")
+    big_t = random_targets(rng, RECIPE_B, n_boxes=30)
+    del events
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(2):         # the first step also grows the allocator
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = train_step(state, big, big_t)
+        end.record()
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(v)) for v in loss.values()),
+                f"B={RECIPE_B} step: losses finite")
+        ms.append(start.elapsed_time(end))
+    print(f"DAGR-S train step at the recipe's batch, B={RECIPE_B} x {N_VALID} "
+          f"events: {ms[1]:.3f} ms (the second step; the first "
+          f"{ms[0]:.3f}), {RECIPE_B * N_VALID / ms[1] / 1e3:.3f} Mevents/s; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+          f"of {torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}"
+          f" [{card}]", flush=True)
+    del big, state, model
+    torch.cuda.empty_cache()
+
+    learning_gate(card)
+    return out, launches, n_steps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the GPU",
@@ -1250,6 +1665,13 @@ def main() -> int:
     print(open(f"{lib}.log").read().strip(), flush=True)
 
     cfg = DagrConfig()
+    if sys.argv[1:] == ["--train-only"]:
+        # the training phase alone (build, checks, timings), no result line
+        trained, counts, n_steps = train(cfg, card)
+        for name, rec in trained.items():
+            print(json.dumps({"name": name, "launches": counts[name],
+                              "train_steps": n_steps, **rec}))
+        return 0
     rng = np.random.default_rng(SEED)
     events = [random_events(rng, 1, N_NODES, W, H, n_valid=N_VALID,
                             device="cuda") for _ in range(9)]
@@ -1301,6 +1723,16 @@ def main() -> int:
     launches["serve_search"] = serve_launches["serve_search"]
     for k in ("serve_ring_update", "cell_max"):
         launches[k] = serve_ring_launches[k]
+    # eval does not pay for training: no backward kernel in the sync,
+    # grow, ring or serving runs
+    for what, counts in (("sync", launches), ("grow", grow_launches),
+                         ("ring", ring_launches), ("serve", serve_launches),
+                         ("serve ring", serve_ring_launches)):
+        require(all(counts[k] == 0 for k in BACKWARD_KERNELS),
+                f"no backward kernel launched in the {what} run")
+    trained, train_launches, n_steps = train(cfg, card)
+    kernels.update(trained)
+    launches.update({k: train_launches[k] for k in BACKWARD_KERNELS})
     rows = []
     for name, rec in kernels.items():
         require(launches[name] > 0, f"kernel {name} launched on its path")
@@ -1316,6 +1748,8 @@ def main() -> int:
                      "ring_launches": ring_launches[name],
                      "serve_launches": serve_launches[name],
                      "serve_ring_launches": serve_ring_launches[name],
+                     "train_launches": train_launches[name],
+                     "train_launches_per_step": train_launches[name] / n_steps,
                      **rec})
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -42,32 +42,65 @@
 // taps then go through the same add_edge as K2.  Bound by the latency
 // of the C*K scattered source rows (a 1024-event chunk at Cin = 16 is
 // 1 MB of gathers and 1.6 MB of output); at C = 1 one block does it.
+//
+// K9a: the backward of K2 for training, grad_x = A^T grad_g.  Replaces
+// what jax.grad derives from dagr_tpu/ops/spline.py:242 spline_conv and
+// :145 stencil_spline_conv (the scatter-add transpose of their source
+// gathers): grad_x[s, c] = sum over edges (m, k) with nbr = s of
+// mask * sum_p B_p(attr_mk) * grad_g[m, p, c].  The caller gives the
+// transposed CSR of the level's masked edges (edge ids stable-sorted by
+// source: order, start).  What bounds it on an H100: memory.  It reads
+// the grad_g taps its edges touch (4 of C floats per edge, at most the
+// M * 25 * C floats of grad_g) and writes n_src * C floats: at the event
+// level of a batch of 8 (400k destinations, C = 16) at most 640 MB read
+// and 26 MB written.  Design:
+// a group of tpr = min(32, pow2 >= C) lanes per source row, lanes over
+// channels; the group walks the row's edges in edge order, recomputes
+// each edge's 4 taps with K2's edge_taps and sums them in registers, then
+// writes its grad_x row once.  No atomics, so the sum order is fixed and
+// the result deterministic (F4); a row without edges gets 0.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// Adds one edge (source row xs, attribute (ax, ay)) into a destination's
-// [P, C] tap tile: this thread's channels lane, lane + tpd, ...
-__device__ __forceinline__ void add_edge(
-    float* acc, const float* __restrict__ xs, float ax, float ay, int ks,
-    int C, int lane, int tpd) {
+// The 4 non-zero bilinear taps of an edge with attribute (ax, ay): the
+// offsets t00 (tap (bx, by)) and t10 (tap (bx, by + 1)) of a [P, C] tile,
+// t00 + C and t10 + C their x + 1 neighbours, and the weights.
+struct Taps {
+  int t00, t10;
+  float w00, w01, w10, w11;
+};
+
+__device__ __forceinline__ Taps edge_taps(float ax, float ay, int ks, int C) {
   const float kmax = (float)(ks - 1);
   const float px = fminf(fmaxf(ax, 0.f), 1.f) * kmax;
   const float py = fminf(fmaxf(ay, 0.f), 1.f) * kmax;
   const float bx = fminf(fmaxf(floorf(px), 0.f), kmax - 1.f);
   const float by = fminf(fmaxf(floorf(py), 0.f), kmax - 1.f);
   const float fx = px - bx, fy = py - by;
-  const float w00 = (1.f - fy) * (1.f - fx), w01 = (1.f - fy) * fx;
-  const float w10 = fy * (1.f - fx), w11 = fy * fx;
-  const int t00 = ((int)by * ks + (int)bx) * C;
-  const int t10 = t00 + ks * C;
+  Taps t;
+  t.w00 = (1.f - fy) * (1.f - fx);
+  t.w01 = (1.f - fy) * fx;
+  t.w10 = fy * (1.f - fx);
+  t.w11 = fy * fx;
+  t.t00 = ((int)by * ks + (int)bx) * C;
+  t.t10 = t.t00 + ks * C;
+  return t;
+}
+
+// Adds one edge (source row xs, attribute (ax, ay)) into a destination's
+// [P, C] tap tile: this thread's channels lane, lane + tpd, ...
+__device__ __forceinline__ void add_edge(
+    float* acc, const float* __restrict__ xs, float ax, float ay, int ks,
+    int C, int lane, int tpd) {
+  const Taps t = edge_taps(ax, ay, ks, C);
   for (int c = lane; c < C; c += tpd) {
     const float v = xs[c];
-    acc[t00 + c] += w00 * v;
-    acc[t00 + C + c] += w01 * v;
-    acc[t10 + c] += w10 * v;
-    acc[t10 + C + c] += w11 * v;
+    acc[t.t00 + c] += t.w00 * v;
+    acc[t.t00 + C + c] += t.w01 * v;
+    acc[t.t10 + c] += t.w10 * v;
+    acc[t.t10 + C + c] += t.w11 * v;
   }
 }
 
@@ -149,6 +182,37 @@ __global__ void spline_aggregate_gather_kernel(
   store_tile(sg, g, m0, nd, P, C);
 }
 
+// K9a: grad_x of n_src source rows; tpr lanes per row, rows_pb rows per
+// block.  Edge e = order[j] is slot e % K of destination e / K.
+__global__ void spline_aggregate_backward_kernel(
+    const float* __restrict__ grad_g,     // [M, ks*ks*C]
+    const float* __restrict__ attr,       // [M, K, 2]
+    const int* __restrict__ order,        // [M*K] edge ids by source
+    const int* __restrict__ start,        // [n_src + 1]
+    int n_src, int K, int C, int ks, int tpr, int rows_pb,
+    float* __restrict__ grad_x) {         // [n_src, C]
+  const int r = threadIdx.x / tpr, lane = threadIdx.x - r * tpr;
+  const int row = blockIdx.x * rows_pb + r;
+  if (row >= n_src) return;
+  const int st = start[row], en = start[row + 1];
+  const size_t PC = (size_t)ks * ks * C;
+  for (int c = lane; c < C; c += tpr) {
+    float acc = 0.f;
+    for (int j = st; j < en; ++j) {
+      const int e = order[j];
+      const Taps t = edge_taps(attr[2 * (size_t)e], attr[2 * (size_t)e + 1],
+                               ks, C);
+      const float* gg = grad_g + (size_t)(e / K) * PC + c;
+      float v = t.w00 * gg[t.t00];
+      v += t.w01 * gg[t.t00 + C];
+      v += t.w10 * gg[t.t10];
+      v += t.w11 * gg[t.t10 + C];
+      acc += v;
+    }
+    grad_x[(size_t)row * C + c] = acc;
+  }
+}
+
 // threads per destination and destinations per block for C channels
 __host__ __forceinline__ void tile_shape(int C, int threads, int* tpd,
                                          int* dpb) {
@@ -189,6 +253,24 @@ extern "C" int dagr_spline_aggregate_gather(
         (const float*)x, (const float*)pos, (const float*)dst_pos,
         (const int*)nbr, (const uint8_t*)mask, M, K, C, ks, tpd, dpb,
         pos_stride, dst_stride, two_mv, (float*)g);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dagr_spline_aggregate_backward(
+    const void* grad_g, const void* attr, const void* order,
+    const void* start, int n_src, int K, int C, int ks, void* grad_x,
+    void* stream) {
+  const int threads = 256;
+  int tpr = 1;
+  while (tpr < C && tpr < 32) tpr *= 2;
+  const int rows_pb = threads / tpr;
+  const int blocks = (n_src + rows_pb - 1) / rows_pb;
+  if (blocks > 0 && C > 0) {
+    spline_aggregate_backward_kernel<<<blocks, threads, 0,
+                                       (cudaStream_t)stream>>>(
+        (const float*)grad_g, (const float*)attr, (const int*)order,
+        (const int*)start, n_src, K, C, ks, tpr, rows_pb, (float*)grad_x);
   }
   return (int)cudaGetLastError();
 }

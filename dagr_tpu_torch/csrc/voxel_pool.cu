@@ -66,6 +66,20 @@
 // encoding of the float (exact and deterministic; not a float atomic),
 // neighbouring threads on neighbouring channels of one cell.  Three
 // launches: fill with the encoded -FLT_MAX, scatter, decode in place.
+//
+// K9b: the backward of K3's pooled features for training.  Replaces what
+// jax.grad derives from the segment_max / segment_sum of
+// dagr_tpu/ops/pool.py:100-117: for max, JAX's scatter-max rule splits a
+// cell's gradient evenly among the members tied at the max, per channel
+// (grad * (1 / ties)); for mean, grad / count.  Bound by memory: it reads
+// grad_pooled once and, for max, each member's features twice and the
+// pooled max, and writes grad_feat once (at the first pooling of a batch
+// of 8, 400k x 16 floats: 26 MB each way).  Design: one warp per cell
+// over K3's stable cell sort (order, cell_start, reused from the
+// forward), lanes over channels; a first pass counts the ties of each
+// (cell, channel), a second writes every member's gradient once.  Exact
+// arithmetic in one order, so it is bit-equal to its twin.  Invalid rows
+// are in no cell; the caller zeroes them.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <limits.h>
@@ -339,6 +353,38 @@ __global__ void cell_max_decode_kernel(int* __restrict__ out, size_t n) {
   if (i < n) out[i] = float_ord(out[i]);
 }
 
+// K9b: one warp per cell over its members order[st..en).
+__global__ void pool_backward_kernel(
+    const int* __restrict__ order,        // [M] nodes sorted by cell
+    const int* __restrict__ cell_start,   // [n_cells_total + 1]
+    const float* __restrict__ grad_pooled, // [n_cells_total, C]
+    const float* __restrict__ feat,       // [M, C]
+    const float* __restrict__ pooled,     // [n_cells_total, C]
+    int n_cells_total, int C, int mean, float* __restrict__ grad_feat) {
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= n_cells_total) return;
+  const int st = cell_start[warp], en = cell_start[warp + 1];
+  if (st == en) return;
+  for (int c = lane; c < C; c += 32) {
+    const size_t pc = (size_t)warp * C + c;
+    const float g = grad_pooled[pc];
+    if (mean) {
+      const float v = g / (float)(en - st);
+      for (int j = st; j < en; ++j) grad_feat[(size_t)order[j] * C + c] = v;
+      continue;
+    }
+    const float m = pooled[pc];
+    int ties = 0;
+    for (int j = st; j < en; ++j) ties += feat[(size_t)order[j] * C + c] == m;
+    const float v = g * (1.f / (float)ties);
+    for (int j = st; j < en; ++j) {
+      const size_t r = (size_t)order[j] * C + c;
+      grad_feat[r] = feat[r] == m ? v : 0.f;
+    }
+  }
+}
+
 __global__ void pool_stencil_kernel(
     const uint8_t* __restrict__ cmask, const float* __restrict__ tmax,
     const int* __restrict__ adj, int n_cells_total, int ny, int nx,
@@ -450,5 +496,20 @@ extern "C" int dagr_cell_max(
                            ncells, C, (int*)out);
   }
   cell_max_decode_kernel<<<out_blocks, threads, 0, s>>>((int*)out, n_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dagr_voxel_pool_backward(
+    const void* order, const void* cell_start, const void* grad_pooled,
+    const void* feat, const void* pooled, int n_cells_total, int C, int mean,
+    void* grad_feat, void* stream) {
+  if (n_cells_total > 0) {
+    const int threads = 256;   // 8 warps, one cell each
+    pool_backward_kernel<<<(n_cells_total + 7) / 8, threads, 0,
+                           (cudaStream_t)stream>>>(
+        (const int*)order, (const int*)cell_start, (const float*)grad_pooled,
+        (const float*)feat, (const float*)pooled, n_cells_total, C, mean,
+        (float*)grad_feat);
+  }
   return (int)cudaGetLastError();
 }

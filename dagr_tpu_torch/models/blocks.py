@@ -1,4 +1,4 @@
-"""Building blocks of the GNN backbone (eval mode).
+"""Building blocks of the GNN backbone.
 
 Counterparts of ``dagr_tpu.models.blocks``: ``SplineConvLayer``,
 ``MaskedBatchNorm``, ``ConvBlock``, ``ConvBlockWithSkip`` and ``Layer``,
@@ -6,7 +6,8 @@ over masked ``[B, N, C]`` node tables.  Parameter layouts follow the
 JAX package: spline ``weight`` [P, Cin, Cout] and ``root`` [Cin, Cout]
 as they are; the skip ``lin`` is a ``torch.nn.Linear``, so its weight is
 the flax Dense kernel transposed ([out, in]).  Batch norm runs on its
-running statistics; training mode is a later slice and raises.
+running statistics in eval mode and on the valid rows' statistics in
+train mode (``nn.Module.train()``), updating the running ones.
 """
 from __future__ import annotations
 
@@ -58,12 +59,16 @@ class SplineConvLayer(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Batch norm over valid nodes, on running statistics; invalid rows
-    are zeroed."""
+    """Batch norm over valid nodes; invalid rows are zeroed.  Train mode
+    normalises with the valid rows' mean and biased variance (n = max(
+    valid rows, 1)) and moves the running statistics by ``momentum``
+    toward the mean and the unbiased variance ``var * n / max(n - 1, 1)``
+    (torch conventions, as dagr_tpu); eval mode uses the running ones."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -81,8 +86,21 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError("MaskedBatchNorm runs in eval mode only")
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+            m = mask.reshape(-1, 1).to(x.dtype)
+            n = m.sum().clamp(min=1.0)
+            xf = x.reshape(-1, x.shape[-1])
+            mean = (xf * m).sum(0) / n
+            var = (((xf - mean) ** 2) * m).sum(0) / n
+            with torch.no_grad():
+                unbiased = var * n / (n - 1.0).clamp(min=1.0)
+                mom = self.momentum
+                self.running_mean.copy_(
+                    (1 - mom) * self.running_mean + mom * mean)
+                self.running_var.copy_(
+                    (1 - mom) * self.running_var + mom * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight + self.bias
         return torch.where(mask[..., None], y, 0.0)
 

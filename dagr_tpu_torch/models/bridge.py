@@ -14,6 +14,13 @@ maps a reference checkpoint onto).  Leaves:
   ``weight``/``bias`` and ``running_mean``/``running_var``;
 * the flax Dense ``kernel`` [in, out] of the skip ``lin`` is transposed
   once into ``torch.nn.Linear``'s ``weight`` [out, in].
+
+``train_state_from_flax`` carries a whole ``dagr_tpu.train.state.
+TrainState`` across: params and batch stats, their EMA, the step and
+EMA counts, and optax's Adam moments ``mu`` / ``nu`` and ``count`` as
+``torch.optim.AdamW``'s ``exp_avg`` / ``exp_avg_sq`` and ``step`` (the
+same names and transposes), so both packages can go on from one
+mid-training state.
 """
 from __future__ import annotations
 
@@ -21,6 +28,10 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from dagr_tpu_torch.config import DagrConfig
+from dagr_tpu_torch.models.dagr import DAGR
+from dagr_tpu_torch.train.state import TrainState, init_state, make_optimizer
 
 _RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var",
            "kernel": "weight"}
@@ -44,3 +55,40 @@ def from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
             name = ".".join(path[:-1] + (_RENAME.get(path[-1], path[-1]),))
             sd[name] = torch.from_numpy(np.ascontiguousarray(a))
     return sd
+
+
+def _adam_state(tree):
+    """optax's ScaleByAdamState (count, mu, nu) inside a chain's state."""
+    if hasattr(tree, "mu") and hasattr(tree, "nu"):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for t in tree:
+            found = _adam_state(t)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_flax(jstate, cfg: DagrConfig, height: int, width: int,
+                          num_iters_per_epoch: int,
+                          device="cpu") -> TrainState:
+    """The port's ``TrainState`` (recipe optimizer of ``make_optimizer``)
+    from a ``dagr_tpu`` TrainState made with the same config."""
+    model = DAGR(cfg, height, width)
+    model.load_state_dict(from_flax({"params": jstate.params,
+                                     "batch_stats": jstate.batch_stats}))
+    recipe, _ = make_optimizer(cfg, num_iters_per_epoch)
+    state = init_state(model.to(device), recipe)
+    state.ema.load_state_dict(from_flax({"params": jstate.ema_params,
+                                         "batch_stats": jstate.ema_stats}))
+    adam = _adam_state(jstate.opt_state)
+    mu, nu = from_flax({"params": adam.mu}), from_flax({"params": adam.nu})
+    count = float(np.asarray(adam.count))
+    for name, p in model.named_parameters():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device),
+            "exp_avg_sq": nu[name].to(p.device)}
+    state.step = int(np.asarray(jstate.step))
+    state.ema_updates = int(np.asarray(jstate.ema_updates))
+    return state

@@ -1,8 +1,10 @@
-"""DAGR detector: GNN backbone + YOLOX-style head, events only, eval.
+"""DAGR detector: GNN backbone + YOLOX-style head, events only.
 
 Counterpart of ``dagr_tpu.models.dagr``: ``DAGR`` returns raw
-per-anchor outputs; ``detect`` decodes them and runs the confidence
-filter and class-aware NMS (kernel K4).
+per-anchor outputs, in train mode (``nn.Module.train()``: batch norm on
+batch statistics) or eval mode; ``detection_loss`` is the YOLOX/SimOTA
+loss of raw outputs against targets; ``detect`` decodes them and runs
+the confidence filter and class-aware NMS (kernel K4).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from dagr_tpu_torch.models.blocks import (
 from dagr_tpu_torch.models.head import (
     GNNHead, decode_outputs, make_grids_strides)
 from dagr_tpu_torch.models.net import Net
+from dagr_tpu_torch.models.yolox_loss import yolox_losses
 from dagr_tpu_torch.ops.nms import postprocess
 
 CONF_THRESHOLD = 0.001
@@ -52,6 +55,26 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                 init_uniform(m.weight, m.in_features ** -0.5, generator)
 
 
+def init_fresh(model: nn.Module, generator: torch.Generator) -> None:
+    """The distributions of dagr_tpu's ``model.init``, for training from
+    scratch: PyG bounds for spline convs (bias 0), flax ``lecun_normal``
+    (a normal of std sqrt(1/fan_in)/0.8796 truncated at 2 std) for the
+    skip Linear layers, batch norm at the identity (scale 1, bias 0,
+    mean 0, var 1)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, SplineConvLayer):
+                m.reset_parameters(generator)
+            elif isinstance(m, MaskedBatchNorm):
+                for t, v in ((m.weight, 1.0), (m.bias, 0.0),
+                             (m.running_mean, 0.0), (m.running_var, 1.0)):
+                    t.fill_(v)
+            elif isinstance(m, nn.Linear):
+                std = m.in_features ** -0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+
+
 def anchor_geometry(cfg: DagrConfig, height: int
                     ) -> Tuple[np.ndarray, np.ndarray]:
     """Grid [A, 2] and stride [A, 1] tables for decode."""
@@ -64,6 +87,15 @@ def _anchor_tables(cfg: DagrConfig, height: int, device: torch.device):
     """``anchor_geometry`` on ``device``, copied there once."""
     return tuple(torch.from_numpy(a).to(device)
                  for a in anchor_geometry(cfg, height))
+
+
+def detection_loss(raw: torch.Tensor, targets: torch.Tensor,
+                   cfg: DagrConfig, height: int) -> Dict[str, torch.Tensor]:
+    """YOLOX losses of raw outputs [B, A, 5 + C] against targets
+    [B, G, 5] (class, cx, cy, w, h) pixels, zero rows padding."""
+    grids, strides = _anchor_tables(cfg, height, raw.device)
+    return yolox_losses(raw, grids, strides, targets,
+                        num_classes=cfg.num_classes)
 
 
 def detect(raw: torch.Tensor, cfg: DagrConfig, height: int, width: int,

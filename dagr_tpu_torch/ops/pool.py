@@ -12,6 +12,17 @@ op.  Both sum positions in node-index order, so the pooled x, y
 Divisions by the frame size are multiplies by ``f32(1/W)``: XLA
 compiles the JAX package's divisions by those constants that way.
 
+Training: when ``feat`` requires grad, ``pool_graph`` runs as a
+``torch.autograd.Function`` whose only differentiable output is the
+pooled features; the positions, masks, neighbour table and tmax carry no
+gradient.  Its backward, ``pool_features_backward`` (kernel K9b on CUDA
+tensors, ``pool_features_backward_plain`` on CPU tensors), is what
+``jax.grad`` derives from dagr_tpu's segment reductions: for ``max`` a
+cell's gradient is split evenly among its tied maxima (JAX's
+scatter-max rule, ``grad * (1 / ties)``), for ``mean`` it is divided by
+the cell's count.  It walks the forward's stable cell sort (``order`` /
+``cell_start``), so nothing is sorted twice on the card.
+
 ``accumulate_cells`` adds one chunk of new events to the streaming
 engine's level-1 aggregates in place (``csrc/voxel_pool.cu``'s
 ``dagr_stream_accumulate`` on CUDA tensors, ``accumulate_cells_plain``
@@ -96,9 +107,108 @@ def pool_graph(
         raise ValueError(f"aggr must be max or mean, not {aggr!r}")
     kw = dict(grid_ny=grid_ny, grid_nx=grid_nx, width=width, height=height,
               aggr=aggr, keep_temporal_ordering=keep_temporal_ordering)
+    if torch.is_grad_enabled() and feat.requires_grad:
+        return _PoolGraph.apply(feat, pos, mask, nbr, nbr_mask, nbr_dpos, kw)
     if not feat.is_cuda:
         return pool_graph_plain(feat, pos, mask, nbr, nbr_mask, nbr_dpos, **kw)
-    return _pool_graph_cuda(feat, pos, mask, nbr, nbr_mask, nbr_dpos, **kw)
+    return _pool_graph_cuda(feat, pos, mask, nbr, nbr_mask, nbr_dpos, **kw)[0]
+
+
+class _PoolGraph(torch.autograd.Function):
+    """pool_graph, differentiable in ``feat`` through the pooled features."""
+
+    @staticmethod
+    def forward(ctx, feat, pos, mask, nbr, nbr_mask, nbr_dpos, kw):
+        feat = feat.contiguous()
+        args = (feat, pos, mask, nbr, nbr_mask, nbr_dpos)
+        if feat.is_cuda:
+            out, order, start = _pool_graph_cuda(*args, **kw)
+        else:
+            # the CPU twin sorts nothing: the backward's cell runs
+            B, N, _ = feat.shape
+            ny, nx = kw["grid_ny"], kw["grid_nx"]
+            cell = _cell(pos[..., 0], nx) + nx * _cell(pos[..., 1], ny)
+            base = torch.arange(B, device=feat.device)[:, None] * (ny * nx)
+            key = torch.where(mask, base + cell, B * ny * nx).reshape(B * N)
+            out = pool_graph_plain(*args, **kw)
+            _, order, start = sorted_runs(key, B * ny * nx)
+        ctx.mark_non_differentiable(*out[1:])
+        ctx.save_for_backward(feat, out[0], order, start)
+        ctx.aggr = kw["aggr"]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_pooled, *_):
+        feat, pooled, order, start = ctx.saved_tensors
+        grad_feat = pool_features_backward(
+            grad_pooled.contiguous(), feat, pooled, order, start,
+            aggr=ctx.aggr)
+        return (grad_feat,) + (None,) * 6
+
+
+def pool_features_backward(grad_pooled: torch.Tensor, feat: torch.Tensor,
+                           pooled: torch.Tensor, order: torch.Tensor,
+                           cell_start: torch.Tensor, *,
+                           aggr: str) -> torch.Tensor:
+    """grad_feat [B, N, C] of ``pool_graph``'s pooled features [B, G, C]
+    given ``grad_pooled`` [B, G, C]: the nodes of cell g are
+    ``order[cell_start[g]:cell_start[g + 1]]`` (cell g = b * G + cell;
+    rows past ``cell_start[B*G]`` are invalid and get 0).  For ``max``
+    a node gets ``grad_pooled * (1 / ties)`` on the channels where it
+    equals the cell's max, for ``mean`` ``grad_pooled / count``.
+    Kernel K9b on CUDA tensors (one warp per cell, exact, so bit-equal to
+    its twin), ``pool_features_backward_plain`` on CPU tensors."""
+    if aggr not in ("max", "mean"):
+        raise ValueError(f"aggr must be max or mean, not {aggr!r}")
+    B, N, C = feat.shape
+    G = B * pooled.shape[1]
+    if pooled.dim() != 3 or pooled.shape[::2] != (B, C) \
+            or grad_pooled.shape != pooled.shape \
+            or order.shape != (B * N,) or cell_start.shape != (G + 1,):
+        raise ValueError("pool_features_backward: grad_pooled and pooled "
+                         "[B, G, C], feat [B, N, C], order [B*N], "
+                         "cell_start [B*G + 1] expected")
+    if not feat.is_cuda:
+        return pool_features_backward_plain(grad_pooled, feat, pooled, order,
+                                            cell_start, aggr=aggr)
+    if not all(t.dtype == torch.float32 for t in (grad_pooled, feat, pooled)) \
+            or order.dtype != torch.int32 or cell_start.dtype != torch.int32:
+        raise ValueError("pool_features_backward: f32 features, i32 runs")
+    _build.check_cuda("pool_features_backward", grad_pooled, feat, pooled,
+                      order, cell_start)
+    grad_feat = torch.zeros_like(feat)
+    i = ctypes.c_int
+    _build.launch(
+        "voxel_pool_backward", "dagr_voxel_pool_backward",
+        _build.ptr(order), _build.ptr(cell_start), _build.ptr(grad_pooled),
+        _build.ptr(feat), _build.ptr(pooled), i(G), i(C), i(aggr == "mean"),
+        _build.ptr(grad_feat))
+    return grad_feat
+
+
+def pool_features_backward_plain(grad_pooled, feat, pooled, order, cell_start,
+                                 *, aggr):
+    """The K9b backward as PyTorch ops (the kernel's twin)."""
+    B, N, C = feat.shape
+    G, M = B * pooled.shape[1], B * N
+    dev = feat.device
+    # each node's cell from the runs; G for the rows in none
+    rank = torch.searchsorted(
+        cell_start, torch.arange(M, device=dev, dtype=cell_start.dtype),
+        right=True) - 1
+    seg = torch.empty(M, dtype=torch.long, device=dev)
+    seg[order.long()] = rank.long()
+    gp = torch.cat([grad_pooled.reshape(G, C), grad_pooled.new_zeros(1, C)])
+    if aggr == "mean":
+        count = (cell_start[1:] - cell_start[:-1]).clamp(min=1)
+        count = torch.cat([count, count.new_ones(1)])
+        return (gp / count[:, None])[seg].reshape(B, N, C)
+    pf = torch.cat([pooled.reshape(G, C), pooled.new_zeros(1, C)])
+    eq = (feat.reshape(M, C) == pf[seg]) & (seg < G)[:, None]
+    ties = torch.zeros((G + 1, C), dtype=feat.dtype, device=dev).index_add_(
+        0, seg, eq.to(feat.dtype))
+    share = gp * (1.0 / ties)
+    return torch.where(eq, share[seg], 0.0).reshape(B, N, C)
 
 
 def _pool_graph_cuda(feat, pos, mask, nbr, nbr_mask, nbr_dpos, *, grid_ny,
@@ -156,7 +266,7 @@ def _pool_graph_cuda(feat, pos, mask, nbr, nbr_mask, nbr_dpos, *, grid_ny,
         i(height), inv_w, inv_h, _build.ptr(pooled), _build.ptr(pos_out),
         _build.ptr(cmask), _build.ptr(tmax), _build.ptr(adj),
         _build.ptr(nbr_out), _build.ptr(mask_out))
-    return pooled, pos_out, cmask, nbr_out, mask_out, tmax
+    return (pooled, pos_out, cmask, nbr_out, mask_out, tmax), order, cell_start
 
 
 def _cell(p: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,0 +1,47 @@
+"""Train and eval loops over a loader of (events, targets) batches.
+
+Counterpart of ``dagr_tpu.train.harness`` (the reference's script-level
+loops, scripts/train_dsec.py:42-100 and utils/testing.py:16-55), events
+only: ``train_epoch`` runs ``train_step`` over the loader and logs the
+losses; ``run_test`` runs the EMA (or trained) weights in eval mode,
+decodes with ``detect`` (K4 on the card) and fills a ``DetectionBuffer``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from dagr_tpu_torch.eval.buffers import (
+    DetectionBuffer, detections_to_list, targets_to_list)
+from dagr_tpu_torch.models.dagr import detect
+from dagr_tpu_torch.train.state import TrainState, eval_forward, train_step
+from dagr_tpu_torch.utils.logging import MetricLogger
+
+
+def run_test(loader, state: TrainState, height: int, width: int,
+             classes: Sequence[str], dry_run_steps: int = -1,
+             use_ema: bool = True, compile_detections: bool = False):
+    """Sync evaluation pass; returns (buffer, detections list)."""
+    cfg = state.model.cfg
+    buf = DetectionBuffer(height=height, width=width, classes=classes)
+    compiled = []
+    for i, (events, targets) in enumerate(loader):
+        raw = eval_forward(state, events, use_ema=use_ema)
+        det_list = detections_to_list(detect(raw, cfg, height, width))
+        buf.update(det_list, targets_to_list(targets))
+        if compile_detections:
+            compiled.extend(det_list)
+        if 0 < dry_run_steps <= i:
+            break
+    return buf, compiled
+
+
+def train_epoch(loader, state: TrainState,
+                logger: Optional[MetricLogger] = None, log_every: int = 10):
+    """One training epoch; returns (state, the last step's losses)."""
+    losses = None
+    for i, (events, targets) in enumerate(loader):
+        losses = train_step(state, events, targets)
+        if logger is not None and i % log_every == 0:
+            logger.log({f"training/loss/{k}": float(v)
+                        for k, v in losses.items()}, step=state.step)
+    return state, losses

@@ -15,28 +15,35 @@ card uses atomics).  The streaming engine and the multi-stream server on
 the card are held against the same on the CPU in both window modes, past
 capacity.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
 from dagr_tpu_torch.config import DagrConfig
 from dagr_tpu_torch.core.types import EventBatch, EventGraph, NodeSet
-from dagr_tpu_torch.data.synthetic import random_event_arrays
+from dagr_tpu_torch.data.synthetic import random_event_arrays, random_targets
 from dagr_tpu_torch.graph.build import (
     build_graph, build_graph_plain, search_edges_into_store,
     search_edges_into_store_plain, search_edges_streams,
     search_edges_streams_plain)
 from dagr_tpu_torch.kernels import _build
+from dagr_tpu_torch.models.dagr import DAGR, init_fresh
 from dagr_tpu_torch.models.functional import spline_gather, spline_gather_plain
 from dagr_tpu_torch.ops.nms import postprocess, postprocess_plain
 from dagr_tpu_torch.ops.pool import (
     accumulate_cells, accumulate_cells_plain, cell_max, cell_max_plain,
-    pool_graph, pool_graph_plain, ring_update_cells, ring_update_cells_plain)
+    pool_features_backward, pool_graph, pool_graph_plain, ring_update_cells,
+    ring_update_cells_plain)
 from dagr_tpu_torch.ops.spline import (
-    LevelEdges, spline_aggregate, spline_aggregate_plain)
+    LevelEdges, spline_aggregate, spline_aggregate_backward,
+    spline_aggregate_backward_plain, spline_aggregate_plain)
 from dagr_tpu_torch.serve import Detector
 from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
 from dagr_tpu_torch.streaming.serve import MultiStreamServer, chunk_streams
+from dagr_tpu_torch.train.state import (
+    eval_forward, init_state, make_optimizer, train_step)
 
 pytestmark = pytest.mark.cuda
 W, H = 320, 240
@@ -404,3 +411,180 @@ def test_server_matches_cpu(dev, mode):
         assert torch.equal(getattr(st, f).cpu(), getattr(st_ref, f)), f
     if mode == "ring":
         assert int(st.num) > srv.NR
+
+
+def random_level(seed, M, K, n_src, cin):
+    """CPU edge tables of M destinations over n_src sources (rows
+    M..n_src-1 are read by no edge; destinations 100-149 have every slot
+    masked) and a grad_g [M, 25*cin]."""
+    g = torch.Generator().manual_seed(seed)
+    mask = torch.rand((M, K), generator=g) < 0.7
+    mask[100:150] = False
+    edges = LevelEdges(
+        nbr=torch.randint(0, M, (M, K), generator=g, dtype=torch.int32),
+        mask=mask, attr=torch.rand((M, K, 2), generator=g) * 1.4 - 0.2)
+    return edges, torch.randn((M, 25 * cin), generator=g)
+
+
+@pytest.mark.parametrize("cin,K", [(3, 16), (16, 16), (16, 9), (66, 9)])
+def test_spline_backward_edge_cases(dev, cin, K):
+    """K9a against its twin on the CPU (1e-5 relative: the twin sums a
+    row's 25 taps in another order), directly and through autograd; a
+    source row no edge reads gets exactly 0."""
+    M, n_src = 777, 900
+    edges, gg = random_level(cin + K, M, K, n_src, cin)
+    e_dev = LevelEdges(*(t.to(dev) for t in edges))
+    before = _build.launch_counts()["spline_aggregate_backward"]
+    a = spline_aggregate_backward(gg.to(dev), e_dev, n_src)
+    b = spline_aggregate_backward_plain(gg, edges, n_src)
+    assert a.shape == (n_src, cin)
+    assert float((a.cpu() - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
+    assert not a[M:].any()
+    x = torch.randn((n_src, cin), device=dev, requires_grad=True)
+    (gx,) = torch.autograd.grad(spline_aggregate(x, e_dev), x, gg.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(gx, a)
+    assert _build.launch_counts()["spline_aggregate_backward"] == before + 2
+
+
+def pool_case(dev):
+    """Two windows on a 4x4 grid: window 0 has a single-member cell, an
+    empty cell, a cell of three tied maxima (every channel) over a fourth
+    member, and random cells; window 1 is all invalid."""
+    rng = np.random.default_rng(11)
+    N, C = 64, 5
+    xy = rng.uniform(0.5, 1.0, (2, N, 2)).astype(np.float32)   # cells 10+
+    xy[0, 0] = [0.1, 0.1]                                      # cell 0 alone
+    xy[0, 1:5] = [0.6, 0.1]                          # cell 2; cell 1 empty
+    feat = np.round(rng.standard_normal((2, N, C)) * 2).astype(np.float32)
+    feat[0, 1:4] = 3.5
+    feat[0, 4] = 1.0
+    pos = np.concatenate([xy, np.sort(rng.random((2, N, 1)), 1)], -1)
+    mask = np.ones((2, N), bool)
+    mask[1] = False
+    nbr = np.zeros((2, N, 1), np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (feat, pos.astype(np.float32),
+                                                    mask, nbr)]
+    return args + [args[2][..., None]]
+
+
+@pytest.mark.parametrize("aggr", ["max", "mean"])
+def test_pool_backward_edge_cases(dev, aggr):
+    """K9b through pool_graph's autograd Function on the card, bit-equal to
+    the same on the CPU; the three tied maxima share a third each."""
+    feat, pos, mask, nbr, nbr_mask = pool_case(dev)
+    kw = dict(grid_ny=4, grid_nx=4, width=W, height=H, aggr=aggr)
+    grads = []
+    for d in (dev, "cpu"):
+        x = feat.to(d).clone().requires_grad_(True)
+        out = pool_graph(x, pos.to(d), mask.to(d), nbr.to(d), nbr_mask.to(d),
+                         **kw)[0]
+        gp = torch.arange(out.numel(), dtype=torch.float32).reshape(
+            out.shape).to(d) * 0.25 - 3
+        before = _build.launch_counts()["voxel_pool_backward"]
+        (g,) = torch.autograd.grad(out, x, gp)
+        grads.append(g.cpu())
+        if d == dev:
+            torch.cuda.synchronize()
+            assert _build.launch_counts()["voxel_pool_backward"] == before + 1
+    assert torch.equal(grads[0], grads[1])
+    g = grads[0]
+    assert not g[1].any()                                   # invalid rows
+    gp2 = np.float32(0.25 * (2 * 5 + np.arange(5)) - 3)    # cell 2's row
+    if aggr == "max":
+        third = np.float32(1) / np.float32(3)               # g * (1 / ties)
+        np.testing.assert_array_equal(g[0, 1:4].numpy(),
+                                      np.tile(gp2 * third, (3, 1)))
+        assert not g[0, 4].any()
+    else:
+        np.testing.assert_array_equal(g[0, 1:5].numpy(),
+                                      np.tile(gp2 / 4, (4, 1)))
+    np.testing.assert_array_equal(g[0, 0].numpy(), np.float32(
+        0.25 * np.arange(5) - 3))                           # alone in cell 0
+
+
+def test_pool_backward_matches_twin_on_ragged_windows(dev):
+    """K9b against its twin at the first two poolings of ragged windows
+    with quantised (often tied) features, max and mean."""
+    ev = ragged_windows(4, dev)
+    graph = build_graph(ev.pos_px(), ev.mask, **GRAPH_KW)
+    feat = torch.round(torch.randn((3, ev.num_nodes, 16), device=dev))
+    for aggr in ("max", "mean"):
+        x = feat.clone().requires_grad_(True)
+        out = pool_graph(x, ev.pos, ev.mask, graph.nbr, graph.nbr_mask,
+                         graph.nbr_dpos, grid_ny=40, grid_nx=56, width=W,
+                         height=H, aggr=aggr)[0]
+        gp = torch.randn_like(out)
+        (g,) = torch.autograd.grad(out, x, gp)
+        xc = feat.cpu().requires_grad_(True)
+        outc = pool_graph(xc, *(t.cpu() for t in (
+            ev.pos, ev.mask, graph.nbr, graph.nbr_mask, graph.nbr_dpos)),
+            grid_ny=40, grid_nx=56, width=W, height=H, aggr=aggr)[0]
+        (gc,) = torch.autograd.grad(outc, xc, gp.cpu())
+        assert torch.equal(g.cpu(), gc), aggr
+
+
+def test_backward_wrappers_refuse_bad_inputs(dev):
+    edges, gg = random_level(0, 50, 9, 60, 4)
+    e_dev = LevelEdges(*(t.to(dev) for t in edges))
+    with pytest.raises(ValueError):
+        spline_aggregate_backward(gg.to(dev).double(), e_dev, 60)
+    with pytest.raises(ValueError):                        # not contiguous
+        spline_aggregate_backward(gg.to(dev).t().contiguous().t(), e_dev, 60)
+    with pytest.raises(ValueError):
+        spline_aggregate_backward(gg.to(dev), LevelEdges(
+            e_dev.nbr, e_dev.mask,
+            e_dev.attr.transpose(0, 1).contiguous().transpose(0, 1)), 60)
+    with pytest.raises(ValueError):
+        spline_aggregate_backward(gg.to(dev), LevelEdges(
+            e_dev.nbr.long(), e_dev.mask, e_dev.attr), 60)
+    feat = torch.zeros((1, 4, 2), device=dev)
+    order = torch.arange(4, dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 4, 4], dtype=torch.int32, device=dev)
+    gp = torch.ones((1, 2, 2), device=dev)
+    with pytest.raises(ValueError):
+        pool_features_backward(gp.double(), feat, gp, order, start, aggr="max")
+    with pytest.raises(ValueError):
+        pool_features_backward(gp, feat, gp, order.long(), start, aggr="max")
+    with pytest.raises(ValueError):
+        pool_features_backward(gp.transpose(1, 2), feat, gp, order, start,
+                               aggr="max")
+    out = pool_features_backward(gp, feat, gp * 0, order, start, aggr="max")
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), torch.full((1, 4, 2), 0.25))
+
+
+def test_train_step_matches_cpu_and_eval_launches_no_backward(dev):
+    """Two recipe steps of a small DAGR on the card against the same on
+    the CPU: losses to 1e-5 relative, weights, EMA and running stats to
+    1e-5; both backward kernels launch on every step, and an eval forward
+    under no_grad launches neither."""
+    cfg = DagrConfig(n_nodes=4000, batch_size=3)
+    model = DAGR(cfg, H, W)
+    init_fresh(model, torch.Generator().manual_seed(4))
+    recipe = make_optimizer(cfg, 10)[0]
+    ref = init_state(copy.deepcopy(model), recipe)
+    state = init_state(model.to(dev), recipe)
+    ev = ragged_windows(5, dev)
+    tgt = random_targets(np.random.default_rng(5), 3, width=W, height=H,
+                         n_boxes=5)
+    k9 = ("spline_aggregate_backward", "voxel_pool_backward")
+    for _ in range(2):
+        before = _build.launch_counts()
+        got = train_step(state, ev, tgt)
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        assert all(after[k] > before[k] for k in k9 + SYNC_KERNELS[:3])
+        want = train_step(ref, ev.to("cpu"), tgt)
+        for k in want:
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5,
+                                       atol=1e-6)
+    for a, b in ((state.model, ref.model), (state.ema, ref.ema)):
+        sa, sb = a.state_dict(), b.state_dict()
+        for k in sb:
+            torch.testing.assert_close(sa[k].cpu(), sb[k], atol=1e-5, rtol=0)
+    before = _build.launch_counts()
+    eval_forward(state, ev)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert all(after[k] == before[k] for k in k9)

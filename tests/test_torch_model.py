@@ -118,8 +118,9 @@ def test_seeded_init():
 
 
 def test_port_imports_no_jax_flax_or_yaml():
-    """The port runs the slice without JAX, flax or yaml (a subprocess:
-    this test process imported jax through tests/conftest.py)."""
+    """The port, every module of it imported, serves and takes a recipe
+    train step without JAX, flax or yaml (a subprocess: this test process
+    imported jax through tests/conftest.py)."""
     code = (
         "import importlib, pkgutil, sys, numpy as np\n"
         "import dagr_tpu_torch\n"
@@ -134,6 +135,15 @@ def test_port_imports_no_jax_flax_or_yaml():
         "raw, dets = det(random_events(np.random.default_rng(0), 2, 128,"
         " width=64, height=48))\n"
         "assert raw.shape == (2, 175, 7)\n"
+        "from dagr_tpu_torch.data.synthetic import random_targets\n"
+        "from dagr_tpu_torch.train.state import init_state, make_optimizer,"
+        " train_step\n"
+        "st = init_state(det.model, make_optimizer(det.model.cfg, 10)[0])\n"
+        "ev = random_events(np.random.default_rng(1), 2, 128, width=64,"
+        " height=48)\n"
+        "loss = train_step(st, ev, random_targets(np.random.default_rng(1), 2,"
+        " width=64, height=48))\n"
+        "assert st.step == 1 and np.isfinite(float(loss['total_loss']))\n"
         "bad = [m for m in ('jax', 'flax', 'yaml') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok', tuple(raw.shape))\n")
