@@ -9,11 +9,18 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
 2. builds the CUDA kernels from ``dagr_tpu_torch/csrc`` (one library);
 3. holds each kernel against its plain PyTorch twin on the same inputs,
    at the shapes the main path gives it, and K1 also against a numpy
-   copy of the reference graph oracle on a 2k-event window;
+   copy of the reference graph oracle on a 2k-event window; K3's cell
+   runs (order, cell_start), sorted inside its kernels, bit-equal to
+   ``sorted_runs`` on the four poolings of a window;
 4. serves 8 single-window requests, then the same 8 windows as one
    batch; checks the outputs (the batch must repeat each window's), that
-   every kernel was launched on every request, and one window's raw
-   outputs against the plain path on the CPU;
+   every kernel was launched on every request (K2 as 20 fused eval
+   blocks and no split aggregation), and one window's raw outputs
+   against the plain path on the CPU; holds K2's fused block against
+   its twin on the inputs of a window's own 20 calls (each distinct
+   shape to 1e-5 of its output's max, timed); profiles one pooling (only
+   the port's kernels, no sort) and one eval ConvBlock and prints their
+   host ops;
 5. times the requests and each kernel beside its twin (CUDA events);
 6. streams through ``dagr_tpu_torch.streaming.engine.StreamingDetector``
    on the same model: holds the streaming kernels K6, K7 and K10 against
@@ -23,6 +30,7 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    window, with every streaming kernel launched on every step; feeds 90k
    events (two windows, the second 1 s later) through a 50k-event ring,
    with K6, K7, K2 and K3 launched on every ring step and K10 on none,
+   (18 fused blocks a step, no split aggregation, in both modes),
    which must equal grow before it evicts and, after, hold exactly the
    last 50k events, with level-1 cells equal to a numpy recompute from
    the fed events; times steps at chunk 256 and 1 on a warm store of
@@ -34,8 +42,10 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
 8. serves through ``dagr_tpu_torch.streaming.serve.MultiStreamServer``
    on the same model: 8 windows as 8 lockstep streams in chunks of 1024
    (grow, ring 8192; each stream's final raw must equal its window's
-   sync raw, coverage_ok stay True, the search (K8), K2, K3 and K10 run
-   on every step); the same with tail_every=4 and in a decoding chain
+   sync raw, coverage_ok stay True, the search (K8), K2 (2 split
+   aggregations for the event convs, 18 fused blocks for the tail), K3
+   and K10 run on every step); the same with tail_every=4 and in a
+   decoding chain
    (K4 once per fresh step); 90k events of one stream through a
    50176-slot ring window in chunks of 256 (K8's ring update and cell
    max on every step, K10 never; raw equal to the engine's ring at that
@@ -43,16 +53,19 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    kernels of the serving path are held against their twins on the
    inputs of one of its steps: the search on a grow step and on a ring
    step after the ring has wrapped, the ring update and cell max on a
-   ring step, and K2 (both event convs and the tail's first conv), K10
-   (the S*G1 folded cells) and K3 (the tail's first pooling) on a grow
-   step.  Times the steps and profiles their device time;
+   ring step, and K2 (both event convs' aggregation and every distinct
+   fused block of the tail at batch S), K10 (the S*G1 folded cells) and
+   K3 (the tail's first pooling, with its cell runs) on a grow step.
+   Times the steps and profiles their device time;
 9. trains DAGR-S through the recipe step (``dagr_tpu_torch.train.state.
    train_step``: train-mode forward, SimOTA loss, backward through K9a
    and K9b, NaN scrub, clip, AdamW, EMA) from a fresh init: one window's
    loss and every gradient on the card against the CPU plain path (1e-4
    of each leaf's max, the SimOTA assignment identical); 2 + 12 steps on
    8 windows of 45k events (finite losses and gradients, every parameter
-   moves, the EMA follows; every train kernel launched on every step),
+   moves, the EMA follows; every train kernel launched on every step:
+   20 split K2 aggregations and 19 K9a a step, no fused block; K3's cell
+   runs bit-equal to sorted_runs on the second step's four poolings),
    with K9a (the event level and the first stencil level) and K9b (all
    four poolings, max and mean) held against their twins on the inputs
    of the second step, timed beside the twins and a library call; the
@@ -66,7 +79,17 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
 
 Usage: ``python3 chip_smoke.py`` from the repository root;
 ``python3 chip_smoke.py --train-only`` runs the build and phase 9 alone
-and prints no result line.
+and prints no result line.  ``python3 chip_smoke.py --compare DIR``
+measures another checkout's package (``DIR/dagr_tpu_torch``, for
+instance the parent commit's: ``git archive HEAD~ dagr_tpu_torch | tar
+-x -C DIR``) against this one on the same card, in turns (parent,
+change, change, parent): the sync B=1 window, the engine's grow step of
+256, the S=8 server step and the B=8 train step, each with its device
+busy time and idle share, and the host ops of one pooling and one eval
+ConvBlock; each turn is a ``--timings DIR`` subprocess with that
+package first on sys.path.  ``--compare DIR train`` times the B=8 train
+step alone, in fresh processes, over three such rounds.  Neither mode
+prints a result line.
 """
 from __future__ import annotations
 
@@ -75,6 +98,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -83,25 +107,32 @@ H, W = 240, 320
 N_NODES, N_VALID = 50_000, 45_000
 SEED = 0
 STREAM_WARM = 36_000     # events in the grow store before the timed steps
-SYNC_KERNELS = ("graph_search", "spline_aggregate", "voxel_pool", "nms")
+# eval convs run as fused blocks: 20 a window (2 event-level Layer
+# convs, 8 stencil-level ones, 5 per head scale), 18 in a dense tail
+SYNC_KERNELS = ("graph_search", "spline_conv_block", "voxel_pool", "nms")
+SYNC_BLOCKS, TAIL_BLOCKS = 20, 18
 # the kernels a grow step launches (a ring step: K3 in place of K10)
 STREAM_KERNELS = ("graph_search_store", "spline_gather", "stream_accumulate",
-                  "spline_aggregate", "voxel_pool")
-RING_KERNELS = ("graph_search_store", "spline_gather", "spline_aggregate",
+                  "spline_conv_block", "voxel_pool")
+RING_KERNELS = ("graph_search_store", "spline_gather", "spline_conv_block",
                 "voxel_pool")
-# the kernels a multi-stream serve step launches, per window mode
-SERVE_KERNELS = ("serve_search", "spline_aggregate", "voxel_pool",
-                 "stream_accumulate")
+# the kernels a multi-stream serve step launches, per window mode (its
+# two event convs still aggregate with K2 and multiply with torch)
+SERVE_KERNELS = ("serve_search", "spline_aggregate", "spline_conv_block",
+                 "voxel_pool", "stream_accumulate")
 SERVE_RING_KERNELS = ("serve_search", "serve_ring_update", "cell_max",
-                      "spline_aggregate", "voxel_pool")
+                      "spline_aggregate", "spline_conv_block", "voxel_pool")
 # the multi-stream phase: S streams of one window each, grow; one ring
 SERVE_S, SERVE_CHUNK, RING_CHUNK, RING_SLOTS = 8, 1024, 256, 50_176
-# H100 SXM peaks: HBM bytes/s, fp32 FLOP/s
+# H100 SXM peaks: HBM bytes/s, fp32 FLOP/s, and 3xTF32's (three TF32
+# tensor-core products per float32 one)
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+TF32X3_OPS_PER_S = 495e12 / 3
 # kernel: (source, the dagr_tpu op it replaces)
 KERNEL_TABLE = {
     "graph_search": ("graph_search.cu", "dagr_tpu/graph/build.py:109"),
     "spline_aggregate": ("spline_aggregate.cu", "dagr_tpu/ops/spline.py:242"),
+    "spline_conv_block": ("spline_conv.cu", "dagr_tpu/ops/spline.py:242"),
     "voxel_pool": ("voxel_pool.cu", "dagr_tpu/ops/pool.py:46"),
     "nms": ("nms.cu", "dagr_tpu/ops/nms.py:54"),
     "graph_search_store": ("graph_search.cu", "dagr_tpu/graph/build.py:389"),
@@ -165,12 +196,14 @@ def nbytes(*tensors) -> int:
                if torch.is_tensor(t))
 
 
-def record(err, ms, plain_ms, n_bytes, n_ops, library_ms=None) -> dict:
+def record(err, ms, plain_ms, n_bytes, n_ops, library_ms=None,
+           ops_per_s=FP32_OPS_PER_S) -> dict:
     """A kernel's row: its error against the twin, its time and the
     twin's (ms), and its bound: the larger of the bytes it must move
     (each input read once, each output written once) over the HBM rate
-    and the operations this run's data needs over the fp32 peak."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    and the operations this run's data needs over the peak of their
+    type (fp32 unless given)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -209,6 +242,136 @@ class Capture:
         setattr(self.module, self.name, self.fn)
         require(len(self.calls) == len(self.at),
                 f"{self.name} reached calls {sorted(self.at)}")
+
+
+def require_blocks(before, after, blocks, aggregations, what):
+    """A run's K2 launches: ``blocks`` fused blocks and ``aggregations``
+    split aggregations between two launch counts."""
+    got = (after["spline_conv_block"] - before["spline_conv_block"],
+           after["spline_aggregate"] - before["spline_aggregate"])
+    require(got == (blocks, aggregations),
+            f"{what} launches {got[0]} fused blocks and {got[1]} K2 "
+            f"aggregations, not {blocks} and {aggregations}")
+
+
+def check_pool_runs(args, kw, what):
+    """K3's cell runs (order, cell_start) bit-equal to ``sorted_runs``, the
+    stable torch sort of the nodes' cell ids (invalid nodes past the last
+    cell), on one pooling's inputs."""
+    from dagr_tpu_torch.graph.build import sorted_runs
+    from dagr_tpu_torch.ops.pool import _cell, _pool_graph_cuda
+
+    pos, mask = args[1], args[2]
+    B = pos.shape[0]
+    ny, nx = kw["grid_ny"], kw["grid_nx"]
+    _, order, start = _pool_graph_cuda(*args, **kw)
+    cell = _cell(pos[..., 0], nx) + nx * _cell(pos[..., 1], ny)
+    base = torch.arange(B, device=pos.device)[:, None] * (ny * nx)
+    key = torch.where(mask, base + cell, B * ny * nx).reshape(-1)
+    _, want_order, want_start = sorted_runs(key, B * ny * nx)
+    require(torch.equal(order, want_order) and torch.equal(start, want_start),
+            f"K3 {what}: order and cell_start bit-equal to sorted_runs")
+
+
+def check_fused_blocks(cap, what, card):
+    """K2's fused eval block against its twin on the card, on the inputs
+    of the main path's own calls (``cap``, a Capture of every call): one
+    check per distinct (rows, K, Cin, Cout, Cs, bias, act), its error
+    within 1e-5 of the twin output's max, timed once and counted as often
+    as the path calls it.  Bound: the inputs read once (source rows,
+    edge tables, weights, vectors, skip) and the output written, or
+    2*M*(26*Cin + Cs)*Cout operations at the 3xTF32 rate.  Returns the
+    checks."""
+    from dagr_tpu_torch.ops.spline import (
+        block_shared_memory, spline_conv_block, spline_conv_block_plain)
+
+    groups = {}
+    for args, kw in cap.calls:
+        x, edges, weight, _, bias = args
+        skip = kw.get("skip")
+        key = (x.shape[0], edges.nbr.shape[1], x.shape[1], weight.shape[2],
+               0 if skip is None else skip.shape[1], bias is not None,
+               kw.get("act"))
+        groups.setdefault(key, [args, kw, 0])[2] += 1
+    checks = []
+    for (M, K, cin, cout, cs, has_bias, act), (args, kw, n) in groups.items():
+        a = spline_conv_block(*args, **kw)
+        b = spline_conv_block_plain(*args, **kw)
+        err, top = max_err(a, b), float(b.abs().max())
+        at = (f"{what}: M={M} K={K} Cin={cin} Cout={cout} Cs={cs} "
+              f"bias={has_bias} act={act} x{n}")
+        require(err <= 1e-5 * top, f"fused block {at}: max |out - twin| = "
+                f"{err} against an output max of {top}")
+        stats = [t for k in ("bn", "bn_skip") if kw.get(k) is not None
+                 for t in kw[k][:4]]
+        n_bytes = nbytes(args[0], *args[1], *args[2:], *stats,
+                         kw.get("skip"), kw.get("lin"), kw.get("mask"), a)
+        rec = record(err, n * cuda_ms(lambda: spline_conv_block(*args, **kw),
+                                      20),
+                     n * cuda_ms(lambda: spline_conv_block_plain(*args, **kw),
+                                 5),
+                     n * n_bytes, n * 2 * M * (26 * cin + cs) * cout,
+                     ops_per_s=TF32X3_OPS_PER_S)
+        smem = block_shared_memory(cin, cout, cs, 5, K)
+        rec.update(at=at, rel_err=err / max(top, 1e-30), shared_bytes=smem)
+        checks.append(rec)
+        print(f"K2 spline_conv_block, {at}: err {err:.3g} ({rec['rel_err']:.3g}"
+              f" of the output max); kernel {rec['ms']:.4f} ms, twin "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}); {smem} bytes of shared memory a block "
+              f"[{card}]", flush=True)
+    return checks
+
+
+def count_host_ops(fn):
+    """One call of ``fn`` (after a warm-up call) under torch.profiler: the
+    names of its top-level aten ops (ops called by no other aten op), its
+    CUDA kernel launches, and the names of the device kernels it ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    ops = [e.name for e in cpu if e.name.startswith("aten::") and (
+        e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
+    launches = sum(1 for e in cpu if e.name in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    return ops, launches, [e.key for e in kernel_events(prof)]
+
+
+def host_op_profile(det, events):
+    """The host side of one pooling (the first of a B=1 window) and of
+    one eval ConvBlock (the first stencil level's first): top-level aten
+    ops, CUDA launches and device kernels of each, from the inputs the
+    window gave them."""
+    from dagr_tpu_torch.ops import pool as pool_mod
+
+    block = det.model.backbone.layer2.conv_block1
+    seen = []
+    hook = block.register_forward_pre_hook(lambda m, a: seen.append(a))
+    cap = Capture(pool_mod, "pool_graph", 0)
+    det(events[0])
+    cap.close()
+    hook.remove()
+    args, kw = cap.args, cap.kwargs
+    with torch.no_grad():
+        pool = count_host_ops(lambda: pool_mod.pool_graph(*args, **kw))
+        conv = count_host_ops(lambda: block(*seen[0]))
+    return {"pooling": pool, "conv_block": conv}
+
+
+def print_host_ops(prof, card):
+    for what, (ops, launches, kernels) in prof.items():
+        print(f"host ops of one {what}: {len(ops)} aten ops, {launches} "
+              f"kernel launches, {len(kernels)} device kernels [{card}]",
+              flush=True)
+        print(f"  ops: {', '.join(ops)}", flush=True)
+        print(f"  kernels: {'; '.join(k[:60] for k in kernels)}", flush=True)
 
 
 def oracle_graph(pos_px: np.ndarray, radius: int, dt: int, K: int, Q: int):
@@ -329,6 +492,7 @@ def check_kernels(cfg, events, det):
         kw = dict(grid_ny=gy, grid_nx=gx, width=W, height=H, aggr=aggr,
                   keep_temporal_ordering=cfg.keep_temporal_ordering)
         got = pool_graph(*args, **kw)
+        check_pool_runs(args, kw, f"B=1 window, level {level + 1}")
         # the twin on the CPU adds in index order, as the kernel does
         want = pool_graph_plain(*[a.cpu() if a is not None else None
                                   for a in args], **kw)
@@ -350,8 +514,8 @@ def check_kernels(cfg, events, det):
                      graph=EventGraph(nbr=nbr, nbr_mask=nbr_mask),
                      tmax=tmax, grid_hw=(gy, gx))
         print(f"K3 voxel_pool level {level + 1}: {gy}x{gx} "
-              f"{int(pmask.sum())} cells, {int(nbr_mask.sum())} edges",
-              flush=True)
+              f"{int(pmask.sum())} cells, {int(nbr_mask.sum())} edges; "
+              f"runs bit-equal to sorted_runs", flush=True)
         k2_check(with_rel_delta(ns), level + 1, 1)         # Cin 18 / 66
         ns = with_width(ns, ch[level + 2])
         k2_check(ns, level + 1, 1 + head_calls.get(level + 1, 0))
@@ -446,6 +610,7 @@ def serve(cfg, events, det):
                     f"detections {k}: {tuple(dets[k].shape)} {dets[k].dtype}")
         for k in SYNC_KERNELS:
             require(after[k] > before[k], f"kernel {k} launched on request")
+        require_blocks(before, after, SYNC_BLOCKS, 0, "a sync request")
         if B == 1:
             window_ms.append(start.elapsed_time(end))
             singles.append(raw)
@@ -694,6 +859,7 @@ def stream(cfg, det, events, card):
         after = _build.launch_counts()
         for k in STREAM_KERNELS:
             require(after[k] > before[k], f"kernel {k} launched on a step")
+        require_blocks(before, after, TAIL_BLOCKS, 0, "a grow engine step")
         grow_raws.append(raw)
     torch.cuda.synchronize()
     launches = _build.launch_counts()
@@ -729,6 +895,7 @@ def stream(cfg, det, events, card):
             require(after[k] > before[k], f"kernel {k} launched on a ring step")
         require(after["stream_accumulate"] == before["stream_accumulate"],
                 "no K10 launch on a ring step")
+        require_blocks(before, after, TAIL_BLOCKS, 0, "a ring engine step")
         if (i + 1) * 1024 <= N_VALID:          # no eviction yet
             ring_err = max(ring_err, max_err(rraw, grow_raws[i]))
     torch.cuda.synchronize()
@@ -912,13 +1079,13 @@ def print_timing(what, ms, p50_of, card, events=None):
               "time not measured", flush=True)
 
 
-def hold_serve_step(k2_events, k10, k2_tail, k3_tail, what, card):
+def hold_serve_step(k2_events, k10, k3_tail, what, card):
     """Kernels of one multi-stream serve step held against their twins on
     the inputs the step gave them (``Capture``s): the two event convs' K2
-    (destinations of every stream against the ring tables) and the
-    tail's first K2 (level 1 at batch S) to 1e-5 relative, K10 on the
-    S*G1 folded cells and the tail's first K3 bit for bit against the
-    twin on the CPU (which adds in index order, as the kernels do).
+    aggregation (destinations of every stream against the ring tables) to
+    1e-5 relative, K10 on the S*G1 folded cells and the tail's first K3
+    bit for bit against the twin on the CPU (which adds in index order,
+    as the kernels do), and that K3's cell runs against sorted_runs.
     Returns {kernel: [{"at", "max_abs_err", "ms", "plain_ms"}]}."""
     from dagr_tpu_torch.ops.pool import (
         accumulate_cells, accumulate_cells_plain, pool_graph, pool_graph_plain)
@@ -927,8 +1094,8 @@ def hold_serve_step(k2_events, k10, k2_tail, k3_tail, what, card):
 
     checks = {"spline_aggregate": [], "stream_accumulate": [],
               "voxel_pool": []}
-    for where, (args, kw) in zip(("event conv 1", "event conv 2", "tail"),
-                                 k2_events.calls + k2_tail.calls):
+    for where, (args, kw) in zip(("event conv 1", "event conv 2"),
+                                 k2_events.calls):
         a, b = spline_aggregate(*args, **kw), spline_aggregate_plain(*args, **kw)
         err = max_err(a, b)
         require(err <= 1e-5 * max(1.0, float(b.abs().max())),
@@ -962,6 +1129,7 @@ def hold_serve_step(k2_events, k10, k2_tail, k3_tail, what, card):
           flush=True)
 
     args, kw = k3_tail.args, k3_tail.kwargs
+    check_pool_runs(args, kw, f"{what} tail")
     got = pool_graph(*args, **kw)
     want = pool_graph_plain(*[a.cpu() if torch.is_tensor(a) else a
                               for a in args], **kw)
@@ -1040,7 +1208,8 @@ def serve_streams(cfg, det, events, card):
             caps = [Capture(serve_mod, "search_edges_streams", 0),
                     Capture(serve_mod, "spline_aggregate", 0, 1),
                     Capture(serve_mod, "accumulate_cells", 0),
-                    Capture(spline_mod, "spline_aggregate", 0),
+                    Capture(spline_mod, "spline_conv_block",
+                            *range(TAIL_BLOCKS)),
                     Capture(pool_mod, "pool_graph", 0)]
         st, raw, info, ms = timed_step(srv, st, c)
         if i == mid:
@@ -1051,9 +1220,10 @@ def serve_streams(cfg, det, events, card):
         after = _build.launch_counts()
         for k in SERVE_KERNELS:
             require(after[k] > before[k], f"kernel {k} launched on a serve step")
+        require_blocks(before, after, TAIL_BLOCKS, 2, f"an S={S} serve step")
         raws.append(raw)
     grow_launches = _build.launch_counts()
-    cap, k2_events, k10, k2_tail, k3_tail = caps
+    cap, k2_events, k10, blocks_tail, k3_tail = caps
     err = max_err(raw, raw_sync)
     require(bool(st.coverage_ok), "serve grow: coverage_ok stays True")
     require(torch.allclose(raw, raw_sync, atol=1e-4, rtol=1e-4),
@@ -1067,8 +1237,10 @@ def serve_streams(cfg, det, events, card):
     b = search_edges_streams_plain(*args, **kw)
     for name, x, y in zip(("nbr", "mask", "spiral"), a, b):
         require(torch.equal(x, y), f"serve_search {name} == twin")
-    checks = hold_serve_step(k2_events, k10, k2_tail, k3_tail,
+    checks = hold_serve_step(k2_events, k10, k3_tail,
                              f"serve grow S={S} C={C}", card)
+    checks["spline_conv_block"] = check_fused_blocks(
+        blocks_tail, f"serve tail S={S}", card)
     E = S * C
     runs_ms = cuda_ms(lambda: _ring_runs(args[0], args[2], S * H * W), 50)
     key_s = _ring_runs(args[0], args[2], S * H * W)[0]
@@ -1141,6 +1313,7 @@ def serve_streams(cfg, det, events, card):
             require(after[k] > before[k], f"kernel {k} launched on a ring step")
         require(after["stream_accumulate"] == before["stream_accumulate"],
                 "no K10 launch on a serve ring step")
+        require_blocks(before, after, TAIL_BLOCKS, 2, "a ring serve step")
         ring_raws.append(rraw)
         nbr_vid.append(info["nbr_vid"][0])
         nbr_mask.append(info["nbr_mask"][0])
@@ -1421,15 +1594,19 @@ def check_pool_backward(cap, card):
     return checks
 
 
-def merge_checks(checks):
+def merge_checks(checks, key="train_checks"):
     """A kernel's row from its checks: the largest error, the times and
-    bounds summed over the checked calls (the same work for each)."""
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
-    rec = {k: sum(c[k] for c in checks) for k in keys}
+    bounds summed over the checked calls (the same work for each; no
+    library time if a check has none); the checks under ``key``."""
+    rec = {k: sum(c[k] for c in checks) for k in ("ms", "plain_ms",
+                                                  "bound_ms")}
+    libs = [c["library_ms"] for c in checks]
+    rec["library_ms"] = None if None in libs else sum(libs)
     t_bytes = sum(c["bound_ms"] for c in checks if c["bound_by"] == "bytes")
     rec.update(max_abs_err=max(c["max_abs_err"] for c in checks),
                bound_by="bytes" if 2 * t_bytes >= rec["bound_ms"]
-               else "operations", train_checks=checks)
+               else "operations")
+    rec[key] = checks
     return rec
 
 
@@ -1535,9 +1712,11 @@ def train(cfg, card):
             G1 = TRAIN_B * cfg.grid_shapes()[0][0] * cfg.grid_shapes()[0][1]
             at = [j for j, (m, k, _) in enumerate(k9a_shapes)
                   if k == cfg.max_neighbors or m == G1]
+            n_pool = len(cfg.grid_shapes())
             caps = [Capture(spline_mod, "spline_aggregate_backward", *at),
                     Capture(pool_mod, "pool_features_backward",
-                            *range(len(cfg.grid_shapes())))]
+                            *range(n_pool)),
+                    Capture(pool_mod, "_pool_graph_cuda", *range(n_pool))]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1556,6 +1735,18 @@ def train(cfg, card):
     for k in TRAIN_KERNELS:
         require(launches[k] >= n_steps, f"kernel {k} launched on every "
                 f"train step ({launches[k]} in {n_steps})")
+    # training keeps the split route: K2 aggregations and K9a, no fused block
+    require(launches["spline_aggregate"] == SYNC_BLOCKS * n_steps
+            and launches["spline_aggregate_backward"]
+            == (SYNC_BLOCKS - 1) * n_steps
+            and launches["spline_conv_block"] == 0,
+            f"train launches per step: {launches['spline_aggregate'] / n_steps}"
+            f" K2, {launches['spline_aggregate_backward'] / n_steps} K9a, "
+            f"{launches['spline_conv_block']} fused blocks in all")
+    for j, (args, kw) in enumerate(caps[2].calls):
+        check_pool_runs(args, kw, f"B={TRAIN_B} train step, pooling {j + 1}")
+    print(f"K3 runs bit-equal to sorted_runs on the {len(caps[2].calls)} "
+          f"poolings of a B={TRAIN_B} train step", flush=True)
     sd = model.state_dict()
     require(all(not torch.equal(sd[k], p0[k]) for k, _ in
                 model.named_parameters()), "every parameter moved")
@@ -1640,14 +1831,196 @@ def train(cfg, card):
     return out, launches, n_steps
 
 
+def busy_of(prof, n):
+    """Device busy ms per step of a profile over ``n`` steps."""
+    return sum(e.self_device_time_total for e in kernel_events(prof)) / 1e3 / n
+
+
+def profiled(fn, n):
+    """Device busy ms per call of ``fn`` over ``n`` calls (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return busy_of(prof, n)
+
+
+def timed(fn):
+    """ms of one ``fn()`` between CUDA events, synchronised."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def summary(ms, busy):
+    p50 = float(np.median(ms))
+    return {"p50": p50, "min": min(ms), "max": max(ms), "n": len(ms),
+            "busy": busy, "idle": 1 - busy / p50 if busy > 0 else None}
+
+
+def timings(card, train_only=False):
+    """``--timings``: the end-to-end times of the dagr_tpu_torch that is
+    first on sys.path, through public entry points only (so that another
+    checkout's package can be measured by the same code): the sync B=1
+    window (8 windows), the engine's grow step of 256 on a ~36k store (16
+    steps), the S=8 server's grow step at chunk 1024 (steps 3-44 of one
+    window per stream), the B=8 recipe train step (12 after 2), each with
+    device busy ms per step and idle share; and the host ops of one
+    pooling and one eval ConvBlock.  With ``train_only`` the train step
+    alone, in a process that ran nothing else.  Prints one JSON line."""
+    from dagr_tpu_torch.config import DagrConfig
+    from dagr_tpu_torch.data.synthetic import random_events, random_targets
+    from dagr_tpu_torch.models.dagr import DAGR, init_fresh
+    from dagr_tpu_torch.train.state import (
+        init_state, make_optimizer, train_step)
+
+    cfg = DagrConfig()
+    out = {"package": str(Path(sys.modules["dagr_tpu_torch"].__file__).parent)}
+    if not train_only:
+        eval_timings(cfg, out)
+    tcfg = cfg.replace(batch_size=TRAIN_B)
+    trng = np.random.default_rng(SEED + 1)
+    tev = random_events(trng, TRAIN_B, N_NODES, W, H, n_valid=N_VALID,
+                        device="cuda")
+    targets = random_targets(trng, TRAIN_B, n_boxes=30)
+    tmodel = DAGR(tcfg, H, W)
+    init_fresh(tmodel, torch.Generator().manual_seed(SEED))
+    state = init_state(tmodel.cuda(), make_optimizer(tcfg, 10)[0])
+    ms = [timed(lambda: train_step(state, tev, targets))
+          for _ in range(TRAIN_WARM + TRAIN_TIMED)][TRAIN_WARM:]
+    out[f"train_b{TRAIN_B}"] = summary(
+        ms, profiled(lambda: train_step(state, tev, targets), 2))
+    out["card"] = card
+    print(json.dumps({"timings": out}), flush=True)
+
+
+def eval_timings(cfg, out):
+    """The eval paths of ``timings`` and the host ops, into ``out``."""
+    from dagr_tpu_torch.data.synthetic import random_events
+    from dagr_tpu_torch.serve import Detector
+    from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
+    from dagr_tpu_torch.streaming.serve import MultiStreamServer, chunk_streams
+
+    rng = np.random.default_rng(SEED)
+    events = [random_events(rng, 1, N_NODES, W, H, n_valid=N_VALID,
+                            device="cuda") for _ in range(9)]
+    det = Detector(cfg, H, W, "cuda", seed=SEED)
+    det(events[0])
+    ms = [timed(lambda: det(w)) for w in events[1:9]]
+    busy = profiled(lambda: det(events[1]), 4)
+    out["sync"] = summary(ms, busy)
+    host = host_op_profile(det, events)
+    out["host_ops"] = {k: {"ops": len(v[0]), "launches": v[1],
+                           "kernels": len(v[2]), "op_names": v[0]}
+                       for k, v in host.items()}
+
+    model = det.model
+    p3, f3 = stream_events(events[3])
+    eng = StreamingDetector(model, H, W, chunk=256, count_flops=False)
+    st = eng.init_state()
+    for c in chunk_events(p3[:STREAM_WARM], f3[:STREAM_WARM], 1024,
+                          device="cuda"):
+        st, _, _ = eng.step(st, *c)
+    steps = chunk_events(p3[STREAM_WARM:STREAM_WARM + 26 * 256],
+                         f3[STREAM_WARM:STREAM_WARM + 26 * 256], 256,
+                         device="cuda")
+    st, ms = step_ms(eng, st, steps[:18])
+    box = [st]
+
+    def eng_step(it=iter(steps[18:])):
+        box[0] = eng.step(box[0], *next(it))[0]
+
+    out["engine_grow_256"] = summary(ms, profiled(eng_step, 8))
+
+    S, C = SERVE_S, SERVE_CHUNK
+    fed = [stream_events(w) for w in events[1:1 + S]]
+    chunks = chunk_streams(np.stack([p for p, _ in fed]),
+                           np.stack([f for _, f in fed]), C, device="cuda")
+    srv = MultiStreamServer(model, H, W, S, C)
+    sst = srv.init_state()
+    ms = []
+    for i, c in enumerate(chunks):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sst, _, _ = srv.step(sst, *c)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            ms.append(start.elapsed_time(end))
+    gst = srv.init_state()
+    for c in chunks[:4]:
+        gst, _, _ = srv.step(gst, *c)
+    _, sbusy, _ = profile_steps(srv, gst, chunks[4:8])
+    out[f"serve_s{S}_grow"] = summary(ms, sbusy)
+
+
+def compare(parent: str, card, train_only=False):
+    """``--compare DIR [train]``: the parent's dagr_tpu_torch (unpacked
+    under DIR) and this checkout's, measured in turns on this card
+    (parent, change, change, parent; with ``train`` the train step alone,
+    three such rounds), each run a ``--timings`` subprocess with its
+    package first on sys.path.  Prints each run's numbers and one JSON
+    line."""
+    here = Path(__file__).resolve().parent
+    turns = (("parent", parent), ("change", here), ("change", here),
+             ("parent", parent)) * (3 if train_only else 1)
+    runs = []
+    for label, root in turns:
+        res = subprocess.run(
+            [sys.executable, str(here / "chip_smoke.py"), "--timings",
+             str(Path(root).resolve())] + (["train"] if train_only else []),
+            capture_output=True, text=True, timeout=900)
+        line = [ln for ln in res.stdout.splitlines()
+                if ln.startswith('{"timings"')]
+        require(res.returncode == 0 and len(line) == 1,
+                f"--timings of the {label} ({root}): rc {res.returncode}\n"
+                f"{res.stderr[-3000:]}")
+        t = json.loads(line[0])["timings"]
+        runs.append((label, t))
+        print(f"{label} ({t['package']}):", flush=True)
+        for k, v in t.items():
+            if isinstance(v, dict) and "p50" in v:
+                idle = "not measured" if v["idle"] is None else f"{v['idle']:.3f}"
+                print(f"  {k}: p50 {v['p50']:.3f} ms (min {v['min']:.3f}, max "
+                      f"{v['max']:.3f}, {v['n']} steps), device busy "
+                      f"{v['busy']:.3f} ms, idle share {idle} [{card}]",
+                      flush=True)
+        for k, v in t.get("host_ops", {}).items():
+            print(f"  host ops of one {k}: {v['ops']} aten ops, "
+                  f"{v['launches']} kernel launches, {v['kernels']} device "
+                  f"kernels: {', '.join(v['op_names'])}", flush=True)
+    print(json.dumps({"compare": [{"run": label, **t} for label, t in runs]}),
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the GPU",
               file=sys.stderr)
         return 1
+    mode, rest = sys.argv[1:2], sys.argv[2:]
+    train_only = rest[1:] == ["train"]
+    if mode in (["--timings"], ["--compare"]) and (
+            len(rest) not in (1, 2) or (len(rest) == 2 and not train_only)):
+        print("usage: chip_smoke.py [--train-only | --compare DIR [train] "
+              "| --timings DIR [train]]", file=sys.stderr)
+        return 2
+    if mode == ["--timings"]:
+        # another checkout's package goes first on the path
+        sys.path.insert(0, rest[0])
     from dagr_tpu_torch.config import DagrConfig
     from dagr_tpu_torch.data.synthetic import random_events
     from dagr_tpu_torch.kernels import _build
+    from dagr_tpu_torch.ops import spline as spline_mod
     from dagr_tpu_torch.serve import Detector
 
     card = subprocess.run(
@@ -1657,6 +2030,9 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if mode == ["--compare"]:
+        compare(rest[0], card, train_only)
+        return 0
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -1664,6 +2040,9 @@ def main() -> int:
     print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
     print(open(f"{lib}.log").read().strip(), flush=True)
 
+    if mode == ["--timings"]:
+        timings(card, train_only)
+        return 0
     cfg = DagrConfig()
     if sys.argv[1:] == ["--train-only"]:
         # the training phase alone (build, checks, timings), no result line
@@ -1680,6 +2059,19 @@ def main() -> int:
     kernels = check_kernels(cfg, events, det)
     window_ms, launches = serve(cfg, events, det)
     kernels.update(check_stream_kernels(cfg, events[0]))
+    # K2's fused block on the 20 calls of one window
+    cap = Capture(spline_mod, "spline_conv_block", *range(SYNC_BLOCKS))
+    det(events[1])
+    cap.close()
+    kernels["spline_conv_block"] = merge_checks(
+        check_fused_blocks(cap, "sync window B=1", card), "block_checks")
+    del cap
+    host = host_op_profile(det, events)
+    print_host_ops(host, card)
+    pool_kernels = host["pooling"][2]
+    require(all("pool_" in k for k in pool_kernels) and not any(
+        w in k.lower() for k in pool_kernels for w in ("sort", "searchsorted")),
+        f"a pooling runs only the port's kernels, no sort: {pool_kernels}")
 
     # the same model and window through the plain path on the CPU
     cpu = Detector(cfg, H, W, "cpu", state_dict=det.model.state_dict())
@@ -1721,6 +2113,8 @@ def main() -> int:
     launches.update({k: v for k, v in grow_launches.items()
                      if k not in SYNC_KERNELS})
     launches["serve_search"] = serve_launches["serve_search"]
+    # the split aggregation's path in eval: the server's two event convs
+    launches["spline_aggregate"] = serve_launches["spline_aggregate"]
     for k in ("serve_ring_update", "cell_max"):
         launches[k] = serve_ring_launches[k]
     # eval does not pay for training: no backward kernel in the sync,

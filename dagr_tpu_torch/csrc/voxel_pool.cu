@@ -10,23 +10,42 @@
 // in-frame, non-empty source and destination cells.
 //
 // What bounds it on an H100: latency, not bandwidth.  The fine level
-// is at most 50k nodes x 16 floats (3.2 MB), read once; the long pole
-// is the most crowded cell, whose nodes one warp reduces in order.
+// is at most 50k nodes x 16 floats (3.2 MB) a window, read once; the
+// long poles are the host ops around the launches and the most crowded
+// cell, whose position sums must run in node order.
 //
 // Design: the floor in the pooled position flips if the position sum
-// rounds differently, so no float atomics are used.  Three launches:
-//   1. per fine node (one thread each): its cell id and the 9-bit mask
-//      of its valid in-stencil, non-self edges (from nbr_dpos at the
-//      event level, from the sources' own positions otherwise);
-//   (the caller stable-sorts the cell ids: torch.sort + searchsorted)
-//   2. per cell (one warp each): walk the cell's nodes in index order;
-//      lanes own feature channels, so every float sum runs in node
-//      index order, the same order as the plain PyTorch version's
-//      index_add_ on the CPU (bit-equal results); the max, the count
-//      and the OR of the edge masks do not depend on order;
-//   3. per (cell, stencil slot) (one thread each): the coarse
-//      neighbour id and mask adj & in-frame & source non-empty &
-//      destination non-empty (& t_max(dst) > t_max(src) when asked).
+// rounds differently, so no float atomics are used.  One C entry,
+// dagr_voxel_pool, and no host op between its six launches; the stable
+// sort of the nodes by cell is a one-digit counting sort done here
+// (B*ny*nx <= 17920 keys at DAGR-S's B = 8), with integer atomics only
+// in shared memory:
+//   1. nodes (a block per tile of kPoolTile nodes of one sample): each
+//      node's cell id (invalid nodes go to the pad cell B*ny*nx, past
+//      the last) and the 9-bit mask of its valid in-stencil, non-self
+//      edges (from nbr_dpos at the event level, else from the sources'
+//      own positions, the sample's base added to the local neighbour
+//      ids here), and the tile's histogram over its sample's cells;
+//   2. per (cell, tile): the exclusive prefix of the cell's counts over
+//      its sample's tiles (the pad cell over every tile), and the cell's
+//      count;
+//   3. one block: the exclusive scan of the counts, cell_start;
+//   4. a warp per tile: each node's stable rank in its cell (the tile's
+//      nodes in index order, 32 at a time: __match_any_sync gives a
+//      lane its peers, popc of those below it its rank) and order[] at
+//      cell_start + the earlier tiles' count + rank.  So order and
+//      cell_start are bit-equal to a stable sort by cell id
+//      (graph/build.py sorted_runs), which K9b reuses in the backward;
+//   5. a warp per cell: the feature max spread over the lanes (32 /
+//      min(32, pow2 >= C) of the cell's rows per pass, lanes over
+//      channels, then a fixed shuffle tree; max is exact in any order);
+//      the mean, the position sums, tmax and the edge bits walk the rows
+//      in node index order, reading the order entries 32 at a time and
+//      broadcasting them with shuffles, so every float sum runs in the
+//      order of the plain PyTorch version's index_add_ on the CPU;
+//   6. per (cell, stencil slot) (one thread each): the coarse neighbour
+//      id and mask adj & in-frame & source non-empty & destination
+//      non-empty (& t_max(dst) > t_max(src) when asked).
 // Divisions by W and H are reciprocal multiplies, as XLA compiles the
 // JAX package's divisions by those constants.
 //
@@ -93,83 +112,161 @@ __device__ __forceinline__ int cell_coord(float p, int n) {
   return min(max((int)(q * (float)n), 0), n - 1);
 }
 
+constexpr int kPoolTile = 2048;     // nodes of one sample per sort tile
+
+// K3 step 1: a block per tile of one sample's nodes.  hist holds, for
+// cell g = b*ncells + c, the counts of its sample's tiles at g*tpb + t,
+// and after the B*ncells cells the pad cell's count of every tile.
 __global__ void pool_nodes_kernel(
     const float* __restrict__ pos,        // [M, 3]
     const uint8_t* __restrict__ mask,     // [M]
     const uint8_t* __restrict__ nbr_mask, // [M, K]
     const float* __restrict__ nbr_dpos,   // [M, K, 2] or null
-    const int* __restrict__ nbr,          // [M, K] global ids (if no dpos)
-    int M, int N, int K, int ny, int nx, int pad_seg, int W, int H,
-    float inv_w, float inv_h, int* __restrict__ seg, int* __restrict__ bits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M) return;
+    const int* __restrict__ nbr,          // [M, K] ids within the sample
+    int N, int K, int ny, int nx, int n_cells_total, int tpb, int W, int H,
+    float inv_w, float inv_h, int* __restrict__ seg, int* __restrict__ bits,
+    int* __restrict__ hist) {
+  extern __shared__ int h[];              // [ncells + 1], the pad last
   const int ncells = ny * nx;
-  const int b = i / N;
-  const int cx = cell_coord(pos[3 * i], nx);
-  const int cy = cell_coord(pos[3 * i + 1], ny);
-  if (!mask[i]) {
-    seg[i] = pad_seg;   // past every cell: sorts last
-    bits[i] = 0;
-    return;
-  }
-  seg[i] = b * ncells + cx + nx * cy;
-  int out = 0;
-  float xd = 0.f, yd = 0.f;
-  if (nbr_dpos) {
-    xd = floorf(pos[3 * i] * (float)W + 1e-3f);
-    yd = floorf(pos[3 * i + 1] * (float)H + 1e-3f);
-  }
-  for (int k = 0; k < K; ++k) {
-    const size_t ik = (size_t)i * K + k;
-    if (!nbr_mask[ik]) continue;
-    int sx, sy;
+  const int b = blockIdx.x / tpb, t = blockIdx.x - b * tpb;
+  for (int c = threadIdx.x; c <= ncells; c += blockDim.x) h[c] = 0;
+  __syncthreads();
+  const int lo = b * N + t * kPoolTile;
+  const int hi = b * N + min(N, (t + 1) * kPoolTile);
+  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+    const int cx = cell_coord(pos[3 * i], nx);
+    const int cy = cell_coord(pos[3 * i + 1], ny);
+    if (!mask[i]) {
+      seg[i] = n_cells_total;   // past every cell: sorts last
+      bits[i] = 0;
+      atomicAdd(&h[ncells], 1);
+      continue;
+    }
+    seg[i] = b * ncells + cx + nx * cy;
+    atomicAdd(&h[cx + nx * cy], 1);
+    int out = 0;
+    float xd = 0.f, yd = 0.f;
     if (nbr_dpos) {
-      const float fx = (xd + rintf(nbr_dpos[2 * ik] * (float)W)) * inv_w;
-      const float fy = (yd + rintf(nbr_dpos[2 * ik + 1] * (float)H)) * inv_h;
-      sx = cell_coord(fx, nx);
-      sy = cell_coord(fy, ny);
-    } else {
-      const int s = nbr[ik];
-      if (!mask[s]) continue;
-      sx = cell_coord(pos[3 * s], nx);
-      sy = cell_coord(pos[3 * s + 1], ny);
+      xd = floorf(pos[3 * i] * (float)W + 1e-3f);
+      yd = floorf(pos[3 * i + 1] * (float)H + 1e-3f);
     }
-    const int dx = sx - cx, dy = sy - cy;
-    if (dx < -1 || dx > 1 || dy < -1 || dy > 1 || (dx == 0 && dy == 0)) continue;
-    out |= 1 << ((dy + 1) * 3 + (dx + 1));
+    for (int k = 0; k < K; ++k) {
+      const size_t ik = (size_t)i * K + k;
+      if (!nbr_mask[ik]) continue;
+      int sx, sy;
+      if (nbr_dpos) {
+        const float fx = (xd + rintf(nbr_dpos[2 * ik] * (float)W)) * inv_w;
+        const float fy = (yd + rintf(nbr_dpos[2 * ik + 1] * (float)H)) * inv_h;
+        sx = cell_coord(fx, nx);
+        sy = cell_coord(fy, ny);
+      } else {
+        const int s = b * N + nbr[ik];
+        if (!mask[s]) continue;
+        sx = cell_coord(pos[3 * s], nx);
+        sy = cell_coord(pos[3 * s + 1], ny);
+      }
+      const int dx = sx - cx, dy = sy - cy;
+      if (dx < -1 || dx > 1 || dy < -1 || dy > 1 || (dx == 0 && dy == 0)) continue;
+      out |= 1 << ((dy + 1) * 3 + (dx + 1));
+    }
+    bits[i] = out;
   }
-  bits[i] = out;
+  __syncthreads();
+  for (int c = threadIdx.x; c < ncells; c += blockDim.x)
+    hist[(size_t)(b * ncells + c) * tpb + t] = h[c];
+  if (threadIdx.x == 0)
+    hist[(size_t)n_cells_total * tpb + blockIdx.x] = h[ncells];
 }
 
-// One warp reduces a cell's rows order[st..en), in that order: each
-// lane's feature channels (sum from 0 when mean, else max from
-// -FLT_MAX) go to chan(c, value); lanes 0-2 return their position sum,
-// lane 3 the max time (-inf for an empty run); 0 when pos is null.
-// Shared by K3, K10 and K8's cell max.
-template <class Chan>
-__device__ __forceinline__ float warp_cell_reduce(
-    const int* __restrict__ order, int st, int en,
-    const float* __restrict__ feat, const float* __restrict__ pos, int C,
-    int mean, int lane, Chan chan) {
-  for (int c = lane; c < C; c += 32) {
-    float acc = mean ? 0.f : -FLT_MAX;
-    for (int j = st; j < en; ++j) {
-      const float v = feat[(size_t)order[j] * C + c];
-      if (mean) acc += v; else acc = v > acc ? v : acc;
-    }
-    chan(c, acc);
+// K3 step 2: one thread per cell (the pad cell last): its tiles' counts
+// become their exclusive prefix, in place; count[g] the total.
+__global__ void pool_tile_prefix_kernel(int n_cells_total, int B, int tpb,
+                                        int* __restrict__ hist,
+                                        int* __restrict__ count) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g > n_cells_total) return;
+  const int n = g < n_cells_total ? tpb : B * tpb;
+  int* hg = hist + (size_t)g * tpb;
+  int run = 0;
+  for (int j = 0; j < n; ++j) {
+    const int v = hg[j];
+    hg[j] = run;
+    run += v;
   }
-  float r = 0.f;
-  if (pos == nullptr) return r;
-  if (lane < 3) {
-    for (int j = st; j < en; ++j) r += pos[3 * order[j] + lane];
-  } else if (lane == 3) {
-    r = -INFINITY;
-    for (int j = st; j < en; ++j) r = fmaxf(r, pos[3 * order[j] + 2]);
-  }
-  return r;
+  count[g] = run;
 }
 
+// K3 step 3: one block of 1024 threads; cell_start[g] = sum of
+// count[0..g) for g <= n (a thread scans a run of consecutive cells).
+__global__ void __launch_bounds__(1024) pool_scan_kernel(
+    const int* __restrict__ count, int n, int* __restrict__ cell_start) {
+  __shared__ int warp_sum[32];
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
+  int own = 0;
+  for (int i = lo; i < hi; ++i) own += count[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = own;                          // inclusive scan in the warp
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += v;
+  }
+  if (lane == 31) warp_sum[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < (int)(blockDim.x >> 5) ? warp_sum[lane] : 0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, w, off);
+      if (lane >= off) w += v;
+    }
+    warp_sum[lane] = w;                   // inclusive over warps
+  }
+  __syncthreads();
+  int run = inc - own + (warp > 0 ? warp_sum[warp - 1] : 0);
+  for (int i = lo; i < hi; ++i) {
+    cell_start[i] = run;
+    run += count[i];
+  }
+  if (threadIdx.x == blockDim.x - 1) cell_start[n] = run;
+}
+
+// K3 step 4: a warp per tile writes its nodes into order[], stably.
+__global__ void pool_scatter_kernel(
+    const int* __restrict__ seg, const int* __restrict__ hist,
+    const int* __restrict__ cell_start, int N, int ncells,
+    int n_cells_total, int tpb, int* __restrict__ order) {
+  extern __shared__ int run[];            // [ncells + 1]: next slot per cell
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x / tpb, t = blockIdx.x - b * tpb;
+  for (int c = lane; c < ncells; c += 32) {
+    const int g = b * ncells + c;
+    run[c] = cell_start[g] + hist[(size_t)g * tpb + t];
+  }
+  if (lane == 0)
+    run[ncells] = cell_start[n_cells_total]
+                  + hist[(size_t)n_cells_total * tpb + blockIdx.x];
+  __syncwarp();
+  const int lo = b * N + t * kPoolTile;
+  const int hi = b * N + min(N, (t + 1) * kPoolTile);
+  const unsigned below = (1u << lane) - 1u;
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const bool active = i < hi;
+    int key = -1;                         // inactive lanes: the tail
+    if (active) {
+      const int sg = seg[i];
+      key = sg == n_cells_total ? ncells : sg - b * ncells;
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    const int rank = __popc(peers & below);
+    if (active) order[run[key] + rank] = i;
+    __syncwarp();
+    if (active && rank == 0) run[key] += __popc(peers);
+    __syncwarp();
+  }
+}
+
+// K3 step 5: one warp per cell; see the file's note.
 __global__ void pool_cells_kernel(
     const int* __restrict__ order,        // [M] nodes sorted by cell
     const int* __restrict__ cell_start,   // [B*ncells + 1]
@@ -180,30 +277,101 @@ __global__ void pool_cells_kernel(
     float inv_h, float* __restrict__ pooled, float* __restrict__ pos_out,
     uint8_t* __restrict__ cmask, float* __restrict__ tmax,
     int* __restrict__ adj) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int cell = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (warp >= n_cells_total) return;
-  const int st = cell_start[warp], en = cell_start[warp + 1];
+  if (cell >= n_cells_total) return;
+  const unsigned full = 0xffffffffu;
+  const int st = cell_start[cell], en = cell_start[cell + 1];
   const int count = en - st;
   const float denom = (float)max(count, 1);
-  const float r = warp_cell_reduce(
-      order, st, en, feat, pos, C, mean, lane, [&](int c, float acc) {
-        pooled[(size_t)warp * C + c] =
-            mean ? acc / denom : (count > 0 ? acc : 0.f);
-      });
+  float* prow = pooled + (size_t)cell * C;
+  if (mean) {
+    // lanes over channels, the rows in node order
+    for (int c = lane; c - lane < C; c += 32) {
+      float acc = 0.f;
+      for (int j0 = st; j0 < en; j0 += 32) {
+        const int n = min(32, en - j0);
+        const int o = lane < n ? order[j0 + lane] : 0;
+        for (int q = 0; q < n; ++q) {
+          const int oq = __shfl_sync(full, o, q);
+          if (c < C) acc += feat[(size_t)oq * C + c];
+        }
+      }
+      if (c < C) prow[c] = acc / denom;
+    }
+  } else {
+    // gl lanes per row, 32 / gl rows per pass
+    int gl = 1;
+    while (gl < C && gl < 32) gl <<= 1;
+    const int r = lane / gl, c0 = lane - r * gl, rows = 32 / gl;
+    for (int cb = 0; cb < C; cb += gl) {
+      const int c = cb + c0;
+      float acc = -FLT_MAX;
+      if (c < C) {
+        for (int j = st + r; j < en; j += rows) {
+          const float v = feat[(size_t)order[j] * C + c];
+          acc = v > acc ? v : acc;
+        }
+      }
+      for (int off = 16; off >= gl; off >>= 1) {
+        const float v = __shfl_xor_sync(full, acc, off);
+        acc = v > acc ? v : acc;
+      }
+      if (r == 0 && c < C) prow[c] = count > 0 ? acc : 0.f;
+    }
+  }
+  // node-order walk: lanes 0-2 the position sums, lane 3 the max time,
+  // lane 4 the OR of the edge bits
+  float r = lane == 3 ? -INFINITY : 0.f;
+  int ob = 0;
+  for (int j0 = st; j0 < en; j0 += 32) {
+    const int n = min(32, en - j0);
+    const int o = lane < n ? order[j0 + lane] : 0;
+    for (int q = 0; q < n; ++q) {
+      const int oq = __shfl_sync(full, o, q);
+      if (lane < 3) r += pos[3 * oq + lane];
+      else if (lane == 3) r = fmaxf(r, pos[3 * oq + 2]);
+      else if (lane == 4) ob |= bits[oq];
+    }
+  }
   if (lane < 3) {
     float m = r / denom;
     if (lane == 0) m = floorf((m + 1e-5f) * (float)W) * inv_w;
     if (lane == 1) m = floorf((m + 1e-5f) * (float)H) * inv_h;
-    pos_out[3 * warp + lane] = count > 0 ? m : 0.f;
+    pos_out[3 * cell + lane] = count > 0 ? m : 0.f;
   } else if (lane == 3) {
-    tmax[warp] = r;
-    cmask[warp] = count > 0;
+    tmax[cell] = r;
+    cmask[cell] = count > 0;
   } else if (lane == 4) {
-    int o = 0;
-    for (int j = st; j < en; ++j) o |= bits[order[j]];
-    adj[warp] = o;
+    adj[cell] = ob;
   }
+}
+
+// One warp reduces a cell's rows order[st..en), in that order: each
+// lane's feature channels (max from -FLT_MAX) go to chan(c, value); lanes
+// 0-2 return their position sum, lane 3 the max time (-inf for an empty
+// run).  K10's per-cell walk.
+template <class Chan>
+__device__ __forceinline__ float warp_cell_reduce(
+    const int* __restrict__ order, int st, int en,
+    const float* __restrict__ feat, const float* __restrict__ pos, int C,
+    int lane, Chan chan) {
+  for (int c = lane; c < C; c += 32) {
+    float acc = -FLT_MAX;
+    for (int j = st; j < en; ++j) {
+      const float v = feat[(size_t)order[j] * C + c];
+      acc = v > acc ? v : acc;
+    }
+    chan(c, acc);
+  }
+  float r = 0.f;
+  if (lane < 3) {
+    for (int j = st; j < en; ++j) r += pos[3 * order[j] + lane];
+  } else if (lane == 3) {
+    r = -INFINITY;
+    for (int j = st; j < en; ++j) r = fmaxf(r, pos[3 * order[j] + 2]);
+  }
+  return r;
 }
 
 // K10: the grow-mode streaming update of the level-1 cell aggregates by
@@ -230,7 +398,7 @@ __global__ void stream_accumulate_kernel(
   const int st = cell_start[warp], en = cell_start[warp + 1];
   if (st == en) return;
   const float r = warp_cell_reduce(
-      order, st, en, feat, pos, C, 0, lane, [&](int c, float m) {
+      order, st, en, feat, pos, C, lane, [&](int c, float m) {
         float* dst = cell_max + (size_t)warp * C + c;
         *dst = fmaxf(*dst, m);
       });
@@ -408,40 +576,56 @@ __global__ void pool_stencil_kernel(
 
 }  // namespace
 
-extern "C" int dagr_voxel_pool_nodes(
-    const void* pos, const void* mask, const void* nbr_mask,
-    const void* nbr_dpos, const void* nbr, int M, int N, int K, int ny,
-    int nx, int pad_seg, int W, int H, float inv_w, float inv_h, void* seg,
-    void* bits, void* stream) {
-  const int threads = 256;
-  const int blocks = (M + threads - 1) / threads;
-  if (blocks > 0) {
-    pool_nodes_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)pos, (const uint8_t*)mask, (const uint8_t*)nbr_mask,
-        (const float*)nbr_dpos, (const int*)nbr, M, N, K, ny, nx, pad_seg,
-        W, H, inv_w, inv_h, (int*)seg, (int*)bits);
-  }
-  return (int)cudaGetLastError();
+// Scratch words dagr_voxel_pool needs: seg and bits [M], the (cell,
+// tile) counts, count [G + 1] and adj [G], G = B*ny*nx.
+extern "C" long long dagr_voxel_pool_scratch(int B, int N, int ny, int nx) {
+  const long long tpb = (N + kPoolTile - 1) / kPoolTile;
+  const long long M = (long long)B * N, G = (long long)B * ny * nx;
+  return 2 * M + (G + B) * tpb + (G + 1) + G;
 }
 
-extern "C" int dagr_voxel_pool_cells(
-    const void* order, const void* cell_start, const void* feat,
-    const void* pos, const void* bits, int B, int ny, int nx, int C,
-    int mean, int temporal, int W, int H, float inv_w, float inv_h,
-    void* pooled, void* pos_out, void* cmask, void* tmax, void* adj,
-    void* nbr_out, void* mask_out, void* stream) {
-  const int total = B * ny * nx;
+// K3: the pooling of B samples of N nodes onto ny x nx cells, with the
+// stable cell runs order [M] and cell_start [G + 1] for K9b.
+extern "C" int dagr_voxel_pool(
+    const void* feat, const void* pos, const void* mask, const void* nbr_mask,
+    const void* nbr_dpos, const void* nbr, int B, int N, int K, int C,
+    int ny, int nx, int mean, int temporal, int W, int H, float inv_w,
+    float inv_h, void* order, void* cell_start, void* scratch, void* pooled,
+    void* pos_out, void* cmask, void* tmax, void* nbr_out, void* mask_out,
+    void* stream) {
+  const int ncells = ny * nx, G = B * ncells;
+  const int tpb = (N + kPoolTile - 1) / kPoolTile;
+  const size_t hist_smem = (size_t)(ncells + 1) * sizeof(int);
+  if (hist_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (total > 0) {
+  int* seg = (int*)scratch;
+  int* bits = seg + (size_t)B * N;
+  int* hist = bits + (size_t)B * N;
+  int* count = hist + (size_t)(G + B) * tpb;
+  int* adj = count + G + 1;
+  const int tiles = B * tpb;
+  if (tiles > 0) {
+    pool_nodes_kernel<<<tiles, 256, hist_smem, s>>>(
+        (const float*)pos, (const uint8_t*)mask, (const uint8_t*)nbr_mask,
+        (const float*)nbr_dpos, (const int*)nbr, N, K, ny, nx, G, tpb, W, H,
+        inv_w, inv_h, seg, bits, hist);
+  }
+  pool_tile_prefix_kernel<<<(G + 1 + 255) / 256, 256, 0, s>>>(G, B, tpb, hist,
+                                                              count);
+  pool_scan_kernel<<<1, 1024, 0, s>>>(count, G, (int*)cell_start);
+  if (tiles > 0) {
+    pool_scatter_kernel<<<tiles, 32, hist_smem, s>>>(
+        seg, hist, (const int*)cell_start, N, ncells, G, tpb, (int*)order);
+  }
+  if (G > 0) {
     const int threads = 256;   // 8 warps, one cell each
-    pool_cells_kernel<<<(total + 7) / 8, threads, 0, s>>>(
+    pool_cells_kernel<<<(G + 7) / 8, threads, 0, s>>>(
         (const int*)order, (const int*)cell_start, (const float*)feat,
-        (const float*)pos, (const int*)bits, total, C, mean, W, H, inv_w,
-        inv_h, (float*)pooled, (float*)pos_out, (uint8_t*)cmask,
-        (float*)tmax, (int*)adj);
-    pool_stencil_kernel<<<(total * 9 + threads - 1) / threads, threads, 0, s>>>(
-        (const uint8_t*)cmask, (const float*)tmax, (const int*)adj, total,
-        ny, nx, temporal, (int*)nbr_out, (uint8_t*)mask_out);
+        (const float*)pos, bits, G, C, mean, W, H, inv_w, inv_h,
+        (float*)pooled, (float*)pos_out, (uint8_t*)cmask, (float*)tmax, adj);
+    pool_stencil_kernel<<<(G * 9 + threads - 1) / threads, threads, 0, s>>>(
+        (const uint8_t*)cmask, (const float*)tmax, adj, G, ny, nx, temporal,
+        (int*)nbr_out, (uint8_t*)mask_out);
   }
   return (int)cudaGetLastError();
 }

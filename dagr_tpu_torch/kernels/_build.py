@@ -10,7 +10,10 @@ library is never loaded.  The library is loaded with ``ctypes``.
 Every C entry point takes its CUDA stream last and returns
 ``cudaGetLastError()`` after its launches; ``launch`` raises on a
 non-zero code, because a refused launch never runs and a later
-synchronise does not report it.
+synchronise does not report it.  ``dagr_init`` runs once, when the
+library is loaded: it raises the dynamic shared-memory limit of the
+kernels that need more than 48 KB, so that no launch sets an attribute
+(a launch may be inside a CUDA-graph capture).
 
 ``LAUNCHES`` counts the launches per kernel name.  It is process-wide on
 purpose: a run resets it, drives the main path, and reads it to show
@@ -39,7 +42,8 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"graph_search": 0, "spline_aggregate": 0, "voxel_pool": 0,
+LAUNCHES = {"graph_search": 0, "spline_aggregate": 0,
+            "spline_conv_block": 0, "voxel_pool": 0,
             "nms": 0, "graph_search_store": 0, "spline_gather": 0,
             "stream_accumulate": 0, "serve_search": 0,
             "serve_ring_update": 0, "cell_max": 0,
@@ -88,6 +92,10 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.dagr_error_string.argtypes = [ctypes.c_int]
         lib.dagr_error_string.restype = ctypes.c_char_p
+        err = lib.dagr_init()
+        if err != 0:
+            msg = lib.dagr_error_string(err).decode()
+            raise RuntimeError(f"dagr_init: CUDA error {err}: {msg}")
         _library = lib
     return _library
 

@@ -8,26 +8,42 @@ as they are; the skip ``lin`` is a ``torch.nn.Linear``, so its weight is
 the flax Dense kernel transposed ([out, in]).  Batch norm runs on its
 running statistics in eval mode and on the valid rows' statistics in
 train mode (``nn.Module.train()``), updating the running ones.
+
+Eval route: in eval mode under ``torch.no_grad`` (serving, streaming,
+the EMA's evaluation) a ConvBlock or ConvBlockWithSkip is one call of
+``ops.spline.spline_conv_block`` (one kernel launch on the card: the
+aggregation, products, batch norms, skip, activation and mask fused);
+otherwise (training, or grad enabled) it runs the split route below,
+whose backward goes through kernel K9a.  The choice depends on the
+mode alone, never on a kernel failing.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from dagr_tpu_torch.core.types import NodeSet
-from dagr_tpu_torch.ops.spline import LevelEdges, level_edges, spline_conv
+from dagr_tpu_torch.ops import spline as spline_ops
+from dagr_tpu_torch.ops.spline import (
+    ACTIVATIONS, BatchNormStats, LevelEdges, batch_norm, level_edges,
+    spline_conv)
+
+
+def activation_name(name: str) -> str:
+    """dagr_tpu's activation for ``name``: elu for an unknown one."""
+    return name if name in ACTIVATIONS else "elu"
 
 
 def activation_fn(name: str) -> Callable:
-    return {
-        "relu": F.relu,
-        "elu": F.elu,
-        "silu": F.silu,
-        "gelu": lambda x: F.gelu(x, approximate="tanh"),   # jax.nn.gelu
-    }.get(name, F.elu)
+    return ACTIVATIONS[activation_name(name)]
+
+
+def eval_route(module: nn.Module) -> bool:
+    """Whether ``module`` takes the fused eval route: eval mode and no
+    autograd."""
+    return not module.training and not torch.is_grad_enabled()
 
 
 class SplineConvLayer(nn.Module):
@@ -57,6 +73,25 @@ class SplineConvLayer(nn.Module):
         return spline_conv(x, edges, self.weight, self.root, self.bias,
                            kernel_size=self.kernel_size)
 
+    def block(self, x: torch.Tensor, edges: LevelEdges, mask: torch.Tensor,
+              skip=None, **kw) -> torch.Tensor:
+        """This conv as one fused eval block (``spline_conv_block``) on
+        x [B, N, Cin], node mask [B, N] and, given, skip [B, N, Cs];
+        ``kw``: its lin, bn, bn_skip and act.  Returns [B, N, Cout]."""
+        return fused_block(x, edges, self.weight, self.root, self.bias,
+                           mask, skip, kernel_size=self.kernel_size, **kw)
+
+
+def fused_block(x, edges, weight, root, bias, mask, skip=None, **kw):
+    """``spline_conv_block`` on [B, N, C] node tables."""
+    B, N, cin = x.shape
+    if skip is not None:
+        skip = skip.reshape(B * N, skip.shape[-1])
+    y = spline_ops.spline_conv_block(
+        x.reshape(B * N, cin), edges, weight, root, bias, skip=skip,
+        mask=mask.reshape(B * N), **kw)
+    return y.reshape(B, N, -1)
+
 
 class MaskedBatchNorm(nn.Module):
     """Batch norm over valid nodes; invalid rows are zeroed.  Train mode
@@ -73,6 +108,11 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+
+    def stats(self) -> BatchNormStats:
+        """The eval-mode transform, for the fused block."""
+        return BatchNormStats(self.running_mean, self.running_var,
+                              self.weight, self.bias, self.eps)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -100,8 +140,8 @@ class MaskedBatchNorm(nn.Module):
                     (1 - mom) * self.running_var + mom * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
-        y = (x - mean) * torch.rsqrt(var + self.eps)
-        y = y * self.weight + self.bias
+        y = batch_norm(x, BatchNormStats(mean, var, self.weight,
+                                              self.bias, self.eps))
         return torch.where(mask[..., None], y, 0.0)
 
 
@@ -113,9 +153,14 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.conv = SplineConvLayer(in_channels, out_channels, kernel_size)
         self.norm = MaskedBatchNorm(out_channels)
+        self.activation = activation_name(activation)
         self.act = activation_fn(activation)
 
     def forward(self, ns: NodeSet, edges: LevelEdges) -> NodeSet:
+        if eval_route(self):
+            return ns.replace(feat=self.conv.block(
+                ns.feat, edges, ns.mask, bn=self.norm.stats(),
+                act=self.activation))
         x = self.norm(self.conv(ns.feat, edges), ns.mask)
         x = self.act(x)
         return ns.replace(feat=torch.where(ns.mask[..., None], x, 0.0))
@@ -132,10 +177,16 @@ class ConvBlockWithSkip(nn.Module):
         self.norm = MaskedBatchNorm(out_channels)
         self.lin = nn.Linear(skip_in_channels, out_channels, bias=False)
         self.norm_skip = MaskedBatchNorm(out_channels)
+        self.activation = activation_name(activation)
         self.act = activation_fn(activation)
 
     def forward(self, ns: NodeSet, skip_feat: torch.Tensor,
                 edges: LevelEdges) -> NodeSet:
+        if eval_route(self):
+            return ns.replace(feat=self.conv.block(
+                ns.feat, edges, ns.mask, skip_feat, lin=self.lin.weight,
+                bn=self.norm.stats(), bn_skip=self.norm_skip.stats(),
+                act=self.activation))
         x = self.norm(self.conv(ns.feat, edges), ns.mask)
         s = self.norm_skip(self.lin(skip_feat), ns.mask)
         x = self.act(x + s)

@@ -22,13 +22,13 @@ import torch
 
 from dagr_tpu_torch.kernels import _build
 from dagr_tpu_torch.models.blocks import MaskedBatchNorm
-from dagr_tpu_torch.ops.spline import _SMEM_LIMIT, bilinear_basis
+from dagr_tpu_torch.ops.spline import (
+    _SMEM_LIMIT, batch_norm, bilinear_basis)
 
 
 def bn_eval(x: torch.Tensor, norm: MaskedBatchNorm) -> torch.Tensor:
     """``norm`` on its running statistics, every row (no mask)."""
-    y = (x - norm.running_mean) * torch.rsqrt(norm.running_var + norm.eps)
-    return y * norm.weight + norm.bias
+    return batch_norm(x, norm.stats())
 
 
 def _check_gather_args(x_table, pos_table, dst_pos, nbr, nbr_mask):

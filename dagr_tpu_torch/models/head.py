@@ -5,7 +5,9 @@ per scale a stem ConvBlock, cls/reg ConvBlocks and spline-conv
 prediction layers; the reg and obj predictions share their input and
 run as one conv over concatenated output channels.  Outputs per anchor
 are [reg(4), obj(1), cls(C)], anchors row-major per scale, scales
-concatenated.
+concatenated.  In eval mode under ``torch.no_grad`` every conv of a
+scale, the prediction convs included, is one fused block
+(``models.blocks.eval_route``).
 """
 from __future__ import annotations
 
@@ -17,19 +19,24 @@ from torch import nn
 
 from dagr_tpu_torch.config import DagrConfig
 from dagr_tpu_torch.core.types import NodeSet
-from dagr_tpu_torch.models.blocks import ConvBlock, SplineConvLayer
+from dagr_tpu_torch.models.blocks import (
+    ConvBlock, SplineConvLayer, eval_route, fused_block)
 from dagr_tpu_torch.ops.spline import LevelEdges, level_edges, spline_conv
 
 
 def fused_pred(layers: Sequence[SplineConvLayer], x: torch.Tensor,
-               edges: LevelEdges) -> torch.Tensor:
+               edges: LevelEdges, mask=None) -> torch.Tensor:
     """Several SplineConvLayers on the same input as ONE conv over their
-    concatenated output channels (parameters stay separate)."""
+    concatenated output channels (parameters stay separate); with the
+    node ``mask``, as one fused eval block whose masked rows are 0."""
     w = torch.cat([l.weight for l in layers], dim=-1)
     r = torch.cat([l.root for l in layers], dim=-1)
     b = torch.cat([l.bias for l in layers]) if layers[0].bias is not None \
         else None
-    return spline_conv(x, edges, w, r, b, kernel_size=layers[0].kernel_size)
+    ks = layers[0].kernel_size
+    if mask is not None:
+        return fused_block(x, edges, w, r, b, mask, kernel_size=ks)
+    return spline_conv(x, edges, w, r, b, kernel_size=ks)
 
 
 def make_grids_strides(hw: List[Tuple[int, int]], strides: List[int]
@@ -67,13 +74,19 @@ class ScaleHead(nn.Module):
         ns = self.stem(ns, edges)
         cls_feat = self.cls_conv(ns, edges).feat
         reg_feat = self.reg_conv(ns, edges).feat
-        cls_out = self.cls_pred(cls_feat, edges)
-        regobj = fused_pred([self.reg_pred, self.obj_pred], reg_feat, edges)
+        # the fused blocks take the node mask and zero its masked rows
+        mask = ns.mask if eval_route(self) else None
+        cls_out = (self.cls_pred(cls_feat, edges) if mask is None
+                   else self.cls_pred.block(cls_feat, edges, mask))
+        regobj = fused_pred([self.reg_pred, self.obj_pred], reg_feat, edges,
+                            mask)
         ny, nx = ns.grid_hw
         B = ns.feat.shape[0]
 
         def canvas(x):
-            return torch.where(ns.mask[..., None], x, 0.0).reshape(B, ny, nx, -1)
+            if mask is None:
+                x = torch.where(ns.mask[..., None], x, 0.0)
+            return x.reshape(B, ny, nx, -1)
 
         return canvas(cls_out), canvas(regobj[..., :4]), canvas(regobj[..., 4:])
 

@@ -4,10 +4,12 @@ level-1 cell update (kernel K10).
 Counterpart of ``dagr_tpu.ops.pool``: the pooled level is a dense
 ``ny * nx`` cell table (node id == cell id ``cx + nx * cy``), empty
 cells masked, and its edges are the 9-cell stencil in ``GRID_OFFSETS``
-order.  On CUDA tensors ``pool_graph`` runs ``csrc/voxel_pool.cu``; on
-CPU tensors ``pool_graph_plain``, which mirrors the JAX function op for
-op.  Both sum positions in node-index order, so the pooled x, y
-(floored to pixel centres) agree bit for bit.
+order.  On CUDA tensors ``pool_graph`` runs ``csrc/voxel_pool.cu``'s one
+entry ``dagr_voxel_pool``, which also sorts the nodes by cell (a
+counting sort in the kernels, bit-equal to ``graph.build.sorted_runs``;
+no torch op sorts); on CPU tensors ``pool_graph_plain``, which mirrors
+the JAX function op for op.  Both sum positions in node-index order, so
+the pooled x, y (floored to pixel centres) agree bit for bit.
 
 Divisions by the frame size are multiplies by ``f32(1/W)``: XLA
 compiles the JAX package's divisions by those constants that way.
@@ -213,60 +215,67 @@ def pool_features_backward_plain(grad_pooled, feat, pooled, order, cell_start,
 
 def _pool_graph_cuda(feat, pos, mask, nbr, nbr_mask, nbr_dpos, *, grid_ny,
                      grid_nx, width, height, aggr, keep_temporal_ordering):
+    """K3 on the card: one C entry (its node pass, the counting sort of the
+    nodes by cell, the cell reduction and the stencil pass), nothing
+    sorted by torch.  Returns the outputs, order and cell_start."""
     B, N, C = feat.shape
     K = nbr.shape[-1]
     M, ncells = B * N, grid_ny * grid_nx
+    G = B * ncells
     dev = feat.device
     if feat.dtype != torch.float32 or pos.dtype != torch.float32:
         raise ValueError("feat and pos must be f32")
     if pos.shape != (B, N, 3) or mask.shape != (B, N) \
             or nbr.shape != (B, N, K) or nbr_mask.shape != (B, N, K) \
-            or mask.dtype != torch.bool or nbr_mask.dtype != torch.bool:
+            or mask.dtype != torch.bool or nbr_mask.dtype != torch.bool \
+            or (nbr_dpos is None and nbr.dtype != torch.int32):
         raise ValueError("pool_graph: pos [B,N,3] f32, mask [B,N] bool, "
-                         "nbr and nbr_mask [B,N,K] (bool mask) expected")
+                         "nbr i32 and nbr_mask bool [B,N,K] expected")
     if nbr_dpos is not None and (nbr_dpos.shape != (B, N, K, 2)
                                  or nbr_dpos.dtype != torch.float32):
         raise ValueError("pool_graph: nbr_dpos must be f32 [B, N, K, 2]")
+    if (ncells + 1) * 4 > 48 * 1024:
+        raise ValueError(f"pool_graph: {ncells} cells need more shared "
+                         "memory than a block gets by default")
     feat, pos = feat.contiguous(), pos.contiguous()
     mask, nbr_mask = mask.contiguous(), nbr_mask.contiguous()
-    if nbr_dpos is not None:
-        src = nbr_dpos = nbr_dpos.contiguous()
-        nbr_g = None
-    else:
-        base = torch.arange(B, device=dev, dtype=torch.int32)[:, None, None] * N
-        src = nbr_g = (nbr + base).to(torch.int32).contiguous()
+    src = nbr_dpos.contiguous() if nbr_dpos is not None else nbr.contiguous()
     _build.check_cuda("pool_graph", feat, pos, mask, nbr_mask, src)
-    seg = torch.empty(M, dtype=torch.int32, device=dev)
-    bits = torch.empty(M, dtype=torch.int32, device=dev)
-    i, f = ctypes.c_int, ctypes.c_float
-    null = ctypes.c_void_p(None)
-    inv_w, inv_h = f(_inv(width)), f(_inv(height))
-    _build.launch(
-        "voxel_pool", "dagr_voxel_pool_nodes",
-        _build.ptr(pos), _build.ptr(mask), _build.ptr(nbr_mask),
-        _build.ptr(nbr_dpos) if nbr_dpos is not None else null,
-        _build.ptr(nbr_g) if nbr_g is not None else null,
-        i(M), i(N), i(K), i(grid_ny), i(grid_nx), i(B * ncells), i(width),
-        i(height), inv_w, inv_h, _build.ptr(seg), _build.ptr(bits))
-
-    _, order, cell_start = sorted_runs(seg, B * ncells)
-
+    # one int32 buffer: order, cell_start, the stencil ids and the scratch
+    ints = torch.empty(M + G + 1 + 9 * G + _pool_scratch(B, N, grid_ny,
+                                                           grid_nx),
+                       dtype=torch.int32, device=dev)
+    order, cell_start, nbr_out, scratch = ints.split(
+        [M, G + 1, 9 * G, ints.numel() - (M + 10 * G + 1)])
+    nbr_out = nbr_out.view(B, ncells, 9)
     pooled = torch.empty((B, ncells, C), dtype=torch.float32, device=dev)
     pos_out = torch.empty((B, ncells, 3), dtype=torch.float32, device=dev)
-    cmask = torch.empty((B, ncells), dtype=torch.bool, device=dev)
     tmax = torch.empty((B, ncells), dtype=torch.float32, device=dev)
-    adj = torch.empty((B, ncells), dtype=torch.int32, device=dev)
-    nbr_out = torch.empty((B, ncells, 9), dtype=torch.int32, device=dev)
+    cmask = torch.empty((B, ncells), dtype=torch.bool, device=dev)
     mask_out = torch.empty((B, ncells, 9), dtype=torch.bool, device=dev)
+    i, f = ctypes.c_int, ctypes.c_float
+    null, has_dpos = ctypes.c_void_p(None), nbr_dpos is not None
     _build.launch(
-        "voxel_pool", "dagr_voxel_pool_cells",
-        _build.ptr(order), _build.ptr(cell_start), _build.ptr(feat),
-        _build.ptr(pos), _build.ptr(bits), i(B), i(grid_ny), i(grid_nx),
-        i(C), i(aggr == "mean"), i(keep_temporal_ordering), i(width),
-        i(height), inv_w, inv_h, _build.ptr(pooled), _build.ptr(pos_out),
-        _build.ptr(cmask), _build.ptr(tmax), _build.ptr(adj),
-        _build.ptr(nbr_out), _build.ptr(mask_out))
+        "voxel_pool", "dagr_voxel_pool",
+        _build.ptr(feat), _build.ptr(pos), _build.ptr(mask),
+        _build.ptr(nbr_mask), _build.ptr(src) if has_dpos else null,
+        null if has_dpos else _build.ptr(src), i(B), i(N), i(K),
+        i(C), i(grid_ny), i(grid_nx), i(aggr == "mean"),
+        i(keep_temporal_ordering), i(width), i(height), f(_inv(width)),
+        f(_inv(height)), _build.ptr(order), _build.ptr(cell_start),
+        _build.ptr(scratch), _build.ptr(pooled), _build.ptr(pos_out),
+        _build.ptr(cmask), _build.ptr(tmax), _build.ptr(nbr_out),
+        _build.ptr(mask_out))
     return (pooled, pos_out, cmask, nbr_out, mask_out, tmax), order, cell_start
+
+
+@functools.lru_cache(maxsize=None)
+def _pool_scratch(B: int, N: int, ny: int, nx: int) -> int:
+    """int32 words of K3's scratch (csrc/voxel_pool.cu's own count)."""
+    fn = _build.library().dagr_voxel_pool_scratch
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return int(fn(B, N, ny, nx))
 
 
 def _cell(p: torch.Tensor, n: int) -> torch.Tensor:

@@ -17,6 +17,17 @@ Both the event level and the pooled stencil levels take the same path:
 mask and the normalised, clipped edge attributes once per level, and
 every conv of the level shares them (``dagr_tpu``'s ``level_basis``).
 
+Eval conv blocks: ``spline_conv_block`` is one whole eval-mode block
+(``models.blocks``' ConvBlock, ConvBlockWithSkip and the head's
+prediction convs): the aggregation, ``@ W + x @ root + bias``, the batch
+norm on running statistics, the skip branch (``Linear`` and its own
+batch norm), the activation and the node mask, in one launch of
+``csrc/spline_conv.cu`` on CUDA tensors (g stays in shared memory, the
+products run on the tensor cores in 3xTF32) and as
+``spline_conv_block_plain``, today's ops one by one, on CPU tensors.
+The modules take it in eval mode under ``torch.no_grad``; training keeps
+the split route.
+
 Training: when ``x`` requires grad, ``spline_aggregate`` runs as a
 ``torch.autograd.Function`` whose backward is ``grad_x = A^T grad_g``
 (kernel K9a, ``spline_aggregate_backward``: the scatter-add transpose
@@ -30,6 +41,7 @@ learned.  Under ``torch.no_grad`` (serving) nothing of this runs.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -40,6 +52,33 @@ from dagr_tpu_torch.graph.build import sorted_runs
 from dagr_tpu_torch.kernels import _build
 
 _SMEM_LIMIT = 48 * 1024   # static shared memory a block gets by default
+
+# the activations of dagr_tpu's blocks (jax.nn.gelu is the tanh form) and
+# their codes in csrc/spline_conv.cu
+ACTIVATIONS = {
+    "relu": F.relu,
+    "elu": F.elu,
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+}
+_ACT_CODES = {None: 0, "relu": 1, "elu": 2, "silu": 3, "gelu": 4}
+
+
+class BatchNormStats(NamedTuple):
+    """A batch norm's statistics and affine (the running ones in eval
+    mode), applied by ``batch_norm``."""
+    mean: torch.Tensor
+    var: torch.Tensor
+    gamma: torch.Tensor
+    beta: torch.Tensor
+    eps: float
+
+
+def batch_norm(y: torch.Tensor, bn: BatchNormStats) -> torch.Tensor:
+    """``((y - mean) * rsqrt(var + eps)) * gamma + beta``, in that order
+    (dagr_tpu's, and the fused block's epilogue)."""
+    out = (y - bn.mean) * torch.rsqrt(bn.var + bn.eps)
+    return out * bn.gamma + bn.beta
 
 
 class _EdgeTables(NamedTuple):
@@ -238,3 +277,145 @@ def spline_conv(
     if bias is not None:
         out = out + bias
     return out.reshape(B, N, cout)
+
+
+def spline_conv_block(
+    x: torch.Tensor,                 # f32 [M, Cin] (row m: destination m)
+    edges: LevelEdges,               # [M, K] over the rows of x
+    weight: torch.Tensor,            # f32 [P, Cin, Cout]
+    root: torch.Tensor,              # f32 [Cin, Cout]
+    bias: Optional[torch.Tensor] = None,        # f32 [Cout]
+    *,
+    bn: Optional[BatchNormStats] = None,
+    skip: Optional[torch.Tensor] = None,        # f32 [M, Cs]
+    lin: Optional[torch.Tensor] = None,         # f32 [Cout, Cs]
+    bn_skip: Optional[BatchNormStats] = None,
+    act: Optional[str] = None,                  # a key of ACTIVATIONS
+    mask: Optional[torch.Tensor] = None,        # bool [M]
+    kernel_size: int = 5,
+) -> torch.Tensor:
+    """One eval-mode spline-conv block, [M, Cout]::
+
+        y = g @ W + x @ root (+ bias);  y = bn(y);
+        y += bn_skip(skip @ lin^T);     out = mask ? act(y) : 0
+
+    (each step only where its argument is given).  Kernel
+    ``dagr_spline_conv_block`` on CUDA tensors, which supports
+    Cout <= 64, K <= 16 and the widths whose shared-memory tile fits
+    (raises otherwise); ``spline_conv_block_plain`` on CPU tensors.  Not
+    differentiable: the modules call it in eval mode under no_grad."""
+    M, K = edges.nbr.shape
+    _check_block_args(x, edges, weight, root, bias, bn, skip, lin, bn_skip,
+                      act, mask, kernel_size)
+    if not x.is_cuda:
+        return spline_conv_block_plain(
+            x, edges, weight, root, bias, bn=bn, skip=skip, lin=lin,
+            bn_skip=bn_skip, act=act, mask=mask, kernel_size=kernel_size)
+    P, cin, cout = weight.shape
+    cs = skip.shape[1] if skip is not None else 0
+    if not block_shared_memory(cin, cout, cs, kernel_size, K):
+        raise ValueError(f"spline_conv_block: Cin={cin}, Cout={cout}, "
+                         f"Cs={cs}, K={K} do not fit the kernel's tile "
+                         "(Cout <= 64, K <= 16, shared memory <= 227 KB)")
+    x = x.contiguous()
+    given = [t for t in (x, weight, root, bias, skip, lin, mask) if t is not None]
+    for stats in (bn, bn_skip):
+        if stats is not None:
+            given += stats[:4]
+    _build.check_cuda("spline_conv_block", *given, *edges)
+    out = torch.empty((M, cout), dtype=torch.float32, device=x.device)
+    i, f = ctypes.c_int, ctypes.c_float
+    null = ctypes.c_void_p(None)
+    opt = lambda t: null if t is None else _build.ptr(t)
+
+    def stats_args(stats):
+        if stats is None:
+            return [null] * 4 + [f(0.0)]
+        return [_build.ptr(t) for t in stats[:4]] + [f(stats.eps)]
+
+    _build.launch(
+        "spline_conv_block", "dagr_spline_conv_block",
+        _build.ptr(x), _build.ptr(edges.nbr), _build.ptr(edges.mask),
+        _build.ptr(edges.attr), _build.ptr(weight), _build.ptr(root),
+        opt(bias), *stats_args(bn), opt(skip), opt(lin),
+        *stats_args(bn_skip), opt(mask), i(M), i(K), i(cin), i(cout),
+        i(cs), i(kernel_size), i(_ACT_CODES[act]), _build.ptr(out))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def block_shared_memory(cin: int, cout: int, cs: int, kernel_size: int,
+                        K: int) -> int:
+    """Bytes of dynamic shared memory a block of ``spline_conv_block``'s
+    kernel takes at these widths (Cs = 0 without a skip branch), or 0 if
+    the kernel does not take them."""
+    fn = _build.library().dagr_spline_conv_block_smem
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return int(fn(cin, cout, cs, kernel_size, K))
+
+
+def _check_block_args(x, edges, weight, root, bias, bn, skip, lin, bn_skip,
+                      act, mask, kernel_size):
+    M, K = edges.nbr.shape
+    P = kernel_size * kernel_size
+    if weight.dim() != 3 or weight.shape[0] != P:
+        raise ValueError(f"spline_conv_block: weight must be [{P}, Cin, Cout]")
+    _, cin, cout = weight.shape
+    f32 = torch.float32
+    if x.dim() != 2 or tuple(x.shape) != (M, cin) or x.dtype != f32:
+        raise ValueError(f"spline_conv_block: x must be f32 [{M}, {cin}]")
+    if edges.attr.shape != (M, K, 2) or edges.mask.shape != (M, K):
+        raise ValueError("edge tables must be [M, K] and [M, K, 2]")
+    _check_edge_types("spline_conv_block", edges)
+    shapes = [(weight, (P, cin, cout)), (root, (cin, cout))]
+    if bias is not None:
+        shapes.append((bias, (cout,)))
+    if (skip is None) != (lin is None) or (bn_skip is not None
+                                           and skip is None):
+        raise ValueError("spline_conv_block: skip and lin go together, "
+                         "bn_skip only with them")
+    if skip is not None:
+        if skip.dim() != 2 or skip.shape[0] != M:
+            raise ValueError(f"spline_conv_block: skip must be [{M}, Cs]")
+        shapes += [(skip, (M, skip.shape[1])), (lin, (cout, skip.shape[1]))]
+    for stats in (bn, bn_skip):
+        if stats is not None:
+            shapes += [(t, (cout,)) for t in stats[:4]]
+    for t, shape in shapes:
+        if tuple(t.shape) != shape or t.dtype != f32:
+            raise ValueError(f"spline_conv_block: f32 {list(shape)} expected, "
+                             f"got {t.dtype} {list(t.shape)}")
+    if mask is not None and (tuple(mask.shape) != (M,)
+                             or mask.dtype != torch.bool):
+        raise ValueError(f"spline_conv_block: mask must be bool [{M}]")
+    if act not in _ACT_CODES:
+        raise ValueError(f"spline_conv_block: act {act!r} is not one of "
+                         f"{sorted(ACTIVATIONS)} or None")
+
+
+def spline_conv_block_plain(x, edges, weight, root, bias=None, *, bn=None,
+                            skip=None, lin=None, bn_skip=None, act=None,
+                            mask=None, kernel_size=5):
+    """The fused block as the split route's PyTorch ops, one by one (the
+    kernel's twin): K2's aggregation, ``@ W``, ``+ x @ root``, ``+ bias``,
+    the batch norm, the skip ``Linear`` and its batch norm, the
+    activation and ``torch.where`` on the mask."""
+    P, cin, cout = weight.shape
+    y = spline_aggregate_plain(x, edges, kernel_size) @ weight.reshape(
+        P * cin, cout)
+    y = y + x @ root
+    if bias is not None:
+        y = y + bias
+    if bn is not None:
+        y = batch_norm(y, bn)
+    if skip is not None:
+        s = F.linear(skip, lin)
+        if bn_skip is not None:
+            s = batch_norm(s, bn_skip)
+        y = y + s
+    if act is not None:
+        y = ACTIVATIONS[act](y)
+    if mask is not None:
+        y = torch.where(mask[:, None], y, 0.0)
+    return y

@@ -7,15 +7,18 @@ CUDA device.  On a GPU machine:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerances as in chip_smoke.py: K1, K4, K6 and K8's search's discrete
-outputs and K3's masks, ids and positions exact, K2 and K7 to 1e-5
-relative, K3 features to 1e-5, K10 and K8's ring update and cell max
-bit-equal.  K3, K10 and K8's ring update are held against their twins on
+outputs and K3's masks, ids and positions exact, K2 (the aggregation
+and the fused eval block) and K7 to 1e-5 relative, K3 features to 1e-5,
+K3's cell runs bit-equal to a stable torch sort, K10 and K8's ring
+update and cell max bit-equal.  K3, K10 and K8's ring update are held against their twins on
 the CPU, which sum in node order as the kernels do (index_add_ on the
 card uses atomics).  The streaming engine and the multi-stream server on
 the card are held against the same on the CPU in both window modes, past
 capacity.
 """
 import copy
+import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -27,18 +30,19 @@ from dagr_tpu_torch.data.synthetic import random_event_arrays, random_targets
 from dagr_tpu_torch.graph.build import (
     build_graph, build_graph_plain, search_edges_into_store,
     search_edges_into_store_plain, search_edges_streams,
-    search_edges_streams_plain)
+    search_edges_streams_plain, sorted_runs)
 from dagr_tpu_torch.kernels import _build
 from dagr_tpu_torch.models.dagr import DAGR, init_fresh
 from dagr_tpu_torch.models.functional import spline_gather, spline_gather_plain
 from dagr_tpu_torch.ops.nms import postprocess, postprocess_plain
 from dagr_tpu_torch.ops.pool import (
-    accumulate_cells, accumulate_cells_plain, cell_max, cell_max_plain,
-    pool_features_backward, pool_graph, pool_graph_plain, ring_update_cells,
-    ring_update_cells_plain)
+    _cell, _pool_graph_cuda, accumulate_cells, accumulate_cells_plain,
+    cell_max, cell_max_plain, pool_features_backward, pool_graph,
+    pool_graph_plain, ring_update_cells, ring_update_cells_plain)
 from dagr_tpu_torch.ops.spline import (
-    LevelEdges, spline_aggregate, spline_aggregate_backward,
-    spline_aggregate_backward_plain, spline_aggregate_plain)
+    BatchNormStats, LevelEdges, spline_aggregate, spline_aggregate_backward,
+    spline_aggregate_backward_plain, spline_aggregate_plain,
+    spline_conv_block, spline_conv_block_plain)
 from dagr_tpu_torch.serve import Detector
 from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
 from dagr_tpu_torch.streaming.serve import MultiStreamServer, chunk_streams
@@ -47,9 +51,11 @@ from dagr_tpu_torch.train.state import (
 
 pytestmark = pytest.mark.cuda
 W, H = 320, 240
-SYNC_KERNELS = ("graph_search", "spline_aggregate", "voxel_pool", "nms")
-STREAM_KERNELS = ("graph_search_store", "spline_gather", "spline_aggregate",
+# eval convs are fused blocks; training runs the split aggregation
+SYNC_KERNELS = ("graph_search", "spline_conv_block", "voxel_pool", "nms")
+STREAM_KERNELS = ("graph_search_store", "spline_gather", "spline_conv_block",
                   "voxel_pool")
+TRAIN_KERNELS = ("graph_search", "spline_aggregate", "voxel_pool")
 GRAPH_KW = dict(width=W, height=H, radius=4, delta_t_us=10_000,
                 max_neighbors=16, queue_size=128)
 
@@ -156,6 +162,8 @@ def test_detector_matches_cpu_and_launches_every_kernel(dev):
     torch.cuda.synchronize()
     after = _build.launch_counts()
     assert all(after[k] > before[k] for k in SYNC_KERNELS)
+    assert after["spline_conv_block"] - before["spline_conv_block"] == 20
+    assert after["spline_aggregate"] == before["spline_aggregate"]
     raw_cpu, _ = cpu(ev.to("cpu"))
     torch.testing.assert_close(raw.cpu(), raw_cpu, atol=1e-4, rtol=1e-4)
     assert dets["valid"].shape == (3, 175)
@@ -386,7 +394,8 @@ def test_server_matches_cpu(dev, mode):
     st, st_ref = srv.init_state(), ref.init_state()
     pos = np.stack([event_stream(20 + s, 3000) for s in range(4)])
     feat = np.random.default_rng(8).integers(0, 2, (4, 3000, 1)).astype(np.float32)
-    kernels = ("serve_search", "spline_aggregate", "voxel_pool") + (
+    kernels = ("serve_search", "spline_aggregate", "spline_conv_block",
+               "voxel_pool") + (
         ("stream_accumulate",) if mode == "grow" else
         ("serve_ring_update", "cell_max"))
     for i, c in enumerate(chunk_streams(pos, feat, 256)):
@@ -574,7 +583,8 @@ def test_train_step_matches_cpu_and_eval_launches_no_backward(dev):
         got = train_step(state, ev, tgt)
         torch.cuda.synchronize()
         after = _build.launch_counts()
-        assert all(after[k] > before[k] for k in k9 + SYNC_KERNELS[:3])
+        assert all(after[k] > before[k] for k in k9 + TRAIN_KERNELS)
+        assert after["spline_conv_block"] == before["spline_conv_block"]
         want = train_step(ref, ev.to("cpu"), tgt)
         for k in want:
             torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5,
@@ -587,4 +597,182 @@ def test_train_step_matches_cpu_and_eval_launches_no_backward(dev):
     eval_forward(state, ev)
     torch.cuda.synchronize()
     after = _build.launch_counts()
-    assert all(after[k] == before[k] for k in k9)
+    assert all(after[k] == before[k] for k in k9 + ("spline_aggregate",))
+    assert after["spline_conv_block"] - before["spline_conv_block"] == 20
+
+
+def block_case(seed, M, K, cin, cout, mode, act, dev):
+    """Arguments of one fused block on ``dev``: destinations 100-149 have
+    every slot masked, a seventh of the edges sit at attr x = 0 and an
+    eleventh at y = 1; ``mode`` block (batch norm, activation), skip (and
+    a skip branch of Cs = cin + 2) or pred (bias only)."""
+    g = torch.Generator().manual_seed(seed)
+    mask = torch.rand((M, K), generator=g) < 0.7
+    mask[100:150] = False
+    attr = torch.rand((M, K, 2), generator=g)
+    attr[::7, :, 0] = 0.0
+    attr[::11, :, 1] = 1.0
+    edges = LevelEdges(
+        nbr=torch.randint(0, M, (M, K), generator=g, dtype=torch.int32),
+        mask=mask, attr=attr)
+    vec = lambda lo, hi: lo + (hi - lo) * torch.rand(cout, generator=g)
+    bn = lambda: BatchNormStats(vec(-0.1, 0.1), vec(0.5, 1.5), vec(0.8, 1.2),
+                                vec(-0.1, 0.1), 1e-5)
+    x = torch.randn((M, cin), generator=g)
+    kw = dict(mask=torch.rand(M, generator=g) < 0.8)
+    bias = None
+    if mode == "pred":
+        bias = vec(-0.1, 0.1)
+    else:
+        kw.update(bn=bn(), act=act)
+    if mode == "skip":
+        cs = cin + 2
+        kw.update(skip=torch.randn((M, cs), generator=g),
+                  lin=torch.randn((cout, cs), generator=g) * cs ** -0.5,
+                  bn_skip=bn())
+    w = torch.randn((25, cin, cout), generator=g) * (25 * cin) ** -0.5
+    root = torch.randn((cin, cout), generator=g) * cin ** -0.5
+    to = lambda t: t.to(dev) if torch.is_tensor(t) else (
+        BatchNormStats(*(a.to(dev) for a in t[:4]), t.eps)
+        if isinstance(t, BatchNormStats) else t)
+    args = [to(t) for t in (x, LevelEdges(*(e.to(dev) for e in edges)), w,
+                            root, bias)]
+    return args, {k: to(v) for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("cout", [2, 5, 16, 64])
+@pytest.mark.parametrize("cin", [3, 16, 18, 64, 66])
+def test_spline_conv_block_widths(dev, cin, cout):
+    """The fused block against its twin on the card (1e-5 of the output's
+    max) at every width of DAGR-S's convs and head predictions, K = 16
+    and 9, 777 destinations (a multiple of neither tile), each mode and
+    activation; masked rows exactly 0; one launch a call."""
+    acts = ("relu", "elu", "silu", "gelu", None)
+    for i, (K, mode) in enumerate(itertools.product((16, 9),
+                                                    ("block", "skip", "pred"))):
+        act = acts[(i + cin + cout) % len(acts)]
+        args, kw = block_case(100 * cin + cout + i, 777, K, cin, cout, mode,
+                              act, dev)
+        before = _build.launch_counts()["spline_conv_block"]
+        a = spline_conv_block(*args, **kw)
+        b = spline_conv_block_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert _build.launch_counts()["spline_conv_block"] == before + 1
+        assert a.shape == (777, cout)
+        err = float((a - b).abs().max())
+        assert err <= 1e-5 * max(1.0, float(b.abs().max())), (K, mode, act, err)
+        assert not a[~kw["mask"]].any()
+
+
+def test_spline_conv_block_refuses_what_it_does_not_take(dev):
+    args, kw = block_case(0, 200, 9, 16, 16, "skip", "relu", dev)
+    with pytest.raises(ValueError):                         # Cout > 64
+        spline_conv_block(args[0], args[1], torch.zeros((25, 16, 65),
+                                                        device=dev),
+                          torch.zeros((16, 65), device=dev))
+    with pytest.raises(ValueError):                         # no tile fits
+        spline_conv_block(torch.zeros((200, 200), device=dev), args[1],
+                          torch.zeros((25, 200, 16), device=dev),
+                          torch.zeros((200, 16), device=dev))
+    with pytest.raises(ValueError):                         # mixed devices
+        spline_conv_block(*args, **dict(kw, mask=kw["mask"].cpu()))
+    with pytest.raises(ValueError):                         # not contiguous
+        spline_conv_block(*args, **dict(kw, skip=kw["skip"].t().contiguous().t()))
+
+
+def pool_runs_case(case, dev):
+    """Fine level (B, N, features, graph) of one K3 runs case."""
+    B, N = {"all_invalid": (2, 3000), "one_cell": (2, 3000),
+            "batch8_full_grid": (8, 5000), "ragged_tile": (3, 4101)}[case]
+    rng = np.random.default_rng(len(case))
+    pos, feat, mask = random_event_arrays(rng, B, N, W, H, n_valid=N)
+    if case == "all_invalid":
+        mask[:] = False
+    elif case == "one_cell":
+        pos[..., :2] = [101 / W, 77 / H]
+        mask[1, 1000:] = False
+    elif case == "ragged_tile":
+        mask[1, 2047:] = False
+        mask[2] = False
+    ev = EventBatch(pos=torch.from_numpy(pos), feat=torch.from_numpy(feat),
+                    mask=torch.from_numpy(mask), width=W, height=H).to(dev)
+    graph = build_graph(ev.pos_px(), ev.mask, **GRAPH_KW)
+    x = torch.randn((B, N, 16), device=dev)
+    return NodeSet(feat=x, pos=ev.pos, mask=ev.mask, graph=graph)
+
+
+@pytest.mark.parametrize("case", ["all_invalid", "one_cell",
+                                  "batch8_full_grid", "ragged_tile"])
+def test_voxel_pool_runs_and_outputs(dev, case):
+    """K3's in-kernel counting sort: order and cell_start bit-equal to a
+    stable torch sort of the cell ids (invalid nodes last), and the
+    outputs against the twin on the CPU, at the event level (40 x 56,
+    edges from nbr_dpos) and again at the next (20 x 28, from the
+    sources' positions); N not a multiple of the 2048-node tile."""
+    ns = pool_runs_case(case, dev)
+    for gy, gx in ((40, 56), (20, 28)):
+        B, N, _ = ns.feat.shape
+        args = (ns.feat, ns.pos, ns.mask, ns.graph.nbr, ns.graph.nbr_mask,
+                ns.graph.nbr_dpos)
+        kw = dict(grid_ny=gy, grid_nx=gx, width=W, height=H, aggr="max",
+                  keep_temporal_ordering=False)
+        got, order, start = _pool_graph_cuda(*args, **kw)
+        cell = _cell(ns.pos[..., 0], gx) + gx * _cell(ns.pos[..., 1], gy)
+        base = torch.arange(B, device=dev)[:, None] * (gy * gx)
+        key = torch.where(ns.mask, base + cell, B * gy * gx).reshape(-1)
+        _, want_order, want_start = sorted_runs(key, B * gy * gx)
+        torch.cuda.synchronize()
+        assert torch.equal(order, want_order) and torch.equal(start, want_start)
+        want = pool_graph_plain(*[a.cpu() if a is not None else None
+                                  for a in args], **kw)
+        for name, a, b in zip(("feat", "pos", "mask", "nbr", "nbr_mask",
+                               "tmax"), got, want):
+            if name == "feat":
+                assert float((a.cpu() - b).abs().max()) <= 1e-5
+            else:
+                assert torch.equal(a.cpu(), b), name
+        feat, pos, mask, nbr, nbr_mask, tmax = got
+        ns = NodeSet(feat=feat, pos=pos, mask=mask,
+                     graph=EventGraph(nbr=nbr, nbr_mask=nbr_mask),
+                     tmax=tmax, grid_hw=(gy, gx))
+
+
+def test_grow_step_with_fused_blocks_in_a_cuda_graph(dev):
+    """A grow step of 256 (its tail's 18 fused blocks and 3 poolings)
+    captured in a CUDA graph and replayed over fresh chunks beside the
+    eager step on a copy of the state: raw within 1e-5."""
+    cfg = DagrConfig(n_nodes=2048)
+    det = Detector(cfg, H, W, dev, seed=10)
+    eng = StreamingDetector(det.model, H, W, chunk=256, count_flops=False)
+    ev = event_stream(10, 2048)
+    feat = np.random.default_rng(10).integers(0, 2, (2048, 1)).astype(np.float32)
+    chunks = chunk_events(ev, feat, 256, device=dev)
+    st = eng.init_state()
+    for c in chunks[:3]:
+        st, _, _ = eng.step(st, *c)
+    copy_st = dataclasses.replace(st, **{
+        f.name: getattr(st, f.name).clone()
+        for f in dataclasses.fields(st) if getattr(st, f.name) is not None})
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in chunks[3:5]:
+            copy_st, _, _ = eng.step(copy_st, *c)
+    torch.cuda.current_stream().wait_stream(side)
+    for c in chunks[3:5]:
+        st, _, _ = eng.step(st, *c)
+    inputs = [t.clone() for t in chunks[5]]
+    before = _build.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, graph_raw, _ = eng.step(copy_st, *inputs)
+    after = _build.launch_counts()
+    assert after["spline_conv_block"] - before["spline_conv_block"] == 18
+    assert after["spline_aggregate"] == before["spline_aggregate"]
+    for c in chunks[5:8]:
+        for t, v in zip(inputs, c):
+            t.copy_(v)
+        graph.replay()
+        st, raw, _ = eng.step(st, *c)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(graph_raw, raw, atol=1e-5, rtol=1e-5)
