@@ -9,9 +9,12 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
 2. builds the CUDA kernels from ``dagr_tpu_torch/csrc`` (one library);
 3. holds each kernel against its plain PyTorch twin on the same inputs,
    at the shapes the main path gives it, and K1 also against a numpy
-   copy of the reference graph oracle on a 2k-event window; K3's cell
-   runs (order, cell_start), sorted inside its kernels, bit-equal to
-   ``sorted_runs`` on the four poolings of a window;
+   copy of the reference graph oracle on a 2k-event window and against
+   its twin on 8 windows (the train step's batch); profiles one K1 call
+   (one C entry: its host ops, launches and device kernels, none a sort
+   or searchsorted); K3's cell runs (order, cell_start), sorted inside
+   its kernels, bit-equal to ``sorted_runs`` on the four poolings of a
+   window;
 4. serves 8 single-window requests, then the same 8 windows as one
    batch; checks the outputs (the batch must repeat each window's), that
    every kernel was launched on every request (K2 as 20 fused eval
@@ -21,6 +24,11 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    shape to 1e-5 of its output's max, timed); profiles one pooling (only
    the port's kernels, no sort) and one eval ConvBlock and prints their
    host ops;
+4b. serves a DAGR-L DSEC window (240x320) and a DAGR-L NCaltech101
+   window (180x240, one scale, 100 classes): the convs the fused tile
+   takes run fused and the others split (``eval_routes``), every sync
+   kernel launches, raw equals the CPU plain path (1e-4); timed and
+   profiled;
 5. times the requests and each kernel beside its twin (CUDA events);
 6. streams through ``dagr_tpu_torch.streaming.engine.StreamingDetector``
    on the same model: holds the streaming kernels K6, K7 and K10 against
@@ -53,7 +61,8 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    kernels of the serving path are held against their twins on the
    inputs of one of its steps: the search on a grow step and on a ring
    step after the ring has wrapped, the ring update and cell max on a
-   ring step, and K2 (both event convs' aggregation and every distinct
+   ring step (the cell max one launch a call, timed against one
+   ``scatter_reduce_`` amax in three turns), and K2 (both event convs' aggregation and every distinct
    fused block of the tail at batch S), K10 (the S*G1 folded cells) and
    K3 (the tail's first pooling, with its cell runs) on a grow step.
    Times the steps and profiles their device time;
@@ -74,8 +83,9 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    AP50 >= 0.9 and AP >= 0.5).  No backward kernel may launch in the
    sync, streaming or serving runs;
 10. prints the kernel table (every kernel's error, time, twin time,
-   bound and library-call time, and its launches on each path), the
-   card line and, last, the result line.
+   bound and library-call time, and its launches on each path, the wide
+   windows' as ``wide_launches``), the card line and, last, the result
+   line.
 
 Usage: ``python3 chip_smoke.py`` from the repository root;
 ``python3 chip_smoke.py --train-only`` runs the build and phase 9 alone
@@ -85,9 +95,9 @@ instance the parent commit's: ``git archive HEAD~ dagr_tpu_torch | tar
 -x -C DIR``) against this one on the same card, in turns (parent,
 change, change, parent): the sync B=1 window, the engine's grow step of
 256, the S=8 server step and the B=8 train step, each with its device
-busy time and idle share, and the host ops of one pooling and one eval
-ConvBlock; each turn is a ``--timings DIR`` subprocess with that
-package first on sys.path.  ``--compare DIR train`` times the B=8 train
+busy time and idle share, and the host ops of one graph search, one
+pooling and one eval ConvBlock; each turn is a ``--timings DIR``
+subprocess with that package first on sys.path.  ``--compare DIR train`` times the B=8 train
 step alone, in fresh processes, over three such rounds.  Neither mode
 prints a result line.
 """
@@ -111,6 +121,14 @@ STREAM_WARM = 36_000     # events in the grow store before the timed steps
 # convs, 8 stencil-level ones, 5 per head scale), 18 in a dense tail
 SYNC_KERNELS = ("graph_search", "spline_conv_block", "voxel_pool", "nms")
 SYNC_BLOCKS, TAIL_BLOCKS = 20, 18
+# the wide models (config/dagr-l-dsec.yaml, config/dagr-l-ncaltech.yaml:
+# stem widths 1, channels 128; NCaltech101 at 240 x 180, one scale, 100
+# classes): (name, DagrConfig fields, height, width)
+WIDE_MODELS = (
+    ("DAGR-L DSEC", dict(net_stem_width=1.0, yolo_stem_width=1.0), 240, 320),
+    ("DAGR-L NCaltech101", dict(net_stem_width=1.0, yolo_stem_width=1.0,
+                                dataset="ncaltech101", num_scales=1),
+     180, 240))
 # the kernels a grow step launches (a ring step: K3 in place of K10)
 STREAM_KERNELS = ("graph_search_store", "spline_gather", "stream_accumulate",
                   "spline_conv_block", "voxel_pool")
@@ -340,29 +358,35 @@ def count_host_ops(fn):
     ops = [e.name for e in cpu if e.name.startswith("aten::") and (
         e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
     launches = sum(1 for e in cpu if e.name in (
-        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
-    return ops, launches, [e.key for e in kernel_events(prof)]
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cudaLaunchCooperativeKernel"))
+    return ops, launches, [e.key for e in kernel_events(prof)
+                           for _ in range(e.count)]
 
 
 def host_op_profile(det, events):
-    """The host side of one pooling (the first of a B=1 window) and of
-    one eval ConvBlock (the first stencil level's first): top-level aten
-    ops, CUDA launches and device kernels of each, from the inputs the
-    window gave them."""
+    """The host side of one graph search (K1 on a B=1 window), one
+    pooling (the window's first) and one eval ConvBlock (the first
+    stencil level's first): top-level aten ops, CUDA launches and device
+    kernels of each, from the inputs the window gave them."""
+    from dagr_tpu_torch.models import net as net_mod
     from dagr_tpu_torch.ops import pool as pool_mod
 
     block = det.model.backbone.layer2.conv_block1
     seen = []
     hook = block.register_forward_pre_hook(lambda m, a: seen.append(a))
-    cap = Capture(pool_mod, "pool_graph", 0)
+    caps = (Capture(net_mod, "build_graph", 0),
+            Capture(pool_mod, "pool_graph", 0))
     det(events[0])
-    cap.close()
+    for cap in caps:
+        cap.close()
     hook.remove()
-    args, kw = cap.args, cap.kwargs
+    (gargs, gkw), (args, kw) = ((c.args, c.kwargs) for c in caps)
     with torch.no_grad():
+        graph = count_host_ops(lambda: net_mod.build_graph(*gargs, **gkw))
         pool = count_host_ops(lambda: pool_mod.pool_graph(*args, **kw))
         conv = count_host_ops(lambda: block(*seen[0]))
-    return {"pooling": pool, "conv_block": conv}
+    return {"graph_search": graph, "pooling": pool, "conv_block": conv}
 
 
 def print_host_ops(prof, card):
@@ -436,14 +460,40 @@ def check_kernels(cfg, events, det):
             "K1 nbr_mask == oracle")
     require(np.array_equal(np.where(omask, sub.nbr[0].cpu().numpy(), 0),
                            np.where(omask, onbr, 0)), "K1 nbr == oracle")
+    # the train step's batch: 8 windows, 20-bit pixel ids
+    batch8 = events_batch(events[1:9])
+    g8 = build_graph(batch8.pos_px(), batch8.mask, **gkw)
+    gp8 = build_graph_plain(batch8.pos_px(), batch8.mask, **gkw)
+    for f in ("nbr", "nbr_mask", "nbr_dpos"):
+        require(torch.equal(getattr(g8, f), getattr(gp8, f)),
+                f"K1 B=8 {f} == twin")
+    # one call's host side: no sort or searchsorted, only the port's
+    # kernels, one entry
+    ops, launches, kernels = count_host_ops(
+        lambda: build_graph(pos_px, mask, **gkw))
+    require(not any(w in k.lower() for k in kernels
+                    for w in ("sort", "searchsorted")) and all(
+        any(w in k for w in ("radix_", "run_start_kernel",
+                             "graph_search_kernel")) for k in kernels),
+        f"K1 runs only the port's kernels, no sort: {kernels}")
     # operations: one run lookup per (event, spiral cell)
     out["graph_search"] = record(
         0.0, cuda_ms(lambda: build_graph(pos_px, mask, **gkw), 20),
         cuda_ms(lambda: build_graph_plain(pos_px, mask, **gkw), 5),
         nbytes(pos_px, mask, g.nbr, g.nbr_mask, g.nbr_dpos),
         int(mask.sum()) * (2 * R + 1) ** 2)
-    print(f"K1 graph_search: bit-equal to twin and oracle; "
-          f"{g.nbr_mask.sum().item()} edges", flush=True)
+    device_ms, by_kernel = kernel_times(
+        lambda: build_graph(pos_px, mask, **gkw), 10)
+    out["graph_search"].update(
+        device_ms=device_ms, host_ops=len(ops), kernel_launches=launches,
+        ms_b8=cuda_ms(lambda: build_graph(batch8.pos_px(), batch8.mask,
+                                          **gkw), 10))
+    print(f"K1 graph_search: bit-equal to twin and oracle (B=1) and to "
+          f"twin (B=8); {g.nbr_mask.sum().item()} edges; one call: "
+          f"{len(ops)} host ops ({', '.join(ops)}), {launches} launches; "
+          f"device {device_ms:.4f} ms a call:", flush=True)
+    for kname, kms, n in by_kernel:
+        print(f"  {kms:8.4f} ms  x{n:<4d} {kname}", flush=True)
 
     # K3 + K2 level by level: random features of the path's widths
     ch = cfg.channels()
@@ -623,24 +673,89 @@ def serve(cfg, events, det):
     return window_ms, _build.launch_counts()
 
 
-def profile_windows(det, events):
-    """Device busy ms per window and the kernels with the most device
-    time, from torch.profiler over 4 single-window requests."""
+def wide_windows(card):
+    """Phase 4b: the wide models of WIDE_MODELS, one B=1 window of N_VALID
+    events each (seeded random weights): 5 timed requests after a
+    warm-up, each launching every sync kernel, the fused blocks and split
+    aggregations ``eval_routes`` gives (every conv the tile takes runs
+    fused), and the raw outputs against the same model on the CPU (1e-4).
+    Returns the launches of the timed requests, summed over the
+    models."""
+    from dagr_tpu_torch.config import DagrConfig
+    from dagr_tpu_torch.data.synthetic import random_events
+    from dagr_tpu_torch.kernels import _build
+    from dagr_tpu_torch.models.dagr import eval_routes
+    from dagr_tpu_torch.serve import Detector
+
+    total = dict.fromkeys(_build.LAUNCHES, 0)
+    for name, fields, h, w in WIDE_MODELS:
+        cfg = DagrConfig(**fields)
+        rng = np.random.default_rng(SEED + 2)
+        windows = [random_events(rng, 1, N_NODES, w, h, n_valid=N_VALID,
+                                 device="cuda") for _ in range(6)]
+        det = Detector(cfg, h, w, "cuda", seed=SEED)
+        fused, split = eval_routes(det.model)
+        det(windows[0])
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        ms = []
+        for ev in windows[1:]:
+            before = _build.launch_counts()
+            ms.append(timed(lambda: det(ev)))
+            after = _build.launch_counts()
+            for k in SYNC_KERNELS:
+                require(after[k] > before[k], f"{name}: kernel {k} launched")
+            require_blocks(before, after, fused, split, f"a {name} request")
+        for k, v in _build.launch_counts().items():
+            total[k] += v
+        cpu = Detector(cfg, h, w, "cpu", state_dict=det.model.state_dict())
+        raw, _ = det(windows[1])
+        raw_cpu, _ = cpu(windows[1].to("cpu"))
+        A = sum(ny * nx for ny, nx in cfg.output_sizes())
+        require(tuple(raw.shape) == (1, A, 5 + cfg.num_classes)
+                and bool(torch.isfinite(raw).all()),
+                f"{name}: raw {tuple(raw.shape)} finite")
+        err = max_err(raw, raw_cpu)
+        require(torch.allclose(raw.cpu(), raw_cpu, atol=1e-4, rtol=1e-4),
+                f"{name} raw vs CPU plain path: max err {err}")
+        p50 = float(np.median(ms))
+        busy, top = profile_windows(det, windows)
+        print(f"{name} window ({h}x{w}, {N_VALID} events, channels "
+              f"{cfg.channels()}, {cfg.num_classes} classes): {fused} convs "
+              f"fused, {split} split (K2 aggregation + torch.matmul), as "
+              f"eval_routes gives; raw vs CPU plain path max abs err "
+              f"{err:.3g}; p50 {p50:.3f} ms (min {min(ms):.3f}, max "
+              f"{max(ms):.3f}), device busy {busy:.3f} ms a window "
+              f"[{card}]", flush=True)
+        for kname, kms, n in top[:10]:
+            print(f"  {kms:8.4f} ms  x{n:<4d} {kname}", flush=True)
+    return total
+
+
+def kernel_times(fn, n):
+    """Device busy ms per call of ``fn`` over ``n`` calls and its device
+    kernels by time: (name, ms per call, launches per call), from
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    batches = [events_batch([w]) for w in events[1:5]]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for b in batches:
-            det(b)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-    kern = kernel_events(prof)
-    n = len(batches)
+    kern = sorted(kernel_events(prof), key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:15]
     return busy, [(e.key[:70], e.self_device_time_total / 1e3 / n,
-                   e.count // n) for e in top]
+                   e.count // n) for e in kern]
+
+
+def profile_windows(det, events):
+    """Device busy ms per window and the kernels with the most device
+    time, from torch.profiler over 4 single-window requests."""
+    windows = iter(events[1:5])
+    busy, top = kernel_times(lambda: det(next(windows)), 4)
+    return busy, top[:15]
 
 
 def stream_events(window, shift_us: int = 0):
@@ -1398,14 +1513,33 @@ def serve_streams(cfg, det, events, card):
     cells, x2r, n_cells = cmx.args
     a, b = cell_max(cells, x2r, n_cells), cell_max_plain(cells, x2r, n_cells)
     require(torch.equal(a, b), "cell_max == twin")
+    # one launch (cudaLaunchCooperativeKernel) and no other kernel; the
+    # profiler may not list a cooperative kernel among the device ones
+    _, cm_launches, cm_kernels = count_host_ops(
+        lambda: cell_max(cells, x2r, n_cells))
+    require(cm_launches == 1 and len(cm_kernels) <= 1 and all(
+        "cell_max_kernel" in k for k in cm_kernels),
+        f"cell_max is one launch a call: {cm_launches}, {cm_kernels}")
     lib_out = torch.empty((n_cells + 1, x2r.shape[1]), device="cuda")
     idx = cells.long()[:, None].expand_as(x2r)
+
+    def library():
+        lib_out.scatter_reduce_(0, idx, x2r, "amax", include_self=False)
+
+    # kernel and library call in turns, three rounds
+    turns = [(cuda_ms(lambda: cell_max(cells, x2r, n_cells), 50),
+              cuda_ms(library, 50)) for _ in range(3)]
     out["cell_max"] = record(
-        0.0, cuda_ms(lambda: cell_max(cells, x2r, n_cells), 50),
+        0.0, float(np.median([k for k, _ in turns])),
         cuda_ms(lambda: cell_max_plain(cells, x2r, n_cells), 10),
         nbytes(cells, x2r, a), x2r.numel(),
-        cuda_ms(lambda: lib_out.scatter_reduce_(0, idx, x2r, "amax",
-                                                include_self=False), 50))
+        float(np.median([lib for _, lib in turns])))
+    out["cell_max"]["turns_ms"] = turns
+    print(f"K8 cell_max: one launch a call (device kernels seen: "
+          f"{cm_kernels}); kernel "
+          f"against scatter_reduce_ amax in turns (ms): "
+          f"{', '.join(f'{k:.4f} / {lib:.4f}' for k, lib in turns)} "
+          f"[{card}]", flush=True)
     print(f"K8 serve_ring_update and cell_max: bit-equal to their twins on "
           f"step {at}'s inputs ({int(rest[0].ne(n_cells).sum())} evicted "
           f"rows)", flush=True)
@@ -1874,7 +2008,8 @@ def timings(card, train_only=False):
     steps), the S=8 server's grow step at chunk 1024 (steps 3-44 of one
     window per stream), the B=8 recipe train step (12 after 2), each with
     device busy ms per step and idle share; and the host ops of one
-    pooling and one eval ConvBlock.  With ``train_only`` the train step
+    graph search, one pooling and one eval ConvBlock.  With
+    ``train_only`` the train step
     alone, in a process that ran nothing else.  Prints one JSON line."""
     from dagr_tpu_torch.config import DagrConfig
     from dagr_tpu_torch.data.synthetic import random_events, random_targets
@@ -2097,6 +2232,7 @@ def main() -> int:
     else:
         print("profile: the profiler saw no device kernels; device busy "
               "time not measured", flush=True)
+    wide_launches = wide_windows(card)
     grow_launches, ring_launches = stream(cfg, det, events, card)
     served, checks, serve_launches, serve_ring_launches = serve_streams(
         cfg, det, events, card)
@@ -2140,6 +2276,7 @@ def main() -> int:
                      "source": f"dagr_tpu_torch/csrc/{source}",
                      "replaces": replaces, "launches": launches[name],
                      "ring_launches": ring_launches[name],
+                     "wide_launches": wide_launches[name],
                      "serve_launches": serve_launches[name],
                      "serve_ring_launches": serve_ring_launches[name],
                      "train_launches": train_launches[name],

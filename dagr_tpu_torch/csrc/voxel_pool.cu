@@ -80,11 +80,18 @@
 // max pooling cannot keep incrementally (an evicted event cannot leave a
 // max).  Bound by reading the ring once: S*NR*C1*4 bytes (3.2 MB at S=1,
 // NR 50176, C1 16), 1 us at 3.35 TB/s.  A max does not depend on the
-// order of its operands, so no sort and no per-cell walk: one thread per
-// (row, channel) takes an integer atomicMax on an order-preserving int32
-// encoding of the float (exact and deterministic; not a float atomic),
-// neighbouring threads on neighbouring channels of one cell.  Three
-// launches: fill with the encoded -FLT_MAX, scatter, decode in place.
+// order of its operands, so no sort and no per-cell walk.  One
+// cooperative launch of a grid-stride kernel, as many blocks as the card
+// holds at once: every thread fills its share of the output with
+// -FLT_MAX, the grid synchronises (grid.sync), and each thread then
+// takes (row, channel) elements, neighbouring threads on neighbouring
+// channels, into their cell with an integer atomic on the float's bits:
+// a signed atomicMax for a value whose sign bit is clear (non-negative
+// floats order as their bits), an unsigned atomicMin for one whose sign
+// bit is set (negative floats order inversely to their bits), and any
+// non-negative value's bits beat any negative one's under both.  Exact
+// and deterministic (+0 above -0), not a float atomic, and no encode or
+// decode pass.
 //
 // K9b: the backward of K3's pooled features for training.  Replaces what
 // jax.grad derives from the segment_max / segment_sum of
@@ -99,6 +106,7 @@
 // (cell, channel), a second writes every member's gradient once.  Exact
 // arithmetic in one order, so it is bit-equal to its twin.  Invalid rows
 // are in no cell; the caller zeroes them.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <limits.h>
@@ -494,31 +502,30 @@ __global__ void serve_ring_update_kernel(
 }
 
 // K8: the feature max of each cell over its rows; -FLT_MAX for a cell
-// without rows.  float_ord maps floats (no NaN) to int32 in the same
-// order, so an int max is the float max; it is its own inverse.
-__device__ __forceinline__ int float_ord(int bits) {
-  return bits >= 0 ? bits : bits ^ 0x7fffffff;
-}
+// without rows.  Launched cooperatively (grid.sync between the fill and
+// the max); see the file's note.
+constexpr int kCellMaxThreads = 256;
 
-__global__ void cell_max_fill_kernel(int* __restrict__ out, size_t n) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = float_ord(__float_as_int(-FLT_MAX));
-}
-
-__global__ void cell_max_kernel(
+__global__ void __launch_bounds__(kCellMaxThreads) cell_max_kernel(
     const int* __restrict__ cells,        // [N] cell per row (ncells: none)
     const float* __restrict__ feat,       // [N, C]
-    size_t n, int ncells, int C, int* __restrict__ out) {   // [ncells, C]
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int cell = cells[i / C];
-  if (cell < 0 || cell >= ncells) return;
-  atomicMax(out + (size_t)cell * C + i % C, float_ord(__float_as_int(feat[i])));
-}
-
-__global__ void cell_max_decode_kernel(int* __restrict__ out, size_t n) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = float_ord(out[i]);
+    size_t n_in, int ncells, int C, float* __restrict__ out,  // [ncells, C]
+    size_t n_out) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (size_t i = first; i < n_out; i += stride) out[i] = -FLT_MAX;
+  cooperative_groups::this_grid().sync();
+  for (size_t i = first; i < n_in; i += stride) {
+    const int cell = cells[i / C];
+    if (cell < 0 || cell >= ncells) continue;
+    const int v = __float_as_int(feat[i]);
+    float* dst = out + (size_t)cell * C + i % C;
+    if (v >= 0) {
+      atomicMax(reinterpret_cast<int*>(dst), v);
+    } else {
+      atomicMin(reinterpret_cast<unsigned*>(dst), (unsigned)v);
+    }
+  }
 }
 
 // K9b: one warp per cell over its members order[st..en).
@@ -668,18 +675,29 @@ extern "C" int dagr_serve_ring_update(
 extern "C" int dagr_cell_max(
     const void* cells, const void* feat, int N, int ncells, int C, void* out,
     void* stream) {
-  const int threads = 256;
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t n_out = (size_t)ncells * C, n_in = (size_t)N * C;
+  size_t n_out = (size_t)ncells * C, n_in = (size_t)N * C;
   if (n_out == 0) return (int)cudaGetLastError();
-  const unsigned out_blocks = (unsigned)((n_out + threads - 1) / threads);
-  cell_max_fill_kernel<<<out_blocks, threads, 0, s>>>((int*)out, n_out);
-  if (n_in > 0) {
-    cell_max_kernel<<<(unsigned)((n_in + threads - 1) / threads), threads, 0,
-                      s>>>((const int*)cells, (const float*)feat, n_in,
-                           ncells, C, (int*)out);
-  }
-  cell_max_decode_kernel<<<out_blocks, threads, 0, s>>>((int*)out, n_out);
+  // a cooperative grid must fit on the card at once
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, cell_max_kernel, kCellMaxThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  const size_t want =
+      ((n_in > n_out ? n_in : n_out) + kCellMaxThreads - 1) / kCellMaxThreads;
+  const size_t most = (size_t)sms * per_sm;
+  const unsigned blocks = (unsigned)(want < most ? want : most);
+  const int* cells_p = (const int*)cells;
+  const float* feat_p = (const float*)feat;
+  float* out_p = (float*)out;
+  void* args[] = {&cells_p, &feat_p, &n_in, &ncells, &C, &out_p, &n_out};
+  err = cudaLaunchCooperativeKernel((const void*)cell_max_kernel, blocks,
+                                    kCellMaxThreads, args, 0,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -11,6 +11,9 @@ is the multi-stream server's search (``dagr_tpu.streaming.serve``'s
 whose event rings fold the stream into the pixel id.  On a CUDA tensor
 each launches its entry of ``csrc/graph_search.cu``; on a CPU tensor it
 runs its ``*_plain`` twin, the same selection as whole-array PyTorch ops.
+``build_graph``'s entry sorts the events by pixel in its own kernels (a
+stable radix sort); the store and ring searches are given their runs by
+``sorted_runs`` (``torch.sort`` and ``searchsorted``).
 
 Preconditions, as in the JAX package: events are time-sorted per
 sample, valid events form a prefix, timestamps are window-relative
@@ -140,28 +143,40 @@ def build_graph(
 
 def _build_graph_cuda(pos_px, mask, *, width, height, radius, delta_t_us,
                       max_neighbors, queue_size) -> EventGraph:
+    """One call of ``dagr_graph_search``: the pixel sort, the run table and
+    the search all run in its kernels, on the outputs and one scratch
+    buffer allocated here (no sort, searchsorted or other op in torch)."""
     B, N, _ = pos_px.shape
     K = max_neighbors
     dev = pos_px.device
     pos_px = pos_px.contiguous()
     mask = mask.contiguous()
-    _, order, start = _pixel_runs(pos_px, mask, width, height)
     spiral, spiral_dpos, fill = _spiral_tables(radius, width, height, dev)
+    scratch = torch.empty(_graph_scratch(B, N, width, height),
+                          dtype=torch.int32, device=dev)
     nbr = torch.empty((B, N, K), dtype=torch.int32, device=dev)
     nbr_mask = torch.empty((B, N, K), dtype=torch.bool, device=dev)
     nbr_dpos = torch.empty((B, N, K, 2), dtype=torch.float32, device=dev)
-    _build.check_cuda("build_graph", pos_px, mask, order, start, spiral,
-                      spiral_dpos)
+    _build.check_cuda("build_graph", pos_px, mask, spiral, spiral_dpos)
     i = ctypes.c_int
     _build.launch(
         "graph_search", "dagr_graph_search",
-        _build.ptr(pos_px), _build.ptr(mask), _build.ptr(order),
-        _build.ptr(start), _build.ptr(spiral), _build.ptr(spiral_dpos),
-        ctypes.c_float(fill[0]), ctypes.c_float(fill[1]), i(B * N), i(N),
-        i(width), i(height), i(spiral.shape[0]), i(K), i(queue_size),
-        i(delta_t_us),
-        _build.ptr(nbr), _build.ptr(nbr_mask), _build.ptr(nbr_dpos))
+        _build.ptr(pos_px), _build.ptr(mask), _build.ptr(spiral),
+        _build.ptr(spiral_dpos), ctypes.c_float(fill[0]),
+        ctypes.c_float(fill[1]), i(B), i(N), i(width), i(height),
+        i(spiral.shape[0]), i(K), i(queue_size), i(delta_t_us),
+        _build.ptr(scratch), _build.ptr(nbr), _build.ptr(nbr_mask),
+        _build.ptr(nbr_dpos))
     return EventGraph(nbr=nbr, nbr_mask=nbr_mask, nbr_dpos=nbr_dpos)
+
+
+@functools.lru_cache(maxsize=None)
+def _graph_scratch(B: int, N: int, width: int, height: int) -> int:
+    """int32 words of K1's scratch (csrc/graph_search.cu's own count)."""
+    fn = _build.library().dagr_graph_search_scratch
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return int(fn(B, N, width, height))
 
 
 def build_graph_plain(pos_px, mask, *, width, height, radius, delta_t_us,

@@ -12,10 +12,14 @@ train mode (``nn.Module.train()``), updating the running ones.
 Eval route: in eval mode under ``torch.no_grad`` (serving, streaming,
 the EMA's evaluation) a ConvBlock or ConvBlockWithSkip is one call of
 ``ops.spline.spline_conv_block`` (one kernel launch on the card: the
-aggregation, products, batch norms, skip, activation and mask fused);
-otherwise (training, or grad enabled) it runs the split route below,
-whose backward goes through kernel K9a.  The choice depends on the
-mode alone, never on a kernel failing.
+aggregation, products, batch norms, skip, activation and mask fused)
+where the kernel's tile takes its widths (``ops.spline.fused_block_fits``:
+every conv of DAGR-N and -S; the event level and the head's prediction
+convs of DAGR-M and -L); otherwise (wider convs, training, or grad
+enabled) it runs the split route below (K2's aggregation and
+``torch.matmul``, then the batch norm, activation and mask), whose
+backward goes through kernel K9a.  The choice depends on the mode and
+the shapes alone, the same on every device, never on a kernel failing.
 """
 from __future__ import annotations
 
@@ -27,8 +31,8 @@ from torch import nn
 from dagr_tpu_torch.core.types import NodeSet
 from dagr_tpu_torch.ops import spline as spline_ops
 from dagr_tpu_torch.ops.spline import (
-    ACTIVATIONS, BatchNormStats, LevelEdges, batch_norm, level_edges,
-    spline_conv)
+    ACTIVATIONS, BatchNormStats, LevelEdges, batch_norm, fused_block_fits,
+    level_edges, spline_conv)
 
 
 def activation_name(name: str) -> str:
@@ -72,6 +76,12 @@ class SplineConvLayer(nn.Module):
     def forward(self, x: torch.Tensor, edges: LevelEdges) -> torch.Tensor:
         return spline_conv(x, edges, self.weight, self.root, self.bias,
                            kernel_size=self.kernel_size)
+
+    def fits(self, K: int, cs: int = 0) -> bool:
+        """Whether the fused block takes this conv at K neighbour slots
+        and a skip branch of Cs channels."""
+        _, cin, cout = self.weight.shape
+        return fused_block_fits(cin, cout, cs, self.kernel_size, K)
 
     def block(self, x: torch.Tensor, edges: LevelEdges, mask: torch.Tensor,
               skip=None, **kw) -> torch.Tensor:
@@ -157,7 +167,7 @@ class ConvBlock(nn.Module):
         self.act = activation_fn(activation)
 
     def forward(self, ns: NodeSet, edges: LevelEdges) -> NodeSet:
-        if eval_route(self):
+        if eval_route(self) and self.conv.fits(edges.nbr.shape[1]):
             return ns.replace(feat=self.conv.block(
                 ns.feat, edges, ns.mask, bn=self.norm.stats(),
                 act=self.activation))
@@ -182,7 +192,8 @@ class ConvBlockWithSkip(nn.Module):
 
     def forward(self, ns: NodeSet, skip_feat: torch.Tensor,
                 edges: LevelEdges) -> NodeSet:
-        if eval_route(self):
+        if eval_route(self) and self.conv.fits(edges.nbr.shape[1],
+                                               self.lin.in_features):
             return ns.replace(feat=self.conv.block(
                 ns.feat, edges, ns.mask, skip_feat, lin=self.lin.weight,
                 bn=self.norm.stats(), bn_skip=self.norm_skip.stats(),

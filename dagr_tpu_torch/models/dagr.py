@@ -4,7 +4,8 @@ Counterpart of ``dagr_tpu.models.dagr``: ``DAGR`` returns raw
 per-anchor outputs, in train mode (``nn.Module.train()``: batch norm on
 batch statistics) or eval mode; ``detection_loss`` is the YOLOX/SimOTA
 loss of raw outputs against targets; ``detect`` decodes them and runs
-the confidence filter and class-aware NMS (kernel K4).
+the confidence filter and class-aware NMS (kernel K4).  ``eval_routes``
+counts a window's eval convs by route (fused block or split).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 from torch import nn
 
 from dagr_tpu_torch.config import DagrConfig
-from dagr_tpu_torch.core.types import EventBatch
+from dagr_tpu_torch.core.types import EventBatch, GRID_OFFSETS
 from dagr_tpu_torch.models.blocks import (
     MaskedBatchNorm, SplineConvLayer, init_uniform)
 from dagr_tpu_torch.models.head import (
@@ -24,6 +25,7 @@ from dagr_tpu_torch.models.head import (
 from dagr_tpu_torch.models.net import Net
 from dagr_tpu_torch.models.yolox_loss import yolox_losses
 from dagr_tpu_torch.ops.nms import postprocess
+from dagr_tpu_torch.ops.spline import fused_block_fits
 
 CONF_THRESHOLD = 0.001
 NMS_THRESHOLD = 0.65
@@ -42,6 +44,32 @@ class DAGR(nn.Module):
     def forward(self, events: EventBatch) -> torch.Tensor:
         """Raw head outputs [B, A, 5 + num_classes] (logits)."""
         return self.head(self.backbone(events))
+
+
+def eval_routes(model: DAGR) -> Tuple[int, int]:
+    """(fused, split): how many of one window's eval convs take the fused
+    block and how many the split route, by the test the modules make
+    (the event level at K = max_neighbors, the pooled levels at the 9
+    stencil slots).  A split conv runs one K2 aggregation."""
+    K_event, K_stencil = model.cfg.max_neighbors, len(GRID_OFFSETS)
+    net = model.backbone
+    fits = []
+    for layer, K in ((net.conv_block1, K_event), (net.layer2, K_stencil),
+                     (net.layer3, K_stencil), (net.layer4, K_stencil),
+                     (net.layer5, K_stencil)):
+        b2 = layer.conv_block2
+        fits += [layer.conv_block1.conv.fits(K),
+                 b2.conv.fits(K, b2.lin.in_features)]
+    for k in range(model.cfg.num_scales):
+        s = getattr(model.head, f"scale{k + 1}")
+        _, cin, n_reg = s.reg_pred.weight.shape
+        fits += [b.conv.fits(K_stencil)
+                 for b in (s.stem, s.cls_conv, s.reg_conv)]
+        # reg and obj run as one conv (models.head.fused_pred)
+        fits += [s.cls_pred.fits(K_stencil),
+                 fused_block_fits(cin, n_reg + s.obj_pred.weight.shape[2],
+                                  0, s.reg_pred.kernel_size, K_stencil)]
+    return sum(fits), len(fits) - sum(fits)
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:

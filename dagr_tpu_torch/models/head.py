@@ -6,8 +6,9 @@ prediction layers; the reg and obj predictions share their input and
 run as one conv over concatenated output channels.  Outputs per anchor
 are [reg(4), obj(1), cls(C)], anchors row-major per scale, scales
 concatenated.  In eval mode under ``torch.no_grad`` every conv of a
-scale, the prediction convs included, is one fused block
-(``models.blocks.eval_route``).
+scale, the prediction convs included, is one fused block where the
+kernel's tile takes its widths (``models.blocks.eval_route`` and
+``ops.spline.fused_block_fits``), else the split route.
 """
 from __future__ import annotations
 
@@ -21,22 +22,30 @@ from dagr_tpu_torch.config import DagrConfig
 from dagr_tpu_torch.core.types import NodeSet
 from dagr_tpu_torch.models.blocks import (
     ConvBlock, SplineConvLayer, eval_route, fused_block)
-from dagr_tpu_torch.ops.spline import LevelEdges, level_edges, spline_conv
+from dagr_tpu_torch.ops.spline import (
+    LevelEdges, fused_block_fits, level_edges, spline_conv)
 
 
 def fused_pred(layers: Sequence[SplineConvLayer], x: torch.Tensor,
                edges: LevelEdges, mask=None) -> torch.Tensor:
     """Several SplineConvLayers on the same input as ONE conv over their
     concatenated output channels (parameters stay separate); with the
-    node ``mask``, as one fused eval block whose masked rows are 0."""
-    w = torch.cat([l.weight for l in layers], dim=-1)
-    r = torch.cat([l.root for l in layers], dim=-1)
-    b = torch.cat([l.bias for l in layers]) if layers[0].bias is not None \
-        else None
+    node ``mask``, masked rows 0: one fused eval block where its tile
+    takes the widths, else the split route and ``torch.where``."""
+    if len(layers) == 1:
+        w, r, b = layers[0].weight, layers[0].root, layers[0].bias
+    else:
+        w = torch.cat([l.weight for l in layers], dim=-1)
+        r = torch.cat([l.root for l in layers], dim=-1)
+        b = torch.cat([l.bias for l in layers]) \
+            if layers[0].bias is not None else None
     ks = layers[0].kernel_size
-    if mask is not None:
+    _, cin, cout = w.shape
+    if mask is not None and fused_block_fits(cin, cout, 0, ks,
+                                             edges.nbr.shape[1]):
         return fused_block(x, edges, w, r, b, mask, kernel_size=ks)
-    return spline_conv(x, edges, w, r, b, kernel_size=ks)
+    out = spline_conv(x, edges, w, r, b, kernel_size=ks)
+    return out if mask is None else torch.where(mask[..., None], out, 0.0)
 
 
 def make_grids_strides(hw: List[Tuple[int, int]], strides: List[int]
@@ -74,10 +83,9 @@ class ScaleHead(nn.Module):
         ns = self.stem(ns, edges)
         cls_feat = self.cls_conv(ns, edges).feat
         reg_feat = self.reg_conv(ns, edges).feat
-        # the fused blocks take the node mask and zero its masked rows
+        # in eval, the predictions take the node mask and zero its rows
         mask = ns.mask if eval_route(self) else None
-        cls_out = (self.cls_pred(cls_feat, edges) if mask is None
-                   else self.cls_pred.block(cls_feat, edges, mask))
+        cls_out = fused_pred([self.cls_pred], cls_feat, edges, mask)
         regobj = fused_pred([self.reg_pred, self.obj_pred], reg_feat, edges,
                             mask)
         ny, nx = ns.grid_hw

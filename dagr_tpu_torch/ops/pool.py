@@ -596,15 +596,13 @@ def cell_max(cells: torch.Tensor, feat: torch.Tensor,
         return cell_max_plain(cells, feat, n_cells)
     cells, feat = cells.contiguous(), feat.contiguous()
     _build.check_cuda("cell_max", cells, feat)
-    # the kernel takes int32 maxima of an order-preserving encoding and
-    # decodes them in place: the buffer is float32 when it returns
-    out = torch.empty((n_cells, feat.shape[1]), dtype=torch.int32,
+    out = torch.empty((n_cells, feat.shape[1]), dtype=torch.float32,
                       device=feat.device)
     i = ctypes.c_int
     _build.launch("cell_max", "dagr_cell_max", _build.ptr(cells),
                   _build.ptr(feat), i(feat.shape[0]), i(n_cells),
                   i(feat.shape[1]), _build.ptr(out))
-    return out.view(torch.float32)
+    return out
 
 
 def cell_max_plain(cells, feat, n_cells):

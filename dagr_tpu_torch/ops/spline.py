@@ -25,8 +25,10 @@ batch norm), the activation and the node mask, in one launch of
 ``csrc/spline_conv.cu`` on CUDA tensors (g stays in shared memory, the
 products run on the tensor cores in 3xTF32) and as
 ``spline_conv_block_plain``, today's ops one by one, on CPU tensors.
-The modules take it in eval mode under ``torch.no_grad``; training keeps
-the split route.
+The modules take it in eval mode under ``torch.no_grad`` where its tile
+takes the widths (``fused_block_fits``: Cout <= 64, K <= 16, the tile in
+shared memory); wider convs (DAGR-M and -L, a 100-class prediction) and
+training keep the split route.
 
 Training: when ``x`` requires grad, ``spline_aggregate`` runs as a
 ``torch.autograd.Function`` whose backward is ``grad_x = A^T grad_g``
@@ -341,6 +343,32 @@ def spline_conv_block(
         *stats_args(bn_skip), opt(mask), i(M), i(K), i(cin), i(cout),
         i(cs), i(kernel_size), i(_ACT_CODES[act]), _build.ptr(out))
     return out
+
+
+def fused_block_fits(cin: int, cout: int, cs: int, kernel_size: int,
+                     K: int) -> bool:
+    """Whether ``spline_conv_block``'s kernel takes these widths (Cs = 0
+    without a skip branch): ``conv_tile`` of ``csrc/spline_conv.cu``
+    worked out in Python, so that the modules choose their route from the
+    shapes alone, the same on every device.  A = [g | x] padded to ``ka``
+    columns (row stride ``lda``) at 64 rows if that takes at most 128 KB,
+    else 16; Cout padded to the warps' n-tiles (``coutp``, row stride
+    ``ldb``); two 128-row weight slabs; all of it within the 227 KB a
+    block can have.  ``block_shared_memory`` is the kernel's own answer,
+    and a card test holds the two equal."""
+    if cin < 1 or cout < 1 or cout > 64 or cs < 0 or K < 0 or K > 16:
+        return False
+    ka = (kernel_size * kernel_size * cin + cin + 7) // 8 * 8
+    lda, lds = ka + 4, (cs + 7) // 8 * 8 + 4
+    mt = 4 if 64 * lda * 4 <= 128 * 1024 else 1
+    per = 8 if mt == 1 else 16
+    ntw = 1
+    while ntw * per < cout:
+        ntw *= 2
+    coutp = ntw * per
+    ldb = coutp + (8 if coutp % 32 in (0, 16) else 0)
+    smem = (16 * mt * max(lda, lds) + 2 * 128 * ldb) * 4
+    return smem <= 232_448
 
 
 @functools.lru_cache(maxsize=None)

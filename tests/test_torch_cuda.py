@@ -6,6 +6,10 @@ CUDA device.  On a GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
+The eval route by width: ``fused_block_fits`` against the kernel's own
+tile, and the Detector at DAGR-N, -M, -L and 100 classes against the
+CPU with its fused and split convs counted.
+
 Tolerances as in chip_smoke.py: K1, K4, K6 and K8's search's discrete
 outputs and K3's masks, ids and positions exact, K2 (the aggregation
 and the fused eval block) and K7 to 1e-5 relative, K3 features to 1e-5,
@@ -32,7 +36,7 @@ from dagr_tpu_torch.graph.build import (
     search_edges_into_store_plain, search_edges_streams,
     search_edges_streams_plain, sorted_runs)
 from dagr_tpu_torch.kernels import _build
-from dagr_tpu_torch.models.dagr import DAGR, init_fresh
+from dagr_tpu_torch.models.dagr import DAGR, eval_routes, init_fresh
 from dagr_tpu_torch.models.functional import spline_gather, spline_gather_plain
 from dagr_tpu_torch.ops.nms import postprocess, postprocess_plain
 from dagr_tpu_torch.ops.pool import (
@@ -41,8 +45,8 @@ from dagr_tpu_torch.ops.pool import (
     pool_graph_plain, ring_update_cells, ring_update_cells_plain)
 from dagr_tpu_torch.ops.spline import (
     BatchNormStats, LevelEdges, spline_aggregate, spline_aggregate_backward,
-    spline_aggregate_backward_plain, spline_aggregate_plain,
-    spline_conv_block, spline_conv_block_plain)
+    block_shared_memory, fused_block_fits, spline_aggregate_backward_plain,
+    spline_aggregate_plain, spline_conv_block, spline_conv_block_plain)
 from dagr_tpu_torch.serve import Detector
 from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
 from dagr_tpu_torch.streaming.serve import MultiStreamServer, chunk_streams
@@ -68,16 +72,16 @@ def dev():
     return torch.device("cuda")
 
 
-def ragged_windows(seed, dev, B=3, N=4000):
+def ragged_windows(seed, dev, B=3, N=4000, width=W, height=H):
     """Sample 0 full, sample 1 half, sample 2 empty; a hot pixel holding
     300 events in sample 1."""
     rng = np.random.default_rng(seed)
-    pos, feat, mask = random_event_arrays(rng, B, N, W, H, n_valid=N)
+    pos, feat, mask = random_event_arrays(rng, B, N, width, height, n_valid=N)
     mask[1, N // 2:] = False
     mask[2] = False
-    pos[1, 100:400, :2] = [50 / W, 60 / H]
+    pos[1, 100:400, :2] = [50 / width, 60 / height]
     ev = EventBatch(pos=torch.from_numpy(pos), feat=torch.from_numpy(feat),
-                    mask=torch.from_numpy(mask), width=W, height=H)
+                    mask=torch.from_numpy(mask), width=width, height=height)
     return ev.to(dev)
 
 
@@ -88,6 +92,58 @@ def test_graph_search_ragged_batch(dev):
     for f in ("nbr", "nbr_mask", "nbr_dpos"):
         assert torch.equal(getattr(g, f), getattr(p, f)), f
     assert not g.nbr_mask[2].any()
+
+
+def graph_case(case, dev):
+    """(pos_px, mask) of one K1 case: 8 windows of 50k nodes (45k valid,
+    the train step's batch: 20-bit pixel ids); a hot pixel of 3000 events
+    (over the queue cap and over one 2048-key sort tile) in a 6000-event
+    window; an all-invalid batch; windows of no nodes; 3 windows of 4101
+    nodes (no multiple of the tile) holding 4101, 2047 and 0 valid."""
+    rng = np.random.default_rng(len(case))
+    B, N, n_valid = {"batch8_50k": (8, 50_000, 45_000),
+                     "hot_pixel": (2, 6000, 6000),
+                     "all_invalid": (3, 3000, 3000), "no_nodes": (2, 0, 0),
+                     "ragged_tile": (3, 4101, 4101)}[case]
+    pos, _, mask = random_event_arrays(rng, B, N, W, H, n_valid=n_valid)
+    if case == "hot_pixel":
+        pos[0, 1000:4000, :2] = [77 / W, 33 / H]
+        pos[1, ::2, :2] = [5 / W, 200 / H]
+    elif case == "all_invalid":
+        mask[:] = False
+    elif case == "ragged_tile":
+        mask[1, 2047:] = False
+        mask[2] = False
+    ev = EventBatch(pos=torch.from_numpy(pos), feat=torch.zeros((B, N, 1)),
+                    mask=torch.from_numpy(mask), width=W, height=H).to(dev)
+    return ev.pos_px(), ev.mask
+
+
+@pytest.mark.parametrize("dt", [10_000, 2**30])
+@pytest.mark.parametrize("case", ["batch8_50k", "hot_pixel", "all_invalid",
+                                  "no_nodes", "ragged_tile"])
+def test_graph_search_bit_equal_in_edge_cases(dev, case, dt):
+    """K1 (its own radix sort, a warp per event) bit-equal to its twin on
+    the card: nbr, nbr_mask and nbr_dpos; with dt = 2**30 every run entry
+    is within dt, so the queue cap decides at the hot pixel.  One launch
+    of the port a call."""
+    pos_px, mask = graph_case(case, dev)
+    kw = dict(GRAPH_KW, delta_t_us=dt)
+    before = _build.launch_counts()["graph_search"]
+    g = build_graph(pos_px, mask, **kw)
+    assert _build.launch_counts()["graph_search"] == before + 1
+    p = build_graph_plain(pos_px, mask, **kw)
+    torch.cuda.synchronize()
+    for f in ("nbr", "nbr_mask", "nbr_dpos"):
+        assert torch.equal(getattr(g, f), getattr(p, f)), f
+    if case == "hot_pixel":
+        # the hot pixel shows only its last 128 events (3872-3999): event
+        # 2000 there sees none of its pixel's older ones
+        picks = g.nbr[0, 2000, 1:][g.nbr_mask[0, 2000, 1:]]
+        assert not ((picks >= 1000) & (picks < 4000)).any()
+        assert int(g.nbr_mask[0, 3999].sum()) == 16
+    if case in ("all_invalid", "no_nodes"):
+        assert not g.nbr_mask.any()
 
 
 @pytest.mark.parametrize("cin", [1, 3, 16, 66, 130])
@@ -167,6 +223,53 @@ def test_detector_matches_cpu_and_launches_every_kernel(dev):
     raw_cpu, _ = cpu(ev.to("cpu"))
     torch.testing.assert_close(raw.cpu(), raw_cpu, atol=1e-4, rtol=1e-4)
     assert dets["valid"].shape == (3, 175)
+
+
+def test_fused_block_fits_is_the_kernels_answer(dev):
+    """The modules' route test (Python) equals the kernel's own tile
+    (``conv_tile``, through ``block_shared_memory``) over Cin 1-160, Cout
+    1-130, no skip or a skip as wide as x, and K 9, 16 and 17."""
+    for K, cin, cout in itertools.product((9, 16, 17), range(1, 161),
+                                          range(1, 131)):
+        for cs in (0, cin):
+            assert fused_block_fits(cin, cout, cs, 5, K) == (
+                block_shared_memory(cin, cout, cs, 5, K) != 0), (cin, cout,
+                                                                  cs, K)
+
+
+# the published width ladder (config/dagr-*.yaml) and NCaltech101
+WIDTHS = {
+    "n": dict(net_stem_width=0.25, yolo_stem_width=0.25),
+    "m": dict(net_stem_width=0.75, yolo_stem_width=0.75),
+    "l": dict(net_stem_width=1.0, yolo_stem_width=1.0),
+    "l_ncaltech": dict(net_stem_width=1.0, yolo_stem_width=1.0,
+                       dataset="ncaltech101", num_scales=1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDTHS))
+def test_detector_at_every_width_matches_cpu(dev, name):
+    """DAGR-N, -M and -L on the card (NCaltech101's 100 classes at
+    240 x 180) against the same model on the CPU, raw to 1e-4; each conv
+    on the route its widths give: ``eval_routes`` fused blocks and split
+    K2 aggregations launched, and every sync kernel."""
+    cfg = DagrConfig(n_nodes=4000, **WIDTHS[name])
+    w, h = (240, 180) if cfg.dataset == "ncaltech101" else (W, H)
+    det = Detector(cfg, h, w, dev, seed=12)
+    cpu = Detector(cfg, h, w, "cpu", state_dict=det.model.state_dict())
+    ev = ragged_windows(13, dev, width=w, height=h)
+    fused, split = eval_routes(det.model)
+    before = _build.launch_counts()
+    raw, dets = det(ev)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert all(after[k] > before[k] for k in SYNC_KERNELS)
+    assert after["spline_conv_block"] - before["spline_conv_block"] == fused
+    assert after["spline_aggregate"] - before["spline_aggregate"] == split
+    raw_cpu, _ = cpu(ev.to("cpu"))
+    assert raw.shape == raw_cpu.shape == (3, raw.shape[1],
+                                          5 + cfg.num_classes)
+    torch.testing.assert_close(raw.cpu(), raw_cpu, atol=1e-4, rtol=1e-4)
 
 
 def test_wrappers_reject_mixed_devices(dev):
@@ -378,6 +481,106 @@ def test_cell_max_bit_equal(dev, n, c):
     feat = torch.from_numpy(feat).to(dev)
     a, b = cell_max(cells, feat, G), cell_max_plain(cells, feat, G)
     assert torch.equal(a, b)
+
+
+def test_graph_search_in_a_cuda_graph(dev):
+    """K1's one C call allocates nothing and never synchronises: captured
+    in a CUDA graph and replayed over other windows of the same shape
+    (3 x 4101 nodes, ragged, a hot pixel), it gives the twin's graph bit
+    for bit; and a call runs no sort kernel of torch."""
+    windows = []
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        pos, feat, mask = random_event_arrays(rng, 3, 4101, W, H,
+                                              n_valid=4101)
+        mask[1, 1000 + 500 * seed:] = False
+        pos[2, 200:600, :2] = [9 / W, 9 / H]
+        ev = EventBatch(pos=torch.from_numpy(pos), feat=torch.from_numpy(feat),
+                        mask=torch.from_numpy(mask), width=W,
+                        height=H).to(dev)
+        windows.append((ev.pos_px(), ev.mask))
+    static = [t.clone() for t in windows[0]]
+    kernels = device_kernels(lambda: build_graph(*static, **GRAPH_KW))
+    assert not any("sort" in k.lower() for k in kernels), kernels
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g = build_graph(*static, **GRAPH_KW)
+    for pos_px, mask in windows[1:]:
+        static[0].copy_(pos_px)
+        static[1].copy_(mask)
+        graph.replay()
+        want = build_graph_plain(*static, **GRAPH_KW)
+        torch.cuda.synchronize()
+        for f in ("nbr", "nbr_mask", "nbr_dpos"):
+            assert torch.equal(getattr(g, f), getattr(want, f)), f
+
+
+def device_kernels(fn):
+    """The device kernels one call of ``fn`` runs (torch.profiler), with
+    their counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == DeviceType.CPU}
+    return {e.key: e.count for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in host}
+
+
+@pytest.mark.parametrize("case", ["signed_zero_ties", "empty_cells",
+                                  "one_cell", "ragged_cells"])
+def test_cell_max_one_launch_edge_cases(dev, case):
+    """K8's cell max, one cooperative launch (fill, grid sync, max):
+    bit-equal to its twin with +0 and -0 tied in a cell, with most cells
+    empty (-FLT_MAX), with every row in one cell, and at a cell count
+    that is no multiple of the 256-thread block; one device kernel a
+    call, and replayable from a CUDA graph."""
+    rng = np.random.default_rng(len(case))
+    n, c, G = {"signed_zero_ties": (4096, 16, 2240),
+               "empty_cells": (300, 16, 2240), "one_cell": (50_176, 16, 2240),
+               "ragged_cells": (20_000, 7, 1001)}[case]
+    cells = rng.integers(0, G + 1, n).astype(np.int32)
+    feat = rng.standard_normal((n, c)).astype(np.float32)
+    if case == "signed_zero_ties":
+        feat = np.where(rng.random((n, c)) < 0.5, -np.abs(feat), 0.0)
+        feat[rng.random((n, c)) < 0.5] = -0.0
+        feat = feat.astype(np.float32)
+    elif case == "empty_cells":
+        cells[:] = rng.integers(0, 40, n)
+    elif case == "one_cell":
+        cells[:] = 1234
+    # numpy oracle on the bits: floats ordered as ints (+0 above -0)
+    bits = feat.view(np.int32)
+    order = np.where(bits >= 0, bits, bits ^ 0x7fffffff)
+    want = np.full((G + 1, c), np.float32(np.finfo(np.float32).min)).view(
+        np.int32)
+    want = np.where(want >= 0, want, want ^ 0x7fffffff)
+    np.maximum.at(want, cells, order)
+    want = np.where(want >= 0, want, want ^ 0x7fffffff)[:G]
+    cells = torch.from_numpy(cells).to(dev)
+    feat = torch.from_numpy(feat).to(dev)
+    before = _build.launch_counts()["cell_max"]
+    a = cell_max(cells, feat, G)
+    assert _build.launch_counts()["cell_max"] == before + 1
+    b = cell_max_plain(cells, feat, G)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert np.array_equal(a.view(torch.int32).cpu().numpy(), want)
+    kernels = device_kernels(lambda: cell_max(cells, feat, G))
+    assert sum(kernels.values()) == 1, kernels
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = cell_max(cells, feat, G)
+    feat.mul_(-1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, cell_max_plain(cells, feat, G))
 
 
 @pytest.mark.parametrize("mode", ["grow", "ring"])
