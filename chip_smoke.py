@@ -33,12 +33,16 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
 6. streams through ``dagr_tpu_torch.streaming.engine.StreamingDetector``
    on the same model: holds the streaming kernels K6, K7 and K10 against
    their twins at the engine's shapes (a 1024-event chunk against a
-   45k-event store); feeds one 45k-event window in 1024-event chunks
+   45k-event store, K6 append-only and in a wrapped ring) and profiles
+   K6 (one C call, at most 5 host ops, only the port's kernels, no sort
+   or searchsorted); feeds one 45k-event window in 1024-event chunks
    (grow), whose final raw outputs must equal the sync raw of the same
-   window, with every streaming kernel launched on every step; feeds 90k
+   window, with every streaming kernel launched on every step, and K6
+   held against its twin on the inputs of its middle step; feeds 90k
    events (two windows, the second 1 s later) through a 50k-event ring,
    with K6, K7, K2 and K3 launched on every ring step and K10 on none,
-   (18 fused blocks a step, no split aggregation, in both modes),
+   (18 fused blocks a step, no split aggregation, in both modes), and K6
+   held against its twin on the inputs of a step after the wrap,
    which must equal grow before it evicts and, after, hold exactly the
    last 50k events, with level-1 cells equal to a numpy recompute from
    the fed events; times steps at chunk 256 and 1 on a warm store of
@@ -59,8 +63,9 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    max on every step, K10 never; raw equal to the engine's ring at that
    capacity, live level-1 cells equal to a numpy recompute).  The
    kernels of the serving path are held against their twins on the
-   inputs of one of its steps: the search on a grow step and on a ring
-   step after the ring has wrapped, the ring update and cell max on a
+   inputs of one of its steps: the search on a grow step (and profiled
+   there as K6 is) and on a ring step after the ring has wrapped, the
+   ring update and cell max on a
    ring step (the cell max one launch a call, timed against one
    ``scatter_reduce_`` amax in three turns), and K2 (both event convs' aggregation and every distinct
    fused block of the tail at batch S), K10 (the S*G1 folded cells) and
@@ -96,7 +101,8 @@ instance the parent commit's: ``git archive HEAD~ dagr_tpu_torch | tar
 change, change, parent): the sync B=1 window, the engine's grow step of
 256, the S=8 server step and the B=8 train step, each with its device
 busy time and idle share, and the host ops of one graph search, one
-pooling and one eval ConvBlock; each turn is a ``--timings DIR``
+pooling, one eval ConvBlock, one store search (K6, a grow step of 256)
+and one ring search (K8, an S=8 step); each turn is a ``--timings DIR``
 subprocess with that package first on sys.path.  ``--compare DIR train`` times the B=8 train
 step alone, in fresh processes, over three such rounds.  Neither mode
 prints a result line.
@@ -239,10 +245,13 @@ class Capture:
         self.module, self.name, self.fn = module, name, getattr(module, name)
         self.at, self.n, self.calls = set(at), 0, []
 
+        def copy(a):
+            return a.clone() if torch.is_tensor(a) else a
+
         def wrapped(*args, **kwargs):
             if self.n in self.at:
-                self.calls.append(([a.clone() if torch.is_tensor(a) else a
-                                    for a in args], dict(kwargs)))
+                self.calls.append(([copy(a) for a in args],
+                                   {k: copy(v) for k, v in kwargs.items()}))
             self.n += 1
             return self.fn(*args, **kwargs)
 
@@ -362,6 +371,61 @@ def count_host_ops(fn):
         "cudaLaunchCooperativeKernel"))
     return ops, launches, [e.key for e in kernel_events(prof)
                            for _ in range(e.count)]
+
+
+# the kernels of one K6 or K8 call: the vid window (ring stores), two
+# radix passes of three, the run table, the search
+SEARCH_KERNELS = ("vid_window_kernel", "radix_", "run_start_kernel",
+                  "store_search_kernel")
+
+
+def search_profile(fn, kernel, what, card):
+    """One K6 or K8 call ``fn()``: one launch of its C entry ``kernel``,
+    at most 5 host ops and only the port's kernels, no sort or
+    searchsorted (count_host_ops); its device ms a call and kernels
+    (kernel_times).  Prints them; returns {host_ops, kernel_launches,
+    device_ms}."""
+    from dagr_tpu_torch.kernels import _build
+
+    ops, launches, kernels = count_host_ops(fn)
+    before = _build.launch_counts()[kernel]
+    fn()
+    require(_build.launch_counts()[kernel] == before + 1,
+            f"{what}: one call of its C entry")
+    require(len(ops) <= 5 and all(
+        any(w in k for w in SEARCH_KERNELS) and "sort" not in k.lower()
+        for k in kernels),
+        f"{what} runs at most 5 host ops and only the port's kernels, no "
+        f"sort: {ops}; {kernels}")
+    device_ms, by_kernel = search_device_ms(fn)
+    print(f"{what}: one call: {len(ops)} host ops ({', '.join(ops)}), "
+          f"{launches} launches; device {device_ms:.4f} ms a call [{card}]:",
+          flush=True)
+    for kname, kms, n in by_kernel:
+        print(f"  {kms:8.4f} ms  x{n:<4d} {kname}", flush=True)
+    return {"host_ops": len(ops), "kernel_launches": launches,
+            "device_ms": device_ms}
+
+
+def search_device_ms(fn):
+    """Device ms a call of a K6 or K8 search ``fn()`` and its kernels
+    (kernel_times over 10 calls; once more if the trace lost some of
+    the calls' kernels)."""
+    device_ms, by_kernel = kernel_times(fn, 10)
+    if any(n == 0 for _, _, n in by_kernel):
+        device_ms, by_kernel = kernel_times(fn, 10)
+    return device_ms, by_kernel
+
+
+def search_host_ops(module, name: str, step):
+    """count_host_ops of one store or ring search (K6's
+    ``search_edges_into_store``, K8's ``search_edges_streams``, as
+    ``module`` imports it) on the inputs one call of ``step()`` gave it."""
+    cap = Capture(module, name, 0)
+    step()
+    cap.close()
+    fn = getattr(module, name)
+    return count_host_ops(lambda: fn(*cap.args, **cap.kwargs))
 
 
 def host_op_profile(det, events):
@@ -766,10 +830,11 @@ def stream_events(window, shift_us: int = 0):
     return pos_px, window.feat[0, :N_VALID].cpu().numpy()
 
 
-def check_stream_kernels(cfg, window):
+def check_stream_kernels(cfg, window, card):
     """Phase 6a: K6, K7 and K10 against their twins at the streaming
-    engine's shapes: a 1024-event chunk against a 45k-event store.
-    Returns {kernel: record(...)}, ms per grow step."""
+    engine's shapes: a 1024-event chunk against a 45k-event store (K6
+    append-only and in a wrapped 50k ring, each profiled: one C call, no
+    sort).  Returns {kernel: record(...)}, ms per grow step."""
     from dagr_tpu_torch.graph.build import (
         search_edges_into_store, search_edges_into_store_plain)
     from dagr_tpu_torch.models.functional import (
@@ -803,13 +868,20 @@ def check_stream_kernels(cfg, window):
                     f"{name} == twin")
         ms = cuda_ms(lambda: search_edges_into_store(*args, **kw), 50)
         plain_ms = cuda_ms(lambda: search_edges_into_store_plain(*args, **kw), 10)
-        print(f"K6 graph_search_store {'ring' if ring else 'grow'}: "
-              f"bit-equal to twin; {int(a[1].sum())} edges; kernel {ms:.4f} "
-              f"ms, twin {plain_ms:.4f} ms", flush=True)
-        if not ring:
+        what = f"K6 graph_search_store {'ring' if ring else 'grow'}"
+        print(f"{what}: bit-equal to twin; {int(a[1].sum())} edges; kernel "
+              f"{ms:.4f} ms, twin {plain_ms:.4f} ms [{card}]", flush=True)
+        prof = search_profile(lambda: search_edges_into_store(*args, **kw),
+                              "graph_search_store", what, card)
+        if ring:
+            out["graph_search_store"].update(
+                ring_ms=ms, ring_plain_ms=plain_ms,
+                ring_device_ms=prof["device_ms"])
+        else:
             out["graph_search_store"] = record(
                 0.0, ms, plain_ms, nbytes(*args, *a),
                 C * (2 * cfg.radius_px(W) + 1) ** 2)
+            out["graph_search_store"].update(prof)
             self_slot = torch.arange(N_VALID - C, N_VALID, dtype=torch.int32,
                                      device="cuda")
             nbr = torch.cat([self_slot[:, None], a[0]], 1)
@@ -948,14 +1020,41 @@ def step_ms(eng, state, chunks, warm: int = 2):
     return state, times
 
 
+def hold_store_search(cap, what, card):
+    """K6 against its twin on the inputs one engine step gave it
+    (``cap``, a Capture of the engine's search): bit-equal, timed (the
+    wrapper and its device time) beside the twin.  Returns the check."""
+    from dagr_tpu_torch.graph.build import (
+        search_edges_into_store, search_edges_into_store_plain)
+
+    args, kw = cap.args, cap.kwargs
+    a = search_edges_into_store(*args, **kw)
+    for name, x, y in zip(("nbr", "mask"), a,
+                          search_edges_into_store_plain(*args, **kw)):
+        require(torch.equal(x, y), f"K6 {what} {name} == twin")
+    check = {"at": what, "max_abs_err": 0.0,
+             "ms": cuda_ms(lambda: search_edges_into_store(*args, **kw), 50),
+             "plain_ms": cuda_ms(
+                 lambda: search_edges_into_store_plain(*args, **kw), 5),
+             "device_ms": search_device_ms(
+                 lambda: search_edges_into_store(*args, **kw))[0]}
+    print(f"K6 graph_search_store on the {what}: bit-equal to twin; "
+          f"{int(a[1].sum())} edges; wrapper {check['ms']:.4f} ms, device "
+          f"{check['device_ms']:.4f} ms, twin {check['plain_ms']:.4f} ms "
+          f"[{card}]", flush=True)
+    return check
+
+
 def stream(cfg, det, events, card):
     """Phase 6b-d and 7: grow and ring streaming on the main model,
-    checked against the sync path and a recompute, then timed, then a
-    grow step replayed from a CUDA graph.  Returns the launch counts of
-    the grow run and of the ring run."""
+    checked against the sync path and a recompute, K6 against its twin on
+    the inputs of a grow step and of a ring step after the wrap, then
+    timed, then a grow step replayed from a CUDA graph.  Returns the
+    launch counts of the grow run and of the ring run, and K6's checks."""
     from torch.profiler import ProfilerActivity, profile
 
     from dagr_tpu_torch.kernels import _build
+    from dagr_tpu_torch.streaming import engine as engine_mod
     from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
 
     model, A = det.model, sum(ny * nx for ny, nx in cfg.output_sizes())
@@ -965,6 +1064,8 @@ def stream(cfg, det, events, card):
     # grow: one window, every streaming kernel on every step
     grow = StreamingDetector(model, H, W, chunk=1024)
     st = grow.init_state()
+    mid = len(chunks) // 2
+    cap = Capture(engine_mod, "search_edges_into_store", mid)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     grow_raws = []
@@ -978,6 +1079,9 @@ def stream(cfg, det, events, card):
         grow_raws.append(raw)
     torch.cuda.synchronize()
     launches = _build.launch_counts()
+    cap.close()
+    checks = [hold_store_search(
+        cap, f"grow step {mid} (chunk 1024, store {mid * 1024} events)", card)]
     raw_sync, _ = det(events[1])
     err = max_err(raw, raw_sync)
     require(tuple(raw.shape) == (1, A, 5 + cfg.num_classes)
@@ -999,6 +1103,8 @@ def stream(cfg, det, events, card):
     ring = StreamingDetector(model, H, W, chunk=1024, window_mode="ring")
     rs = ring.init_state()
     ring_err = 0.0
+    at = N_NODES // 1024 + 20                   # a step after the wrap
+    cap = Capture(engine_mod, "search_edges_into_store", at)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     for i, c in enumerate(chunk_events(fed_px, np.concatenate([f1, f2]),
@@ -1015,6 +1121,9 @@ def stream(cfg, det, events, card):
             ring_err = max(ring_err, max_err(rraw, grow_raws[i]))
     torch.cuda.synchronize()
     ring_launches = _build.launch_counts()
+    cap.close()
+    checks.append(hold_store_search(
+        cap, f"ring step {at} (chunk 1024, {N_NODES} slots, wrapped)", card))
     require(ring_err <= 1e-5, f"ring vs grow before eviction: {ring_err}")
     require(int(rs.num) == 2 * N_VALID, "ring ingested every event")
     v0 = 2 * N_VALID - N_NODES
@@ -1091,7 +1200,7 @@ def stream(cfg, det, events, card):
     p5, f5 = stream_events(events[4], int(p3[-1, 2]) + 1)
     graph_replay(fast, ts, chunk_events(p5[:18 * 256], f5[:18 * 256], 256,
                                         device="cuda"), card)
-    return launches, ring_launches
+    return launches, ring_launches, checks
 
 
 def graph_replay(eng, state, chunks, card):
@@ -1287,7 +1396,7 @@ def serve_streams(cfg, det, events, card):
     K8 entries}, {kernel: [checks at the serving path's shapes]}, grow
     launches, ring launches)."""
     from dagr_tpu_torch.graph.build import (
-        _ring_runs, search_edges_streams, search_edges_streams_plain)
+        search_edges_streams, search_edges_streams_plain)
     from dagr_tpu_torch.kernels import _build
     from dagr_tpu_torch.models.dagr import DAGR, detect
     from dagr_tpu_torch.ops import pool as pool_mod
@@ -1357,20 +1466,19 @@ def serve_streams(cfg, det, events, card):
     checks["spline_conv_block"] = check_fused_blocks(
         blocks_tail, f"serve tail S={S}", card)
     E = S * C
-    runs_ms = cuda_ms(lambda: _ring_runs(args[0], args[2], S * H * W), 50)
-    key_s = _ring_runs(args[0], args[2], S * H * W)[0]
-    pixels = torch.arange(S * H * W + 1, device="cuda") << 31
-    offsets_ms = cuda_ms(lambda: torch.searchsorted(key_s, pixels), 50)
     out["serve_search"] = record(
         0.0, cuda_ms(lambda: search_edges_streams(*args, **kw), 50),
         cuda_ms(lambda: search_edges_streams_plain(*args, **kw), 5),
         nbytes(*args, *a), E * ns_cells)
-    print(f"K8 serve_search: bit-equal to twin at S={S}, C={C}, "
-          f"{args[0].numel()} ring slots; {int(a[1].sum())} edges; the "
-          f"ring sort and run offsets take {runs_ms:.4f} ms of its "
-          f"{out['serve_search']['ms']:.4f} ms, the offsets' searchsorted "
-          f"over {S * H * W + 1} pixels {offsets_ms:.4f} ms [{card}]",
-          flush=True)
+    what = f"K8 serve_search on grow step {mid} (S={S}, C={C})"
+    out["serve_search"].update(search_profile(
+        lambda: search_edges_streams(*args, **kw), "serve_search", what,
+        card))
+    print(f"{what}: bit-equal to twin; {args[0].numel()} ring slots; "
+          f"{int(a[1].sum())} edges; wrapper "
+          f"{out['serve_search']['ms']:.4f} ms, device "
+          f"{out['serve_search']['device_ms']:.4f} ms, twin "
+          f"{out['serve_search']['plain_ms']:.4f} ms [{card}]", flush=True)
 
     # (2) tail_every=4, then the chain with decode
     te = 4
@@ -1491,9 +1599,14 @@ def serve_streams(cfg, det, events, card):
         "max_abs_err": 0.0,
         "ms": cuda_ms(lambda: search_edges_streams(*args, **kw), 50),
         "plain_ms": cuda_ms(lambda: search_edges_streams_plain(*args, **kw),
-                            5)}]
+                            5),
+        "device_ms": search_device_ms(
+            lambda: search_edges_streams(*args, **kw))[0]}]
+    rc = checks["serve_search"][0]
     print(f"K8 serve_search on ring step {at} (wrapped {at * RING_CHUNK // NR}"
-          f" times): bit-equal to twin; {int(a[1].sum())} edges", flush=True)
+          f" times): bit-equal to twin; {int(a[1].sum())} edges; wrapper "
+          f"{rc['ms']:.4f} ms, device {rc['device_ms']:.4f} ms, twin "
+          f"{rc['plain_ms']:.4f} ms [{card}]", flush=True)
     state0, rest = upd.args[:4], upd.args[4:]
     got = [t.clone() for t in state0]
     plain = [t.cpu() for t in state0]
@@ -2008,9 +2121,9 @@ def timings(card, train_only=False):
     steps), the S=8 server's grow step at chunk 1024 (steps 3-44 of one
     window per stream), the B=8 recipe train step (12 after 2), each with
     device busy ms per step and idle share; and the host ops of one
-    graph search, one pooling and one eval ConvBlock.  With
-    ``train_only`` the train step
-    alone, in a process that ran nothing else.  Prints one JSON line."""
+    graph search, one pooling, one eval ConvBlock, one store search (K6)
+    and one ring search (K8).  With ``train_only`` the train step alone,
+    in a process that ran nothing else.  Prints one JSON line."""
     from dagr_tpu_torch.config import DagrConfig
     from dagr_tpu_torch.data.synthetic import random_events, random_targets
     from dagr_tpu_torch.models.dagr import DAGR, init_fresh
@@ -2041,6 +2154,8 @@ def eval_timings(cfg, out):
     """The eval paths of ``timings`` and the host ops, into ``out``."""
     from dagr_tpu_torch.data.synthetic import random_events
     from dagr_tpu_torch.serve import Detector
+    from dagr_tpu_torch.streaming import engine as engine_mod
+    from dagr_tpu_torch.streaming import serve as serve_mod
     from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
     from dagr_tpu_torch.streaming.serve import MultiStreamServer, chunk_streams
 
@@ -2053,9 +2168,6 @@ def eval_timings(cfg, out):
     busy = profiled(lambda: det(events[1]), 4)
     out["sync"] = summary(ms, busy)
     host = host_op_profile(det, events)
-    out["host_ops"] = {k: {"ops": len(v[0]), "launches": v[1],
-                           "kernels": len(v[2]), "op_names": v[0]}
-                       for k, v in host.items()}
 
     model = det.model
     p3, f3 = stream_events(events[3])
@@ -2064,8 +2176,8 @@ def eval_timings(cfg, out):
     for c in chunk_events(p3[:STREAM_WARM], f3[:STREAM_WARM], 1024,
                           device="cuda"):
         st, _, _ = eng.step(st, *c)
-    steps = chunk_events(p3[STREAM_WARM:STREAM_WARM + 26 * 256],
-                         f3[STREAM_WARM:STREAM_WARM + 26 * 256], 256,
+    steps = chunk_events(p3[STREAM_WARM:STREAM_WARM + 27 * 256],
+                         f3[STREAM_WARM:STREAM_WARM + 27 * 256], 256,
                          device="cuda")
     st, ms = step_ms(eng, st, steps[:18])
     box = [st]
@@ -2074,6 +2186,9 @@ def eval_timings(cfg, out):
         box[0] = eng.step(box[0], *next(it))[0]
 
     out["engine_grow_256"] = summary(ms, profiled(eng_step, 8))
+    # the host side of one K6 search, on the next step's inputs
+    host["store_search"] = search_host_ops(
+        engine_mod, "search_edges_into_store", eng_step)
 
     S, C = SERVE_S, SERVE_CHUNK
     fed = [stream_events(w) for w in events[1:1 + S]]
@@ -2096,6 +2211,12 @@ def eval_timings(cfg, out):
         gst, _, _ = srv.step(gst, *c)
     _, sbusy, _ = profile_steps(srv, gst, chunks[4:8])
     out[f"serve_s{S}_grow"] = summary(ms, sbusy)
+    # the host side of one K8 search, on the inputs of a grow step
+    host["serve_search"] = search_host_ops(
+        serve_mod, "search_edges_streams", lambda: srv.step(gst, *chunks[8]))
+    out["host_ops"] = {k: {"ops": len(v[0]), "launches": v[1],
+                           "kernels": len(v[2]), "op_names": v[0]}
+                       for k, v in host.items()}
 
 
 def compare(parent: str, card, train_only=False):
@@ -2193,7 +2314,7 @@ def main() -> int:
 
     kernels = check_kernels(cfg, events, det)
     window_ms, launches = serve(cfg, events, det)
-    kernels.update(check_stream_kernels(cfg, events[0]))
+    kernels.update(check_stream_kernels(cfg, events[0], card))
     # K2's fused block on the 20 calls of one window
     cap = Capture(spline_mod, "spline_conv_block", *range(SYNC_BLOCKS))
     det(events[1])
@@ -2233,10 +2354,12 @@ def main() -> int:
         print("profile: the profiler saw no device kernels; device busy "
               "time not measured", flush=True)
     wide_launches = wide_windows(card)
-    grow_launches, ring_launches = stream(cfg, det, events, card)
+    grow_launches, ring_launches, store_checks = stream(cfg, det, events,
+                                                        card)
     served, checks, serve_launches, serve_ring_launches = serve_streams(
         cfg, det, events, card)
     kernels.update(served)
+    kernels["graph_search_store"]["path_checks"] = store_checks
     # the kernels held against their twins again at the serving path's
     # shapes: the row's error is the largest of all its checks
     for name, cs in checks.items():

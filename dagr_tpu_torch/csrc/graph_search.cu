@@ -33,8 +33,8 @@
 //      counts, equal digits ranked with __match_any_sync).  Index order
 //      within a pixel is time order (events are time-sorted per sample),
 //      and the last pass also writes the sorted events' times.  The sort
-//      takes any int key through a functor, so K6's and K8's searches
-//      can later sort (pixel, vid) keys with it;
+//      takes any int key and the index it sorts through a functor (K6
+//      and K8 sort store slots with it);
 //   2. run_start[p] for every pixel id p <= B*H*W: a binary search of the
 //      sorted keys per pixel (empty pixels included);
 //   3. a warp per event: lanes take the spiral cells in rounds of 32.  A
@@ -58,16 +58,7 @@
 // already holds them (insert-then-search): older means a smaller
 // virtual id (vid), not an earlier slot, because the ring store reuses
 // slots; the queue cap is the pixel run's last Q store entries, newer
-// ones included.  Store slots are returned, with no self slot.  The
-// caller sorts the store by (pixel, vid) every step (an int64 key;
-// torch.sort + searchsorted, 50k keys), so each pixel's run is in vid
-// order, which is time order; one thread per query walks the spiral
-// through the same helper as K1, binary-searching each run for
-// vid < q_vid.  No store time sentinel: dead slots sort past the last
-// pixel.  Bound like K1 by dependent L2 loads, for C (256 to 1024)
-// threads only, so a step launches too few threads to fill the card;
-// a persistent per-pixel FIFO that saves the per-step sort is later
-// work.
+// ones included.  Store slots are returned, with no self slot.
 //
 // K8 search: the multi-stream server's chunk against its event rings.
 // Replaces dagr_tpu/streaming/serve.py:406 _search_sort (the insert /
@@ -78,58 +69,54 @@
 // the pixel is folded with the stream (s*H*W + pixel) and a query only
 // walks its own stream's runs (base = s*H*W).  Each pick also returns
 // its spiral index, from which the caller takes the edge's (dx/W, dy/H).
-// The caller sorts the S*NR ring slots on the int64 key
-// folded pixel * 2^31 + vid and takes the run offsets over S*H*W + 1
-// pixels (torch.sort + searchsorted).  Bound like K6 by dependent L2
-// loads (the ring tables, 12 bytes a slot, and the 4.9 MB run table at
-// S=8 fit the 50 MB L2); S*C threads (8192 at S=8, chunk 1024) fill the
-// card better than K6's C.
+//
+// K6 and K8 are K1's three steps over store slots, one C entry each
+// (dagr_graph_search_store, dagr_serve_search), with no host op between
+// launches, no allocation and no host synchronisation:
+//   1. the slots by (pixel, vid), by K1's radix sort of the pixel alone
+//      (17 bits for the store at 240x320, 20 for S=8 folded rings; 2
+//      passes) over the slots enumerated in vid order, so that the
+//      stable sort leaves each pixel's run in vid order, which is time
+//      order.  The append-only store (no vid table) enumerates its slots
+//      in order: vid == slot.  A ring of NR slots (the engine's ring
+//      store, N slots; each of the server's S rings) holds live vids in
+//      one window of NR consecutive values whose slot is vid mod NR
+//      (streaming/engine.py's slot = vid % N, streaming/serve.py's
+//      slots n0 % NR with NR a multiple of the chunk): one block finds
+//      the newest vid of all slots, and position k of a ring is the slot
+//      of vid newest - NR + 1 + k.  A slot whose vid is not that one
+//      (never written, or a caller that breaks the window) sorts as
+//      dead, past the last pixel, with the slots that hold no event, so
+//      a broken window loses edges but reads nothing out of bounds.
+//      The last pass writes the sorted slots' times and vids beside
+//      their order, so the search reads contiguous arrays;
+//   2. the run table over H*W + 1 (S*H*W + 1) pixel ids, as K1's;
+//   3. a warp per query, as K1's search, with "older" meaning a sorted
+//      vid below the query's: lanes take spiral cells in rounds of 32,
+//      two binary searches per cell, a warp scan places the picks, lanes
+//      0..K-1 store the row (and K8's spiral indices) coalesced.
+// Bound like K1 by dependent L2 loads and by launches: the store's
+// tables (16 bytes a slot after the sort) and the 4.9 MB run table of
+// S=8 folded rings stay in the 50 MB L2; the bytes the function must
+// move (~0.7 MB for K6 at C=1024, ~2 MB for K8 at S=8) take under a
+// microsecond.
+
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-// The spiral walk of K6 and K8 (a thread per query).  Appends to slots n.. of one
-// event's row the older events (older(slot) true) of each in-frame
-// spiral cell's run, newest first, at most the run's last Q entries,
-// while t - time_of(src) <= dt, until the row holds K entries; returns
-// the new count.  The run's entries must be in time order, older ones
-// first.
-template <class TimeOf, class Older, class Emit>
-__device__ __forceinline__ int spiral_walk(
-    int x, int y, int t, int base, int W, int H, TimeOf time_of,
-    const int* __restrict__ order, const int* __restrict__ run_start,
-    const int* __restrict__ spiral, int S, int K, int Q, int dt, int n,
-    Older older, Emit emit) {
-  for (int s = 0; s < S && n < K; ++s) {
-    const int xn = x + spiral[2 * s], yn = y + spiral[2 * s + 1];
-    if (xn < 0 || xn >= W || yn < 0 || yn >= H) continue;
-    const int p = base + yn * W + xn;
-    const int st = run_start[p], en = run_start[p + 1];
-    if (st == en) continue;
-    const int lo = max(st, en - Q);
-    // first run position holding an entry that is not older
-    int a = st, z = en;
-    while (a < z) {
-      const int mid = (a + z) >> 1;
-      if (older(order[mid])) a = mid + 1; else z = mid;
-    }
-    for (int j = a - 1; j >= lo && n < K; --j) {
-      const int src = order[j];
-      if (t - time_of(src) > dt) break;
-      emit(n, src, s);
-      ++n;
-    }
-  }
-  return n;
-}
-
-// ---- K1 step 1: a stable LSD radix sort of int keys ---------------------
+// ---- step 1: a stable LSD radix sort of int keys ------------------------
 
 constexpr int kSortTile = 2048;           // keys per tile
 constexpr int kSortThreads = 256;         // 8 warps, 256 keys of a tile each
 constexpr int kSortWarps = kSortThreads / 32;
 constexpr int kMaxDigitBits = 10;         // <= 1024 digits a pass
+
+// A sort's first pass reads key(i) and the index it sorts, index(i), of
+// position i through a functor; later passes read the previous pass's
+// output.
 
 // K1's key: the pixel id b*H*W + y*W + x, B*H*W for an invalid event.
 struct PixelKey {
@@ -139,13 +126,99 @@ struct PixelKey {
   __device__ int operator()(int i) const {
     return mask[i] ? (i / N) * HW + pos[3 * i + 1] * W + pos[3 * i] : invalid;
   }
+  __device__ int index(int i) const { return i; }
 };
 
-// a later pass's key: the previous pass's sorted keys
+// K6 and K8: the slots of rings of NR slots enumerated in vid order (see
+// the file's note).  win = {the slot of the window's first vid, the
+// newest vid}, from vid_window_kernel.  Without a vid table the slot
+// is the position (vid == slot).
+struct VidOrder {
+  const int* vid;
+  const int* win;
+  int NR;
+  __device__ int slot(int j) const {
+    if (!vid) return j;
+    const int r = j / NR;
+    int s = win[0] + (j - r * NR);
+    if (s >= NR) s -= NR;
+    return r * NR + s;
+  }
+  // whether slot s, at position j, holds the vid the window puts there
+  __device__ bool holds(int j, int s) const {
+    return !vid ||
+           (long long)vid[s] == (long long)win[1] - (NR - 1) + (j % NR);
+  }
+};
+
+// K6's key: the store slot's pixel y*W + x; H*W (dead) for a slot that is
+// not valid, lies outside the frame or is not where the window puts it.
+struct StoreKey {
+  VidOrder ord;
+  const int* pos;
+  const uint8_t* valid;
+  int W, dead;
+  __device__ int operator()(int j) const {
+    const int s = ord.slot(j);
+    if (!valid[s] || !ord.holds(j, s)) return dead;
+    const unsigned p = (unsigned)(pos[3 * s + 1] * W + pos[3 * s]);
+    return p < (unsigned)dead ? (int)p : dead;
+  }
+  __device__ int index(int j) const { return ord.slot(j); }
+};
+
+// K8's key: the ring slot's folded pixel; S*H*W (dead) for a slot that
+// holds no event or is not where the window puts it.
+struct RingKey {
+  VidOrder ord;
+  const int* pix;
+  int dead;
+  __device__ int operator()(int j) const {
+    const int s = ord.slot(j);
+    const unsigned p = (unsigned)pix[s];
+    return p < (unsigned)dead && ord.holds(j, s) ? (int)p : dead;
+  }
+  __device__ int index(int j) const { return ord.slot(j); }
+};
+
+// a later pass's key and index: the previous pass's output
 struct ArrayKey {
   const int* keys;
+  const int* idx;
   __device__ int operator()(int i) const { return keys[i]; }
+  __device__ int index(int i) const { return idx[i]; }
 };
+
+// What the last pass writes beside each sorted key and index i: the time
+// t_src[t_stride * i] into t_out and, with vid_out, the vid vid_src[i]
+// (i itself without vid_src).
+struct Payload {
+  const int* t_src;
+  int t_stride;
+  const int* vid_src;
+  int* t_out;
+  int* vid_out;
+};
+
+// The newest vid of n slots and the slot of the first vid of its window
+// of NR, (newest + 1) mod NR, into win; one block.
+__global__ void __launch_bounds__(1024) vid_window_kernel(
+    const int* __restrict__ vid, int n, int NR, int* __restrict__ win) {
+  __shared__ int warp_max[32];
+  int m = INT_MIN;
+  for (int i = threadIdx.x; i < n; i += 1024) m = max(m, vid[i]);
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+  m = __reduce_max_sync(0xffffffffu, warp_max[threadIdx.x]);
+  if (threadIdx.x == 0) {
+    long long first = ((long long)m + 1) % NR;
+    if (first < 0) first += NR;
+    win[0] = (int)first;
+    win[1] = m;
+  }
+}
 
 // The passes of a sort of keys in [0, max_key]: digits of `bits` bits.
 struct SortPlan {
@@ -217,15 +290,12 @@ __global__ void __launch_bounds__(1024) radix_scan_kernel(
 // offsets (the tile's position from step b, then the earlier warps'),
 // and each warp writes its keys 32 at a time: a lane's rank among the
 // equal digits below it (__match_any_sync) keeps the sort stable.  Writes
-// the sorted keys and, for each, its original index (idx_in of the
-// previous pass, or the position itself on the first); with t_out, also
-// its time pos[3 * index + 2].
+// the sorted keys, their indices and, on the last pass, the payload.
 template <class KeyOf>
 __global__ void __launch_bounds__(kSortThreads) radix_scatter_kernel(
-    KeyOf key_of, const int* __restrict__ idx_in, int M, int shift, int D,
-    const int* __restrict__ hist, int* __restrict__ keys_out,
-    int* __restrict__ idx_out, const int* __restrict__ pos,
-    int* __restrict__ t_out) {
+    KeyOf key_of, int M, int shift, int D, const int* __restrict__ hist,
+    int* __restrict__ keys_out, int* __restrict__ idx_out,
+    Payload pay) {
   __shared__ int wrun[kSortWarps][1 << kMaxDigitBits];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int i = threadIdx.x; i < kSortWarps * D; i += kSortThreads)
@@ -258,10 +328,11 @@ __global__ void __launch_bounds__(kSortThreads) radix_scatter_kernel(
     const int rank = __popc(peers & below);
     if (active) {
       const int dst = wrun[warp][digit] + rank;
-      const int idx = idx_in ? idx_in[i] : i;
+      const int idx = key_of.index(i);
       keys_out[dst] = key;
       idx_out[dst] = idx;
-      if (t_out) t_out[dst] = pos[3 * idx + 2];
+      if (pay.t_out) pay.t_out[dst] = pay.t_src[(size_t)pay.t_stride * idx];
+      if (pay.vid_out) pay.vid_out[dst] = pay.vid_src ? pay.vid_src[idx] : idx;
     }
     __syncwarp();
     if (active && rank == 0) wrun[warp][digit] += __popc(peers);
@@ -269,10 +340,8 @@ __global__ void __launch_bounds__(kSortThreads) radix_scatter_kernel(
   }
 }
 
-// The passes of the sort, launched in order on one stream: keys of
-// key_of(0..M-1) in [0, max_key] into (keys_s, order) with the times of
-// the sorted events in ts.  Scratch: keys and indices of the passes
-// between, and the (tile, digit) counts; sort_scratch(M, max_key) words.
+// Scratch words of a sort of M keys in [0, max_key]: keys and indices
+// of the passes between, and the (tile, digit) counts.
 long long sort_scratch(int M, long long max_key) {
   const long long tiles = (M + kSortTile - 1) / kSortTile;
   return 2ll * M + tiles * (1ll << sort_plan(max_key).bits);
@@ -280,40 +349,45 @@ long long sort_scratch(int M, long long max_key) {
 
 // One pass: steps a, b and c on the digit at `shift`.
 template <class KeyOf>
-void radix_pass(KeyOf key_of, const int* idx_in, int M, int shift, int D,
-                int* hist, int* keys_out, int* idx_out, const int* pos,
-                int* t_out, cudaStream_t st) {
+void radix_pass(KeyOf key_of, int M, int shift, int D, int* hist,
+                int* keys_out, int* idx_out, Payload pay,
+                cudaStream_t st) {
   const int tiles = (M + kSortTile - 1) / kSortTile;
+  if (tiles == 0) return;
   radix_hist_kernel<<<tiles, kSortThreads, 0, st>>>(key_of, M, shift, D,
                                                    hist);
   radix_scan_kernel<<<1, 1024, 0, st>>>(tiles, D, hist);
   radix_scatter_kernel<<<tiles, kSortThreads, 0, st>>>(
-      key_of, idx_in, M, shift, D, hist, keys_out, idx_out, pos, t_out);
+      key_of, M, shift, D, hist, keys_out, idx_out, pay);
 }
 
+// The passes of the sort, launched in order on one stream: the keys of
+// positions 0..M-1, in [0, max_key], into (keys_s, order), with the
+// payload of the sorted indices; sort_scratch(M, max_key) words of
+// scratch.
 template <class KeyOf>
-void radix_sort(KeyOf key_of, int M, long long max_key, const int* pos,
-                int* scratch, int* keys_s, int* order, int* ts,
-                cudaStream_t st) {
+void radix_sort(KeyOf key_of, int M, long long max_key, Payload pay,
+                int* scratch, int* keys_s, int* order, cudaStream_t st) {
   const SortPlan plan = sort_plan(max_key);
   const int D = 1 << plan.bits;
+  const Payload none{};
   int* hist = scratch + 2 * (size_t)M;
   // ping-pong through the scratch so that the last pass writes keys_s
   // and order
   int* keys[2] = {keys_s, scratch};
   int* idx[2] = {order, scratch + M};
   int out = (plan.passes - 1) & 1;         // the first pass's buffers
-  radix_pass(key_of, nullptr, M, 0, D, hist, keys[out], idx[out], pos,
-             plan.passes == 1 ? ts : nullptr, st);
+  radix_pass(key_of, M, 0, D, hist, keys[out], idx[out],
+             plan.passes == 1 ? pay : none, st);
   for (int p = 1; p < plan.passes; ++p) {
     out ^= 1;
-    radix_pass(ArrayKey{keys[out ^ 1]}, idx[out ^ 1], M, p * plan.bits, D,
-               hist, keys[out], idx[out], pos,
-               p == plan.passes - 1 ? ts : nullptr, st);
+    radix_pass(ArrayKey{keys[out ^ 1], idx[out ^ 1]}, M, p * plan.bits, D,
+               hist, keys[out], idx[out],
+               p == plan.passes - 1 ? pay : none, st);
   }
 }
 
-// K1 step 2: run_start[p] = the first sorted position whose key is >= p,
+// ---- step 2: run_start[p] = the first sorted position whose key is >= p,
 // for p = 0..n_ids - 1.
 __global__ void run_start_kernel(const int* __restrict__ keys_s, int M,
                                  int n_ids, int* __restrict__ run_start) {
@@ -327,9 +401,68 @@ __global__ void run_start_kernel(const int* __restrict__ keys_s, int M,
   run_start[p] = a;
 }
 
-// K1 step 3: a warp per event; see the file's note.
+// ---- step 3: a warp per query -------------------------------------------
+
 constexpr int kSearchWarps = 8;
 
+// One query's picks, by its warp (see the file's note): the query at
+// (x, y, t) walks the runs of pixels base + y'*W + x'; older(m) says
+// whether sorted position m holds an entry older than the query (those
+// come first in a run).  Writes up to `room` picks, newest first within
+// a cell, as (order[m], spiral cell) pairs into mine; returns how many
+// (the same in every lane).
+template <class Older>
+__device__ int warp_picks(int x, int y, int t, int base, Older older,
+                          const int* __restrict__ ts,
+                          const int* __restrict__ order,
+                          const int* __restrict__ run_start,
+                          const int* __restrict__ spiral, int W, int H,
+                          int S, int room, int Q, int dt, int* mine) {
+  const int lane = threadIdx.x & 31;
+  int n = 0;                              // picks placed so far
+  for (int s0 = 0; s0 < S && n < room; s0 += 32) {
+    const int s = s0 + lane;
+    int cnt = 0, hi = 0;
+    if (s < S) {
+      const int xn = x + spiral[2 * s], yn = y + spiral[2 * s + 1];
+      if (xn >= 0 && xn < W && yn >= 0 && yn < H) {
+        const int p = base + yn * W + xn;
+        const int st = run_start[p], en = run_start[p + 1];
+        // hi: the first run position holding an entry not older
+        int a = st, z = en;
+        while (a < z) {
+          const int mid = (a + z) >> 1;
+          if (older(mid)) a = mid + 1; else z = mid;
+        }
+        hi = a;
+        // lo: the first position of the last Q within dt of t
+        a = max(st, en - Q);
+        z = hi;
+        while (a < z) {
+          const int mid = (a + z) >> 1;
+          if (t - ts[mid] > dt) a = mid + 1; else z = mid;
+        }
+        cnt = hi - a;
+        if (cnt < 0) cnt = 0;
+      }
+    }
+    int inc = cnt;                        // inclusive scan in spiral order
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, inc, off);
+      if (lane >= off) inc += v;
+    }
+    const int first = n + inc - cnt;      // this cell's first pick
+    for (int k = first; k < room && k < first + cnt; ++k) {
+      mine[2 * k] = order[hi - 1 - (k - first)];
+      mine[2 * k + 1] = s;
+    }
+    n = min(room, n + __shfl_sync(0xffffffffu, inc, 31));
+  }
+  __syncwarp();
+  return n;
+}
+
+// K1: a warp per event; slot 0 is the event itself.
 __global__ void __launch_bounds__(kSearchWarps * 32) graph_search_kernel(
     const int* __restrict__ pos,          // [M, 3] (x, y, t)
     const uint8_t* __restrict__ mask,     // [M]
@@ -350,50 +483,11 @@ __global__ void __launch_bounds__(kSearchWarps * 32) graph_search_kernel(
   int* mine = picks + (size_t)warp * 2 * K;
   const int b = e / N;
   const bool valid = mask[e];
-  int n = 0;                              // picks placed so far
-  if (valid) {
-    const int x = pos[3 * e], y = pos[3 * e + 1], t = pos[3 * e + 2];
-    const int base = b * H * W;
-    for (int s0 = 0; s0 < S && n < K - 1; s0 += 32) {
-      const int s = s0 + lane;
-      int cnt = 0, hi = 0;
-      if (s < S) {
-        const int xn = x + spiral[2 * s], yn = y + spiral[2 * s + 1];
-        if (xn >= 0 && xn < W && yn >= 0 && yn < H) {
-          const int p = base + yn * W + xn;
-          const int st = run_start[p], en = run_start[p + 1];
-          // hi: the first run position holding an event not older than e
-          int a = st, z = en;
-          while (a < z) {
-            const int mid = (a + z) >> 1;
-            if (order[mid] < e) a = mid + 1; else z = mid;
-          }
-          hi = a;
-          // lo: the first position of the last Q within dt of t
-          a = max(st, en - Q);
-          z = hi;
-          while (a < z) {
-            const int mid = (a + z) >> 1;
-            if (t - ts[mid] > dt) a = mid + 1; else z = mid;
-          }
-          cnt = hi - a;
-          if (cnt < 0) cnt = 0;
-        }
-      }
-      int inc = cnt;                      // inclusive scan in spiral order
-      for (int off = 1; off < 32; off <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, inc, off);
-        if (lane >= off) inc += v;
-      }
-      const int first = n + inc - cnt;    // this cell's first pick
-      for (int k = first; k < K - 1 && k < first + cnt; ++k) {
-        mine[2 * k] = order[hi - 1 - (k - first)];
-        mine[2 * k + 1] = s;
-      }
-      n = min(K - 1, n + __shfl_sync(0xffffffffu, inc, 31));
-    }
-  }
-  __syncwarp();
+  int n = 0;
+  if (valid)
+    n = warp_picks(pos[3 * e], pos[3 * e + 1], pos[3 * e + 2], b * H * W,
+                   [=](int m) { return order[m] < e; }, ts, order,
+                   run_start, spiral, W, H, S, K - 1, Q, dt, mine);
   const size_t row = (size_t)e * K;
   for (int k = lane; k < K; k += 32) {
     int src = 0;
@@ -415,83 +509,81 @@ __global__ void __launch_bounds__(kSearchWarps * 32) graph_search_kernel(
   }
 }
 
-// K6: C query events against an N-slot store that already holds them.
-// Older means a smaller virtual id (vid; the slot itself when the store
-// is append-only, store_vid == null).  Row q gets up to K store slots.
-__global__ void graph_search_store_kernel(
-    const int* __restrict__ store_pos,    // [N, 3] (x, y, t)
-    const int* __restrict__ store_vid,    // [N] or null: vid == slot
-    const int* __restrict__ order,        // [N] slots by (pixel, vid)
-    const int* __restrict__ run_start,    // [H*W + 1]
-    const int* __restrict__ q_pos,        // [C, 3]
-    const int* __restrict__ q_vid,        // [C]
-    const uint8_t* __restrict__ q_valid,  // [C]
-    const int* __restrict__ spiral,       // [S, 2]
-    int C, int W, int H, int S, int K, int Q, int dt,
-    int* __restrict__ nbr,                // [C, K]
-    uint8_t* __restrict__ nbr_mask) {     // [C, K]
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= C) return;
-  int* out = nbr + (size_t)q * K;
-  uint8_t* om = nbr_mask + (size_t)q * K;
-  int n = 0;
-  if (q_valid[q]) {
-    const int v = q_vid[q];
-    n = spiral_walk(
-        q_pos[3 * q], q_pos[3 * q + 1], q_pos[3 * q + 2], 0, W, H,
-        [=](int o) { return store_pos[3 * o + 2]; }, order, run_start,
-        spiral, S, K, Q, dt, n,
-        [=](int o) { return (store_vid ? store_vid[o] : o) < v; },
-        [=](int i, int src, int) {
-          out[i] = src;
-          om[i] = 1;
-        });
-  }
-  for (; n < K; ++n) {
-    out[n] = 0;
-    om[n] = 0;
-  }
-}
-
-// K8: E = S*C query events (stream-major, query q in stream q / C)
-// against the S*NR-slot rings that already hold them.  Row q gets up to
-// K ring slots, their mask and their spiral indices.
-__global__ void serve_search_kernel(
-    const int* __restrict__ ring_t,       // [S*NR] event time per slot
-    const int* __restrict__ ring_vid,     // [S*NR] vid per slot
-    const int* __restrict__ order,        // [S*NR] slots by (folded pixel, vid)
-    const int* __restrict__ run_start,    // [S*H*W + 1]
-    const int* __restrict__ q_pos,        // [E, 3]
-    const int* __restrict__ q_vid,        // [C], the same in every stream
+// K6 and K8: a warp per query, E = rings * C queries (ring-major): query
+// q searches ring q / C's runs with vid q_vid[q % C].  Row q gets up to K
+// slots, their mask and, with nbr_spiral, their spiral indices; 0 where
+// unfilled.
+__global__ void __launch_bounds__(kSearchWarps * 32) store_search_kernel(
+    const int* __restrict__ vid_s,        // [n] vids in (pixel, vid) order
+    const int* __restrict__ ts,           // [n] times in that order
+    const int* __restrict__ order,        // [n] slots in that order
+    const int* __restrict__ run_start,    // [rings*H*W + 1]
+    const int* __restrict__ q_pos,        // [E, 3] (x, y, t)
+    const int* __restrict__ q_vid,        // [C], the same in every ring
     const uint8_t* __restrict__ q_valid,  // [E]
-    const int* __restrict__ spiral,       // [NS, 2]
-    int E, int C, int W, int H, int NS, int K, int Q, int dt,
+    const int* __restrict__ spiral,       // [S, 2]
+    int E, int C, int W, int H, int S, int K, int Q, int dt,
     int* __restrict__ nbr,                // [E, K]
     uint8_t* __restrict__ nbr_mask,       // [E, K]
-    int* __restrict__ nbr_spiral) {       // [E, K]
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= E) return;
-  int* out = nbr + (size_t)q * K;
-  uint8_t* om = nbr_mask + (size_t)q * K;
-  int* os = nbr_spiral + (size_t)q * K;
+    int* __restrict__ nbr_spiral) {       // [E, K] or null
+  extern __shared__ int picks[];          // [warps][K][2]: (slot, cell)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = blockIdx.x * kSearchWarps + warp;
+  if (q >= E) return;                     // the whole warp
+  int* mine = picks + (size_t)warp * 2 * K;
   int n = 0;
   if (q_valid[q]) {
     const int v = q_vid[q % C];
-    n = spiral_walk(
-        q_pos[3 * q], q_pos[3 * q + 1], q_pos[3 * q + 2], (q / C) * W * H, W,
-        H, [=](int o) { return ring_t[o]; }, order, run_start, spiral, NS, K,
-        Q, dt, n, [=](int o) { return ring_vid[o] < v; },
-        [=](int i, int src, int s) {
-          out[i] = src;
-          om[i] = 1;
-          os[i] = s;
-        });
+    n = warp_picks(q_pos[3 * q], q_pos[3 * q + 1], q_pos[3 * q + 2],
+                   (q / C) * H * W, [=](int m) { return vid_s[m] < v; }, ts,
+                   order, run_start, spiral, W, H, S, K, Q, dt, mine);
   }
-  for (; n < K; ++n) {
-    out[n] = 0;
-    om[n] = 0;
-    os[n] = 0;
+  const size_t row = (size_t)q * K;
+  for (int k = lane; k < K; k += 32) {
+    const bool hit = k < n;
+    nbr[row + k] = hit ? mine[2 * k] : 0;
+    nbr_mask[row + k] = hit;
+    if (nbr_spiral) nbr_spiral[row + k] = hit ? mine[2 * k + 1] : 0;
   }
+}
+
+// The scratch of K6 and K8 over n slots and n_pix pixel ids: the sort's,
+// the vid window, the sorted keys, slots, times and vids, the run table.
+struct StoreScratch {
+  int *sort, *win, *keys_s, *order, *ts, *vid_s, *run_start;
+  StoreScratch(void* p, int n, long long n_pix) {
+    sort = (int*)p;
+    win = sort + sort_scratch(n, n_pix);
+    keys_s = win + 2;
+    order = keys_s + n;
+    ts = order + n;
+    vid_s = ts + n;
+    run_start = vid_s + n;
+  }
+};
+
+// Steps 1-3 of K6 and K8 over n slots in rings of NR (vid: the slots'
+// vids, or null when vid == slot), pixel keys in [0, n_pix] from key,
+// slot times t_src[t_stride * slot].
+template <class KeyOf>
+void search_store_runs(KeyOf key, const StoreScratch& sc, const int* vid,
+                       const int* t_src, int t_stride, int n, int NR,
+                       int n_pix, const void* q_pos, const void* q_vid,
+                       const void* q_valid, const void* spiral, int E, int C,
+                       int W, int H, int S, int K, int Q, int dt, void* nbr,
+                       void* nbr_mask, void* nbr_spiral, cudaStream_t st) {
+  if (vid) vid_window_kernel<<<1, 1024, 0, st>>>(vid, n, NR, sc.win);
+  radix_sort(key, n, n_pix, Payload{t_src, t_stride, vid, sc.ts, sc.vid_s},
+             sc.sort, sc.keys_s, sc.order, st);
+  const int n_ids = n_pix + 1;
+  run_start_kernel<<<(n_ids + 255) / 256, 256, 0, st>>>(sc.keys_s, n, n_ids,
+                                                        sc.run_start);
+  store_search_kernel<<<(E + kSearchWarps - 1) / kSearchWarps,
+                        kSearchWarps * 32, kSearchWarps * 2 * K * sizeof(int),
+                        st>>>(
+      sc.vid_s, sc.ts, sc.order, sc.run_start, (const int*)q_pos,
+      (const int*)q_vid, (const uint8_t*)q_valid, (const int*)spiral, E, C, W,
+      H, S, K, Q, dt, (int*)nbr, (uint8_t*)nbr_mask, (int*)nbr_spiral);
 }
 
 }  // namespace
@@ -521,8 +613,9 @@ extern "C" int dagr_graph_search(
   int* run_start = ts + M;
   const PixelKey key{(const int*)pos, (const uint8_t*)mask, N, W, HW,
                      (int)n_pix};
-  radix_sort(key, M, n_pix, (const int*)pos, (int*)scratch, keys_s, order,
-             ts, st);
+  radix_sort(key, M, n_pix, Payload{(const int*)pos + 2, 3, nullptr, ts,
+                                    nullptr},
+             (int*)scratch, keys_s, order, st);
   const int n_ids = (int)n_pix + 1;
   run_start_kernel<<<(n_ids + 255) / 256, 256, 0, st>>>(keys_s, M, n_ids,
                                                         run_start);
@@ -535,37 +628,48 @@ extern "C" int dagr_graph_search(
   return (int)cudaGetLastError();
 }
 
+// Scratch words of K6 (n = N store slots, n_pix = H*W) and K8 (n = S*NR
+// ring slots, n_pix = S*H*W).
+extern "C" long long dagr_store_search_scratch(int n, long long n_pix) {
+  return sort_scratch(n, n_pix) + 2 + 4ll * n + n_pix + 1;
+}
+
+// K6: C queries against an N-slot store; store_vid null: vid == slot
+// (append-only), else one ring of N slots; S spiral cells.  Outputs
+// [C, K].
 extern "C" int dagr_graph_search_store(
-    const void* store_pos, const void* store_vid, const void* order,
-    const void* run_start, const void* q_pos, const void* q_vid,
-    const void* q_valid, const void* spiral, int C, int W, int H, int S,
-    int K, int Q, int dt, void* nbr, void* nbr_mask, void* stream) {
-  const int threads = 128;
-  const int blocks = (C + threads - 1) / threads;
-  if (blocks > 0) {
-    graph_search_store_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int*)store_pos, (const int*)store_vid, (const int*)order,
-        (const int*)run_start, (const int*)q_pos, (const int*)q_vid,
-        (const uint8_t*)q_valid, (const int*)spiral, C, W, H, S, K, Q, dt,
-        (int*)nbr, (uint8_t*)nbr_mask);
-  }
+    const void* store_pos, const void* store_valid, const void* store_vid,
+    const void* q_pos, const void* q_vid, const void* q_valid,
+    const void* spiral, int N, int C, int W, int H, int S, int K, int Q,
+    int dt, void* scratch, void* nbr, void* nbr_mask, void* stream) {
+  if (C == 0 || K < 1) return (int)cudaGetLastError();
+  const int HW = W * H;
+  const StoreScratch sc(scratch, N, HW);
+  const int* vid = (const int*)store_vid;
+  const StoreKey key{VidOrder{vid, sc.win, N}, (const int*)store_pos,
+                     (const uint8_t*)store_valid, W, HW};
+  search_store_runs(key, sc, vid, (const int*)store_pos + 2, 3, N, N, HW,
+                    q_pos, q_vid, q_valid, spiral, C, C, W, H, S, K, Q, dt,
+                    nbr, nbr_mask, nullptr, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
+// K8: n_streams lockstep chunks of C queries against as many rings of
+// NR slots; S spiral cells.  Outputs [n_streams*C, K].
 extern "C" int dagr_serve_search(
-    const void* ring_t, const void* ring_vid, const void* order,
-    const void* run_start, const void* q_pos, const void* q_vid,
-    const void* q_valid, const void* spiral, int E, int C, int W, int H,
-    int NS, int K, int Q, int dt, void* nbr, void* nbr_mask,
+    const void* ring_pix, const void* ring_t, const void* ring_vid,
+    const void* q_pos, const void* q_vid, const void* q_valid,
+    const void* spiral, int n_streams, int NR, int C, int W, int H, int S,
+    int K, int Q, int dt, void* scratch, void* nbr, void* nbr_mask,
     void* nbr_spiral, void* stream) {
-  const int threads = 128;
-  const int blocks = (E + threads - 1) / threads;
-  if (blocks > 0) {
-    serve_search_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int*)ring_t, (const int*)ring_vid, (const int*)order,
-        (const int*)run_start, (const int*)q_pos, (const int*)q_vid,
-        (const uint8_t*)q_valid, (const int*)spiral, E, C, W, H, NS, K, Q,
-        dt, (int*)nbr, (uint8_t*)nbr_mask, (int*)nbr_spiral);
-  }
+  const int E = n_streams * C;
+  if (E == 0 || K < 1) return (int)cudaGetLastError();
+  const int n = n_streams * NR, n_pix = n_streams * W * H;
+  const StoreScratch sc(scratch, n, n_pix);
+  const int* vid = (const int*)ring_vid;
+  const RingKey key{VidOrder{vid, sc.win, NR}, (const int*)ring_pix, n_pix};
+  search_store_runs(key, sc, vid, (const int*)ring_t, 1, n, NR, n_pix,
+                    q_pos, q_vid, q_valid, spiral, E, C, W, H, S, K, Q, dt,
+                    nbr, nbr_mask, nbr_spiral, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

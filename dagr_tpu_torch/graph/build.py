@@ -9,11 +9,12 @@ against the event store), bit for bit as well.  ``search_edges_streams``
 is the multi-stream server's search (``dagr_tpu.streaming.serve``'s
 ``_search_sort`` with ``_select_first_k``): K6 over S lockstep streams
 whose event rings fold the stream into the pixel id.  On a CUDA tensor
-each launches its entry of ``csrc/graph_search.cu``; on a CPU tensor it
-runs its ``*_plain`` twin, the same selection as whole-array PyTorch ops.
-``build_graph``'s entry sorts the events by pixel in its own kernels (a
-stable radix sort); the store and ring searches are given their runs by
-``sorted_runs`` (``torch.sort`` and ``searchsorted``).
+each makes one call of its entry of ``csrc/graph_search.cu``, which
+sorts the events or store slots by pixel in its own kernels (a stable
+radix sort), builds the run table and searches with a warp per query;
+on a CPU tensor it runs its ``*_plain`` twin, the same selection as
+whole-array PyTorch ops over ``sorted_runs`` (``torch.sort`` and
+``searchsorted``).
 
 Preconditions, as in the JAX package: events are time-sorted per
 sample, valid events form a prefix, timestamps are window-relative
@@ -292,30 +293,52 @@ def search_edges_into_store(
 def _search_store_cuda(store_pos_px, store_valid, q_pos_px, q_vid, q_valid, *,
                        width, height, radius, delta_t_us, max_neighbors,
                        queue_size, store_vid):
-    C, K = q_pos_px.shape[0], max_neighbors - 1
+    """One call of ``dagr_graph_search_store``: the store's sort by
+    (pixel, vid), the run table and the search run in its kernels, on
+    the outputs and one scratch buffer allocated here.
+
+    A ring store (``store_vid`` given) must hold its live vids in one
+    window of N consecutive values, vid v in slot v % N, as the engine's
+    ring keeps it (``streaming/engine.py:211-216``: vids consecutive from
+    ``num``, slot = vid % N, chunks of at most N); the kernels enumerate
+    the slots in vid order from the newest vid and sort by pixel alone.
+    A valid slot outside that window is taken for dead (its edges are
+    lost; nothing is read out of bounds)."""
+    N, C, K = store_pos_px.shape[0], q_pos_px.shape[0], max_neighbors - 1
     dev = store_pos_px.device
-    store_pos_px, q_pos_px = store_pos_px.contiguous(), q_pos_px.contiguous()
+    store_pos_px = store_pos_px.contiguous()
+    store_valid, q_pos_px = store_valid.contiguous(), q_pos_px.contiguous()
     q_vid, q_valid = q_vid.contiguous(), q_valid.contiguous()
-    _, order, start = _store_runs(store_pos_px, store_valid, store_vid,
-                                  width, height)
     spiral = _spiral_tables(radius, width, height, dev)[0]
+    scratch = torch.empty(_store_scratch(N, width * height), dtype=torch.int32,
+                          device=dev)
     nbr = torch.empty((C, K), dtype=torch.int32, device=dev)
     mask = torch.empty((C, K), dtype=torch.bool, device=dev)
     if store_vid is not None:
         store_vid = store_vid.contiguous()
-        _build.check_cuda("search_edges_into_store", store_vid)
-    _build.check_cuda("search_edges_into_store", store_pos_px, q_pos_px,
-                      q_vid, q_valid, order, start, spiral)
+        _build.check_cuda("search_edges_into_store", store_pos_px, store_vid)
+    _build.check_cuda("search_edges_into_store", store_pos_px, store_valid,
+                      q_pos_px, q_vid, q_valid, spiral)
     i = ctypes.c_int
     _build.launch(
         "graph_search_store", "dagr_graph_search_store",
-        _build.ptr(store_pos_px),
+        _build.ptr(store_pos_px), _build.ptr(store_valid),
         _build.ptr(store_vid) if store_vid is not None else ctypes.c_void_p(None),
-        _build.ptr(order), _build.ptr(start), _build.ptr(q_pos_px),
-        _build.ptr(q_vid), _build.ptr(q_valid), _build.ptr(spiral), i(C),
-        i(width), i(height), i(spiral.shape[0]), i(K), i(queue_size),
-        i(delta_t_us), _build.ptr(nbr), _build.ptr(mask))
+        _build.ptr(q_pos_px), _build.ptr(q_vid), _build.ptr(q_valid),
+        _build.ptr(spiral), i(N), i(C), i(width), i(height),
+        i(spiral.shape[0]), i(K), i(queue_size), i(delta_t_us),
+        _build.ptr(scratch), _build.ptr(nbr), _build.ptr(mask))
     return nbr, mask
+
+
+@functools.lru_cache(maxsize=None)
+def _store_scratch(n: int, n_pix: int) -> int:
+    """int32 words of K6's and K8's scratch over n slots and n_pix pixel
+    ids (csrc/graph_search.cu's own count)."""
+    fn = _build.library().dagr_store_search_scratch
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    fn.restype = ctypes.c_longlong
+    return int(fn(n, n_pix))
 
 
 def search_edges_into_store_plain(store_pos_px, store_valid, q_pos_px, q_vid,
@@ -372,6 +395,8 @@ def _check_ring_args(ring_pix, ring_t, ring_vid, q_pos_px, q_vid, q_valid,
         raise ValueError("delta_t_us must fit int32")
     if S * width * height >= 2**31 - 1 or max_neighbors < 1:
         raise ValueError("folded pixel id must fit int32; max_neighbors >= 1")
+    if S == 0 or n % S:
+        raise ValueError("the rings must hold S >= 1 rings of NR slots")
 
 
 def search_edges_streams(
@@ -411,27 +436,40 @@ def search_edges_streams(
 def _search_streams_cuda(ring_pix, ring_t, ring_vid, q_pos_px, q_vid, q_valid,
                          *, width, height, radius, delta_t_us, max_neighbors,
                          queue_size):
+    """One call of ``dagr_serve_search``: the rings' sort by (folded
+    pixel, vid), the run table and the search run in its kernels, on the
+    outputs and one scratch buffer allocated here.
+
+    Each stream's ring of NR slots must hold its live vids in one window
+    of NR consecutive values, vid v in slot s*NR + v % NR, as the server
+    keeps it (``streaming/serve.py:189-207``: slots ``n0 % NR`` onwards
+    for vids ``n0 + arange(C)``; ``:122``: NR a multiple of C); the
+    kernels enumerate each ring in vid order from the newest vid and
+    sort by pixel alone.  A live slot outside that window is taken for
+    dead (its edges are lost; nothing is read out of bounds)."""
     S, C, _ = q_pos_px.shape
-    E, K = S * C, max_neighbors - 1
+    E, K, NR = S * C, max_neighbors - 1, ring_pix.shape[0] // S
     dev = ring_pix.device
-    _, order, start = _ring_runs(ring_pix, ring_vid, S * width * height)
     spiral = _spiral_tables(radius, width, height, dev)[0]
-    ring_t, ring_vid = ring_t.contiguous(), ring_vid.contiguous()
-    q_pos_px, q_vid = q_pos_px.contiguous(), q_vid.contiguous()
-    q_valid = q_valid.contiguous()
+    ring_pix, ring_t = ring_pix.contiguous(), ring_t.contiguous()
+    ring_vid, q_pos_px = ring_vid.contiguous(), q_pos_px.contiguous()
+    q_vid, q_valid = q_vid.contiguous(), q_valid.contiguous()
+    scratch = torch.empty(_store_scratch(S * NR, S * width * height),
+                          dtype=torch.int32, device=dev)
     nbr = torch.empty((E, K), dtype=torch.int32, device=dev)
     mask = torch.empty((E, K), dtype=torch.bool, device=dev)
     spiral_idx = torch.empty((E, K), dtype=torch.int32, device=dev)
-    _build.check_cuda("search_edges_streams", ring_t, ring_vid, order, start,
+    _build.check_cuda("search_edges_streams", ring_pix, ring_t, ring_vid,
                       q_pos_px, q_vid, q_valid, spiral)
     i = ctypes.c_int
     _build.launch(
         "serve_search", "dagr_serve_search",
-        _build.ptr(ring_t), _build.ptr(ring_vid), _build.ptr(order),
-        _build.ptr(start), _build.ptr(q_pos_px), _build.ptr(q_vid),
-        _build.ptr(q_valid), _build.ptr(spiral), i(E), i(C), i(width),
-        i(height), i(spiral.shape[0]), i(K), i(queue_size), i(delta_t_us),
-        _build.ptr(nbr), _build.ptr(mask), _build.ptr(spiral_idx))
+        _build.ptr(ring_pix), _build.ptr(ring_t), _build.ptr(ring_vid),
+        _build.ptr(q_pos_px), _build.ptr(q_vid), _build.ptr(q_valid),
+        _build.ptr(spiral), i(S), i(NR), i(C), i(width), i(height),
+        i(spiral.shape[0]), i(K), i(queue_size), i(delta_t_us),
+        _build.ptr(scratch), _build.ptr(nbr), _build.ptr(mask),
+        _build.ptr(spiral_idx))
     return nbr, mask, spiral_idx
 
 

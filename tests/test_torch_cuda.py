@@ -10,6 +10,11 @@ The eval route by width: ``fused_block_fits`` against the kernel's own
 tile, and the Detector at DAGR-N, -M, -L and 100 classes against the
 CPU with its fused and split convs counted.
 
+K6 and K8's search on rings wrapped three times, not yet full or all
+dead, at the paths' widths (the engine's 50k ring, S=8 rings of 8192
+with 20-bit folded pixels, the server's 50176-slot ring) and C = 1;
+each replayed from a CUDA graph and profiled (one C call, no sort).
+
 Tolerances as in chip_smoke.py: K1, K4, K6 and K8's search's discrete
 outputs and K3's masks, ids and positions exact, K2 (the aggregation
 and the fused eval block) and K7 to 1e-5 relative, K3 features to 1e-5,
@@ -291,16 +296,11 @@ def event_stream(seed, n, hot=0):
     return ev
 
 
-@pytest.mark.parametrize("case", [
-    # (events ingested, capacity, chunk, valid rows, hot-pixel events, ring)
-    (3000, 4096, 1024, 1024, 300, False),   # hot pixel over the cap
-    (4500, 4096, 1024, 1024, 0, False),     # chunk past capacity
-    (3000, 4096, 256, 0, 0, False),         # empty chunk
-    (9000, 4096, 1024, 700, 300, True),     # ring wrap, padded chunk
-    (5001, 4096, 1, 1, 300, True),          # ring, one event, hot pixel
-])
-def test_store_search_edge_cases(dev, case):
-    n, cap, chunk, n_q, hot, ring = case
+def store_case(n, cap, chunk, n_q, hot, ring, dead=False):
+    """K6's arguments after ``n`` events went into a ``cap``-slot store
+    (append-only: the first ``cap`` kept; ring: vid v in slot v % cap),
+    the chunk their last ``chunk`` (``n_q`` valid rows); ``dead``: every
+    store slot invalid.  Numpy arrays and the store's vids."""
     ev = event_stream(n, n, hot)
     slots = np.arange(n) % cap if ring else np.arange(n)
     keep = slots < cap
@@ -310,15 +310,37 @@ def test_store_search_edge_cases(dev, case):
     q = ev[n - chunk:]
     q_vid = np.arange(n - chunk, n, dtype=np.int32)
     q_valid = (np.arange(chunk) < n_q) & (ring | (q_vid < cap))
+    valid = (vid >= 0) & (not dead)
+    return (pos, valid, q, q_vid, q_valid), vid
+
+
+@pytest.mark.parametrize("case", [
+    # (events ingested, capacity, chunk, valid rows, hot-pixel events,
+    #  ring[, every store slot dead])
+    (3000, 4096, 1024, 1024, 300, False),   # hot pixel over the cap
+    (4500, 4096, 1024, 1024, 0, False),     # chunk past capacity
+    (3000, 4096, 256, 0, 0, False),         # empty chunk
+    (9000, 4096, 1024, 700, 300, True),     # ring wrap, padded chunk
+    (5001, 4096, 1, 1, 300, True),          # ring, one event, hot pixel
+    (13000, 4096, 1024, 1024, 300, True),   # ring wrapped three times
+    (3000, 4096, 512, 512, 300, True),      # ring not yet full (vid -1)
+    (120_000, 50_000, 256, 256, 300, True),  # the engine's 50k ring
+    (3000, 4096, 1, 1, 300, False),         # one event, hot pixel
+    (3000, 4096, 256, 256, 0, True, True),  # all-dead store, ring
+    (3000, 4096, 256, 256, 0, False, True),  # all-dead store, append
+])
+def test_store_search_edge_cases(dev, case):
+    (pos, valid, q, q_vid, q_valid), vid = store_case(*case)
+    ring, dead = case[5], case[6:] == (True,)
     t = lambda a: torch.from_numpy(a).to(dev)
-    args = (t(pos), t(vid >= 0), t(q), t(q_vid), t(q_valid))
+    args = (t(pos), t(valid), t(q), t(q_vid), t(q_valid))
     kw = dict(GRAPH_KW, store_vid=t(vid) if ring else None)
     a = search_edges_into_store(*args, **kw)
     b = search_edges_into_store_plain(*args, **kw)
     torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    assert bool(a[1].any()) == bool(q_valid.any())
+    assert bool(a[1].any()) == (bool(q_valid.any()) and not dead)
 
 
 @pytest.mark.parametrize("cin,rows", [(1, 333), (3, 1024), (16, 1024),
@@ -403,16 +425,11 @@ def test_streaming_engine_matches_cpu(dev, mode):
             assert torch.equal(getattr(st, f).cpu(), getattr(st_ref, f)), f
 
 
-@pytest.mark.parametrize("case", [
-    # (streams, ring slots per stream, chunk, events per stream, valid
-    #  rows of the chunk, hot-pixel events)
-    (1, 2048, 1024, 5000, 1024, 300),    # ring wraps, hot pixel over the cap
-    (8, 4096, 1024, 3000, 700, 0),       # 8 streams, padded chunk
-    (8, 2048, 256, 3000, 0, 0),          # empty chunk
-    (8, 2048, 1, 2500, 1, 300),          # one event, hot pixel
-])
-def test_serve_search_edge_cases(dev, case):
-    S, NR, C, n, n_q, hot = case
+def serve_case(S, NR, C, n, n_q, hot, dead=False):
+    """K8's arguments (numpy) after ``n`` events of each of S streams
+    went into its ring of NR slots (vid v in slot s*NR + v % NR), the
+    chunk their last C (``n_q`` valid rows); ``dead``: every ring slot
+    holds no event."""
     HW = H * W
     pix = np.full(S * NR, S * HW, np.int32)
     ring_t = np.full(S * NR, -(2 ** 30), np.int32)
@@ -422,20 +439,36 @@ def test_serve_search_edge_cases(dev, case):
     for s in range(S):
         ev = event_stream(100 * s + n, n, hot)
         slot = s * NR + v % NR
-        pix[slot] = s * HW + ev[v, 1] * W + ev[v, 0]
+        pix[slot] = S * HW if dead else s * HW + ev[v, 1] * W + ev[v, 0]
         ring_t[slot], vid[slot] = ev[v, 2], v
         q[s] = ev[n - C:]
     q_valid = np.zeros((S, C), bool)
     q_valid[:, :n_q] = True
-    t = lambda a: torch.from_numpy(a).to(dev)
-    args = (t(pix), t(ring_t), t(vid), t(q),
-            t(np.arange(n - C, n, dtype=np.int32)), t(q_valid))
+    return (pix, ring_t, vid, q, np.arange(n - C, n, dtype=np.int32),
+            q_valid)
+
+
+@pytest.mark.parametrize("case", [
+    # (streams, ring slots per stream, chunk, events per stream, valid
+    #  rows of the chunk, hot-pixel events[, every slot dead])
+    (1, 2048, 1024, 5000, 1024, 300),    # ring wraps, hot pixel over the cap
+    (8, 4096, 1024, 3000, 700, 0),       # 8 streams, padded chunk
+    (8, 2048, 256, 3000, 0, 0),          # empty chunk
+    (8, 2048, 1, 2500, 1, 300),          # one event, hot pixel
+    (1, 2048, 256, 7000, 256, 300),      # ring wrapped three times
+    (2, 4096, 512, 1500, 512, 300),      # rings not yet full (vid -1)
+    (8, 8192, 1024, 20_000, 1024, 300),  # S=8 x 8192 at 240x320: 20-bit pixels
+    (1, 50_176, 256, 90_000, 256, 300),  # the server's 50176-slot ring
+    (8, 2048, 256, 3000, 256, 0, True),  # all-dead rings
+])
+def test_serve_search_edge_cases(dev, case):
+    args = tuple(torch.from_numpy(a).to(dev) for a in serve_case(*case))
     a = search_edges_streams(*args, **GRAPH_KW)
     b = search_edges_streams_plain(*args, **GRAPH_KW)
     torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    assert bool(a[1].any()) == bool(n_q)
+    assert bool(a[1].any()) == (bool(case[4]) and case[6:] != (True,))
 
 
 @pytest.mark.parametrize("rows,n_valid", [(2 * 1024, 1500), (2, 1), (512, 0)])
@@ -513,6 +546,69 @@ def test_graph_search_in_a_cuda_graph(dev):
         torch.cuda.synchronize()
         for f in ("nbr", "nbr_mask", "nbr_dpos"):
             assert torch.equal(getattr(g, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("entry", ["graph_search_store", "serve_search"])
+def test_store_and_ring_search_in_a_cuda_graph(dev, entry):
+    """K6 on a wrapped 4096-slot ring store and K8 on 8 wrapped rings of
+    2048: one C call each (at most 5 host ops, all allocations) that runs
+    only the port's 9 kernels (the vid window, 2 radix passes of 3, the
+    run table, the search; no sort or searchsorted), allocates nothing
+    in C and never synchronises: captured in a CUDA graph and replayed
+    over other stores of the same shape, it gives the twin's edges bit
+    for bit."""
+    if entry == "graph_search_store":
+        fn, plain = search_edges_into_store, search_edges_into_store_plain
+        inputs = []
+        for n in (9000, 10_000, 11_500):
+            args, vid = store_case(n, 4096, 1024, 700, 300, True)
+            inputs.append(list(args) + [vid])
+        call = lambda a, f: f(*a[:5], store_vid=a[5], **GRAPH_KW)
+    else:
+        fn, plain = search_edges_streams, search_edges_streams_plain
+        inputs = [list(serve_case(8, 2048, 256, n, 256, 300))
+                  for n in (3000, 3500, 5000)]
+        call = lambda a, f: f(*a, **GRAPH_KW)
+    static = [torch.from_numpy(a).to(dev) for a in inputs[0]]
+    kernels = device_kernels(lambda: call(static, fn))
+    assert sum(kernels.values()) == 9 and all(
+        any(w in k for w in ("vid_window_kernel", "radix_", "run_start_kernel",
+                             "store_search_kernel"))
+        and "sort" not in k.lower() for k in kernels), kernels
+    ops = top_level_ops(lambda: call(static, fn))
+    assert len(ops) <= 5 and set(ops) == {"aten::empty"}, ops
+    before = _build.launch_counts()[entry]
+    call(static, fn)
+    assert _build.launch_counts()[entry] == before + 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call(static, fn)
+    for arrays in inputs[1:]:
+        for t, a in zip(static, arrays):
+            t.copy_(torch.from_numpy(a))
+        graph.replay()
+        want = call(static, plain)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        assert bool(got[1].any())
+
+
+def top_level_ops(fn):
+    """The aten ops one call of ``fn`` runs on the host that no other
+    aten op called (torch.profiler, after a warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CPU and e.name.startswith("aten::")
+            and (e.cpu_parent is None
+                 or not e.cpu_parent.name.startswith("aten::"))]
 
 
 def device_kernels(fn):
