@@ -18,7 +18,7 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
 4. serves 8 single-window requests, then the same 8 windows as one
    batch; checks the outputs (the batch must repeat each window's), that
    every kernel was launched on every request (K2 as 20 fused eval
-   blocks and no split aggregation), and one window's raw outputs
+   blocks and no split conv), and one window's raw outputs
    against the plain path on the CPU; holds K2's fused block against
    its twin on the inputs of a window's own 20 calls (each distinct
    shape to 1e-5 of its output's max, timed); profiles one pooling (only
@@ -27,7 +27,10 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
 4b. serves a DAGR-L DSEC window (240x320) and a DAGR-L NCaltech101
    window (180x240, one scale, 100 classes): the convs the fused tile
    takes run fused and the others split (``eval_routes``), every sync
-   kernel launches, raw equals the CPU plain path (1e-4); timed and
+   kernel launches, raw equals the CPU plain path (1e-4), the split
+   conv (``dagr_spline_conv``) held against its twin on the inputs of
+   the window's own 12 (10) split calls (1e-5 of each output's max,
+   timed); timed and
    profiled;
 5. times the requests and each kernel beside its twin (CUDA events);
 6. streams through ``dagr_tpu_torch.streaming.engine.StreamingDetector``
@@ -41,7 +44,7 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    held against its twin on the inputs of its middle step; feeds 90k
    events (two windows, the second 1 s later) through a 50k-event ring,
    with K6, K7, K2 and K3 launched on every ring step and K10 on none,
-   (18 fused blocks a step, no split aggregation, in both modes), and K6
+   (18 fused blocks a step, no split conv, in both modes), and K6
    held against its twin on the inputs of a step after the wrap,
    which must equal grow before it evicts and, after, hold exactly the
    last 50k events, with level-1 cells equal to a numpy recompute from
@@ -55,7 +58,7 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    on the same model: 8 windows as 8 lockstep streams in chunks of 1024
    (grow, ring 8192; each stream's final raw must equal its window's
    sync raw, coverage_ok stay True, the search (K8), K2 (2 split
-   aggregations for the event convs, 18 fused blocks for the tail), K3
+   convs for the event convs, 18 fused blocks for the tail), K3
    and K10 run on every step); the same with tail_every=4 and in a
    decoding chain
    (K4 once per fresh step); 90k events of one stream through a
@@ -67,22 +70,27 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    there as K6 is) and on a ring step after the ring has wrapped, the
    ring update and cell max on a
    ring step (the cell max one launch a call, timed against one
-   ``scatter_reduce_`` amax in three turns), and K2 (both event convs' aggregation and every distinct
-   fused block of the tail at batch S), K10 (the S*G1 folded cells) and
+   ``scatter_reduce_`` amax in three turns), and K2 (both event convs,
+   split convs, and every distinct fused block of the tail at batch S),
+   K10 (the S*G1 folded cells) and
    K3 (the tail's first pooling, with its cell runs) on a grow step.
    Times the steps and profiles their device time;
 9. trains DAGR-S through the recipe step (``dagr_tpu_torch.train.state.
-   train_step``: train-mode forward, SimOTA loss, backward through K9a
-   and K9b, NaN scrub, clip, AdamW, EMA) from a fresh init: one window's
+   train_step``: train-mode forward, SimOTA loss, backward through
+   ``dagr_spline_conv_backward`` and K9b, NaN scrub, clip, AdamW, EMA)
+   from a fresh init: one window's
    loss and every gradient on the card against the CPU plain path (1e-4
    of each leaf's max, the SimOTA assignment identical); 2 + 12 steps on
    8 windows of 45k events (finite losses and gradients, every parameter
    moves, the EMA follows; every train kernel launched on every step:
-   20 split K2 aggregations and 19 K9a a step, no fused block; K3's cell
-   runs bit-equal to sorted_runs on the second step's four poolings),
-   with K9a (the event level and the first stencil level) and K9b (all
-   four poolings, max and mean) held against their twins on the inputs
-   of the second step, timed beside the twins and a library call; the
+   20 split convs and 20 split backwards a step, no fused block; K3's
+   cell runs bit-equal to sorted_runs on the second step's four
+   poolings), with the split conv (all 20 calls), its backward (the
+   event level, whose transposed edges it builds bit-equal to
+   ``source_runs_plain``, and the first stencil level; two runs
+   bit-identical) and K9b (all four poolings, max and mean) held against
+   their twins on the inputs of the second step, timed beside the twins
+   (and K9b beside a library call); the
    p50 step, peak memory and device busy time; two steps at the recipe's
    batch of 64; the learning gate (the two-box overfit, 400 Adam steps,
    AP50 >= 0.9 and AP >= 0.5).  No backward kernel may launch in the
@@ -98,9 +106,15 @@ and prints no result line.  ``python3 chip_smoke.py --compare DIR``
 measures another checkout's package (``DIR/dagr_tpu_torch``, for
 instance the parent commit's: ``git archive HEAD~ dagr_tpu_torch | tar
 -x -C DIR``) against this one on the same card, in turns (parent,
-change, change, parent): the sync B=1 window, the engine's grow step of
-256, the S=8 server step and the B=8 train step, each with its device
-busy time and idle share, and the host ops of one graph search, one
+change, change, parent): the sync B=1 window (and a hash of its 20
+fused-block outputs, which must be the same in every turn), the DAGR-L
+DSEC and NCaltech101 windows, the engine's grow step of 256, the S=8
+server step and the B=8 train step, each with its device busy time and
+idle share; the split conv of the B=8 train step's event level and
+first stencil level, forward and forward + backward (the backward
+building the level's transposed edges), wrapper and device ms; the
+peak memory of the recipe's B=64 step; and the host ops of one graph
+search, one
 pooling, one eval ConvBlock, one store search (K6, a grow step of 256)
 and one ring search (K8, an S=8 step); each turn is a ``--timings DIR``
 subprocess with that package first on sys.path.  ``--compare DIR train`` times the B=8 train
@@ -141,11 +155,11 @@ STREAM_KERNELS = ("graph_search_store", "spline_gather", "stream_accumulate",
 RING_KERNELS = ("graph_search_store", "spline_gather", "spline_conv_block",
                 "voxel_pool")
 # the kernels a multi-stream serve step launches, per window mode (its
-# two event convs still aggregate with K2 and multiply with torch)
-SERVE_KERNELS = ("serve_search", "spline_aggregate", "spline_conv_block",
+# two event convs are split convs)
+SERVE_KERNELS = ("serve_search", "spline_conv", "spline_conv_block",
                  "voxel_pool", "stream_accumulate")
 SERVE_RING_KERNELS = ("serve_search", "serve_ring_update", "cell_max",
-                      "spline_aggregate", "spline_conv_block", "voxel_pool")
+                      "spline_conv", "spline_conv_block", "voxel_pool")
 # the multi-stream phase: S streams of one window each, grow; one ring
 SERVE_S, SERVE_CHUNK, RING_CHUNK, RING_SLOTS = 8, 1024, 256, 50_176
 # H100 SXM peaks: HBM bytes/s, fp32 FLOP/s, and 3xTF32's (three TF32
@@ -155,7 +169,7 @@ TF32X3_OPS_PER_S = 495e12 / 3
 # kernel: (source, the dagr_tpu op it replaces)
 KERNEL_TABLE = {
     "graph_search": ("graph_search.cu", "dagr_tpu/graph/build.py:109"),
-    "spline_aggregate": ("spline_aggregate.cu", "dagr_tpu/ops/spline.py:242"),
+    "spline_conv": ("spline_conv.cu", "dagr_tpu/ops/spline.py:242"),
     "spline_conv_block": ("spline_conv.cu", "dagr_tpu/ops/spline.py:242"),
     "voxel_pool": ("voxel_pool.cu", "dagr_tpu/ops/pool.py:46"),
     "nms": ("nms.cu", "dagr_tpu/ops/nms.py:54"),
@@ -168,15 +182,14 @@ KERNEL_TABLE = {
     "serve_ring_update": ("voxel_pool.cu",
                           "dagr_tpu/streaming/serve.py:1223"),
     "cell_max": ("voxel_pool.cu", "dagr_tpu/streaming/serve.py:1361"),
-    "spline_aggregate_backward": ("spline_aggregate.cu",
-                                  "dagr_tpu/ops/spline.py:242"),
+    "spline_conv_backward": ("spline_conv.cu", "dagr_tpu/ops/spline.py:242"),
     "voxel_pool_backward": ("voxel_pool.cu", "dagr_tpu/ops/pool.py:100"),
 }
 # the training phase: B windows a step (the recipe's batch for two), timed
 # steps after warm-up ones, the learning gate's steps
 TRAIN_B, TRAIN_WARM, TRAIN_TIMED, RECIPE_B, GATE_STEPS = 8, 2, 12, 64, 400
-BACKWARD_KERNELS = ("spline_aggregate_backward", "voxel_pool_backward")
-TRAIN_KERNELS = ("graph_search", "spline_aggregate", "voxel_pool") \
+BACKWARD_KERNELS = ("spline_conv_backward", "voxel_pool_backward")
+TRAIN_KERNELS = ("graph_search", "spline_conv", "voxel_pool") \
     + BACKWARD_KERNELS
 
 
@@ -271,14 +284,14 @@ class Capture:
                 f"{self.name} reached calls {sorted(self.at)}")
 
 
-def require_blocks(before, after, blocks, aggregations, what):
-    """A run's K2 launches: ``blocks`` fused blocks and ``aggregations``
-    split aggregations between two launch counts."""
+def require_blocks(before, after, blocks, split, what):
+    """A run's K2 launches: ``blocks`` fused blocks and ``split`` split
+    convs between two launch counts."""
     got = (after["spline_conv_block"] - before["spline_conv_block"],
-           after["spline_aggregate"] - before["spline_aggregate"])
-    require(got == (blocks, aggregations),
-            f"{what} launches {got[0]} fused blocks and {got[1]} K2 "
-            f"aggregations, not {blocks} and {aggregations}")
+           after["spline_conv"] - before["spline_conv"])
+    require(got == (blocks, split),
+            f"{what} launches {got[0]} fused blocks and {got[1]} split "
+            f"convs, not {blocks} and {split}")
 
 
 def check_pool_runs(args, kw, what):
@@ -497,11 +510,8 @@ def check_kernels(cfg, events, det):
     from dagr_tpu_torch.graph.build import build_graph, build_graph_plain
     from dagr_tpu_torch.models.dagr import anchor_geometry
     from dagr_tpu_torch.models.head import decode_outputs
-    from dagr_tpu_torch.models.net import with_rel_delta
     from dagr_tpu_torch.ops.nms import postprocess, postprocess_plain
     from dagr_tpu_torch.ops.pool import pool_graph, pool_graph_plain
-    from dagr_tpu_torch.ops.spline import (
-        level_edges, spline_aggregate, spline_aggregate_plain)
 
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -559,46 +569,19 @@ def check_kernels(cfg, events, det):
     for kname, kms, n in by_kernel:
         print(f"  {kms:8.4f} ms  x{n:<4d} {kname}", flush=True)
 
-    # K3 + K2 level by level: random features of the path's widths
+    # K3 level by level, on random features of the path's widths (the
+    # sync path runs no split conv: its convs are fused blocks, checked on
+    # the window's own calls in main)
     ch = cfg.channels()
-    mv = cfg.cartesian_max_values(W)
-    ns = NodeSet(feat=ev.feat, pos=ev.pos, mask=ev.mask, graph=g)
-    k2_err, k2_ms, k2_plain_ms, k2_bytes, k2_ops = 0.0, 0.0, 0.0, 0, 0
-    k3_err, k3_ms, k3_plain_ms, k3_bytes, k3_ops = 0.0, 0.0, 0.0, 0, 0
-
-    def k2_check(ns, level, calls):
-        """One (level, Cin) shape of K2; ``calls``: how many convs of one
-        window run at this shape (so the times sum to a window's)."""
-        nonlocal k2_err, k2_ms, k2_plain_ms, k2_bytes, k2_ops
-        edges = level_edges(ns, max_value=mv[level])
-        x = ns.feat.reshape(-1, ns.feat.shape[-1])
-        a = spline_aggregate(x, edges)
-        b = spline_aggregate_plain(x, edges)
-        err = max_err(a, b)
-        require(err <= 1e-5 * max(1.0, float(b.abs().max())),
-                f"K2 level {level}: max |g - twin| = {err}")
-        k2_err = max(k2_err, err)
-        k2_ms += calls * cuda_ms(lambda: spline_aggregate(x, edges), 20)
-        k2_plain_ms += calls * cuda_ms(
-            lambda: spline_aggregate_plain(x, edges), 5)
-        # a masked edge adds 4 basis taps x Cin (a multiply and an add)
-        k2_bytes += calls * nbytes(x, *edges, a)
-        k2_ops += calls * 8 * x.shape[1] * int(edges.mask.sum())
-        print(f"K2 spline_aggregate level {level}: M={x.shape[0]} "
-              f"K={edges.nbr.shape[1]} Cin={x.shape[1]} x{calls} "
-              f"err={err:.3g}", flush=True)
 
     def with_width(ns, c):
         return ns.replace(feat=torch.rand(
             (1, ns.feat.shape[1], c), generator=gen, device="cuda")
             * ns.mask[..., None])
 
-    # a window's 20 convs: Layer k runs Cin = in + 2 and Cin = out; each
-    # head scale runs 5 more at Cin = 64 on the levels of layers 4 and 5
-    head_calls = {3: 5, 4: 5}
-    k2_check(with_rel_delta(ns), 0, 1)                     # Cin 3
-    ns = with_width(ns, ch[1])
-    k2_check(ns, 0, 1)                                     # Cin 16
+    ns = with_width(NodeSet(feat=ev.feat, pos=ev.pos, mask=ev.mask, graph=g),
+                    ch[1])
+    k3_err, k3_ms, k3_plain_ms, k3_bytes, k3_ops = 0.0, 0.0, 0.0, 0, 0
     for level, (gy, gx) in enumerate(cfg.grid_shapes()):
         aggr = "mean" if level == 3 else cfg.pooling_aggr
         args = (ns.feat, ns.pos, ns.mask, ns.graph.nbr, ns.graph.nbr_mask,
@@ -630,11 +613,7 @@ def check_kernels(cfg, events, det):
         print(f"K3 voxel_pool level {level + 1}: {gy}x{gx} "
               f"{int(pmask.sum())} cells, {int(nbr_mask.sum())} edges; "
               f"runs bit-equal to sorted_runs", flush=True)
-        k2_check(with_rel_delta(ns), level + 1, 1)         # Cin 18 / 66
         ns = with_width(ns, ch[level + 2])
-        k2_check(ns, level + 1, 1 + head_calls.get(level + 1, 0))
-    out["spline_aggregate"] = record(k2_err, k2_ms, k2_plain_ms, k2_bytes,
-                                     k2_ops)
     out["voxel_pool"] = record(k3_err, k3_ms, k3_plain_ms, k3_bytes, k3_ops)
 
     # K4: on the decoded head outputs of 8 windows, and on 8 images of
@@ -741,17 +720,20 @@ def wide_windows(card):
     """Phase 4b: the wide models of WIDE_MODELS, one B=1 window of N_VALID
     events each (seeded random weights): 5 timed requests after a
     warm-up, each launching every sync kernel, the fused blocks and split
-    aggregations ``eval_routes`` gives (every conv the tile takes runs
-    fused), and the raw outputs against the same model on the CPU (1e-4).
-    Returns the launches of the timed requests, summed over the
-    models."""
+    convs ``eval_routes`` gives (every conv the tile takes runs fused),
+    and the raw outputs against the same model on the CPU (1e-4); the
+    split convs held against their twin on one request's own calls
+    (``check_split_convs``).  Returns the launches of the timed requests,
+    summed over the models, and the split convs' checks."""
     from dagr_tpu_torch.config import DagrConfig
     from dagr_tpu_torch.data.synthetic import random_events
     from dagr_tpu_torch.kernels import _build
     from dagr_tpu_torch.models.dagr import eval_routes
+    from dagr_tpu_torch.ops import spline as spline_mod
     from dagr_tpu_torch.serve import Detector
 
     total = dict.fromkeys(_build.LAUNCHES, 0)
+    checks = []
     for name, fields, h, w in WIDE_MODELS:
         cfg = DagrConfig(**fields)
         rng = np.random.default_rng(SEED + 2)
@@ -772,6 +754,11 @@ def wide_windows(card):
             require_blocks(before, after, fused, split, f"a {name} request")
         for k, v in _build.launch_counts().items():
             total[k] += v
+        cap = Capture(spline_mod, "spline_conv_forward", *range(split))
+        det(windows[1])
+        cap.close()
+        checks += check_split_convs(cap, name, card)
+        del cap
         cpu = Detector(cfg, h, w, "cpu", state_dict=det.model.state_dict())
         raw, _ = det(windows[1])
         raw_cpu, _ = cpu(windows[1].to("cpu"))
@@ -786,14 +773,14 @@ def wide_windows(card):
         busy, top = profile_windows(det, windows)
         print(f"{name} window ({h}x{w}, {N_VALID} events, channels "
               f"{cfg.channels()}, {cfg.num_classes} classes): {fused} convs "
-              f"fused, {split} split (K2 aggregation + torch.matmul), as "
+              f"fused, {split} split (dagr_spline_conv), as "
               f"eval_routes gives; raw vs CPU plain path max abs err "
               f"{err:.3g}; p50 {p50:.3f} ms (min {min(ms):.3f}, max "
               f"{max(ms):.3f}), device busy {busy:.3f} ms a window "
               f"[{card}]", flush=True)
         for kname, kms, n in top[:10]:
             print(f"  {kms:8.4f} ms  x{n:<4d} {kname}", flush=True)
-    return total
+    return total, checks
 
 
 def kernel_times(fn, n):
@@ -1305,33 +1292,18 @@ def print_timing(what, ms, p50_of, card, events=None):
 
 def hold_serve_step(k2_events, k10, k3_tail, what, card):
     """Kernels of one multi-stream serve step held against their twins on
-    the inputs the step gave them (``Capture``s): the two event convs' K2
-    aggregation (destinations of every stream against the ring tables) to
-    1e-5 relative, K10 on the S*G1 folded cells and the tail's first K3
+    the inputs the step gave them (``Capture``s): the two event convs
+    (split convs: destinations of every stream against the ring tables,
+    root rows apart; ``check_split_convs``), K10 on the S*G1 folded cells and the tail's first K3
     bit for bit against the twin on the CPU (which adds in index order,
     as the kernels do), and that K3's cell runs against sorted_runs.
     Returns {kernel: [{"at", "max_abs_err", "ms", "plain_ms"}]}."""
     from dagr_tpu_torch.ops.pool import (
         accumulate_cells, accumulate_cells_plain, pool_graph, pool_graph_plain)
-    from dagr_tpu_torch.ops.spline import (
-        spline_aggregate, spline_aggregate_plain)
 
-    checks = {"spline_aggregate": [], "stream_accumulate": [],
-              "voxel_pool": []}
-    for where, (args, kw) in zip(("event conv 1", "event conv 2"),
-                                 k2_events.calls):
-        a, b = spline_aggregate(*args, **kw), spline_aggregate_plain(*args, **kw)
-        err = max_err(a, b)
-        require(err <= 1e-5 * max(1.0, float(b.abs().max())),
-                f"K2 {what} {where}: max |g - twin| = {err}")
-        checks["spline_aggregate"].append({
-            "at": f"{what} {where}", "max_abs_err": err,
-            "ms": cuda_ms(lambda: spline_aggregate(*args, **kw), 20),
-            "plain_ms": cuda_ms(lambda: spline_aggregate_plain(*args, **kw), 5)})
-        x, edges = args[0], args[1]
-        print(f"K2 spline_aggregate, {what} {where}: M={edges.nbr.shape[0]} "
-              f"from {x.shape[0]} rows, K={edges.nbr.shape[1]} Cin={x.shape[1]}"
-              f" err={err:.3g}", flush=True)
+    checks = {"spline_conv": check_split_convs(k2_events, f"{what} event",
+                                               card),
+              "stream_accumulate": [], "voxel_pool": []}
 
     args, kw = k10.args, k10.kwargs
     state, rest = args[:5], args[5:]
@@ -1430,7 +1402,7 @@ def serve_streams(cfg, det, events, card):
             # the search, the two event convs and the level-1 update, and
             # the tail's first conv and pooling (level 1 at batch S)
             caps = [Capture(serve_mod, "search_edges_streams", 0),
-                    Capture(serve_mod, "spline_aggregate", 0, 1),
+                    Capture(spline_mod, "spline_conv_forward", 0, 1),
                     Capture(serve_mod, "accumulate_cells", 0),
                     Capture(spline_mod, "spline_conv_block",
                             *range(TAIL_BLOCKS)),
@@ -1741,52 +1713,136 @@ def record_calls(module, name, shape_of):
     return seen, lambda: setattr(module, name, fn)
 
 
-def check_spline_backward(cap, card):
-    """K9a against its twin on the inputs a train step gave it (1e-5
-    relative: the twin adds a row's edges with index_add_, whose order
-    differs on the card), timed beside the twin and one sparse CSR
-    product (A^T grad_g, cuSPARSE) computing the same function."""
-    from dagr_tpu_torch.ops.spline import (
-        bilinear_basis, spline_aggregate_backward,
-        spline_aggregate_backward_plain)
+def fresh_edges(edges):
+    """A copy of a level's edge tables without the transposed edges that
+    a backward keeps on them, so that a call builds them again as a
+    step's first backward of the level does (any checkout's
+    ``LevelEdges``)."""
+    out = type(edges)(*edges)
+    out.__dict__.update({k: v for k, v in edges.__dict__.items()
+                         if k != "_runs"})
+    return out
+
+
+def split_conv_ops(M, cin, cout, n_edges, taps_of):
+    """fp32-equivalent operations of one split-route pass: the
+    aggregation's multiply-adds (4 taps of ``taps_of`` channels a masked
+    edge) at the fp32 rate, the tensor-core product 2 M 26 Cin Cout at
+    the 3xTF32 rate, as a count at the fp32 rate."""
+    return (8 * taps_of * n_edges
+            + 2 * M * 26 * cin * cout * FP32_OPS_PER_S / TF32X3_OPS_PER_S)
+
+
+def check_split_convs(cap, what, card):
+    """The split route's conv (``spline_conv_forward``, one
+    ``dagr_spline_conv`` launch) against its twin ``spline_conv_plain``
+    on the inputs of a path's own calls (``cap``): each call's error
+    within 1e-5 of its output's max, timed (wrapper and device ms)
+    beside the twin.  Bound: the source rows the edges read, the root
+    rows, edge tables, weights and the output once, or ``split_conv_ops``.
+    Returns the checks."""
+    from dagr_tpu_torch.ops.spline import spline_conv_forward, spline_conv_plain
 
     checks = []
-    for args, _ in cap.calls:
-        grad_g, edges, n_src = args[:3]
+    for i, (args, kw) in enumerate(cap.calls):
+        x, edges, weight = args[:3]
         M, K = edges.nbr.shape
-        C = grad_g.shape[1] // 25
-        a = spline_aggregate_backward(*args)
-        b = spline_aggregate_backward_plain(*args)
-        err = max_err(a, b)
-        require(err <= 1e-5 * max(1.0, float(b.abs().max())),
-                f"K9a M={M} C={C}: max |grad_x - twin| = {err}")
-        # A^T as a CSR matrix [n_src, M*25]: 4 taps of every masked edge
-        w = bilinear_basis(edges.attr) * edges.mask[..., None]
-        m, k, p = w.nonzero(as_tuple=True)
-        rows = edges.nbr[m, k].long()
-        At = torch.sparse_coo_tensor(torch.stack([rows, m * 25 + p]),
-                                     w[m, k, p], (n_src, M * 25)).coalesce() \
-            .to_sparse_csr()
-        G = grad_g.reshape(M * 25, C)
-        lib = torch.sparse.mm(At, G)
-        require(max_err(lib, b) <= 1e-4 * max(1.0, float(b.abs().max())),
-                "sparse A^T grad_g == K9a's twin")
-        # the data's needs: the grad_g taps the masked edges touch, their
-        # attributes and CSR entries, the offsets, grad_x
+        _, cin, cout = weight.shape
+        a = spline_conv_forward(*args, **kw)
+        b = spline_conv_plain(*args, **kw)
+        err, top = max_err(a, b), float(b.abs().max())
+        at = (f"{what} conv {i}: M={M} from {x.shape[0]} rows, K={K} "
+              f"Cin={cin} Cout={cout}")
+        require(err <= 1e-5 * top, f"split conv {at}: max |out - twin| = "
+                f"{err} against an output max of {top}")
         n_edges = int(edges.mask.sum())
-        n_taps = int(torch.unique(m * 25 + p).numel())
-        rec = record(err, cuda_ms(lambda: spline_aggregate_backward(*args), 20),
-                     cuda_ms(lambda: spline_aggregate_backward_plain(*args), 5),
-                     4 * (n_taps * C + 3 * n_edges + n_src + 1 + n_src * C),
-                     8 * C * n_edges,
-                     cuda_ms(lambda: torch.sparse.mm(At, G), 20))
-        rec["at"] = f"M={M} K={K} C={C} n_src={n_src} edges={n_edges}"
+        x_root = kw.get("x_root")
+        read = x if x_root is None else x[torch.unique(
+            edges.nbr[edges.mask]).long()]
+        n_bytes = nbytes(read, x_root, *edges, *args[2:], a)
+        rec = record(err, cuda_ms(lambda: spline_conv_forward(*args, **kw), 20),
+                     cuda_ms(lambda: spline_conv_plain(*args, **kw), 3),
+                     n_bytes, split_conv_ops(M, cin, cout, n_edges, cin))
+        rec.update(at=at, rel_err=err / max(top, 1e-30), device_ms=kernel_times(
+            lambda: spline_conv_forward(*args, **kw), 10)[0])
         checks.append(rec)
-        del At, w, m, k, p, rows, lib
-        print(f"K9a spline_aggregate_backward, {rec['at']}: err {err:.3g}; "
-              f"kernel {rec['ms']:.4f} ms, twin {rec['plain_ms']:.4f} ms, "
-              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), sparse "
-              f"CSR product {rec['library_ms']:.4f} ms [{card}]", flush=True)
+        print(f"split conv, {at}: err {err:.3g} ({rec['rel_err']:.3g} of the "
+              f"output max); kernel {rec['ms']:.4f} ms (device "
+              f"{rec['device_ms']:.4f}), twin {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) [{card}]",
+              flush=True)
+    return checks
+
+
+def check_split_backward(cap, card):
+    """The split conv's backward (``spline_conv_backward``: one
+    ``dagr_spline_conv_backward`` launch for grad_x and grad_W, torch's
+    grad_root and grad_bias) against its twin on the inputs a train step
+    gave it: each gradient within 1e-5 of its max; a second run bit-
+    identical; at the event level the transposed edges it builds
+    bit-equal to ``source_runs_plain``.  Timed with the level's
+    transposed edges built in the call (``ms``; as a step's first
+    backward of the level) and kept (``ms_kept``), device ms, beside the
+    twin.  Bound: x, grad_y, the edge tables, W, root and the gradients
+    once, or ``split_conv_ops`` of grad_x and grad_W."""
+    from dagr_tpu_torch.ops.spline import (
+        source_runs_plain, spline_conv_backward, spline_conv_backward_plain)
+
+    checks = []
+    for args, kw in cap.calls:
+        x, gy, edges, weight, root = args
+        M, K = edges.nbr.shape
+        _, cin, cout = weight.shape
+        e1 = fresh_edges(edges)
+        a = spline_conv_backward(x, gy, e1, weight, root, **kw)
+        b = spline_conv_backward_plain(*args, **kw)
+        again = spline_conv_backward(x, gy, fresh_edges(edges), weight, root,
+                                     **kw)
+        torch.cuda.synchronize()
+        at = (f"M={M} K={K} Cin={cin} Cout={cout} "
+              f"{'stencil' if getattr(edges, 'stencil_nx', 0) else 'event'}"
+              f" level, needs {tuple(int(n) for n in kw['needs'])}")
+        err = 0.0
+        for name, ga, gb in zip(("x", "W", "root", "bias"), a, b):
+            if gb is None:
+                continue
+            e, top = max_err(ga, gb), float(gb.abs().max())
+            require(e <= 1e-5 * top, f"split backward {at}: grad_{name} max "
+                    f"|kernel - twin| = {e} against its max {top}")
+            err = max(err, e)
+        require(all(ga is None or torch.equal(ga, gc)
+                    for ga, gc in zip(a, again)),
+                f"split backward {at}: two runs bit-identical")
+        if "_runs" in e1.__dict__:
+            order, start, built = e1.transposed(M)
+            want = source_runs_plain(edges, M)
+            require(built and torch.equal(order, want[0])
+                    and torch.equal(start, want[1]),
+                    f"split backward {at}: transposed edges bit-equal to "
+                    "source_runs_plain")
+        n_edges = int(edges.mask.sum())
+        nx, nw = kw["needs"][:2]
+        n_ops = (split_conv_ops(M, cout, cin, n_edges, cout) if nx else 0) + (
+            split_conv_ops(M, cin, cout, n_edges, cin) if nw else 0)
+        n_bytes = nbytes(x, gy, *edges, weight, root, *a)
+        rec = record(
+            err, cuda_ms(lambda: spline_conv_backward(
+                x, gy, fresh_edges(edges), weight, root, **kw), 20),
+            cuda_ms(lambda: spline_conv_backward_plain(*args, **kw), 3),
+            n_bytes, n_ops)
+        device_ms, by_kernel = kernel_times(
+            lambda: spline_conv_backward(x, gy, fresh_edges(edges), weight,
+                                         root, **kw), 10)
+        rec.update(at=at, ms_kept=cuda_ms(lambda: spline_conv_backward(
+            x, gy, e1, weight, root, **kw), 20), device_ms=device_ms)
+        checks.append(rec)
+        print(f"split backward, {at}: err {err:.3g}; kernel {rec['ms']:.4f} "
+              f"ms (transposed edges kept: {rec['ms_kept']:.4f}; device "
+              f"{rec['device_ms']:.4f}), twin {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); two runs "
+              f"bit-identical [{card}]", flush=True)
+        for kname, kms, n in by_kernel:
+            print(f"  {kms:8.4f} ms  x{n:<4d} {kname}", flush=True)
     return checks
 
 
@@ -1901,8 +1957,10 @@ def train(cfg, card):
     window's loss and gradients on the card == the CPU plain path; (b)
     TRAIN_WARM + TRAIN_TIMED recipe steps on B=TRAIN_B windows of N_VALID
     events (losses and gradients finite, params move, the EMA follows),
-    the launches of the run counted, K9a and K9b held against their twins
-    on the inputs of the second step (Capture), the timed steps' p50,
+    the launches of the run counted, the split conv (its 20 calls), its
+    backward (the event level and the first stencil level) and K9b held
+    against their twins on the inputs of the second step (Capture), the
+    timed steps' p50,
     peak memory, the device busy time and host time by stage of 2
     profiled steps; (c) two steps at the recipe's batch of RECIPE_B; (d)
     the learning gate.
@@ -1944,9 +2002,9 @@ def train(cfg, card):
     state = init_state(model, recipe)
     p0 = {k: v.clone() for k, v in model.state_dict().items()}
     ema0 = {k: v.clone() for k, v in state.ema.state_dict().items()}
-    k9a_shapes, restore = record_calls(
-        spline_mod, "spline_aggregate_backward",
-        lambda a: (a[0].shape[0], a[1].nbr.shape[1], a[0].shape[1] // 25))
+    bwd_shapes, restore = record_calls(
+        spline_mod, "spline_conv_backward",
+        lambda a: (a[0].shape[0], a[2].nbr.shape[1]))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
@@ -1957,13 +2015,15 @@ def train(cfg, card):
             # level's calls; every pooling's backward
             restore()
             G1 = TRAIN_B * cfg.grid_shapes()[0][0] * cfg.grid_shapes()[0][1]
-            at = [j for j, (m, k, _) in enumerate(k9a_shapes)
+            at = [j for j, (m, k) in enumerate(bwd_shapes)
                   if k == cfg.max_neighbors or m == G1]
             n_pool = len(cfg.grid_shapes())
-            caps = [Capture(spline_mod, "spline_aggregate_backward", *at),
+            caps = [Capture(spline_mod, "spline_conv_backward", *at),
                     Capture(pool_mod, "pool_features_backward",
                             *range(n_pool)),
-                    Capture(pool_mod, "_pool_graph_cuda", *range(n_pool))]
+                    Capture(pool_mod, "_pool_graph_cuda", *range(n_pool)),
+                    Capture(spline_mod, "spline_conv_forward",
+                            *range(SYNC_BLOCKS))]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1982,14 +2042,16 @@ def train(cfg, card):
     for k in TRAIN_KERNELS:
         require(launches[k] >= n_steps, f"kernel {k} launched on every "
                 f"train step ({launches[k]} in {n_steps})")
-    # training keeps the split route: K2 aggregations and K9a, no fused block
-    require(launches["spline_aggregate"] == SYNC_BLOCKS * n_steps
-            and launches["spline_aggregate_backward"]
-            == (SYNC_BLOCKS - 1) * n_steps
+    # training keeps the split route: every conv one split conv and one
+    # split backward (grad_W for all, grad_x where the input wants it),
+    # no fused block
+    require(launches["spline_conv"] == SYNC_BLOCKS * n_steps
+            and launches["spline_conv_backward"] == SYNC_BLOCKS * n_steps
             and launches["spline_conv_block"] == 0,
-            f"train launches per step: {launches['spline_aggregate'] / n_steps}"
-            f" K2, {launches['spline_aggregate_backward'] / n_steps} K9a, "
-            f"{launches['spline_conv_block']} fused blocks in all")
+            f"train launches per step: {launches['spline_conv'] / n_steps}"
+            f" split convs, {launches['spline_conv_backward'] / n_steps} "
+            f"split backwards, {launches['spline_conv_block']} fused blocks "
+            "in all")
     for j, (args, kw) in enumerate(caps[2].calls):
         check_pool_runs(args, kw, f"B={TRAIN_B} train step, pooling {j + 1}")
     print(f"K3 runs bit-equal to sorted_runs on the {len(caps[2].calls)} "
@@ -2011,8 +2073,10 @@ def train(cfg, card):
               f"{k} {launches[k] / n_steps:g}" for k in TRAIN_KERNELS),
           flush=True)
 
-    out = {"spline_aggregate_backward": merge_checks(
-               check_spline_backward(caps[0], card)),
+    out = {"spline_conv": merge_checks(check_split_convs(
+               caps[3], f"B={TRAIN_B} train step", card)),
+           "spline_conv_backward": merge_checks(
+               check_split_backward(caps[0], card)),
            "voxel_pool_backward": merge_checks(
                check_pool_backward(caps[1], card))}
     del caps
@@ -2117,13 +2181,17 @@ def timings(card, train_only=False):
     """``--timings``: the end-to-end times of the dagr_tpu_torch that is
     first on sys.path, through public entry points only (so that another
     checkout's package can be measured by the same code): the sync B=1
-    window (8 windows), the engine's grow step of 256 on a ~36k store (16
-    steps), the S=8 server's grow step at chunk 1024 (steps 3-44 of one
-    window per stream), the B=8 recipe train step (12 after 2), each with
-    device busy ms per step and idle share; and the host ops of one
-    graph search, one pooling, one eval ConvBlock, one store search (K6)
-    and one ring search (K8).  With ``train_only`` the train step alone,
-    in a process that ran nothing else.  Prints one JSON line."""
+    window (8 windows; and the sha256 of its 20 fused-block outputs), the
+    DAGR-L DSEC and NCaltech101 windows (5 each), the engine's grow step
+    of 256 on a ~36k store (16 steps), the S=8 server's grow step at chunk
+    1024 (steps 3-44 of one window per stream), the B=8 recipe train step
+    (12 after 2), each with device busy ms per step and idle share; the
+    split conv at the B=8 train step's event level and first stencil
+    level (``split_conv_timings``); two recipe steps at B=64 and their
+    peak memory; and the host ops of one graph search, one pooling, one
+    eval ConvBlock, one store search (K6) and one ring search (K8).  With
+    ``train_only`` the train step alone, in a process that ran nothing
+    else.  Prints one JSON line."""
     from dagr_tpu_torch.config import DagrConfig
     from dagr_tpu_torch.data.synthetic import random_events, random_targets
     from dagr_tpu_torch.models.dagr import DAGR, init_fresh
@@ -2146,12 +2214,100 @@ def timings(card, train_only=False):
           for _ in range(TRAIN_WARM + TRAIN_TIMED)][TRAIN_WARM:]
     out[f"train_b{TRAIN_B}"] = summary(
         ms, profiled(lambda: train_step(state, tev, targets), 2))
+    if not train_only:
+        out["split_conv"] = split_conv_timings(cfg, tev)
+        big = random_events(trng, RECIPE_B, N_NODES, W, H, n_valid=N_VALID,
+                            device="cuda")
+        big_t = random_targets(trng, RECIPE_B, n_boxes=30)
+        del tev
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = [timed(lambda: train_step(state, big, big_t)) for _ in range(2)]
+        out[f"train_b{RECIPE_B}"] = {
+            "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     out["card"] = card
     print(json.dumps({"timings": out}), flush=True)
 
 
+def fused_outputs_hash(det, window):
+    """{calls, sha256} of the fused blocks' outputs in one request of
+    ``window`` (any checkout's package: its ``spline_conv_block``)."""
+    import hashlib
+
+    from dagr_tpu_torch.ops import spline as spline_mod
+
+    outs, block = [], spline_mod.spline_conv_block
+
+    def keep(*args, **kwargs):
+        y = block(*args, **kwargs)
+        outs.append(y.clone())
+        return y
+
+    spline_mod.spline_conv_block = keep
+    try:
+        det(window)
+    finally:
+        spline_mod.spline_conv_block = block
+    h = hashlib.sha256()
+    for y in outs:
+        h.update(y.cpu().numpy().tobytes())
+    return {"calls": len(outs), "sha256": h.hexdigest()}
+
+
+def split_conv_timings(cfg, events):
+    """The split conv (any checkout's ``spline_conv``) at the B=8 train
+    step's event level (Cin 16 -> 16, K = 16) and first stencil level
+    (18 -> 64, K = 9) on seeded random features and weights: the forward
+    with x and the weights wanting gradients, and the forward + backward
+    of x, W, root and bias (``torch.autograd.grad``) on a fresh copy of
+    the level's edges, so that the backward builds the level's
+    transposed edges as a step's first does; wrapper ms (CUDA events,
+    20 calls) and device busy ms (profiler, 5 calls) of each."""
+    from dagr_tpu_torch.core.types import NodeSet
+    from dagr_tpu_torch.graph.build import build_graph
+    from dagr_tpu_torch.ops.pool import pool_nodeset
+    from dagr_tpu_torch.ops.spline import level_edges, spline_conv
+
+    graph = build_graph(events.pos_px(), events.mask, width=W, height=H,
+                        radius=cfg.radius_px(W), delta_t_us=cfg.delta_t_us(),
+                        max_neighbors=cfg.max_neighbors,
+                        queue_size=cfg.max_queue_size)
+    ns = NodeSet(feat=events.feat, pos=events.pos, mask=events.mask,
+                 graph=graph)
+    gy, gx = cfg.grid_shapes()[0]
+    pooled = pool_nodeset(ns, grid_ny=gy, grid_nx=gx, width=W, height=H)
+    mv = cfg.cartesian_max_values(W)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for name, level, cin, cout, m in (("event", ns, 16, 16, mv[0]),
+                                      ("stencil1", pooled, 18, 64, mv[1])):
+        edges = level_edges(level, max_value=m)
+        M = edges.nbr.shape[0]
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+        args = [rnd(1, M, cin), rnd(25, cin, cout) * (25 * cin) ** -0.5,
+                rnd(cin, cout) * cin ** -0.5, rnd(cout)]
+        for a in args:
+            a.requires_grad_(True)
+        gy_ = rnd(1, M, cout)
+
+        def fwd():
+            return spline_conv(args[0], fresh_edges(edges), *args[1:])
+
+        def fwd_bwd():
+            torch.autograd.grad(fwd(), args, gy_)
+
+        out[name] = {"M": M, "cin": cin, "cout": cout,
+                     "fwd_ms": cuda_ms(fwd, 20), "fwd_busy": profiled(fwd, 5),
+                     "fwd_bwd_ms": cuda_ms(fwd_bwd, 20),
+                     "fwd_bwd_busy": profiled(fwd_bwd, 5),
+                     "fwd_host_ops": len(count_host_ops(fwd)[0]),
+                     "fwd_bwd_host_ops": len(count_host_ops(fwd_bwd)[0])}
+    return out
+
+
 def eval_timings(cfg, out):
     """The eval paths of ``timings`` and the host ops, into ``out``."""
+    from dagr_tpu_torch.config import DagrConfig
     from dagr_tpu_torch.data.synthetic import random_events
     from dagr_tpu_torch.serve import Detector
     from dagr_tpu_torch.streaming import engine as engine_mod
@@ -2167,7 +2323,17 @@ def eval_timings(cfg, out):
     ms = [timed(lambda: det(w)) for w in events[1:9]]
     busy = profiled(lambda: det(events[1]), 4)
     out["sync"] = summary(ms, busy)
+    out["sync_fused"] = fused_outputs_hash(det, events[1])
     host = host_op_profile(det, events)
+    for name, fields, h, w in WIDE_MODELS:
+        wrng = np.random.default_rng(SEED + 2)
+        windows = [random_events(wrng, 1, N_NODES, w, h, n_valid=N_VALID,
+                                 device="cuda") for _ in range(6)]
+        wdet = Detector(DagrConfig(**fields), h, w, "cuda", seed=SEED)
+        wdet(windows[0])
+        ms = [timed(lambda: wdet(ev)) for ev in windows[1:]]
+        out[name] = summary(ms, profiled(lambda: wdet(windows[1]), 4))
+        del wdet
 
     model = det.model
     p3, f3 = stream_events(events[3])
@@ -2254,6 +2420,26 @@ def compare(parent: str, card, train_only=False):
             print(f"  host ops of one {k}: {v['ops']} aten ops, "
                   f"{v['launches']} kernel launches, {v['kernels']} device "
                   f"kernels: {', '.join(v['op_names'])}", flush=True)
+        for k, v in t.get("split_conv", {}).items():
+            print(f"  split conv, B={TRAIN_B} train step {k} level (M="
+                  f"{v['M']}, Cin {v['cin']} -> {v['cout']}): forward "
+                  f"{v['fwd_ms']:.4f} ms (device {v['fwd_busy']:.4f}, "
+                  f"{v['fwd_host_ops']} host ops), forward + backward "
+                  f"{v['fwd_bwd_ms']:.4f} ms (device "
+                  f"{v['fwd_bwd_busy']:.4f}, {v['fwd_bwd_host_ops']} host "
+                  f"ops) [{card}]", flush=True)
+        if f"train_b{RECIPE_B}" in t:
+            v = t[f"train_b{RECIPE_B}"]
+            print(f"  train step B={RECIPE_B}: {v['ms'][1]:.3f} ms (the "
+                  f"second), peak memory {v['peak_gib']:.3f} GiB [{card}]",
+                  flush=True)
+    fused = {t["sync_fused"]["sha256"] for _, t in runs if "sync_fused" in t}
+    if fused:
+        require(len(fused) == 1, "the sync window's fused-block outputs are "
+                "bit-identical in every turn")
+        print(f"sync window: the {runs[0][1]['sync_fused']['calls']} fused-"
+              "block outputs bit-identical in every turn (sha256 "
+              f"{fused.pop()[:16]})", flush=True)
     print(json.dumps({"compare": [{"run": label, **t} for label, t in runs]}),
           flush=True)
 
@@ -2353,13 +2539,14 @@ def main() -> int:
     else:
         print("profile: the profiler saw no device kernels; device busy "
               "time not measured", flush=True)
-    wide_launches = wide_windows(card)
+    wide_launches, wide_checks = wide_windows(card)
     grow_launches, ring_launches, store_checks = stream(cfg, det, events,
                                                         card)
     served, checks, serve_launches, serve_ring_launches = serve_streams(
         cfg, det, events, card)
     kernels.update(served)
     kernels["graph_search_store"]["path_checks"] = store_checks
+    serve_split = checks.pop("spline_conv")
     # the kernels held against their twins again at the serving path's
     # shapes: the row's error is the largest of all its checks
     for name, cs in checks.items():
@@ -2372,8 +2559,8 @@ def main() -> int:
     launches.update({k: v for k, v in grow_launches.items()
                      if k not in SYNC_KERNELS})
     launches["serve_search"] = serve_launches["serve_search"]
-    # the split aggregation's path in eval: the server's two event convs
-    launches["spline_aggregate"] = serve_launches["spline_aggregate"]
+    # the split conv's path in eval: the server's two event convs
+    launches["spline_conv"] = serve_launches["spline_conv"]
     for k in ("serve_ring_update", "cell_max"):
         launches[k] = serve_ring_launches[k]
     # eval does not pay for training: no backward kernel in the sync,
@@ -2385,6 +2572,12 @@ def main() -> int:
                 f"no backward kernel launched in the {what} run")
     trained, train_launches, n_steps = train(cfg, card)
     kernels.update(trained)
+    # the split conv's row: the train step's 20 calls, with the wide
+    # windows' and the server step's checks beside them
+    rec = kernels["spline_conv"]
+    rec.update(wide_checks=wide_checks, serve_checks=serve_split)
+    rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+        c["max_abs_err"] for c in wide_checks + serve_split])
     launches.update({k: train_launches[k] for k in BACKWARD_KERNELS})
     rows = []
     for name, rec in kernels.items():

@@ -232,15 +232,15 @@ SortPlan sort_plan(long long max_key) {
   return {passes, (total + passes - 1) / passes};
 }
 
-// A pass, step a: a block per tile, the tile's digit counts at
-// hist[tile * D + digit].
-template <class KeyOf>
+// A pass, step a: a block per tile of Tile keys, the tile's digit counts
+// at hist[tile * D + digit].
+template <class KeyOf, int Tile = kSortTile>
 __global__ void __launch_bounds__(kSortThreads) radix_hist_kernel(
     KeyOf key_of, int M, int shift, int D, int* __restrict__ hist) {
   __shared__ int h[1 << kMaxDigitBits];
   for (int d = threadIdx.x; d < D; d += kSortThreads) h[d] = 0;
   __syncthreads();
-  const int lo = blockIdx.x * kSortTile, hi = min(M, lo + kSortTile);
+  const int lo = blockIdx.x * Tile, hi = min(M, lo + Tile);
   for (int i = lo + threadIdx.x; i < hi; i += kSortThreads)
     atomicAdd(&h[(key_of(i) >> shift) & (D - 1)], 1);
   __syncthreads();
@@ -285,13 +285,13 @@ __global__ void __launch_bounds__(1024) radix_scan_kernel(
   }
 }
 
-// A pass, step c: a block per tile, a warp per 256 keys of it, in index
-// order.  Each warp counts its digits, the warps' counts become their
+// A pass, step c: a block per tile, a warp per Tile / 8 keys of it (256
+// at K1's tile), in index order.  Each warp counts its digits, the warps' counts become their
 // offsets (the tile's position from step b, then the earlier warps'),
 // and each warp writes its keys 32 at a time: a lane's rank among the
 // equal digits below it (__match_any_sync) keeps the sort stable.  Writes
 // the sorted keys, their indices and, on the last pass, the payload.
-template <class KeyOf>
+template <class KeyOf, int Tile = kSortTile>
 __global__ void __launch_bounds__(kSortThreads) radix_scatter_kernel(
     KeyOf key_of, int M, int shift, int D, const int* __restrict__ hist,
     int* __restrict__ keys_out, int* __restrict__ idx_out,
@@ -301,8 +301,8 @@ __global__ void __launch_bounds__(kSortThreads) radix_scatter_kernel(
   for (int i = threadIdx.x; i < kSortWarps * D; i += kSortThreads)
     wrun[i / D][i % D] = 0;
   __syncthreads();
-  const int lo = blockIdx.x * kSortTile + warp * (kSortTile / kSortWarps);
-  const int hi = min(M, lo + kSortTile / kSortWarps);
+  const int lo = blockIdx.x * Tile + warp * (Tile / kSortWarps);
+  const int hi = min(M, lo + Tile / kSortWarps);
   for (int i = lo + lane; i < hi; i += 32)
     atomicAdd(&wrun[warp][(key_of(i) >> shift) & (D - 1)], 1);
   __syncthreads();
@@ -342,30 +342,31 @@ __global__ void __launch_bounds__(kSortThreads) radix_scatter_kernel(
 
 // Scratch words of a sort of M keys in [0, max_key]: keys and indices
 // of the passes between, and the (tile, digit) counts.
+template <int Tile = kSortTile>
 long long sort_scratch(int M, long long max_key) {
-  const long long tiles = (M + kSortTile - 1) / kSortTile;
+  const long long tiles = (M + Tile - 1) / Tile;
   return 2ll * M + tiles * (1ll << sort_plan(max_key).bits);
 }
 
 // One pass: steps a, b and c on the digit at `shift`.
-template <class KeyOf>
+template <int Tile, class KeyOf>
 void radix_pass(KeyOf key_of, int M, int shift, int D, int* hist,
                 int* keys_out, int* idx_out, Payload pay,
                 cudaStream_t st) {
-  const int tiles = (M + kSortTile - 1) / kSortTile;
+  const int tiles = (M + Tile - 1) / Tile;
   if (tiles == 0) return;
-  radix_hist_kernel<<<tiles, kSortThreads, 0, st>>>(key_of, M, shift, D,
-                                                   hist);
+  radix_hist_kernel<KeyOf, Tile><<<tiles, kSortThreads, 0, st>>>(
+      key_of, M, shift, D, hist);
   radix_scan_kernel<<<1, 1024, 0, st>>>(tiles, D, hist);
-  radix_scatter_kernel<<<tiles, kSortThreads, 0, st>>>(
+  radix_scatter_kernel<KeyOf, Tile><<<tiles, kSortThreads, 0, st>>>(
       key_of, M, shift, D, hist, keys_out, idx_out, pay);
 }
 
 // The passes of the sort, launched in order on one stream: the keys of
 // positions 0..M-1, in [0, max_key], into (keys_s, order), with the
-// payload of the sorted indices; sort_scratch(M, max_key) words of
+// payload of the sorted indices; sort_scratch<Tile>(M, max_key) words of
 // scratch.
-template <class KeyOf>
+template <int Tile = kSortTile, class KeyOf>
 void radix_sort(KeyOf key_of, int M, long long max_key, Payload pay,
                 int* scratch, int* keys_s, int* order, cudaStream_t st) {
   const SortPlan plan = sort_plan(max_key);
@@ -377,13 +378,13 @@ void radix_sort(KeyOf key_of, int M, long long max_key, Payload pay,
   int* keys[2] = {keys_s, scratch};
   int* idx[2] = {order, scratch + M};
   int out = (plan.passes - 1) & 1;         // the first pass's buffers
-  radix_pass(key_of, M, 0, D, hist, keys[out], idx[out],
-             plan.passes == 1 ? pay : none, st);
+  radix_pass<Tile>(key_of, M, 0, D, hist, keys[out], idx[out],
+                   plan.passes == 1 ? pay : none, st);
   for (int p = 1; p < plan.passes; ++p) {
     out ^= 1;
-    radix_pass(ArrayKey{keys[out ^ 1], idx[out ^ 1]}, M, p * plan.bits, D,
-               hist, keys[out], idx[out],
-               p == plan.passes - 1 ? pay : none, st);
+    radix_pass<Tile>(ArrayKey{keys[out ^ 1], idx[out ^ 1]}, M,
+                     p * plan.bits, D, hist, keys[out], idx[out],
+                     p == plan.passes - 1 ? pay : none, st);
   }
 }
 
@@ -586,7 +587,53 @@ void search_store_runs(KeyOf key, const StoreScratch& sc, const int* vid,
       H, S, K, Q, dt, (int*)nbr, (uint8_t*)nbr_mask, (int*)nbr_spiral);
 }
 
+// The transposed edges of a spline conv's level (spline_conv.cu's
+// backward): edge e = m*K + k keyed by its source row nbr[e], n_src (past
+// the last row) where it is masked off.  The sort is stable, so each
+// source's run lists its edges in edge order.  A tile of 16384 keys keeps
+// the one scanning block's loop short at the 6.4M edges of a batch of 8
+// (391 tiles) and the 51M of a batch of 64.
+constexpr int kEdgeSortTile = 16384;
+
+struct SourceKey {
+  const int* nbr;
+  const uint8_t* mask;
+  int n_src;
+  __device__ int operator()(int e) const {
+    const unsigned s = (unsigned)nbr[e];
+    return mask[e] && s < (unsigned)n_src ? (int)s : n_src;
+  }
+  __device__ int index(int e) const { return e; }
+};
+
 }  // namespace
+
+// Scratch words of dagr_source_runs over n_edges edges and n_src sources:
+// the sort's and its sorted keys.
+extern "C" long long dagr_source_runs_scratch(int n_edges, int n_src) {
+  return sort_scratch<kEdgeSortTile>(n_edges, n_src) + n_edges;
+}
+
+// The transposed CSR of n_edges = M*K edges (nbr, mask [M*K]) over n_src
+// source rows: order [n_edges], the edge ids stable-sorted by source
+// (masked edges last), and start [n_src + 1], source s's edges being
+// order[start[s] .. start[s+1]).  K1's radix sort (2 passes of <= 10 bits
+// up to 2^20 sources, 3 up to 2^30) and run table; launched on the
+// caller's stream by dagr_spline_conv_backward (spline_conv.cu), no
+// allocation, no host synchronisation.
+extern "C" int dagr_source_runs(const void* nbr, const void* mask,
+                                int n_edges, int n_src, void* scratch,
+                                void* order, void* start, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int* keys_s = (int*)scratch + sort_scratch<kEdgeSortTile>(n_edges, n_src);
+  radix_sort<kEdgeSortTile>(
+      SourceKey{(const int*)nbr, (const uint8_t*)mask, n_src}, n_edges,
+      n_src, Payload{}, (int*)scratch, keys_s, (int*)order, st);
+  const int n_ids = n_src + 1;
+  run_start_kernel<<<(n_ids + 255) / 256, 256, 0, st>>>(keys_s, n_edges,
+                                                        n_ids, (int*)start);
+  return (int)cudaGetLastError();
+}
 
 // Scratch words dagr_graph_search needs for B samples of N events on a
 // W x H frame: the sort's, its sorted keys, order and times, and the run

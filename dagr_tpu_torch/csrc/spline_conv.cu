@@ -181,6 +181,8 @@ __device__ __forceinline__ void load_slab(float* sB, int ldb, int coutp,
   }
 }
 
+
+
 // The main product's slabs, in 16-byte copies where the rows allow.
 __device__ __forceinline__ void load_slab(float* sB, int ldb, int coutp,
                                           const MainB& b, int s,
@@ -208,6 +210,13 @@ __device__ __forceinline__ void load_slab(float* sB, int ldb, int coutp,
   }
 }
 
+// the split route's B and its slab loader (defined with it, below)
+struct ChunkB;
+template <int SLAB>
+__device__ __forceinline__ void load_chunk_slab(float* sB, int ldb,
+                                                int coutp, const ChunkB& b,
+                                                int s, const float* any);
+
 // acc += A [TM, kdim] (shared, row stride lda) @ B [kdim, coutp] in
 // 3xTF32, B streamed slab by slab through kStages stages, one commit
 // group a slab (empty past the last); slab 0 already issued and
@@ -216,8 +225,14 @@ __device__ __forceinline__ void load_slab(float* sB, int ldb, int coutp,
 // every n-tile but only every 8th k-step (w, w + 8, ...), so no two warps
 // split the same A values, and its acc is a partial sum over its
 // k-steps.  Ends with every copy landed and a __syncthreads, after
-// which A and sB may be reused.
-template <int MT, int NTW, bool KSPLIT, class BSrc>
+// which A and sB may be reused.  With FLUSH each k-step's three products
+// go into a zeroed fragment that is then added to acc in float32: the
+// tensor core's accumulator adds without rounding to nearest, which over
+// the split route's 3380-deep products (Cin 130) drifts past 1e-5 of the
+// output; the fused block (depth <= 1716) keeps the plain form.  SLAB:
+// B's rows a stage (the split route streams 64).
+template <int MT, int NTW, bool KSPLIT, class BSrc, bool FLUSH = false,
+          int SLAB = kSlab>
 __device__ __forceinline__ void block_gemm(const float* sA, int lda, int kdim,
                                            float* sB, int ldb, int coutp,
                                            const BSrc& b, bool issued,
@@ -227,9 +242,15 @@ __device__ __forceinline__ void block_gemm(const float* sA, int lda, int kdim,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int mt = warp % MT, grp = warp / MT;
   const int g = lane >> 2, t = lane & 3;
-  const int nslab = (kdim + kSlab - 1) / kSlab;
+  const int nslab = (kdim + SLAB - 1) / SLAB;
+  auto load = [&](int s) {
+    if constexpr (SLAB == kSlab)
+      load_slab(sB, ldb, coutp, b, s, any);
+    else
+      load_chunk_slab<SLAB>(sB, ldb, coutp, b, s, any);
+  };
   for (int s = issued ? 1 : 0; s < kStages - 1; ++s) {
-    if (s < nslab) load_slab(sB, ldb, coutp, b, s, any);
+    if (s < nslab) load(s);
     cp_async_commit();
   }
   for (int s = 0; s < nslab; ++s) {
@@ -237,14 +258,13 @@ __device__ __forceinline__ void block_gemm(const float* sA, int lda, int kdim,
     cp_async_wait<kStages - 2>();
     __syncthreads();
     // the stage it refills was read in iteration s - 1, before the barrier
-    if (s + kStages - 1 < nslab)
-      load_slab(sB, ldb, coutp, b, s + kStages - 1, any);
+    if (s + kStages - 1 < nslab) load(s + kStages - 1);
     cp_async_commit();
-    const float* bs = sB + (s % kStages) * kSlab * ldb;
-    const int kend = min(kSlab, kdim - s * kSlab);
+    const float* bs = sB + (s % kStages) * SLAB * ldb;
+    const int kend = min(SLAB, kdim - s * SLAB);
     for (int kk = KSPLIT ? 8 * warp : 0; kk < kend; kk += KSPLIT ? 64 : 8) {
       // A fragment: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
-      const float* ar = sA + (mt * 16 + g) * lda + s * kSlab + kk + t;
+      const float* ar = sA + (mt * 16 + g) * lda + s * SLAB + kk + t;
       uint32_t ahi[4], alo[4];
       split_tf32(ar[0], ahi[0], alo[0]);
       split_tf32(ar[8 * lda], ahi[1], alo[1]);
@@ -261,9 +281,19 @@ __device__ __forceinline__ void block_gemm(const float* sA, int lda, int kdim,
         uint32_t bhi[2], blo[2];
         split_tf32(bc[0], bhi[0], blo[0]);
         split_tf32(bc[4 * ldb], bhi[1], blo[1]);
-        mma_tf32(acc[j], alo, bhi);
-        mma_tf32(acc[j], ahi, blo);
-        mma_tf32(acc[j], ahi, bhi);
+        if constexpr (FLUSH) {
+          // the two small products in one chain, the large one apart
+          float ts[4] = {0.f, 0.f, 0.f, 0.f}, tb[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(ts, alo, bhi);
+          mma_tf32(tb, ahi, bhi);
+          mma_tf32(ts, ahi, blo);
+#pragma unroll
+          for (int f = 0; f < 4; ++f) acc[j][f] += tb[f] + ts[f];
+        } else {
+          mma_tf32(acc[j], alo, bhi);
+          mma_tf32(acc[j], ahi, blo);
+          mma_tf32(acc[j], ahi, bhi);
+        }
       }
     }
   }
@@ -482,10 +512,846 @@ bool conv_tile(int cin, int cout, int cs, int ks, int K, Tile* t) {
   return t->smem <= (size_t)kSmemMax;
 }
 
+// ---- the split route: a spline conv of any width, and its backward -----
+//
+// dagr_spline_conv: y = A(x_src) @ W + x_root @ root (+ bias), where
+// A(x_src)[m] = g[m] is the K2 aggregation of destination m's edges.
+// Replaces dagr_tpu/ops/spline.py:242 spline_conv and :145
+// stencil_spline_conv (the conv whole: aggregation and products) on the
+// convs the fused block does not take (training, the DAGR-M/-L widths,
+// the 100-class prediction, the server's event convs, whose sources are
+// ring rows and whose root rows are the chunk's).  dagr_spline_conv_
+// backward: what jax.grad derives from them for x and W.
+//
+// What bounds them on an H100: at the event level of a batch of 8
+// (M = 400k rows, K = 16, Cin = Cout = 16) the inputs, outputs and edge
+// tables are ~160 MB; the products are 2 M (26 Cin) Cout = 5.3 GFLOP
+// (x3 in 3xTF32).  The route they replace wrote g [M, 25 Cin] (640 MB),
+// read it back for the product and again for grad_W (autograd saved it),
+// wrote grad_g = grad_y @ W^T (640 MB) and read it back scattered (the
+// earlier K9a): ~3.8 GB a conv.  Here neither g nor grad_g reaches HBM.
+//
+// Design.  The forward and grad_x are one kernel, split_conv_kernel: a
+// block owns 64 rows and up to 128 output columns (more columns: more
+// blocks along y).  It walks the rows' input channels in chunks of cc
+// (<= 16, fewer where shared memory asks): it builds A_chunk = [the rows'
+// tap sums of channels c0..c0+cc (25 cc columns) | their root inputs (cc
+// columns)] in shared memory, each row's edges added in a fixed order
+// (spline_taps.cuh's add_edge, no atomics), and multiplies it by the
+// matching rows of B on the tensor cores with the fused block's
+// block_gemm (3xTF32 mma.sync, B streamed in cp.async slabs), each
+// k-step's products added to float32 accumulators that stay in registers
+// across chunks (FLUSH: the tensor core's own accumulation does not round
+// to nearest, and these products are up to 3380 deep).  The forward walks
+// each destination's slots in order (SlotEdges).  grad_x is the same
+// product over the transposed edges: row s sums grad_y[m] * B_p(attr_mk)
+// over the edges (m, k) that read s, Cout wide, then multiplies by W^T,
+// and adds grad_y[s] @ root^T.  At the event level the edges into s come
+// from a transposed CSR (RunEdges: graph_search.cu's dagr_source_runs,
+// K1's stable radix sort keyed by source row and its run table, built
+// once per level and kept by the caller), in edge order; at a pooled
+// level the edges are the mirrored stencil (StencilEdges: every pooled
+// neighbour list is the 3x3 cell stencil in GRID_OFFSETS order, so the
+// edge of slot k into cell s is slot k of cell s - off_k), in slot order,
+// with no sort.  grad_W = sum_m g[m]^T grad_y[m] is split_conv_wgrad_
+// kernel: block (chunk, group) rebuilds the g chunk of each 64-row tile
+// of its group of tiles in shared memory, multiplies its transpose by
+// the tile's grad_y rows on the tensor cores (3xTF32), and adds the
+// product into a [25 cc, Cout] partial in shared memory (each element
+// owned by one lane, tiles in order); wgrad_reduce_kernel sums the
+// groups' partials in group order.  Every sum runs in a fixed order, so
+// two runs are bit-identical.
+
+constexpr int kTM = 64;                // rows of a split-route tile
+constexpr int kSplitSlab = 64;         // rows of B a split-route stage
+constexpr int kMaxChunk = 16;          // input channels of a chunk
+
+// B of a chunk: rows (p, j) = tap p of the chunk's channel c0 + j
+// (j < cc), then cc root rows (with root); column n0 + n.  W is [P,
+// Crows, ncols] and root [Crows, ncols], rows contiguous: the forward's
+// W [P, Cin, Cout] and root, grad_x's W^T [P, Cout, Cin] and root^T
+// (transposed into scratch by the backward entry).  ``vec``: ncols a
+// multiple of 4 and both 16-byte aligned, so four columns are one
+// 16-byte copy.
+struct ChunkB {
+  const float* W;
+  const float* root;
+  int P, Crows, cc, c0, n0, ncols;
+  bool vec;
+  // the first element of row k, or null past the chunk's rows
+  __device__ __forceinline__ const float* row(int k) const {
+    if (k < P * cc) {
+      const int p = k / cc;
+      return W + ((size_t)p * Crows + c0 + k - p * cc) * ncols;
+    }
+    k -= P * cc;
+    return root && k < cc ? root + (size_t)(c0 + k) * ncols : nullptr;
+  }
+};
+
+ChunkB chunk_b(const float* W, const float* root, int P, int Crows,
+               int ncols) {
+  const bool vec = ncols % 4 == 0
+                   && (((uintptr_t)W | (uintptr_t)root) & 15) == 0;
+  return ChunkB{W, root, P, Crows, 0, 0, 0, ncols, vec};
+}
+
+// Rows k0 .. k0 + rows of a chunk's B into dst (row stride ldb): rows
+// through ChunkB::row, 16-byte copies of four columns where ``vec``,
+// else 4-byte ones (coutp a power of 2: the row and column by shifts);
+// the caller commits the group.
+__device__ __forceinline__ void load_chunk_rows(float* dst, int ldb,
+                                                int coutp, const ChunkB& b,
+                                                int k0, int rows,
+                                                const float* any) {
+  const int per = b.vec ? coutp >> 2 : coutp;      // copies a row
+  const int sh = __ffs(per) - 1;
+  for (int i = threadIdx.x; i < rows * per; i += kThreads) {
+    const int kk = i >> sh, j = i & (per - 1);
+    const int n = b.vec ? 4 * j : j;
+    const float* r = b.n0 + n < b.ncols ? b.row(k0 + kk) : nullptr;
+    const float* src = r ? r + b.n0 + n : any;
+    if (b.vec)
+      cp_async16(dst + kk * ldb + n, src, r != nullptr);
+    else
+      cp_async4(dst + kk * ldb + n, src, r != nullptr);
+  }
+}
+
+// A chunk's slab s of SLAB rows into stage s % kStages of sB.
+template <int SLAB>
+__device__ __forceinline__ void load_chunk_slab(float* sB, int ldb,
+                                                int coutp, const ChunkB& b,
+                                                int s, const float* any) {
+  load_chunk_rows(sB + (s % kStages) * SLAB * ldb, ldb, coutp, b, s * SLAB,
+                  SLAB, any);
+}
+
+// acc += A [64, ka] @ B [ka, 16 NTW], both in shared memory (B resident
+// for the whole block): block_gemm's fragments and warp layout (MT = 4)
+// and its FLUSH sums, with no slab to wait for.
+template <int NTW>
+__device__ __forceinline__ void resident_gemm(const float* sA, int lda,
+                                              int ka, const float* sB,
+                                              int ldb, float acc[NTW][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mt = warp % 4, grp = warp / 4;
+  const int g = lane >> 2, t = lane & 3;
+  for (int kk = 0; kk < ka; kk += 8) {
+    const float* ar = sA + (mt * 16 + g) * lda + kk + t;
+    uint32_t ahi[4], alo[4];
+    split_tf32(ar[0], ahi[0], alo[0]);
+    split_tf32(ar[8 * lda], ahi[1], alo[1]);
+    split_tf32(ar[4], ahi[2], alo[2]);
+    split_tf32(ar[8 * lda + 4], ahi[3], alo[3]);
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const float* bc = sB + (kk + t) * ldb + (grp + 2 * j) * 8 + g;
+      uint32_t bhi[2], blo[2];
+      split_tf32(bc[0], bhi[0], blo[0]);
+      split_tf32(bc[4 * ldb], bhi[1], blo[1]);
+      float ts[4] = {0.f, 0.f, 0.f, 0.f}, tb[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_tf32(ts, alo, bhi);
+      mma_tf32(tb, ahi, bhi);
+      mma_tf32(ts, ahi, blo);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) acc[j][f] += tb[f] + ts[f];
+    }
+  }
+}
+
+// dst[p][c][r] = src[p][r][c] for src [P, R, C].
+__global__ void transpose_kernel(const float* __restrict__ src, int P, int R,
+                                 int C, float* __restrict__ dst) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)P * R * C) return;
+  const int r = (int)(i % R);
+  const long long pc = i / R;
+  const int c = (int)(pc % C), p = (int)(pc / C);
+  dst[i] = src[((long long)p * R + r) * C + c];
+}
+
+// A tile's edges, as positions: row m's entries are positions
+// bound(m) .. bound(m + 1), in the order its sums take them; entry(pos)
+// gives the other end's row (-1: none) and the edge's attribute.
+//
+// The forward: destination m's slots in order; the other end is the
+// source row.
+struct SlotEdges {
+  const int* nbr;
+  const uint8_t* mask;
+  const float* attr;
+  int K;
+  __device__ __forceinline__ int bound(int m) const { return m * K; }
+  // the three loads issue together (a masked slot's id is read too)
+  __device__ __forceinline__ int entry(int pos, float& ax, float& ay) const {
+    const float2 a = reinterpret_cast<const float2*>(attr)[pos];
+    const int n = nbr[pos];
+    ax = a.x;
+    ay = a.y;
+    return mask[pos] ? n : -1;
+  }
+};
+
+// grad_x at the event level: the edges that read source s, in edge
+// order, from the transposed CSR; the other end is the destination row.
+struct RunEdges {
+  const int* order;
+  const int* start;
+  const float* attr;
+  int K;
+  __device__ __forceinline__ int bound(int s) const { return start[s]; }
+  __device__ __forceinline__ int entry(int pos, float& ax, float& ay) const {
+    const int e = order[pos];
+    const float2 a = reinterpret_cast<const float2*>(attr)[e];
+    ax = a.x;
+    ay = a.y;
+    return e / K;
+  }
+};
+
+// grad_x at a pooled level: the edges that read cell s, in slot order:
+// slot k of cell s - off_k, off_k = dy * nx + dx for GRID_OFFSETS[k] =
+// (dy, dx) = (k / 3 - 1, k % 3 - 1).  The pooled tables point slot k of
+// cell m at m + off_k wherever it is unmasked
+// (tests/test_torch_spline_train.py).
+struct StencilEdges {
+  const uint8_t* mask;
+  const float* attr;
+  int M, K, nx;
+  __device__ __forceinline__ int bound(int s) const { return s * K; }
+  __device__ __forceinline__ int entry(int pos, float& ax, float& ay) const {
+    const int s = pos / K, k = pos - s * K;
+    const int m = s - ((k / 3 - 1) * nx + (k % 3 - 1));
+    ax = ay = 0.f;
+    if ((unsigned)m >= (unsigned)M) return -1;
+    const size_t e = (size_t)m * K + k;
+    const float2 a = reinterpret_cast<const float2*>(attr)[e];
+    if (!mask[e]) return -1;
+    ax = a.x;
+    ay = a.y;
+    return m;
+  }
+};
+
+// A tile's edge entries in shared memory: cap entries of a batch (the
+// other end's row, and edge_taps' base tap by * ks + bx and fractions
+// fx, fy, once an entry), and beg[d] = bound(m0 + d) for d = 0..nd.
+// Slots and stencils (K entries a row) always fit; a tile whose
+// transposed runs pass cap is staged again batch by batch.
+struct EdgeStage {
+  int* row;
+  int* tap;
+  float* fx;
+  float* fy;
+  int* beg;
+  int cap;
+};
+
+// Staged entry q's taps at a chunk of cc channels: edge_taps' offsets
+// and weights, the same expressions.
+__device__ __forceinline__ Taps staged_taps(const EdgeStage& st, int q,
+                                            int ks, int cc) {
+  const float fx = st.fx[q], fy = st.fy[q];
+  Taps t;
+  t.w00 = (1.f - fy) * (1.f - fx);
+  t.w01 = (1.f - fy) * fx;
+  t.w10 = fy * (1.f - fx);
+  t.w11 = fy * fx;
+  t.t00 = st.tap[q] * cc;
+  t.t10 = t.t00 + ks * cc;
+  return t;
+}
+
+template <class Edges>
+__device__ __forceinline__ void stage_edges(const Edges& edges,
+                                            const EdgeStage& st, int b0,
+                                            int b1, int ks) {
+  for (int p = b0 + (int)threadIdx.x; p < b1; p += kThreads) {
+    float ax, ay;
+    const int r = edges.entry(p, ax, ay);
+    // edge_taps' base tap and fractions
+    const float kmax = (float)(ks - 1);
+    const float px = fminf(fmaxf(ax, 0.f), 1.f) * kmax;
+    const float py = fminf(fmaxf(ay, 0.f), 1.f) * kmax;
+    const float bx = fminf(fmaxf(floorf(px), 0.f), kmax - 1.f);
+    const float by = fminf(fmaxf(floorf(py), 0.f), kmax - 1.f);
+    st.row[p - b0] = r;
+    st.tap[p - b0] = (int)by * ks + (int)bx;
+    st.fx[p - b0] = px - bx;
+    st.fy[p - b0] = py - by;
+  }
+}
+
+// The tile's bounds into st.beg, then, if they fit, its entries; returns
+// whether they were staged (the caller syncs before use).
+template <class Edges>
+__device__ __forceinline__ bool stage_tile(const Edges& edges,
+                                           const EdgeStage& st, int m0,
+                                           int nd, int ks) {
+  for (int d = threadIdx.x; d <= nd; d += kThreads)
+    st.beg[d] = edges.bound(m0 + d);
+  __syncthreads();
+  const bool fits = st.beg[nd] - st.beg[0] <= st.cap;
+  if (fits) stage_edges(edges, st, st.beg[0], st.beg[nd], ks);
+  return fits;
+}
+
+// Staged entries p .. pend (batch-relative) into one row of A: each
+// entry's 4 bilinear taps of this thread's channels lane, lane + tpd, ..
+// (at most 4) of the cc from c0 of src [*, C], in entry order.  Eight
+// entries' source values are loaded before any is added, so the gathers
+// overlap.
+constexpr int kGather = 8;
+
+__device__ __forceinline__ void add_entries(
+    float* row, const EdgeStage& st, int p, int pend,
+    const float* __restrict__ src, int C, int c0, int cc, int ks, int lane,
+    int tpd) {
+  for (; p < pend; p += kGather) {
+    int r[kGather];
+    float v[kGather][4];
+#pragma unroll
+    for (int q = 0; q < kGather; ++q)
+      r[q] = p + q < pend ? st.row[p + q] : -1;
+#pragma unroll
+    for (int q = 0; q < kGather; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = lane + i * tpd;
+        v[q][i] = (r[q] >= 0 && c < cc)
+                      ? src[(size_t)r[q] * C + c0 + c] : 0.f;
+      }
+#pragma unroll
+    for (int q = 0; q < kGather; ++q) {
+      if (r[q] < 0) continue;
+      const Taps t = staged_taps(st, p + q, ks, cc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = lane + i * tpd;
+        if (c < cc) {
+          row[t.t00 + c] += t.w00 * v[q][i];
+          row[t.t00 + cc + c] += t.w01 * v[q][i];
+          row[t.t10 + c] += t.w10 * v[q][i];
+          row[t.t10 + cc + c] += t.w11 * v[q][i];
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void add4(float* a, float w, const float4& v) {
+  float4 x = *reinterpret_cast<float4*>(a);
+  x.x += w * v.x;
+  x.y += w * v.y;
+  x.z += w * v.z;
+  x.w += w * v.w;
+  *reinterpret_cast<float4*>(a) = x;
+}
+
+// add_entries where cc and C are multiples of 4: thread lane takes the
+// four channels 4 lane .. 4 lane + 3, one 16-byte gather an entry and
+// 16-byte read-modify-writes of A (the same sums, in the same order).
+__device__ __forceinline__ void add_entries4(
+    float* row, const EdgeStage& st, int p, int pend,
+    const float* __restrict__ src, int C, int c0, int cc, int ks,
+    int lane) {
+  for (; p < pend; p += kGather) {
+    int r[kGather];
+    float4 v[kGather];
+#pragma unroll
+    for (int q = 0; q < kGather; ++q) {
+      r[q] = p + q < pend ? st.row[p + q] : -1;
+      v[q] = r[q] >= 0 ? *reinterpret_cast<const float4*>(
+                             src + (size_t)r[q] * C + c0 + 4 * lane)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int q = 0; q < kGather; ++q) {
+      if (r[q] < 0) continue;
+      const Taps t = staged_taps(st, p + q, ks, cc);
+      add4(row + t.t00 + 4 * lane, t.w00, v[q]);
+      add4(row + t.t00 + cc + 4 * lane, t.w01, v[q]);
+      add4(row + t.t10 + 4 * lane, t.w10, v[q]);
+      add4(row + t.t10 + cc + 4 * lane, t.w11, v[q]);
+    }
+  }
+}
+
+// Rows m0 .. m0 + nd of A_chunk into sA (zeroed first): row d's tap sums
+// of channels c0 .. c0 + cc of src [*, C] over its entries, at columns
+// p * cc + j, then, with root_src, its own channels at P * cc + j.
+// min(cc, 4) threads a row.  ``staged``: stage_tile staged the entries;
+// else they are staged here, batch by batch.
+template <class Edges>
+__device__ __forceinline__ void build_chunk(
+    float* sA, int lda, const Edges& edges, const EdgeStage& st, bool staged,
+    const float* __restrict__ src, const float* __restrict__ root_src,
+    int m0, int nd, int C, int c0, int cc, int ks) {
+  for (int i = threadIdx.x; i < kTM * lda; i += kThreads) sA[i] = 0.f;
+  __syncthreads();
+  const int P = ks * ks;
+  // 16-byte gathers where the chunk's channels allow (src rows and c0
+  // 16-byte aligned: src, C and every chunk before a multiple of 4)
+  const bool vec = cc % 4 == 0 && C % 4 == 0
+                   && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  const int tpd = vec ? cc / 4 : cc < kThreads / kTM ? cc : kThreads / kTM;
+  const int dpp = kThreads / tpd;
+  const int d0 = threadIdx.x / tpd, lane = threadIdx.x - d0 * tpd;
+  const int lo = st.beg[0], hi = st.beg[nd];
+  for (int b0 = lo; b0 < hi; b0 += st.cap) {
+    const int b1 = min(hi, b0 + st.cap);
+    if (!staged) {
+      stage_edges(edges, st, b0, b1, ks);
+      __syncthreads();
+    }
+    if (d0 < dpp)
+      for (int d = d0; d < nd; d += dpp) {
+        const int p0 = max(st.beg[d], b0) - b0;
+        const int p1 = min(st.beg[d + 1], b1) - b0;
+        if (vec)
+          add_entries4(sA + d * lda, st, p0, p1, src, C, c0, cc, ks, lane);
+        else
+          add_entries(sA + d * lda, st, p0, p1, src, C, c0, cc, ks, lane,
+                      tpd);
+      }
+    if (!staged) __syncthreads();
+  }
+  if (root_src && d0 < dpp)
+    for (int d = d0; d < nd; d += dpp)
+      for (int j = lane; j < cc; j += tpd)
+        sA[d * lda + P * cc + j] = root_src[(size_t)(m0 + d) * C + c0 + j];
+  __syncthreads();
+}
+
+// The staging area after `used` floats of dynamic shared memory.
+__device__ __forceinline__ EdgeStage edge_stage(float* smem, int used,
+                                                int cap) {
+  EdgeStage st;
+  st.row = reinterpret_cast<int*>(smem + used);
+  st.tap = reinterpret_cast<int*>(smem + used + cap);
+  st.fx = smem + used + 2 * cap;
+  st.fy = smem + used + 3 * cap;
+  st.beg = reinterpret_cast<int*>(smem + used + 4 * cap);
+  st.cap = cap;
+  return st;
+}
+
+// The forward (SlotEdges) and grad_x (RunEdges, StencilEdges): rows of
+// 64, columns n0 = blockIdx.y * 16 NTW; out[r, n] = sum over chunks of
+// A_chunk[r] @ B_chunk (+ bias[n]).  With part (few row tiles), block z
+// takes chunks z * cpz .. and writes its partial sums to part[z] [rows,
+// ncols]; splitk_reduce_kernel adds them up.  With ka_max (many row
+// tiles, B small), every chunk's B stays in shared memory (chunk i at
+// row i * ka_max), loaded once, and the block walks the row tiles
+// blockIdx.x, + gridDim.x, ..; else B streams through kStages slabs a
+// chunk.  sb_words: the floats of shared memory B takes.
+template <int NTW, class Edges>
+__global__ void __launch_bounds__(kThreads) split_conv_kernel(
+    Edges edges, const float* __restrict__ src,
+    const float* __restrict__ root_src, ChunkB b,
+    const float* __restrict__ bias, int rows, int C, int ks, int cc_max,
+    int cpz, int lda, int ldb, int sb_words, int ka_max, int cap,
+    float* __restrict__ part, float* __restrict__ out) {
+  constexpr int kCoutp = 16 * NTW;
+  extern __shared__ __align__(16) float smem[];
+  float* sA = smem;                                   // [kTM, lda]
+  float* sB = smem + kTM * lda;                       // sb_words
+  const EdgeStage st = edge_stage(smem, kTM * lda + sb_words, cap);
+  b.n0 = blockIdx.y * kCoutp;
+  const int nroot = root_src ? 1 : 0;
+  const int c_begin = blockIdx.z * cpz * cc_max;
+  const int c_end = min(C, c_begin + cpz * cc_max);
+  if (ka_max) {
+    for (int c0 = c_begin, i = 0; c0 < c_end; c0 += cc_max, ++i) {
+      b.c0 = c0;
+      b.cc = min(cc_max, C - c0);
+      load_chunk_rows(sB + i * ka_max * ldb, ldb, kCoutp, b, 0,
+                      (b.P * b.cc + nroot * b.cc + 7) / 8 * 8, b.W);
+    }
+    cp_async_commit();
+  }
+  const int tiles = (rows + kTM - 1) / kTM;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile * kTM, nd = min(kTM, rows - m0);
+    const bool staged = stage_tile(edges, st, m0, nd, ks);
+    float acc[NTW][4];
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int c0 = c_begin, i = 0; c0 < c_end; c0 += cc_max, ++i) {
+      b.c0 = c0;
+      b.cc = min(cc_max, C - c0);
+      const int ka = (b.P * b.cc + nroot * b.cc + 7) / 8 * 8;
+      if (!ka_max) {
+        // the chunk's first B slab flies while A is built
+        load_chunk_slab<kSplitSlab>(sB, ldb, kCoutp, b, 0, b.W);
+        cp_async_commit();
+      }
+      build_chunk(sA, lda, edges, st, staged, src, root_src, m0, nd, C, c0,
+                  b.cc, ks);
+      if (ka_max) {
+        cp_async_wait<0>();            // the resident B (the first time)
+        __syncthreads();
+        resident_gemm<NTW>(sA, lda, ka, sB + i * ka_max * ldb, ldb, acc);
+        __syncthreads();               // before sA is built again
+      } else {
+        block_gemm<4, NTW, false, ChunkB, true, kSplitSlab>(
+            sA, lda, ka, sB, ldb, kCoutp, b, true, b.W, acc);
+      }
+    }
+    Elems<4, NTW, false> y;
+    y.take(acc, sB, kCoutp);
+#pragma unroll
+    for (int e = 0; e < y.kN; ++e) {
+      int r, n;
+      y.coord(e, kCoutp, r, n);
+      n += b.n0;
+      if (r >= nd || n >= b.ncols) continue;
+      const size_t o = (size_t)(m0 + r) * b.ncols + n;
+      if (part)
+        part[(size_t)blockIdx.z * rows * b.ncols + o] = y.v[e];
+      else
+        out[o] = bias ? y.v[e] + bias[n] : y.v[e];
+    }
+  }
+}
+
+// out = the z partials summed in z order (+ bias).
+__global__ void splitk_reduce_kernel(const float* __restrict__ part, int z,
+                                     long long n, int ncols,
+                                     const float* __restrict__ bias,
+                                     float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < z; ++k) s += part[k * n + i];
+  out[i] = bias ? s + bias[i % ncols] : s;
+}
+
+// grad_W partials: block (chunk, group, column tile) accumulates, over
+// the 64-row tiles of its group, g_chunk^T [25 cc, 64] @ grad_y [64,
+// 8 NT] in registers (3xTF32), then writes partial[group][p, c0 + j,
+// n0 + n].  Warp w owns the 16-row m-tiles w, w + 8, .. (at most MTW)
+// of the 25 cc rows and all NT n-tiles of 8 columns; A fragments read
+// g_chunk transposed (row stride lda = 8 mod 32, as grad_y's ldg, so
+// that the fragment loads hit 32 banks).
+template <int NT>
+__global__ void __launch_bounds__(kThreads) split_conv_wgrad_kernel(
+    SlotEdges edges, const float* __restrict__ x,
+    const float* __restrict__ gy, int M, int Cin, int Cout, int ks,
+    int cc_max, int tiles_per_group, int lda, int ldg,
+    float* __restrict__ partial) {
+  constexpr int MTW = NT >= 8 ? 16 / NT : 4;
+  extern __shared__ __align__(16) float smem[];
+  const int P = ks * ks;
+  const int c0 = blockIdx.x * cc_max, cc = min(cc_max, Cin - c0);
+  const int n0 = blockIdx.z * 8 * NT;
+  const int R = P * cc;
+  float* sA = smem;                                   // [kTM, lda]
+  float* sG = sA + kTM * lda;                         // [kTM, ldg]
+  const EdgeStage st = edge_stage(smem, kTM * (lda + ldg), kTM * edges.K);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[MTW][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < MTW; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
+  const int ntile_rows = (M + kTM - 1) / kTM;
+  const int t0 = blockIdx.y * tiles_per_group;
+  const int t1 = min(ntile_rows, t0 + tiles_per_group);
+  for (int tile = t0; tile < t1; ++tile) {
+    const int m0 = tile * kTM, nd = min(kTM, M - m0);
+    for (int i = threadIdx.x; i < kTM * 8 * NT; i += kThreads) {
+      const int d = i / (8 * NT), n = i - d * (8 * NT);
+      sG[d * ldg + n] = (d < nd && n0 + n < Cout)
+                            ? gy[(size_t)(m0 + d) * Cout + n0 + n] : 0.f;
+    }
+    stage_tile(edges, st, m0, nd, ks);
+    build_chunk(sA, lda, edges, st, true, x, nullptr, m0, nd, Cin, c0, cc,
+                ks);
+#pragma unroll 2
+    for (int kk = 0; kk < kTM; kk += 8) {
+#pragma unroll
+      for (int mi = 0; mi < MTW; ++mi) {
+        const int r0 = (warp + 8 * mi) * 16;
+        if (r0 >= R) break;
+        // A[r][k] = g_chunk[kk + k][r0 + r]: (g, t), (g + 8, t),
+        // (g, t + 4), (g + 8, t + 4)
+        const float* ar = sA + (kk + t) * lda + r0 + g;
+        uint32_t ahi[4], alo[4];
+        split_tf32(ar[0], ahi[0], alo[0]);
+        split_tf32(ar[8], ahi[1], alo[1]);
+        split_tf32(ar[4 * lda], ahi[2], alo[2]);
+        split_tf32(ar[4 * lda + 8], ahi[3], alo[3]);
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) {
+          // B[k][n] = grad_y[kk + k][8 ni + n]: (t, g), (t + 4, g)
+          const float* bc = sG + (kk + t) * ldg + 8 * ni + g;
+          uint32_t bhi[2], blo[2];
+          split_tf32(bc[0], bhi[0], blo[0]);
+          split_tf32(bc[4 * ldg], bhi[1], blo[1]);
+          float ts[4] = {0.f, 0.f, 0.f, 0.f}, tb[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(ts, alo, bhi);
+          mma_tf32(tb, ahi, bhi);
+          mma_tf32(ts, ahi, blo);
+#pragma unroll
+          for (int f = 0; f < 4; ++f) acc[mi][ni][f] += tb[f] + ts[f];
+        }
+      }
+    }
+    __syncthreads();                 // before the next tile rebuilds sA, sG
+  }
+  float* dst = partial + (size_t)blockIdx.y * P * Cin * Cout;
+#pragma unroll
+  for (int mi = 0; mi < MTW; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int r = (warp + 8 * mi) * 16 + g + 8 * (f >> 1);
+        const int n = n0 + 8 * ni + 2 * t + (f & 1);
+        if (r >= R || n >= Cout) continue;
+        const int p = r / cc;
+        dst[((size_t)p * Cin + c0 + r - p * cc) * Cout + n] = acc[mi][ni][f];
+      }
+}
+
+// grad_W = the groups' partials summed in group order.
+__global__ void wgrad_reduce_kernel(const float* __restrict__ partial,
+                                    int groups, long long n,
+                                    float* __restrict__ grad_w) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int gr = 0; gr < groups; ++gr) s += partial[gr * n + i];
+  grad_w[i] = s;
+}
+
+// Shared memory of an edge staging area of cap entries.
+size_t stage_bytes(int cap) {
+  return ((size_t)4 * cap + kTM + 1) * sizeof(float);
+}
+
+// Half the shared memory an SM has: two blocks an SM fit under it.
+constexpr size_t kTwoBlocks = 113 * 1024;
+
+// split_conv_kernel's tile for `rows` rows of C input channels, ncols
+// output columns, with or without root rows, an edge staging area of cap
+// entries: NTW, the chunk's channels cc, the row strides, shared memory;
+// false if no chunk fits.  Few row tiles (under an SM each): at most 64
+// columns a block (more blocks) and the widest chunk that fits (fewer
+// passes in a row); else all columns up to 128 a block and the widest
+// chunk with which two blocks share an SM.
+struct SplitTile {
+  int ntw, coutp, ldb, cc, lda;
+  size_t smem;
+};
+
+bool split_tile(int rows, int C, int ncols, int ks, bool root, int cap,
+                SplitTile* t) {
+  if (C < 1 || ncols < 1 || ks < 2) return false;
+  const bool few = (rows + kTM - 1) / kTM < 132;
+  t->ntw = ncols <= 16 ? 1 : ncols <= 32 ? 2 : (ncols <= 64 || few) ? 4 : 8;
+  t->coutp = 16 * t->ntw;
+  t->ldb = t->coutp + ((t->coutp % 32 == 0 || t->coutp % 32 == 16) ? 8 : 0);
+  const size_t budgets[2] = {few ? (size_t)kSmemMax : kTwoBlocks,
+                             (size_t)kSmemMax};
+  for (const size_t budget : budgets) {
+    for (t->cc = C < kMaxChunk ? C : kMaxChunk;; t->cc = (t->cc + 1) / 2) {
+      const int ka = (ks * ks * t->cc + (root ? t->cc : 0) + 7) / 8 * 8;
+      t->lda = ka + 4;
+      t->smem = ((size_t)kTM * t->lda
+                 + (size_t)kStages * kSplitSlab * t->ldb) * sizeof(float)
+                + stage_bytes(cap);
+      if (t->smem <= budget) return true;
+      if (t->cc == 1) break;
+    }
+  }
+  return false;
+}
+
+// A row stride >= n that is 8 mod 32 words.
+int stride8(int n) { return (n + 23) / 32 * 32 + 8; }
+
+// split_conv_wgrad_kernel's column tile (NT n-tiles of 8, a power of 2,
+// up to 128 columns), chunk, strides, shared memory and grid: the widest
+// chunk (<= 16) whose 25 cc rows the warps' m-tiles cover (MTW each)
+// and with which two blocks share an SM, else the widest that fits;
+// about two blocks an SM in all, each over a run of consecutive row
+// tiles.
+struct WgradTile {
+  int nt, cc, lda, ldg, chunks, ztiles, groups, tiles_per_group;
+  size_t smem;
+};
+
+bool wgrad_tile(int M, int K, int Cin, int Cout, int ks, WgradTile* t) {
+  if (Cin < 1 || Cout < 1 || ks < 2) return false;
+  t->nt = 1;
+  while (t->nt < 16 && 8 * t->nt < Cout) t->nt *= 2;
+  const int mtw = t->nt >= 8 ? 16 / t->nt : 4;
+  t->ldg = stride8(8 * t->nt);
+  int cc = Cin < kMaxChunk ? Cin : kMaxChunk;
+  while (cc > 1 && (ks * ks * cc + 15) / 16 > 8 * mtw) cc = (cc + 1) / 2;
+  if ((ks * ks * cc + 15) / 16 > 8 * mtw) return false;
+  bool ok = false;
+  const size_t budgets[2] = {kTwoBlocks, (size_t)kSmemMax};
+  for (const size_t budget : budgets) {
+    for (t->cc = cc;; t->cc = (t->cc + 1) / 2) {
+      t->lda = stride8(ks * ks * t->cc);
+      t->smem = (size_t)kTM * (t->lda + t->ldg) * sizeof(float)
+                + stage_bytes(kTM * K);
+      if (t->smem <= budget) {
+        ok = true;
+        break;
+      }
+      if (t->cc == 1) break;
+    }
+    if (ok) break;
+  }
+  if (!ok) return false;
+  t->chunks = (Cin + t->cc - 1) / t->cc;
+  t->ztiles = (Cout + 8 * t->nt - 1) / (8 * t->nt);
+  const int tiles = (M + kTM - 1) / kTM;
+  const int per = t->chunks * t->ztiles;
+  int groups = (264 + per - 1) / per;
+  if (groups > tiles) groups = tiles;
+  if (groups < 1) groups = 1;
+  t->tiles_per_group = (tiles + groups - 1) / groups;
+  t->groups = tiles == 0 ? 0 : (tiles + t->tiles_per_group - 1)
+                                   / t->tiles_per_group;
+  return true;
+}
+
+// Entries a split_conv_kernel tile stages at once: a slot or stencil
+// tile's K a row; 2048 of a tile's transposed runs (more: in batches).
+template <class Edges>
+int stage_cap(const Edges& e) { return kTM * e.K; }
+template <>
+int stage_cap(const RunEdges&) { return 2048; }
+
+// A split_conv_kernel launch: its tile, grid and chunks per z block.
+// Where the row and column tiles fill less than the SMs, the chunks are
+// spread over z blocks too (up to one block an SM in all), whose partial
+// sums take ``scratch`` floats.
+// Many row tiles (a wave or more) and every chunk's B in shared memory
+// with as many blocks an SM as streaming it allows: B stays resident
+// (ka_max rows a chunk) and about one block an SM-slot walks the tiles.
+struct SplitPlan {
+  SplitTile t;
+  int cap, cpz, ka_max, sb_words;
+  dim3 grid;
+  long long scratch;
+};
+
+bool split_plan(int rows, int C, int ncols, int ks, bool root, int cap,
+                SplitPlan* p) {
+  p->cap = cap;
+  if (!split_tile(rows, C, ncols, ks, root, cap, &p->t)) return false;
+  const int tiles = (rows + kTM - 1) / kTM;
+  const int ytiles = (ncols + p->t.coutp - 1) / p->t.coutp;
+  const int nch = (C + p->t.cc - 1) / p->t.cc;
+  // z blocks a tile: under a wave of blocks, enough to fill the SMs;
+  // else the z (a power of 2) whose last wave wastes least, counting a
+  // twentieth of a block's time for each extra split
+  int z = 1;
+  if (tiles > 0 && tiles * ytiles < 132 && nch > 1) {
+    z = (132 + tiles * ytiles - 1) / (tiles * ytiles);
+    if (z > nch) z = nch;
+  } else if (tiles > 0) {
+    const int slots = (p->t.smem <= kTwoBlocks ? 2 : 1) * 132;
+    const long long n = (long long)tiles * ytiles;
+    double best = (double)((n + slots - 1) / slots);
+    for (int zz = 2; zz <= nch; zz *= 2) {
+      const double cost = (double)((n * zz + slots - 1) / slots) / zz
+                          + 0.05 * (zz - 1);
+      if (cost < best) {
+        best = cost;
+        z = zz;
+      }
+    }
+  }
+  p->cpz = (nch + z - 1) / z;
+  z = (nch + p->cpz - 1) / p->cpz;
+  p->grid = dim3(tiles, ytiles, z);
+  p->scratch = z > 1 ? (long long)z * rows * ncols : 0;
+  p->ka_max = 0;
+  p->sb_words = kStages * kSplitSlab * p->t.ldb;
+  if (z == 1 && tiles * ytiles >= 132) {
+    const int ka = (ks * ks * p->t.cc + (root ? p->t.cc : 0) + 7) / 8 * 8;
+    const int words = nch * ka * p->t.ldb;
+    const size_t smem = p->t.smem + (size_t)(words - p->sb_words)
+                                        * sizeof(float);
+    const int per_sm = p->t.smem <= kTwoBlocks ? 2 : 1;
+    if (smem <= (per_sm == 2 ? kTwoBlocks : (size_t)kSmemMax)) {
+      p->ka_max = ka;
+      p->sb_words = words;
+      p->t.smem = smem;
+      const int slots = per_sm * 132 / ytiles;
+      if (tiles > slots) p->grid.x = slots > 0 ? slots : 1;
+    }
+  }
+  return true;
+}
+
+template <class Edges>
+int launch_split(const Edges& edges, const float* src, const float* root_src,
+                 const ChunkB& b, const float* bias, int rows, int C, int ks,
+                 float* scratch, float* out, cudaStream_t st) {
+  SplitPlan p;
+  if (!split_plan(rows, C, b.ncols, ks, root_src != nullptr,
+                  stage_cap(edges), &p))
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaGetLastError();
+  float* part = p.grid.z > 1 ? scratch : nullptr;
+#define DAGR_SPLIT_LAUNCH(NTW)                                              \
+  split_conv_kernel<NTW, Edges><<<p.grid, kThreads, p.t.smem, st>>>(        \
+      edges, src, root_src, b, bias, rows, C, ks, p.t.cc, p.cpz, p.t.lda,   \
+      p.t.ldb, p.sb_words, p.ka_max, p.cap, part, out)
+  switch (p.t.ntw) {
+    case 1: DAGR_SPLIT_LAUNCH(1); break;
+    case 2: DAGR_SPLIT_LAUNCH(2); break;
+    case 4: DAGR_SPLIT_LAUNCH(4); break;
+    default: DAGR_SPLIT_LAUNCH(8); break;
+  }
+#undef DAGR_SPLIT_LAUNCH
+  if (part) {
+    const long long n = (long long)rows * b.ncols;
+    splitk_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        part, (int)p.grid.z, n, b.ncols, bias, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Scratch floats of launch_split's partial sums.
+template <class Edges>
+long long split_scratch(const Edges& edges, int rows, int C, int ncols,
+                        int ks, bool root) {
+  SplitPlan p;
+  return split_plan(rows, C, ncols, ks, root, stage_cap(edges), &p)
+             ? p.scratch : -1;
+}
+
+template <class Edges>
+cudaError_t split_smem_limits() {
+  const void* kernels[] = {(const void*)split_conv_kernel<1, Edges>,
+                           (const void*)split_conv_kernel<2, Edges>,
+                           (const void*)split_conv_kernel<4, Edges>,
+                           (const void*)split_conv_kernel<8, Edges>};
+  for (const void* k : kernels) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// Sets the dynamic shared-memory limit of every fused-block kernel, once,
-// when the library is loaded.
+// Sets the dynamic shared-memory limit of every fused-block and
+// split-route kernel, once, when the library is loaded.
 extern "C" int dagr_init(void) {
   const void* kernels[] = {
       (const void*)spline_conv_block_kernel<4, 1, false>,
@@ -500,6 +1366,19 @@ extern "C" int dagr_init(void) {
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (err != cudaSuccess) return (int)err;
   }
+  cudaError_t err = split_smem_limits<SlotEdges>();
+  if (err == cudaSuccess) err = split_smem_limits<RunEdges>();
+  if (err == cudaSuccess) err = split_smem_limits<StencilEdges>();
+  const void* wgrad[] = {(const void*)split_conv_wgrad_kernel<1>,
+                         (const void*)split_conv_wgrad_kernel<2>,
+                         (const void*)split_conv_wgrad_kernel<4>,
+                         (const void*)split_conv_wgrad_kernel<8>,
+                         (const void*)split_conv_wgrad_kernel<16>};
+  for (const void* k : wgrad)
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -558,5 +1437,148 @@ extern "C" int dagr_spline_conv_block(
     DAGR_CONV_LAUNCH(4, 4, false);
   }
 #undef DAGR_CONV_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// The split route's conv: out [M, Cout] = A(x_src) @ W + x_root @ root
+// (+ bias), x_src [*, Cin] the rows the edges name, x_root [M, Cin] (null
+// with root null); W [P, Cin, Cout], root [Cin, Cout], bias [Cout] or
+// null; scratch of dagr_spline_conv_scratch floats.
+extern "C" int dagr_spline_conv(
+    const void* x_src, const void* x_root, const void* nbr, const void* emask,
+    const void* attr, const void* W, const void* root, const void* bias,
+    int M, int K, int Cin, int Cout, int ks, void* scratch, void* out,
+    void* stream) {
+  const ChunkB b = chunk_b((const float*)W, (const float*)root, ks * ks, Cin,
+                           Cout);
+  return launch_split(
+      SlotEdges{(const int*)nbr, (const uint8_t*)emask, (const float*)attr, K},
+      (const float*)x_src, root ? (const float*)x_root : nullptr, b,
+      (const float*)bias, M, Cin, ks, (float*)scratch, (float*)out,
+      (cudaStream_t)stream);
+}
+
+// Scratch floats of dagr_spline_conv (the partial sums of few row
+// tiles); -1 if no tile takes the widths.
+extern "C" long long dagr_spline_conv_scratch(int M, int K, int Cin,
+                                              int Cout, int ks, int root) {
+  return split_scratch(SlotEdges{nullptr, nullptr, nullptr, K}, M, Cin, Cout,
+                       ks, root != 0);
+}
+
+extern "C" long long dagr_source_runs_scratch(int n_edges, int n_src);
+extern "C" int dagr_source_runs(const void* nbr, const void* mask,
+                                int n_edges, int n_src, void* scratch,
+                                void* order, void* start, void* stream);
+
+// Words of W^T and root^T that grad_x reads (each a multiple of 4, so
+// that what follows stays 16-byte aligned).
+long long transposed_words(int P, int Cin, int Cout) {
+  return ((long long)P * Cin * Cout + 3) / 4 * 4
+         + ((long long)Cin * Cout + 3) / 4 * 4;
+}
+
+// Scratch words of dagr_spline_conv_backward: with grad_x (grad_x = 1),
+// W^T and root^T first; after them, each step's in turn: the transposed
+// edges' sort (sort = 1: the event level, runs not yet built), grad_x's
+// partial sums (grid_nx > 0: a pooled level) and the grad_W partials
+// (wgrad = 1); -1 if no tile takes the widths.
+extern "C" long long dagr_spline_conv_backward_scratch(
+    int M, int K, int Cin, int Cout, int ks, int grid_nx, int sort,
+    int grad_x, int wgrad) {
+  long long words = sort ? dagr_source_runs_scratch(M * K, M) : 0;
+  if (grad_x) {
+    const long long w = grid_nx > 0
+        ? split_scratch(StencilEdges{nullptr, nullptr, M, K, grid_nx}, M,
+                        Cout, Cin, ks, true)
+        : split_scratch(RunEdges{nullptr, nullptr, nullptr, K}, M, Cout, Cin,
+                        ks, true);
+    if (w < 0) return -1;
+    words = w > words ? w : words;
+  }
+  if (wgrad) {
+    WgradTile t;
+    if (!wgrad_tile(M, K, Cin, Cout, ks, &t)) return -1;
+    const long long w = (long long)t.groups * ks * ks * Cin * Cout;
+    words = w > words ? w : words;
+  }
+  return words + (grad_x ? transposed_words(ks * ks, Cin, Cout) : 0);
+}
+
+// The backward of dagr_spline_conv with x_src = x_root = x [M, Cin] (the
+// training conv), given grad_y [M, Cout]: grad_x [M, Cin] (null: not
+// wanted) and grad_W [P, Cin, Cout] (null: not wanted).  grid_nx > 0: a
+// pooled level of that grid width (the mirrored stencil, K = 9); else
+// the transposed edges order [M*K], start [M + 1], built here first when
+// build_runs.  grad_root and grad_bias are the caller's dense products.
+extern "C" int dagr_spline_conv_backward(
+    const void* x, const void* grad_y, const void* nbr, const void* emask,
+    const void* attr, const void* W, const void* root, int M, int K,
+    int Cin, int Cout, int ks, int grid_nx, int build_runs, void* order,
+    void* start, void* scratch, void* grad_x, void* grad_w, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* gy = (const float*)grad_y;
+  const int P = ks * ks;
+  if (grad_x) {
+    // W^T [P, Cout, Cin] and root^T [Cout, Cin]: grad_x's B, rows
+    // contiguous
+    float* wt = (float*)scratch;
+    float* rt = wt + ((long long)P * Cin * Cout + 3) / 4 * 4;
+    scratch = wt + transposed_words(P, Cin, Cout);
+    const long long nw = (long long)P * Cin * Cout;
+    transpose_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(
+        (const float*)W, P, Cin, Cout, wt);
+    if (root)
+      transpose_kernel<<<(Cin * Cout + 255) / 256, 256, 0, st>>>(
+          (const float*)root, 1, Cin, Cout, rt);
+    const ChunkB b = chunk_b(wt, root ? rt : nullptr, P, Cout, Cin);
+    const float* rs = root ? gy : nullptr;
+    int err;
+    if (grid_nx > 0) {
+      err = launch_split(StencilEdges{(const uint8_t*)emask,
+                                      (const float*)attr, M, K, grid_nx},
+                         gy, rs, b, nullptr, M, Cout, ks, (float*)scratch,
+                         (float*)grad_x, st);
+    } else {
+      if (build_runs) {
+        err = dagr_source_runs(nbr, emask, M * K, M, scratch, order, start,
+                               stream);
+        if (err) return err;
+      }
+      err = launch_split(RunEdges{(const int*)order, (const int*)start,
+                                  (const float*)attr, K},
+                         gy, rs, b, nullptr, M, Cout, ks, (float*)scratch,
+                         (float*)grad_x, st);
+    }
+    if (err) return err;
+  }
+  if (grad_w) {
+    WgradTile t;
+    if (!wgrad_tile(M, K, Cin, Cout, ks, &t))
+      return (int)cudaErrorInvalidValue;
+    const long long n = (long long)ks * ks * Cin * Cout;
+    if (t.groups == 0) {
+      cudaMemsetAsync(grad_w, 0, n * sizeof(float), st);
+      return (int)cudaGetLastError();
+    }
+    float* partial = (float*)scratch;
+    const SlotEdges edges{(const int*)nbr, (const uint8_t*)emask,
+                          (const float*)attr, K};
+    const dim3 grid(t.chunks, t.groups, t.ztiles);
+#define DAGR_WGRAD_LAUNCH(NT)                                               \
+  split_conv_wgrad_kernel<NT><<<grid, kThreads, t.smem, st>>>(              \
+      edges, (const float*)x, gy, M, Cin, Cout, ks, t.cc,                   \
+      t.tiles_per_group, t.lda, t.ldg, partial)
+    switch (t.nt) {
+      case 1: DAGR_WGRAD_LAUNCH(1); break;
+      case 2: DAGR_WGRAD_LAUNCH(2); break;
+      case 4: DAGR_WGRAD_LAUNCH(4); break;
+      case 8: DAGR_WGRAD_LAUNCH(8); break;
+      default: DAGR_WGRAD_LAUNCH(16); break;
+    }
+#undef DAGR_WGRAD_LAUNCH
+    wgrad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        partial, t.groups, n, (float*)grad_w);
+  }
   return (int)cudaGetLastError();
 }

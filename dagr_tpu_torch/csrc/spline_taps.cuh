@@ -1,6 +1,6 @@
-// The degree-1 bilinear taps of one spline-conv edge, shared by the
-// aggregation kernels (K2, K7, K9a in spline_aggregate.cu) and the fused
-// spline-conv block (spline_conv.cu).
+// The degree-1 bilinear taps of one spline-conv edge, shared by K7's
+// gathered aggregation (spline_aggregate.cu) and the fused block, the
+// split-route conv and its backward (spline_conv.cu).
 #pragma once
 
 namespace {

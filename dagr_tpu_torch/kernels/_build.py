@@ -42,12 +42,12 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"graph_search": 0, "spline_aggregate": 0,
+LAUNCHES = {"graph_search": 0, "spline_conv": 0,
             "spline_conv_block": 0, "voxel_pool": 0,
             "nms": 0, "graph_search_store": 0, "spline_gather": 0,
             "stream_accumulate": 0, "serve_search": 0,
             "serve_ring_update": 0, "cell_max": 0,
-            "spline_aggregate_backward": 0, "voxel_pool_backward": 0}
+            "spline_conv_backward": 0, "voxel_pool_backward": 0}
 
 _library = None
 

@@ -16,9 +16,10 @@ aggregation, products, batch norms, skip, activation and mask fused)
 where the kernel's tile takes its widths (``ops.spline.fused_block_fits``:
 every conv of DAGR-N and -S; the event level and the head's prediction
 convs of DAGR-M and -L); otherwise (wider convs, training, or grad
-enabled) it runs the split route below (K2's aggregation and
-``torch.matmul``, then the batch norm, activation and mask), whose
-backward goes through kernel K9a.  The choice depends on the mode and
+enabled) it runs the split route below (``ops.spline.spline_conv``, one
+``dagr_spline_conv`` launch of any width, then the batch norm, activation
+and mask), whose backward is one ``dagr_spline_conv_backward`` launch a
+conv.  The choice depends on the mode and
 the shapes alone, the same on every device, never on a kernel failing.
 """
 from __future__ import annotations

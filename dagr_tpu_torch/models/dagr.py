@@ -50,7 +50,7 @@ def eval_routes(model: DAGR) -> Tuple[int, int]:
     """(fused, split): how many of one window's eval convs take the fused
     block and how many the split route, by the test the modules make
     (the event level at K = max_neighbors, the pooled levels at the 9
-    stencil slots).  A split conv runs one K2 aggregation."""
+    stencil slots).  A split conv is one ``spline_conv`` launch."""
     K_event, K_stencil = model.cfg.max_neighbors, len(GRID_OFFSETS)
     net = model.backbone
     fits = []

@@ -8,7 +8,7 @@ sources are rows of the store.  The JAX package's ``layer_eval`` and
 ``scale_head_eval`` are the port's ``Layer`` and ``ScaleHead`` modules,
 which the engine calls as they are.
 
-``spline_conv_gather`` splits like ``ops.spline.spline_conv``: the
+``spline_conv_gather`` splits the conv in two: the
 aggregation ``g [C, P*Cin]`` runs ``csrc/spline_aggregate.cu``'s gather
 entry on CUDA tensors and ``spline_gather_plain`` on CPU tensors; the
 product with the weights is ``torch.matmul``.
@@ -22,8 +22,9 @@ import torch
 
 from dagr_tpu_torch.kernels import _build
 from dagr_tpu_torch.models.blocks import MaskedBatchNorm
-from dagr_tpu_torch.ops.spline import (
-    _SMEM_LIMIT, batch_norm, bilinear_basis)
+from dagr_tpu_torch.ops.spline import batch_norm, bilinear_basis
+
+_SMEM_LIMIT = 48 * 1024   # static shared memory a block gets by default
 
 
 def bn_eval(x: torch.Tensor, norm: MaskedBatchNorm) -> torch.Tensor:

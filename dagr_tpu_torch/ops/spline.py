@@ -1,44 +1,50 @@
 """Spline convolution over fixed-degree neighbour tables (kernel K2).
 
-Counterpart of ``dagr_tpu.ops.spline``.  A conv is split into
+Counterpart of ``dagr_tpu.ops.spline``.  A conv computes, per
+destination m,
 
-* the aggregation ``g[m, p, c] = sum_k mask * B_p(attr_mk) * x[nbr_mk, c]``
-  with the degree-1 bilinear basis on the 5x5 tap grid, run by
-  ``csrc/spline_aggregate.cu`` on CUDA tensors and by
-  ``spline_aggregate_plain`` on CPU tensors;
-* one dense product ``g.view(M, P*Cin) @ W.view(P*Cin, Cout)`` plus
-  ``x @ root + bias`` (torch.matmul, as the JAX package leaves it to
-  XLA's dot).  Callers on the card keep
-  ``torch.backends.cuda.matmul.allow_tf32`` False, which
-  ``serve.Detector`` sets.
+    y[m] = g[m] @ W + x[m] @ root (+ bias),
+    g[m, p, c] = sum_k mask * B_p(attr_mk) * x[nbr_mk, c]
 
-Both the event level and the pooled stencil levels take the same path:
-``level_edges`` turns a NodeSet's graph into global source ids, the edge
-mask and the normalised, clipped edge attributes once per level, and
-every conv of the level shares them (``dagr_tpu``'s ``level_basis``).
+with the degree-1 bilinear basis on the 5x5 tap grid (``W`` [P, Cin,
+Cout], P = 25).  Both the event level and the pooled stencil levels take
+the same path: ``level_edges`` turns a NodeSet's graph into global source
+ids, the edge mask and the normalised, clipped edge attributes once per
+level, and every conv of the level shares them (``dagr_tpu``'s
+``level_basis``).
 
-Eval conv blocks: ``spline_conv_block`` is one whole eval-mode block
-(``models.blocks``' ConvBlock, ConvBlockWithSkip and the head's
-prediction convs): the aggregation, ``@ W + x @ root + bias``, the batch
-norm on running statistics, the skip branch (``Linear`` and its own
-batch norm), the activation and the node mask, in one launch of
-``csrc/spline_conv.cu`` on CUDA tensors (g stays in shared memory, the
-products run on the tensor cores in 3xTF32) and as
-``spline_conv_block_plain``, today's ops one by one, on CPU tensors.
-The modules take it in eval mode under ``torch.no_grad`` where its tile
-takes the widths (``fused_block_fits``: Cout <= 64, K <= 16, the tile in
-shared memory); wider convs (DAGR-M and -L, a 100-class prediction) and
-training keep the split route.
+Two routes, chosen by mode and shape alone:
 
-Training: when ``x`` requires grad, ``spline_aggregate`` runs as a
-``torch.autograd.Function`` whose backward is ``grad_x = A^T grad_g``
-(kernel K9a, ``spline_aggregate_backward``: the scatter-add transpose
-that ``jax.grad`` derives from the aggregation's gathers), over the
-level's transposed CSR, which the first backward of a level builds and
-``LevelEdges`` keeps for the level's other convs.  The gradients of W,
-root and bias are autograd of the ``torch.matmul``s, as dagr_tpu leaves
-those dots to XLA.  Edge attributes get no gradient: positions are not
-learned.  Under ``torch.no_grad`` (serving) nothing of this runs.
+* the fused eval block, ``spline_conv_block``: one whole eval-mode block
+  (``models.blocks``' ConvBlock, ConvBlockWithSkip and the head's
+  prediction convs): the conv, the batch norm on running statistics, the
+  skip branch, the activation and the node mask, in one launch of
+  ``csrc/spline_conv.cu``'s ``dagr_spline_conv_block`` on CUDA tensors
+  and as ``spline_conv_block_plain`` on CPU tensors; taken in eval mode
+  under ``torch.no_grad`` where its tile takes the widths
+  (``fused_block_fits``: Cout <= 64, K <= 16, the tile in shared memory);
+* the split route, ``spline_conv``: the conv alone, at any width
+  (training, the wider convs of DAGR-M and -L, a 100-class prediction,
+  the server's event convs, whose sources are ring rows and whose root
+  rows are the chunk's: ``x_root``).  On CUDA tensors it is one launch of
+  ``dagr_spline_conv`` (g is built in shared memory chunk by chunk and
+  multiplied on the tensor cores in 3xTF32; it never reaches HBM); on CPU
+  tensors ``spline_conv_plain`` (``spline_aggregate_plain @ W + x @ root
+  + bias``).  Where a gradient is wanted it runs as the autograd Function
+  ``_SplineConv``, the same on both devices, which saves x, W and root
+  (never g): its backward is one call of ``spline_conv_backward``
+  (``dagr_spline_conv_backward``: grad_x over the level's transposed
+  edges and grad_W from g recomputed in shared memory, again without
+  writing g or grad_y @ W^T; ``spline_conv_backward_plain`` on CPU
+  tensors), grad_root and grad_bias the dense ``x^T grad_y`` and column
+  sum that dagr_tpu leaves to XLA.  The transposed edges of the event
+  level (the edge ids sorted by source row) are built by the first
+  backward of a level and kept on its ``LevelEdges``; a pooled level
+  needs none (its edges are the mirrored 3x3 stencil, ``stencil_nx``).
+  Edge attributes get no gradient: positions are not learned.
+
+Callers on the card keep ``torch.backends.cuda.matmul.allow_tf32`` False
+(``serve.Detector`` sets it) for the dense products that remain.
 """
 from __future__ import annotations
 
@@ -52,8 +58,6 @@ import torch.nn.functional as F
 from dagr_tpu_torch.core.types import NodeSet
 from dagr_tpu_torch.graph.build import sorted_runs
 from dagr_tpu_torch.kernels import _build
-
-_SMEM_LIMIT = 48 * 1024   # static shared memory a block gets by default
 
 # the activations of dagr_tpu's blocks (jax.nn.gelu is the tanh form) and
 # their codes in csrc/spline_conv.cu
@@ -90,21 +94,42 @@ class _EdgeTables(NamedTuple):
 
 
 class LevelEdges(_EdgeTables):
-    """One level's edges in flat form, shared by the level's convs.  It
-    also keeps the transposed CSR of its masked edges once a backward
-    has built it (``source_runs``)."""
+    """One level's edges in flat form, shared by the level's convs.  A
+    pooled level also carries its grid width (``stencil_nx``: slot k of
+    cell m reads cell m + off_k wherever it is unmasked, the mirrored
+    stencil the backward walks); the event level keeps the buffers of
+    its transposed edges once a backward has built them
+    (``transposed``)."""
 
-    def source_runs(self, n_src: int):
-        """(order i32 [M*K], start i32 [n_src + 1]): the flat edge ids
-        ``m*K + k`` stable-sorted by source row, masked edges last, so
-        source s's edges are ``order[start[s]:start[s+1]]`` in edge
-        order.  Built on the first call and kept."""
+    @property
+    def stencil_nx(self) -> int:
+        """The pooled grid's width, 0 at the event level."""
+        return self.__dict__.get("_stencil_nx", 0)
+
+    def transposed(self, n_src: int):
+        """[order i32 [M*K], start i32 [n_src + 1], built]: the buffers of
+        the transposed edges (``source_runs_plain``'s), allocated on the
+        first call and kept; ``dagr_spline_conv_backward`` fills them on
+        its first call for the level, which sets ``built``."""
         runs = self.__dict__.get("_runs")
         if runs is None or runs[0] != n_src:
-            key = torch.where(self.mask, self.nbr, n_src).reshape(-1)
-            _, order, start = sorted_runs(key, n_src)
-            runs = self.__dict__["_runs"] = (n_src, order, start)
-        return runs[1], runs[2]
+            M, K = self.nbr.shape
+            dev = self.nbr.device
+            runs = self.__dict__["_runs"] = [
+                n_src, torch.empty(M * K, dtype=torch.int32, device=dev),
+                torch.empty(n_src + 1, dtype=torch.int32, device=dev), False]
+        return runs[1:]
+
+
+def source_runs_plain(edges: LevelEdges, n_src: int):
+    """(order i32 [M*K], start i32 [n_src + 1]): the flat edge ids
+    ``m*K + k`` stable-sorted by source row, masked edges last, so source
+    s's edges are ``order[start[s]:start[s+1]]`` in edge order.  What the
+    backward entry builds at the event level (its twin; the CPU route
+    needs none)."""
+    key = torch.where(edges.mask, edges.nbr, n_src).reshape(-1)
+    _, order, start = sorted_runs(key, n_src)
+    return order, start
 
 
 def bilinear_basis(attr: torch.Tensor, kernel_size: int = 5) -> torch.Tensor:
@@ -126,7 +151,8 @@ def level_edges(ns: NodeSet, *, max_value: float) -> LevelEdges:
     ``clip((pos_src - pos_dst) / (2 max_value) + 0.5, 0, 1)`` of a level.
     The event level reads (dx, dy) from the graph's ``nbr_dpos``; a
     pooled level gathers its stencil cells' positions (out-of-frame
-    slots point at a clipped in-frame cell and are masked)."""
+    slots point at a clipped in-frame cell and are masked) and keeps its
+    grid width as ``stencil_nx``."""
     B, N, K = ns.graph.nbr.shape
     base = (torch.arange(B, device=ns.feat.device, dtype=torch.int32)
             * N)[:, None, None]
@@ -137,118 +163,33 @@ def level_edges(ns: NodeSet, *, max_value: float) -> LevelEdges:
         pos = ns.pos[..., :2].reshape(B * N, 2)
         dpos = pos[nbr.long()] - pos[:, None, :]
     attr = (dpos / (2.0 * max_value) + 0.5).clamp(0.0, 1.0)
-    return LevelEdges(nbr=nbr.contiguous(),
-                      mask=ns.graph.nbr_mask.reshape(B * N, K).contiguous(),
-                      attr=attr.contiguous())
-
-
-def spline_aggregate(x: torch.Tensor, edges: LevelEdges,
-                     kernel_size: int = 5) -> torch.Tensor:
-    """g [M, P*C] for node features x [Msrc, C] (see module docstring);
-    differentiable in x."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _Aggregate.apply(x, edges, kernel_size)
-    return _aggregate(x, edges, kernel_size)
-
-
-class _Aggregate(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, edges, kernel_size):
-        ctx.edges, ctx.kernel_size, ctx.n_src = edges, kernel_size, x.shape[0]
-        return _aggregate(x, edges, kernel_size)
-
-    @staticmethod
-    def backward(ctx, grad_g):
-        return (spline_aggregate_backward(grad_g.contiguous(), ctx.edges,
-                                          ctx.n_src, ctx.kernel_size),
-                None, None)
-
-
-def _aggregate(x: torch.Tensor, edges: LevelEdges,
-               kernel_size: int) -> torch.Tensor:
-    M, K = edges.nbr.shape
-    if x.dim() != 2:
-        raise ValueError("x must be [Msrc, C]")
-    if edges.attr.shape != (M, K, 2) or edges.mask.shape != (M, K):
-        raise ValueError("edge tables must be [M, K] and [M, K, 2]")
-    if not x.is_cuda:
-        return spline_aggregate_plain(x, edges, kernel_size)
-    if x.dtype != torch.float32:
-        raise ValueError("x must be f32 [Msrc, C]")
-    C = x.shape[1]
-    P = kernel_size * kernel_size
-    if (256 // min(C, 256)) * P * C * 4 > _SMEM_LIMIT:
-        raise ValueError(f"spline_aggregate: C={C} needs more shared "
-                         "memory than a block gets by default")
-    x = x.contiguous()
-    _build.check_cuda("spline_aggregate", x, *edges)
-    _check_edge_types("spline_aggregate", edges)
-    g = torch.empty((M, P * C), dtype=torch.float32, device=x.device)
-    i = ctypes.c_int
-    _build.launch(
-        "spline_aggregate", "dagr_spline_aggregate",
-        _build.ptr(x), _build.ptr(edges.nbr), _build.ptr(edges.mask),
-        _build.ptr(edges.attr), i(M), i(K), i(C), i(kernel_size),
-        _build.ptr(g))
-    return g
-
-
-def _check_edge_types(name: str, edges: LevelEdges) -> None:
-    if edges.nbr.dtype != torch.int32 or edges.mask.dtype != torch.bool \
-            or edges.attr.dtype != torch.float32:
-        raise ValueError(f"{name}: edge tables must be i32, bool and f32")
+    edges = LevelEdges(nbr=nbr.contiguous(),
+                       mask=ns.graph.nbr_mask.reshape(B * N, K).contiguous(),
+                       attr=attr.contiguous())
+    if ns.grid_hw is not None:
+        edges.__dict__["_stencil_nx"] = ns.grid_hw[1]
+    return edges
 
 
 def spline_aggregate_plain(x: torch.Tensor, edges: LevelEdges,
                            kernel_size: int = 5) -> torch.Tensor:
-    """The K2 aggregation as PyTorch ops (the kernel's twin)."""
+    """g [M, P*C] of the K2 aggregation for node features x [Msrc, C],
+    as PyTorch ops (the split and fused convs' twins build on it)."""
     M, K = edges.nbr.shape
     basis = bilinear_basis(edges.attr, kernel_size) * edges.mask[..., None]
     xs = x[edges.nbr.long()]                                   # [M, K, C]
     g = torch.einsum("mkp,mkc->mpc", basis.to(x.dtype), xs)
-    return g.reshape(M, -1)
-
-
-def spline_aggregate_backward(grad_g: torch.Tensor, edges: LevelEdges,
-                              n_src: int, kernel_size: int = 5
-                              ) -> torch.Tensor:
-    """grad_x [n_src, C] of ``g = spline_aggregate(x, edges)`` for x
-    [n_src, C]: ``grad_x[s] = sum over edges (m, k) with nbr[m, k] = s of
-    mask * sum_p B_p(attr_mk) * grad_g[m, p]``.  Kernel K9a on CUDA
-    tensors (each source row summed over its edges in edge order, no
-    atomics), ``spline_aggregate_backward_plain`` on CPU tensors."""
-    M, K = edges.nbr.shape
-    P = kernel_size * kernel_size
-    if grad_g.dim() != 2 or grad_g.shape[0] != M or grad_g.shape[1] % P:
-        raise ValueError(f"grad_g must be [M, {P}*C] with M={M}")
-    if edges.attr.shape != (M, K, 2) or edges.mask.shape != (M, K):
-        raise ValueError("edge tables must be [M, K] and [M, K, 2]")
-    if not grad_g.is_cuda:
-        return spline_aggregate_backward_plain(grad_g, edges, n_src,
-                                               kernel_size)
-    if grad_g.dtype != torch.float32:
-        raise ValueError("spline_aggregate_backward: grad_g must be f32")
-    _check_edge_types("spline_aggregate_backward", edges)
-    _build.check_cuda("spline_aggregate_backward", grad_g, *edges)
-    order, start = edges.source_runs(n_src)
-    C = grad_g.shape[1] // P
-    grad_x = torch.empty((n_src, C), dtype=torch.float32,
-                         device=grad_g.device)
-    i = ctypes.c_int
-    _build.launch(
-        "spline_aggregate_backward", "dagr_spline_aggregate_backward",
-        _build.ptr(grad_g), _build.ptr(edges.attr), _build.ptr(order),
-        _build.ptr(start), i(n_src), i(K), i(C), i(kernel_size),
-        _build.ptr(grad_x))
-    return grad_x
+    return g.reshape(M, basis.shape[-1] * x.shape[1])
 
 
 def spline_aggregate_backward_plain(grad_g: torch.Tensor, edges: LevelEdges,
                                     n_src: int, kernel_size: int = 5
                                     ) -> torch.Tensor:
-    """The K9a transpose as PyTorch ops (the kernel's twin): each edge's
-    basis-weighted grad_g row, ``index_add_``-ed into its source row,
-    which on the CPU adds in edge order, as the kernel does."""
+    """grad_x [n_src, C] of ``g = spline_aggregate_plain(x, edges)``:
+    ``grad_x[s] = sum over edges (m, k) with nbr[m, k] = s of mask *
+    sum_p B_p(attr_mk) * grad_g[m, p]``, each edge's basis-weighted
+    grad_g row ``index_add_``-ed into its source row, in edge order on
+    the CPU (``spline_conv_backward_plain`` builds on it)."""
     M, K = edges.nbr.shape
     P = kernel_size * kernel_size
     C = grad_g.shape[1] // P
@@ -260,25 +201,246 @@ def spline_aggregate_backward_plain(grad_g: torch.Tensor, edges: LevelEdges,
     return grad_x.index_add_(0, src, per_edge.reshape(M * K, C))
 
 
+def _check_edge_types(name: str, edges: LevelEdges) -> None:
+    if edges.nbr.dtype != torch.int32 or edges.mask.dtype != torch.bool \
+            or edges.attr.dtype != torch.float32:
+        raise ValueError(f"{name}: edge tables must be i32, bool and f32")
+
+
 def spline_conv(
-    x: torch.Tensor,             # f32 [B, N, Cin]
+    x: torch.Tensor,             # f32 [B, N, Cin] (or [Msrc, Cin] with x_root)
     edges: LevelEdges,
     weight: torch.Tensor,        # f32 [P, Cin, Cout]
     root_weight: Optional[torch.Tensor] = None,   # f32 [Cin, Cout]
     bias: Optional[torch.Tensor] = None,          # f32 [Cout]
     *,
     kernel_size: int = 5,
+    x_root: Optional[torch.Tensor] = None,        # f32 [M, Cin]
 ) -> torch.Tensor:
-    """Masked spline message passing over one level; returns [B, N, Cout]."""
-    B, N, cin = x.shape
-    P, _, cout = weight.shape
-    xf = x.reshape(B * N, cin)
-    out = spline_aggregate(xf, edges, kernel_size) @ weight.reshape(P * cin, cout)
-    if root_weight is not None:
-        out = out + xf @ root_weight
+    """Masked spline message passing over one level (the split route):
+    x [B, N, Cin] -> [B, N, Cout], each node its own root row; or, with
+    ``x_root`` [M, Cin] (the server's event convs), sources x [Msrc, Cin]
+    (the rows the edges name) and the M destinations' own rows apart ->
+    [M, Cout].  Differentiable in x, weight, root and bias (not in the
+    server's form) through ``_SplineConv``."""
+    if x_root is None:
+        B, N, cin = x.shape
+        return _conv_rows(x.reshape(B * N, cin), edges, weight, root_weight,
+                          bias, kernel_size, None).reshape(B, N, -1)
+    return _conv_rows(x, edges, weight, root_weight, bias, kernel_size,
+                      x_root)
+
+
+def _conv_rows(x, edges, weight, root, bias, kernel_size, x_root):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, weight, root, bias, x_root)):
+        if x_root is not None:
+            raise ValueError("spline_conv: the form with x_root apart has no "
+                             "backward")
+        return _SplineConv.apply(x, edges, weight, root, bias, kernel_size)
+    return spline_conv_forward(x, edges, weight, root, bias,
+                               x_root=x_root, kernel_size=kernel_size)
+
+
+class _SplineConv(torch.autograd.Function):
+    """The split-route conv with x as both its sources and its root rows.
+    Saves x, W and root (and keeps the level's edges), never g."""
+
+    @staticmethod
+    def forward(ctx, x, edges, weight, root, bias, kernel_size):
+        ctx.edges, ctx.kernel_size = edges, kernel_size
+        ctx.save_for_backward(x, weight, root)
+        return spline_conv_forward(x, edges, weight, root, bias,
+                                   kernel_size=kernel_size)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        x, weight, root = ctx.saved_tensors
+        nx, _, nw, nr, nb, _ = ctx.needs_input_grad
+        gx, gw, gr, gb = spline_conv_backward(
+            x, grad_y.contiguous(), ctx.edges, weight, root,
+            needs=(nx, nw, nr, nb), kernel_size=ctx.kernel_size)
+        return gx, None, gw, gr, gb, None
+
+
+def _check_conv_args(name, x, edges, weight, root, bias, x_root,
+                     kernel_size):
+    M, K = edges.nbr.shape
+    P = kernel_size * kernel_size
+    if weight.dim() != 3 or weight.shape[0] != P:
+        raise ValueError(f"{name}: weight must be [{P}, Cin, Cout]")
+    _, cin, cout = weight.shape
+    if x.dim() != 2 or x.shape[1] != cin:
+        raise ValueError(f"{name}: x must be [Msrc, {cin}]")
+    if edges.attr.shape != (M, K, 2) or edges.mask.shape != (M, K):
+        raise ValueError("edge tables must be [M, K] and [M, K, 2]")
+    shapes = [(x_root, (M, cin)), (root, (cin, cout)), (bias, (cout,))]
+    for t, shape in shapes:
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {list(shape)} expected, got "
+                             f"{list(t.shape)}")
+    if root is not None and x_root is None and x.shape[0] != M:
+        raise ValueError(f"{name}: x must have the edges' {M} rows when it "
+                         "is also the root input")
+
+
+def spline_conv_forward(x, edges, weight, root=None, bias=None, *,
+                        x_root=None, kernel_size=5):
+    """[M, Cout] = g(x) @ W + x_root @ root (+ bias), x_root defaulting
+    to x.  Kernel ``dagr_spline_conv`` on CUDA tensors (any widths; the
+    sums over slots in slot order, no atomics), ``spline_conv_plain`` on
+    CPU tensors.  Not differentiable itself (``spline_conv`` is)."""
+    _check_conv_args("spline_conv", x, edges, weight, root, bias, x_root,
+                     kernel_size)
+    if not x.is_cuda:
+        return spline_conv_plain(x, edges, weight, root, bias,
+                                 x_root=x_root, kernel_size=kernel_size)
+    M, K = edges.nbr.shape
+    _, cin, cout = weight.shape
+    x = x.contiguous()
+    if root is not None and x_root is None:
+        x_root = x
+    given = [t for t in (x, x_root, weight, root, bias) if t is not None]
+    if any(t.dtype != torch.float32 for t in given):
+        raise ValueError("spline_conv: x, W, root and bias must be f32")
+    _check_edge_types("spline_conv", edges)
+    _build.check_cuda("spline_conv", *given, *edges)
+    out = torch.empty((M, cout), dtype=torch.float32, device=x.device)
+    words = _scratch_words("dagr_spline_conv_scratch", M, K, cin, cout,
+                           kernel_size, int(root is not None))
+    scratch = torch.empty(words, dtype=torch.float32, device=x.device) \
+        if words else None
+    i = ctypes.c_int
+    _build.launch(
+        "spline_conv", "dagr_spline_conv", _build.ptr(x), _opt(x_root),
+        _build.ptr(edges.nbr), _build.ptr(edges.mask), _build.ptr(edges.attr),
+        _build.ptr(weight), _opt(root), _opt(bias), i(M), i(K), i(cin),
+        i(cout), i(kernel_size), _opt(scratch), _build.ptr(out))
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def _scratch_words(query: str, *shape: int) -> int:
+    """A split-route entry's scratch words at these shapes (its C size
+    query, ``query``); raises if no tile takes the widths."""
+    fn = getattr(_build.library(), query)
+    fn.argtypes = [ctypes.c_int] * len(shape)
+    fn.restype = ctypes.c_longlong
+    words = int(fn(*shape))
+    if words < 0:
+        raise ValueError(f"{query}: no tile takes the shapes {shape}")
+    return words
+
+
+def _opt(t):
+    return ctypes.c_void_p(None) if t is None else _build.ptr(t)
+
+
+def spline_conv_plain(x, edges, weight, root=None, bias=None, *,
+                      x_root=None, kernel_size=5):
+    """The split conv as PyTorch ops (the kernel's twin):
+    ``spline_aggregate_plain(x) @ W + x_root @ root + bias``."""
+    P, cin, cout = weight.shape
+    out = spline_aggregate_plain(x, edges, kernel_size) @ weight.reshape(
+        P * cin, cout)
+    if root is not None:
+        out = out + (x if x_root is None else x_root) @ root
     if bias is not None:
         out = out + bias
-    return out.reshape(B, N, cout)
+    return out
+
+
+def spline_conv_backward(x, grad_y, edges, weight, root=None, *,
+                         needs=(True, True, True, True), kernel_size=5):
+    """(grad_x, grad_W, grad_root, grad_bias) of ``y = spline_conv(x)``
+    with x [M, Cin] its own root rows, given grad_y [M, Cout]; each None
+    where ``needs`` (x, W, root, bias) says so.  On CUDA tensors one call
+    of ``dagr_spline_conv_backward`` gives grad_x and grad_W (at the
+    event level it first builds the level's transposed edges, once, into
+    ``edges.transposed``; a pooled level walks the mirrored stencil), and
+    grad_root = x^T grad_y and grad_bias = sum_m grad_y are torch's dense
+    products; ``spline_conv_backward_plain`` on CPU tensors."""
+    if not grad_y.is_cuda:
+        return spline_conv_backward_plain(x, grad_y, edges, weight, root,
+                                          needs=needs,
+                                          kernel_size=kernel_size)
+    nx, nw, nr, nb = needs
+    M, K = edges.nbr.shape
+    P, cin, cout = weight.shape
+    _check_conv_args("spline_conv_backward", x, edges, weight, root, None,
+                     None, kernel_size)
+    if tuple(grad_y.shape) != (M, cout) or x.shape[0] != M:
+        raise ValueError(f"spline_conv_backward: x [{M}, {cin}] and grad_y "
+                         f"[{M}, {cout}] expected")
+    given = [t for t in (x, grad_y, weight, root) if t is not None]
+    if any(t.dtype != torch.float32 for t in given):
+        raise ValueError("spline_conv_backward: tensors must be f32")
+    _check_edge_types("spline_conv_backward", edges)
+    _build.check_cuda("spline_conv_backward", *given, *edges)
+    nx_grid = edges.stencil_nx
+    if nx_grid and K != 9:
+        raise ValueError("spline_conv_backward: a pooled level has K = 9")
+    grad_x = grad_w = None
+    if nx or nw:
+        sort = bool(nx) and not nx_grid
+        order = start = None
+        build = False
+        if sort:
+            order, start, built = edges.transposed(M)
+            build = not built
+        words = _scratch_words(
+            "dagr_spline_conv_backward_scratch", M, K, cin, cout,
+            kernel_size, nx_grid, int(sort and build), int(bool(nx)),
+            int(bool(nw)))
+        scratch = torch.empty(max(words, 1), dtype=torch.int32,
+                              device=x.device)
+        dev = x.device
+        if nx:
+            grad_x = torch.empty((M, cin), dtype=torch.float32, device=dev)
+        if nw:
+            grad_w = torch.empty((P, cin, cout), dtype=torch.float32,
+                                 device=dev)
+        i = ctypes.c_int
+        _build.launch(
+            "spline_conv_backward", "dagr_spline_conv_backward",
+            _build.ptr(x), _build.ptr(grad_y), _build.ptr(edges.nbr),
+            _build.ptr(edges.mask), _build.ptr(edges.attr),
+            _build.ptr(weight), _opt(root), i(M), i(K), i(cin), i(cout),
+            i(kernel_size), i(nx_grid), i(int(build)), _opt(order),
+            _opt(start), _build.ptr(scratch), _opt(grad_x), _opt(grad_w))
+        if build:
+            edges.__dict__["_runs"][3] = True
+    grad_root = x.t() @ grad_y if nr and root is not None else None
+    grad_bias = grad_y.sum(0) if nb else None
+    return grad_x, grad_w, grad_root, grad_bias
+
+
+def spline_conv_backward_plain(x, grad_y, edges, weight, root=None, *,
+                               needs=(True, True, True, True),
+                               kernel_size=5):
+    """The split conv's backward as PyTorch ops (the kernel's twin), each
+    gradient explicit: grad_x = ``spline_aggregate_backward_plain(grad_y @
+    W^T) + grad_y @ root^T``, grad_W = ``g^T grad_y`` with g recomputed by
+    ``spline_aggregate_plain``, grad_root = ``x^T grad_y``, grad_bias the
+    column sum."""
+    nx, nw, nr, nb = needs
+    P, cin, cout = weight.shape
+    w2 = weight.reshape(P * cin, cout)
+    grad_x = grad_w = grad_root = grad_bias = None
+    if nx:
+        grad_x = spline_aggregate_backward_plain(
+            grad_y @ w2.t(), edges, x.shape[0], kernel_size)
+        if root is not None:
+            grad_x = grad_x + grad_y @ root.t()
+    if nw:
+        g = spline_aggregate_plain(x, edges, kernel_size)
+        grad_w = (g.t() @ grad_y).reshape(P, cin, cout)
+    if nr and root is not None:
+        grad_root = x.t() @ grad_y
+    if nb:
+        grad_bias = grad_y.sum(0)
+    return grad_x, grad_w, grad_root, grad_bias
 
 
 def spline_conv_block(
@@ -327,20 +489,18 @@ def spline_conv_block(
     _build.check_cuda("spline_conv_block", *given, *edges)
     out = torch.empty((M, cout), dtype=torch.float32, device=x.device)
     i, f = ctypes.c_int, ctypes.c_float
-    null = ctypes.c_void_p(None)
-    opt = lambda t: null if t is None else _build.ptr(t)
 
     def stats_args(stats):
         if stats is None:
-            return [null] * 4 + [f(0.0)]
+            return [_opt(None)] * 4 + [f(0.0)]
         return [_build.ptr(t) for t in stats[:4]] + [f(stats.eps)]
 
     _build.launch(
         "spline_conv_block", "dagr_spline_conv_block",
         _build.ptr(x), _build.ptr(edges.nbr), _build.ptr(edges.mask),
         _build.ptr(edges.attr), _build.ptr(weight), _build.ptr(root),
-        opt(bias), *stats_args(bn), opt(skip), opt(lin),
-        *stats_args(bn_skip), opt(mask), i(M), i(K), i(cin), i(cout),
+        _opt(bias), *stats_args(bn), _opt(skip), _opt(lin),
+        *stats_args(bn_skip), _opt(mask), i(M), i(K), i(cin), i(cout),
         i(cs), i(kernel_size), i(_ACT_CODES[act]), _build.ptr(out))
     return out
 

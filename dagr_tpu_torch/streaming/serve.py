@@ -14,9 +14,10 @@ of S streams as one batch:
   no slot was overwritten while still inside some query's dt window.
 * The chunk is searched against the rings in one call (K8's search,
   ``graph.build.search_edges_streams``): the stream is folded into the
-  pixel id.  The event-level ``conv_block1``/``conv_block2`` gather their
-  sources from the ``xin`` and ``x1`` rings through K2, with the edge
-  attributes taken from the spiral offsets of the picks.
+  pixel id.  The event-level ``conv_block1``/``conv_block2`` are split
+  convs (one ``dagr_spline_conv`` launch each) whose sources are rows of
+  the ``xin`` and ``x1`` rings and whose root rows are the chunk's, with
+  the edge attributes taken from the spiral offsets of the picks.
 * Level 1: ``window_mode="grow"`` (one bounded window; a new window
   starts from ``init_state``) adds the chunk to S*G1 folded cells through
   K10; ``"ring"`` (an endless stream, NR the window's capacity) lets the
@@ -53,7 +54,7 @@ from dagr_tpu_torch.models.net import with_rel_delta
 from dagr_tpu_torch.ops.nms import MAX_DETECTIONS
 from dagr_tpu_torch.ops.pool import (
     _cell, _inv, accumulate_cells, cell_max, pool_nodeset, ring_update_cells)
-from dagr_tpu_torch.ops.spline import LevelEdges, spline_aggregate
+from dagr_tpu_torch.ops.spline import LevelEdges, spline_conv
 # chunk_streams is part of this module's interface: callers cut their
 # streams into the lockstep chunks that ``step`` takes with it
 from dagr_tpu_torch.streaming.engine import (
@@ -287,11 +288,10 @@ class MultiStreamServer:
 
     @staticmethod
     def _conv(table, edges: LevelEdges, conv, x_dst):
-        """Spline conv of the chunk's rows with sources in ``table``:
-        K2's aggregation, then the tap and root products."""
-        P, cin, cout = conv.weight.shape
-        g = spline_aggregate(table, edges, conv.kernel_size)
-        return g @ conv.weight.reshape(P * cin, cout) + x_dst @ conv.root
+        """Spline conv of the chunk's rows with sources in ``table`` and
+        root rows ``x_dst``: one split-route conv (``spline_conv``)."""
+        return spline_conv(table, edges, conv.weight, conv.root,
+                           kernel_size=conv.kernel_size, x_root=x_dst)
 
     # ------------------------------------------------------------------
     def level1_nodeset(self, state: ServeState) -> NodeSet:

@@ -49,9 +49,10 @@ from dagr_tpu_torch.ops.pool import (
     cell_max, cell_max_plain, pool_features_backward, pool_graph,
     pool_graph_plain, ring_update_cells, ring_update_cells_plain)
 from dagr_tpu_torch.ops.spline import (
-    BatchNormStats, LevelEdges, spline_aggregate, spline_aggregate_backward,
-    block_shared_memory, fused_block_fits, spline_aggregate_backward_plain,
-    spline_aggregate_plain, spline_conv_block, spline_conv_block_plain)
+    BatchNormStats, LevelEdges, block_shared_memory, fused_block_fits,
+    level_edges, source_runs_plain, spline_conv, spline_conv_backward,
+    spline_conv_backward_plain, spline_conv_block, spline_conv_block_plain,
+    spline_conv_forward, spline_conv_plain)
 from dagr_tpu_torch.serve import Detector
 from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
 from dagr_tpu_torch.streaming.serve import MultiStreamServer, chunk_streams
@@ -60,11 +61,11 @@ from dagr_tpu_torch.train.state import (
 
 pytestmark = pytest.mark.cuda
 W, H = 320, 240
-# eval convs are fused blocks; training runs the split aggregation
+# eval convs are fused blocks; training runs the split conv
 SYNC_KERNELS = ("graph_search", "spline_conv_block", "voxel_pool", "nms")
 STREAM_KERNELS = ("graph_search_store", "spline_gather", "spline_conv_block",
                   "voxel_pool")
-TRAIN_KERNELS = ("graph_search", "spline_aggregate", "voxel_pool")
+TRAIN_KERNELS = ("graph_search", "spline_conv", "voxel_pool")
 GRAPH_KW = dict(width=W, height=H, radius=4, delta_t_us=10_000,
                 max_neighbors=16, queue_size=128)
 
@@ -153,17 +154,24 @@ def test_graph_search_bit_equal_in_edge_cases(dev, case, dt):
 
 @pytest.mark.parametrize("cin", [1, 3, 16, 66, 130])
 def test_spline_aggregate_widths(dev, cin):
+    """The split conv at 777 destinations over 900 source rows (the
+    server's form: root rows apart) against its twin on the card, 1e-5
+    of the output's max."""
     g = torch.Generator(device="cpu").manual_seed(cin)
-    M, K = 777, 9 if cin > 16 else 16
+    M, K, n_src, cout = 777, 9 if cin > 16 else 16, 900, 2 * cin + 1
     edges = LevelEdges(
-        nbr=torch.randint(0, M, (M, K), generator=g, dtype=torch.int32),
+        nbr=torch.randint(0, n_src, (M, K), generator=g, dtype=torch.int32),
         mask=torch.rand((M, K), generator=g) < 0.7,
         attr=torch.rand((M, K, 2), generator=g) * 1.4 - 0.2)
-    x = torch.randn((M, cin), generator=g)
+    x, xr = torch.randn((n_src, cin), generator=g), torch.randn((M, cin),
+                                                               generator=g)
+    w, root = torch.randn((25, cin, cout), generator=g), torch.randn(
+        (cin, cout), generator=g)
+    args = [t.to(dev) for t in (x, w, root)]
     edges = LevelEdges(*(t.to(dev) for t in edges))
-    a = spline_aggregate(x.to(dev), edges)
-    b = spline_aggregate_plain(x.to(dev), edges)
-    assert a.shape == (M, 25 * cin)
+    a = spline_conv(args[0], edges, *args[1:], x_root=xr.to(dev))
+    b = spline_conv_plain(args[0], edges, *args[1:], x_root=xr.to(dev))
+    assert a.shape == (M, cout)
     assert float((a - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
 
 
@@ -224,7 +232,7 @@ def test_detector_matches_cpu_and_launches_every_kernel(dev):
     after = _build.launch_counts()
     assert all(after[k] > before[k] for k in SYNC_KERNELS)
     assert after["spline_conv_block"] - before["spline_conv_block"] == 20
-    assert after["spline_aggregate"] == before["spline_aggregate"]
+    assert after["spline_conv"] == before["spline_conv"]
     raw_cpu, _ = cpu(ev.to("cpu"))
     torch.testing.assert_close(raw.cpu(), raw_cpu, atol=1e-4, rtol=1e-4)
     assert dets["valid"].shape == (3, 175)
@@ -257,7 +265,7 @@ def test_detector_at_every_width_matches_cpu(dev, name):
     """DAGR-N, -M and -L on the card (NCaltech101's 100 classes at
     240 x 180) against the same model on the CPU, raw to 1e-4; each conv
     on the route its widths give: ``eval_routes`` fused blocks and split
-    K2 aggregations launched, and every sync kernel."""
+    convs launched, and every sync kernel."""
     cfg = DagrConfig(n_nodes=4000, **WIDTHS[name])
     w, h = (240, 180) if cfg.dataset == "ncaltech101" else (W, H)
     det = Detector(cfg, h, w, dev, seed=12)
@@ -270,7 +278,7 @@ def test_detector_at_every_width_matches_cpu(dev, name):
     after = _build.launch_counts()
     assert all(after[k] > before[k] for k in SYNC_KERNELS)
     assert after["spline_conv_block"] - before["spline_conv_block"] == fused
-    assert after["spline_aggregate"] - before["spline_aggregate"] == split
+    assert after["spline_conv"] - before["spline_conv"] == split
     raw_cpu, _ = cpu(ev.to("cpu"))
     assert raw.shape == raw_cpu.shape == (3, raw.shape[1],
                                           5 + cfg.num_classes)
@@ -282,7 +290,8 @@ def test_wrappers_reject_mixed_devices(dev):
                        mask=torch.ones((4, 2), dtype=torch.bool),
                        attr=torch.zeros((4, 2, 2)))
     with pytest.raises(ValueError):
-        spline_aggregate(torch.zeros((4, 3), device=dev), edges)
+        spline_conv_forward(torch.zeros((4, 3), device=dev), edges,
+                            torch.zeros((25, 3, 2), device=dev))
 
 
 def event_stream(seed, n, hot=0):
@@ -693,7 +702,7 @@ def test_server_matches_cpu(dev, mode):
     st, st_ref = srv.init_state(), ref.init_state()
     pos = np.stack([event_stream(20 + s, 3000) for s in range(4)])
     feat = np.random.default_rng(8).integers(0, 2, (4, 3000, 1)).astype(np.float32)
-    kernels = ("serve_search", "spline_aggregate", "spline_conv_block",
+    kernels = ("serve_search", "spline_conv", "spline_conv_block",
                "voxel_pool") + (
         ("stream_accumulate",) if mode == "grow" else
         ("serve_ring_update", "cell_max"))
@@ -721,38 +730,150 @@ def test_server_matches_cpu(dev, mode):
         assert int(st.num) > srv.NR
 
 
-def random_level(seed, M, K, n_src, cin):
-    """CPU edge tables of M destinations over n_src sources (rows
-    M..n_src-1 are read by no edge; destinations 100-149 have every slot
-    masked) and a grad_g [M, 25*cin]."""
+def random_level(seed, M, K, cin, cout):
+    """CPU edge tables of M destinations over the same M rows (rows
+    700.. are read by no edge; destinations 100-149 have every slot
+    masked), x [M, cin], W, root and a grad_y [M, cout]."""
     g = torch.Generator().manual_seed(seed)
     mask = torch.rand((M, K), generator=g) < 0.7
     mask[100:150] = False
     edges = LevelEdges(
-        nbr=torch.randint(0, M, (M, K), generator=g, dtype=torch.int32),
+        nbr=torch.randint(0, min(M, 700), (M, K), generator=g,
+                          dtype=torch.int32),
         mask=mask, attr=torch.rand((M, K, 2), generator=g) * 1.4 - 0.2)
-    return edges, torch.randn((M, 25 * cin), generator=g)
+    return edges, [torch.randn(s, generator=g) for s in (
+        (M, cin), (25, cin, cout), (cin, cout), (M, cout))]
 
 
 @pytest.mark.parametrize("cin,K", [(3, 16), (16, 16), (16, 9), (66, 9)])
 def test_spline_backward_edge_cases(dev, cin, K):
-    """K9a against its twin on the CPU (1e-5 relative: the twin sums a
-    row's 25 taps in another order), directly and through autograd; a
-    source row no edge reads gets exactly 0."""
-    M, n_src = 777, 900
-    edges, gg = random_level(cin + K, M, K, n_src, cin)
+    """The split conv's backward entry against its twin (1e-5 of each
+    gradient's max: the twin sums in another order), directly and through
+    autograd; a source row no edge reads gets its root term alone; the
+    transposed edges it builds bit-equal to their twin, once a level."""
+    M, cout = 777, 8
+    edges, (x, w, root, gy) = random_level(cin + K, M, K, cin, cout)
     e_dev = LevelEdges(*(t.to(dev) for t in edges))
-    before = _build.launch_counts()["spline_aggregate_backward"]
-    a = spline_aggregate_backward(gg.to(dev), e_dev, n_src)
-    b = spline_aggregate_backward_plain(gg, edges, n_src)
-    assert a.shape == (n_src, cin)
-    assert float((a.cpu() - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
-    assert not a[M:].any()
-    x = torch.randn((n_src, cin), device=dev, requires_grad=True)
-    (gx,) = torch.autograd.grad(spline_aggregate(x, e_dev), x, gg.to(dev))
+    args = [t.to(dev) for t in (x, gy)]
+    before = _build.launch_counts()["spline_conv_backward"]
+    a = spline_conv_backward(args[0], args[1], e_dev, w.to(dev), root.to(dev))
+    b = spline_conv_backward_plain(x, gy, edges, w, root)
+    for ga, gb in zip(a, b):
+        assert ga.shape == gb.shape
+        assert float((ga.cpu() - gb).abs().max()) <= 1e-5 * max(
+            1.0, float(gb.abs().max()))
+    order, start, built = e_dev.transposed(M)
+    want_order, want_start = source_runs_plain(e_dev, M)
+    assert built and torch.equal(order, want_order) \
+        and torch.equal(start, want_start)
+    assert_close_to_max(a[0][700:], args[1][700:] @ root.to(dev).t(),
+                        "lonely rows")
+    xg = args[0].clone().requires_grad_(True)
+    wg, rg = w.to(dev).requires_grad_(True), root.to(dev).requires_grad_(True)
+    got = torch.autograd.grad(spline_conv(xg[None], e_dev, wg, rg)[0],
+                              (xg, wg, rg), args[1])
     torch.cuda.synchronize()
-    assert torch.equal(gx, a)
-    assert _build.launch_counts()["spline_aggregate_backward"] == before + 2
+    for ga, gb in zip(got, a):
+        assert torch.equal(ga, gb)
+    assert _build.launch_counts()["spline_conv_backward"] == before + 2
+    assert e_dev.transposed(M)[0] is order
+
+
+def conv_case(seed, M, K, cin, cout, dev):
+    """A split conv's inputs on ``dev``: M destinations over the same M
+    rows, destinations 100-149 (when there) with every slot masked, a
+    seventh of the edges at attr x = 0; x, W, root, bias, grad_y."""
+    g = torch.Generator().manual_seed(seed)
+    mask = torch.rand((M, K), generator=g) < 0.7
+    mask[100:150] = False
+    attr = torch.rand((M, K, 2), generator=g) * 1.4 - 0.2
+    attr[::7, :, 0] = 0.0
+    edges = LevelEdges(
+        nbr=torch.randint(0, max(M, 1), (M, K), generator=g,
+                          dtype=torch.int32), mask=mask, attr=attr)
+    ts = [torch.randn(s, generator=g) for s in (
+        (M, cin), (25, cin, cout), (cin, cout), (cout,), (M, cout))]
+    ts[1] *= (25 * cin) ** -0.5
+    return LevelEdges(*(t.to(dev) for t in edges)), [t.to(dev) for t in ts]
+
+
+def assert_close_to_max(a, b, what):
+    assert a.shape == b.shape, what
+    if b.numel():
+        err = float((a - b).abs().max())
+        assert err <= 1e-5 * max(1.0, float(b.abs().max())), (what, err)
+
+
+@pytest.mark.parametrize("cin", [1, 3, 16, 18, 64, 66, 128, 130])
+def test_spline_conv_entries_at_every_width(dev, cin):
+    """Both split-route entries against their twins on the card (1e-5 of
+    each output's max) over Cout 1-128 (the 100-class prediction
+    included), K 9 and 16 and M 0, 1, 17 and 4097 (none a multiple of the
+    64-row tile); two backward runs bit-identical."""
+    for cout, K, M in itertools.product((1, 5, 16, 64, 100, 128), (9, 16),
+                                        (0, 1, 17, 4097)):
+        edges, (x, w, root, bias, gy) = conv_case(cin + cout + K + M, M, K,
+                                                  cin, cout, dev)
+        what = (cin, cout, K, M)
+        assert_close_to_max(spline_conv_forward(x, edges, w, root, bias),
+                            spline_conv_plain(x, edges, w, root, bias), what)
+        got = spline_conv_backward(x, gy, edges, w, root)
+        for a, b in zip(got, spline_conv_backward_plain(x, gy, edges, w,
+                                                        root)):
+            assert_close_to_max(a, b, what)
+        again = spline_conv_backward(x, gy, edges, w, root)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), what
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 16), (66, 64), (130, 128)])
+def test_spline_conv_backward_on_pooled_levels(dev, cin, cout):
+    """The backward on real pooled levels (the mirrored stencil, no sort)
+    of a ragged batch at 40 x 56 and 10 x 14 against its twin; the
+    level's tables have the stencil's shape (slot k of cell m reads
+    m + off_k wherever it is unmasked); no transposed edges allocated."""
+    ev = ragged_windows(21, dev)
+    graph = build_graph(ev.pos_px(), ev.mask, **GRAPH_KW)
+    ns = NodeSet(feat=torch.randn((3, ev.num_nodes, cin), device=dev),
+                 pos=ev.pos, mask=ev.mask, graph=graph)
+    from dagr_tpu_torch.ops.pool import pool_nodeset
+    g = torch.Generator().manual_seed(cin)
+    for gy_, gx_ in ((40, 56), (10, 14)):
+        ns = pool_nodeset(ns, grid_ny=gy_, grid_nx=gx_, width=W, height=H)
+        edges = level_edges(ns, max_value=0.1)
+        assert edges.stencil_nx == gx_
+        M = edges.nbr.shape[0]
+        off = torch.tensor([dy * gx_ + dx for dy in (-1, 0, 1)
+                            for dx in (-1, 0, 1)], device=dev)
+        want_nbr = torch.arange(M, device=dev)[:, None] + off
+        assert torch.equal(edges.nbr[edges.mask].long(),
+                           want_nbr[edges.mask])
+        x = ns.feat.reshape(M, cin)
+        w, root = (torch.randn(s, generator=g).to(dev)
+                   for s in ((25, cin, cout), (cin, cout)))
+        gy = torch.randn((M, cout), generator=g).to(dev)
+        got = spline_conv_backward(x, gy, edges, w, root)
+        for a, b in zip(got, spline_conv_backward_plain(x, gy, edges, w,
+                                                        root)):
+            assert_close_to_max(a, b, (cin, cout, gx_))
+        assert "_runs" not in edges.__dict__
+
+
+def test_spline_conv_at_a_batch_of_64(dev):
+    """The event level of the recipe's batch of 64 (3.2M rows, K = 16,
+    Cin = Cout = 16; 22-bit source keys, three radix passes): forward and
+    backward against their twins, the transposed edges bit-equal."""
+    M, K = 64 * 50_000, 16
+    edges, (x, w, root, bias, gy) = conv_case(64, M, K, 16, 16, dev)
+    assert_close_to_max(spline_conv_forward(x, edges, w, root, bias),
+                        spline_conv_plain(x, edges, w, root, bias), "fwd")
+    got = spline_conv_backward(x, gy, edges, w, root)
+    order, start, built = edges.transposed(M)
+    want = source_runs_plain(edges, M)
+    assert built and torch.equal(order, want[0]) and torch.equal(start,
+                                                                 want[1])
+    for a, b in zip(got, spline_conv_backward_plain(x, gy, edges, w, root)):
+        assert_close_to_max(a, b, "bwd")
 
 
 def pool_case(dev):
@@ -833,19 +954,20 @@ def test_pool_backward_matches_twin_on_ragged_windows(dev):
 
 
 def test_backward_wrappers_refuse_bad_inputs(dev):
-    edges, gg = random_level(0, 50, 9, 60, 4)
+    edges, ts = random_level(0, 50, 9, 4, 3)
     e_dev = LevelEdges(*(t.to(dev) for t in edges))
+    x, w, root, gy = (t.to(dev) for t in ts)
     with pytest.raises(ValueError):
-        spline_aggregate_backward(gg.to(dev).double(), e_dev, 60)
+        spline_conv_backward(x, gy.double(), e_dev, w, root)
     with pytest.raises(ValueError):                        # not contiguous
-        spline_aggregate_backward(gg.to(dev).t().contiguous().t(), e_dev, 60)
+        spline_conv_backward(x, gy.t().contiguous().t(), e_dev, w, root)
     with pytest.raises(ValueError):
-        spline_aggregate_backward(gg.to(dev), LevelEdges(
+        spline_conv_backward(x, gy, LevelEdges(
             e_dev.nbr, e_dev.mask,
-            e_dev.attr.transpose(0, 1).contiguous().transpose(0, 1)), 60)
+            e_dev.attr.transpose(0, 1).contiguous().transpose(0, 1)), w, root)
     with pytest.raises(ValueError):
-        spline_aggregate_backward(gg.to(dev), LevelEdges(
-            e_dev.nbr.long(), e_dev.mask, e_dev.attr), 60)
+        spline_conv_backward(x, gy, LevelEdges(
+            e_dev.nbr.long(), e_dev.mask, e_dev.attr), w, root)
     feat = torch.zeros((1, 4, 2), device=dev)
     order = torch.arange(4, dtype=torch.int32, device=dev)
     start = torch.tensor([0, 4, 4], dtype=torch.int32, device=dev)
@@ -876,7 +998,7 @@ def test_train_step_matches_cpu_and_eval_launches_no_backward(dev):
     ev = ragged_windows(5, dev)
     tgt = random_targets(np.random.default_rng(5), 3, width=W, height=H,
                          n_boxes=5)
-    k9 = ("spline_aggregate_backward", "voxel_pool_backward")
+    k9 = ("spline_conv_backward", "voxel_pool_backward")
     for _ in range(2):
         before = _build.launch_counts()
         got = train_step(state, ev, tgt)
@@ -896,7 +1018,7 @@ def test_train_step_matches_cpu_and_eval_launches_no_backward(dev):
     eval_forward(state, ev)
     torch.cuda.synchronize()
     after = _build.launch_counts()
-    assert all(after[k] == before[k] for k in k9 + ("spline_aggregate",))
+    assert all(after[k] == before[k] for k in k9 + ("spline_conv",))
     assert after["spline_conv_block"] - before["spline_conv_block"] == 20
 
 
@@ -1067,7 +1189,7 @@ def test_grow_step_with_fused_blocks_in_a_cuda_graph(dev):
         _, graph_raw, _ = eng.step(copy_st, *inputs)
     after = _build.launch_counts()
     assert after["spline_conv_block"] - before["spline_conv_block"] == 18
-    assert after["spline_aggregate"] == before["spline_aggregate"]
+    assert after["spline_conv"] == before["spline_conv"]
     for c in chunks[5:8]:
         for t, v in zip(inputs, c):
             t.copy_(v)

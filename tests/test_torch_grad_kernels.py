@@ -1,5 +1,5 @@
-"""The backward passes of the port's spline aggregation and voxel pooling
-(K9a, K9b: their plain twins on the CPU) against ``jax.grad`` through
+"""The backward passes of the port's split spline conv and voxel pooling
+(``dagr_spline_conv_backward``, K9b: their plain twins on the CPU) against ``jax.grad`` through
 dagr_tpu's ``spline_conv`` / ``stencil_spline_conv`` and ``pool_graph``
 on the same numpy inputs; the autograd Functions' CPU backward against
 autograd of the plain forwards, and ``gradcheck`` in float64.
@@ -27,8 +27,9 @@ from dagr_tpu_torch.ops.pool import (
     pool_features_backward, pool_features_backward_plain, pool_graph,
     pool_graph_plain, pool_nodeset)
 from dagr_tpu_torch.ops.spline import (
-    LevelEdges, level_edges, spline_aggregate, spline_aggregate_backward,
-    spline_aggregate_backward_plain, spline_aggregate_plain, spline_conv)
+    LevelEdges, level_edges, source_runs_plain,
+    spline_aggregate_backward_plain, spline_conv, spline_conv_backward,
+    spline_conv_plain)
 
 W, H = 320, 240
 GRID1 = dict(grid_ny=40, grid_nx=56, width=W, height=H)
@@ -174,33 +175,59 @@ def random_edges(seed, M, K, dtype=torch.float32):
     return edges, torch.randn((M, 5), generator=g, dtype=dtype)
 
 
+def conv_weights(seed, cin, cout, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    return [(0.3 * torch.randn(s, generator=g, dtype=dtype)).requires_grad_()
+            for s in ((25, cin, cout), (cin, cout), (cout,))]
+
+
 def test_spline_function_backward_is_the_twin():
+    """The split conv's autograd Function (``spline_conv``) on the CPU:
+    its four gradients equal autograd through the plain forward and, bit
+    for bit, ``spline_conv_backward``; the transposed edges that the card
+    builds (their twin ``source_runs_plain``) list each source's edges."""
     edges, x = random_edges(0, 300, 9)
+    # no edge reads row 7
+    edges = edges._replace(nbr=torch.where(edges.nbr == 7, 8, edges.nbr))
     x.requires_grad_(True)
-    gg = torch.randn((300, 25 * 5), generator=torch.Generator().manual_seed(1))
-    (got,) = torch.autograd.grad(spline_aggregate(x, edges), x, gg)
-    (want,) = torch.autograd.grad(spline_aggregate_plain(x, edges), x, gg)
-    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
-    torch.testing.assert_close(
-        got, spline_aggregate_backward(gg, edges, 300), atol=0, rtol=0)
-    # the transposed CSR (the kernel's; the twin needs none) is built
-    # once and kept
-    order, start = edges.source_runs(300)
-    assert edges.source_runs(300)[0] is order
+    w, root, bias = conv_weights(1, 5, 7)
+    gy = torch.randn((300, 7), generator=torch.Generator().manual_seed(1))
+    args = (x, w, root, bias)
+    got = torch.autograd.grad(spline_conv(x[None], edges, w, root, bias)[0],
+                              args, gy)
+    want = torch.autograd.grad(spline_conv_plain(x, edges, w, root, bias),
+                               args, gy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+    direct = spline_conv_backward(x.detach(), gy, edges, w.detach(),
+                                  root.detach())
+    for a, b in zip(got, direct):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    # the transposed CSR (the card's; the twin needs none): every masked
+    # edge once, by source, in edge order within a source
+    order, start = source_runs_plain(edges, 300)
     assert int(start[-1]) == int(edges.mask.sum())
     src = edges.nbr.reshape(-1)[order[:start[-1]].long()]
     assert torch.equal(src, torch.sort(edges.nbr[edges.mask]).values)
-    # a source row that no edge reads gets 0
+    assert bool((order[1:start[-1]] > order[:start[-1] - 1])[
+        src[1:] == src[:-1]].all())
+    # its buffers are allocated once per level and kept
+    assert edges.transposed(300)[0] is edges.transposed(300)[0]
+    # a source row that no edge reads gets its root term alone
     lonely = torch.ones(300, dtype=torch.bool)
     lonely[edges.nbr[edges.mask].long()] = False
-    assert not got[lonely].any()
+    assert bool(lonely[7])
+    torch.testing.assert_close(got[0][lonely], (gy @ root.detach().t())[lonely],
+                               atol=0, rtol=0)
 
 
 def test_spline_function_gradcheck_float64():
     edges, x = random_edges(2, 40, 5, torch.float64)
     x.requires_grad_(True)
-    assert torch.autograd.gradcheck(lambda x: spline_aggregate(x, edges), (x,),
-                                    fast_mode=True)
+    w, root, bias = conv_weights(3, 5, 3, torch.float64)
+    assert torch.autograd.gradcheck(
+        lambda *a: spline_conv(a[0][None], edges, *a[1:])[0],
+        (x, w, root, bias), fast_mode=True)
     assert spline_aggregate_backward_plain(
         torch.ones((40, 25 * 5), dtype=torch.float64), edges, 40).dtype \
         == torch.float64
@@ -209,10 +236,11 @@ def test_spline_function_gradcheck_float64():
 def test_no_grad_builds_nothing_for_the_backward():
     edges, x = random_edges(3, 100, 9)
     x.requires_grad_(True)
+    w, root, bias = conv_weights(4, 5, 4)
     with torch.no_grad():
-        spline_aggregate(x, edges)
-    assert "_runs" not in edges.__dict__
-    y = spline_aggregate(x, edges)
+        y = spline_conv(x[None], edges, w, root, bias)
+    assert not y.requires_grad and "_runs" not in edges.__dict__
+    y = spline_conv(x[None], edges, w, root, bias)
     assert y.requires_grad and "_runs" not in edges.__dict__
 
 

@@ -18,8 +18,8 @@ from dagr_tpu_torch.core.types import NodeSet
 from dagr_tpu_torch.graph.build import build_graph
 from dagr_tpu_torch.ops.pool import pool_nodeset
 from dagr_tpu_torch.ops.spline import (
-    bilinear_basis, level_edges, spline_aggregate, spline_aggregate_plain,
-    spline_conv)
+    bilinear_basis, level_edges, spline_aggregate_plain, spline_conv,
+    spline_conv_forward, spline_conv_plain)
 
 W, H, T = 64, 48, 100_000
 
@@ -95,13 +95,22 @@ def test_stencil_level_conv(cin):
 
 
 def test_aggregate_is_the_plain_twin_on_cpu():
+    """The split route's conv on CPU tensors is its twin,
+    ``spline_aggregate_plain(x) @ W + x @ root + bias``, bit for bit."""
     _, tns = event_level(3, C=4)
     edges = level_edges(tns, max_value=0.05)
     x = tns.feat.reshape(-1, 4)
-    g = spline_aggregate(x, edges)
-    assert g.shape == (x.shape[0], 25 * 4)
-    torch.testing.assert_close(g, spline_aggregate_plain(x, edges),
+    g = torch.Generator().manual_seed(3)
+    w, root, bias = (torch.randn(s, generator=g)
+                     for s in ((25, 4, 6), (4, 6), (6,)))
+    y = spline_conv_forward(x, edges, w, root, bias)
+    assert y.shape == (x.shape[0], 6)
+    want = spline_aggregate_plain(x, edges) @ w.reshape(100, 6) + x @ root \
+        + bias
+    torch.testing.assert_close(y, want, rtol=0, atol=0)
+    torch.testing.assert_close(y, spline_conv_plain(x, edges, w, root, bias),
                                rtol=0, atol=0)
-    # masked slots contribute nothing
+    # masked slots contribute nothing: the root term alone
     none = edges._replace(mask=torch.zeros_like(edges.mask))
-    assert not spline_aggregate(x, none).any()
+    torch.testing.assert_close(spline_conv_forward(x, none, w, root, bias),
+                               x @ root + bias, rtol=0, atol=0)

@@ -109,24 +109,25 @@ def randomized(variables, seed):
 
 
 class Spy:
-    """Counts the fused blocks and the split route's K2 aggregations that
-    the port's modules call through ``ops.spline``."""
+    """Counts the fused blocks and the split-route convs
+    (``spline_conv_forward``, one ``dagr_spline_conv`` launch each on the
+    card) that the port's modules call through ``ops.spline``."""
 
     def __init__(self, monkeypatch):
         self.fused = self.split = 0
-        block, aggregate = (spline_ops.spline_conv_block,
-                            spline_ops.spline_aggregate)
+        block, split = (spline_ops.spline_conv_block,
+                        spline_ops.spline_conv_forward)
 
         def spy_block(*args, **kwargs):
             self.fused += 1
             return block(*args, **kwargs)
 
-        def spy_aggregate(*args, **kwargs):
+        def spy_split(*args, **kwargs):
             self.split += 1
-            return aggregate(*args, **kwargs)
+            return split(*args, **kwargs)
 
         monkeypatch.setattr(spline_ops, "spline_conv_block", spy_block)
-        monkeypatch.setattr(spline_ops, "spline_aggregate", spy_aggregate)
+        monkeypatch.setattr(spline_ops, "spline_conv_forward", spy_split)
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))
