@@ -69,7 +69,11 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    inputs of one of its steps: the search on a grow step (and profiled
    there as K6 is) and on a ring step after the ring has wrapped, the
    ring update and cell max on a
-   ring step (the cell max one launch a call, timed against one
+   ring step (the ring update one C call that sorts its own rows: one
+   launch and no aten op at that step's 512 keys, with its device ms;
+   its chunk's rows repeated to 1024, 1025 and 8192 rows, both sides of
+   its per-block sort and the S=8 x 1024 step's 16384 keys, bit-equal
+   and timed; the cell max one launch a call, timed against one
    ``scatter_reduce_`` amax in three turns), and K2 (both event convs,
    split convs, and every distinct fused block of the tail at batch S),
    K10 (the S*G1 folded cells) and
@@ -84,11 +88,14 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    8 windows of 45k events (finite losses and gradients, every parameter
    moves, the EMA follows; every train kernel launched on every step:
    20 split convs and 20 split backwards a step, no fused block; K3's
-   cell runs bit-equal to sorted_runs on the second step's four
+   cell runs bit-equal to sorted_runs, its node -> cell map equal to the
+   cell ids and its tie counts to a recount, on the second step's four
    poolings), with the split conv (all 20 calls), its backward (the
    event level, whose transposed edges it builds bit-equal to
    ``source_runs_plain``, and the first stencil level; two runs
-   bit-identical) and K9b (all four poolings, max and mean) held against
+   bit-identical) and K9b (all four poolings, max and mean, on the
+   forward's cells, offsets and tie counts; one launch a call, its host
+   ops and device ms) held against
    their twins on the inputs of the second step, timed beside the twins
    (and K9b beside a library call); the
    p50 step, peak memory and device busy time; two steps at the recipe's
@@ -106,11 +113,15 @@ and prints no result line.  ``python3 chip_smoke.py --compare DIR``
 measures another checkout's package (``DIR/dagr_tpu_torch``, for
 instance the parent commit's: ``git archive HEAD~ dagr_tpu_torch | tar
 -x -C DIR``) against this one on the same card, in turns (parent,
-change, change, parent): the sync B=1 window (and a hash of its 20
-fused-block outputs, which must be the same in every turn), the DAGR-L
+change, change, parent): the sync B=1 window (and hashes of its 20
+fused-block outputs and of its 4 poolings' outputs, each of which must
+be the same in every turn, with the poolings' wrapper ms), the DAGR-L
 DSEC and NCaltech101 windows, the engine's grow step of 256, the S=8
-server step and the B=8 train step, each with its device busy time and
-idle share; the split conv of the B=8 train step's event level and
+server step, the S=1 ring server step of 256 on a full ring and the
+B=8 train step, each with its device busy time and idle share; the
+ring update of one ring step and K9b's 4 calls of one train step,
+replayed on their own inputs (wrapper and device ms, host ops,
+launches); the split conv of the B=8 train step's event level and
 first stencil level, forward and forward + backward (the backward
 building the level's transposed edges), wrapper and device ms; the
 peak memory of the recipe's B=64 step; and the host ops of one graph
@@ -297,20 +308,40 @@ def require_blocks(before, after, blocks, split, what):
 def check_pool_runs(args, kw, what):
     """K3's cell runs (order, cell_start) bit-equal to ``sorted_runs``, the
     stable torch sort of the nodes' cell ids (invalid nodes past the last
-    cell), on one pooling's inputs."""
+    cell), and its node -> cell map equal to those ids, on one pooling's
+    inputs; for training (``with_ties``) its tie counts equal a recount
+    of feat == pooled per (cell, channel)."""
     from dagr_tpu_torch.graph.build import sorted_runs
     from dagr_tpu_torch.ops.pool import _cell, _pool_graph_cuda
 
-    pos, mask = args[1], args[2]
-    B = pos.shape[0]
+    feat, pos, mask = args[0], args[1], args[2]
+    B = feat.shape[0]
     ny, nx = kw["grid_ny"], kw["grid_nx"]
-    _, order, start = _pool_graph_cuda(*args, **kw)
+    G = B * ny * nx
+    out, order, start, seg, ties = _pool_graph_cuda(*args, **kw)
     cell = _cell(pos[..., 0], nx) + nx * _cell(pos[..., 1], ny)
     base = torch.arange(B, device=pos.device)[:, None] * (ny * nx)
-    key = torch.where(mask, base + cell, B * ny * nx).reshape(-1)
-    _, want_order, want_start = sorted_runs(key, B * ny * nx)
-    require(torch.equal(order, want_order) and torch.equal(start, want_start),
-            f"K3 {what}: order and cell_start bit-equal to sorted_runs")
+    key = torch.where(mask, base + cell, G).reshape(-1)
+    _, want_order, want_start = sorted_runs(key, G)
+    require(torch.equal(order, want_order) and torch.equal(start, want_start)
+            and torch.equal(seg, key.int()),
+            f"K3 {what}: order and cell_start bit-equal to sorted_runs, seg "
+            "to the cell ids")
+    if ties is not None:
+        require(torch.equal(ties, recount_ties(feat, out[0], seg)),
+                f"K3 {what}: tie counts equal a recount")
+
+
+def recount_ties(feat, pooled, seg):
+    """[G, C] i32: the nodes of each cell (``seg``, G for none) equal to
+    its pooled value per channel."""
+    B, N, C = feat.shape
+    G = B * pooled.shape[1]
+    s = seg.long()
+    pf = torch.cat([pooled.reshape(G, C), pooled.new_zeros(1, C)])
+    eq = (feat.reshape(B * N, C) == pf[s]) & (s < G)[:, None]
+    return torch.zeros((G + 1, C), dtype=torch.int32,
+                       device=feat.device).index_add_(0, s, eq.int())[:G]
 
 
 def check_fused_blocks(cap, what, card):
@@ -1588,13 +1619,36 @@ def serve_streams(cfg, det, events, card):
                           got, plain):
         require(torch.equal(x.cpu(), y), f"serve_ring_update {name} == twin")
     scratch = [t.clone() for t in state0]
+
+    def ring_update():
+        ring_update_cells(*scratch, *rest, **upd.kwargs)
+
     out["serve_ring_update"] = record(
-        0.0, cuda_ms(lambda: ring_update_cells(*scratch, *rest, **upd.kwargs),
-                     50),
+        0.0, cuda_ms(ring_update, 50),
         cuda_ms(lambda: ring_update_cells_plain(*scratch, *rest, **upd.kwargs),
                 10),
         nbytes(*rest) + 2 * nbytes(*state0),
         rest[4].numel() + 8 * rest[0].numel())
+    # one C call: its own sort (in each block of its one launch at these
+    # 2E = 512 rows), no torch op between the wrapper and the update
+    ops, launches, kernels = count_host_ops(ring_update)
+    require(not ops and launches == 1 and all(
+        "ring_update_" in k for k in kernels),
+        f"K8 ring update: one launch, no aten op: {ops}; {launches}; "
+        f"{kernels}")
+    rec = out["serve_ring_update"]
+    rec.update(host_ops=len(ops), kernel_launches=launches,
+               device_ms=kernel_times(ring_update, 20)[0],
+               sides=ring_update_sides(state0, rest, upd.kwargs))
+    print(f"K8 serve_ring_update on step {at}: one C call, {len(ops)} host "
+          f"ops, {launches} launch ({', '.join(k[:40] for k in kernels)}); "
+          f"wrapper {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms, "
+          f"twin {rec['plain_ms']:.4f} ms [{card}]", flush=True)
+    for side in rec["sides"]:
+        print(f"  the same state, {side['rows']} rows ({2 * side['rows']} "
+              f"keys, {side['launches']} launches, {side['host_ops']} host "
+              f"ops): wrapper {side['ms']:.4f} ms, device "
+              f"{side['device_ms']:.4f} ms [{card}]", flush=True)
     cells, x2r, n_cells = cmx.args
     a, b = cell_max(cells, x2r, n_cells), cell_max_plain(cells, x2r, n_cells)
     require(torch.equal(a, b), "cell_max == twin")
@@ -1648,6 +1702,37 @@ def serve_streams(cfg, det, events, card):
     print_timing(f"ring, 1 stream, chunk {RING_CHUNK}, full {NR}-slot ring",
                  ring_ms[2:], (rbusy, rtop), card, RING_CHUNK)
     return out, checks, grow_launches, ring_launches
+
+
+def ring_update_sides(state0, rest, kw):
+    """The ring update on a ring step's state and tables with its chunk's
+    rows repeated to 1024 rows (2048 keys: the per-block sort's most),
+    1025 (the radix path) and 8192 (the S=8 x 1024 step's 16384 keys):
+    bit-equal to the twin on the CPU, wrapper and device ms, launches and
+    host ops of one call."""
+    from dagr_tpu_torch.ops.pool import (
+        ring_update_cells, ring_update_cells_plain)
+
+    sides = []
+    for rows in (1024, 1025, 8192):
+        chunk = [t.repeat((rows + len(t) - 1) // len(t),
+                          *([1] * (t.dim() - 1)))[:rows].contiguous()
+                 for t in rest[:6]] + list(rest[6:])
+        got = [t.clone() for t in state0]
+        plain = [t.cpu() for t in state0]
+        ring_update_cells(*got, *chunk, **kw)
+        ring_update_cells_plain(*plain, *(t.cpu() for t in chunk), **kw)
+        require(all(torch.equal(a.cpu(), b) for a, b in zip(got, plain)),
+                f"serve_ring_update at {rows} rows == twin")
+
+        def call():
+            ring_update_cells(*got, *chunk, **kw)
+
+        ops, launches, _ = count_host_ops(call)
+        sides.append({"rows": rows, "ms": cuda_ms(call, 50),
+                      "device_ms": kernel_times(call, 20)[0],
+                      "launches": launches, "host_ops": len(ops)})
+    return sides
 
 
 def loss_and_grads(model, events, targets):
@@ -1848,30 +1933,42 @@ def check_split_backward(cap, card):
 
 def check_pool_backward(cap, card):
     """K9b against its twin on the card, bit for bit, on the inputs each
-    pooling's backward got in a train step, at the pooling's own aggr and
-    the other one; timed (own aggr) beside the twin and autograd through
-    one scatter_reduce (amax or mean) over the same rows."""
+    pooling's backward got in a train step (grad_pooled, the features,
+    the pooled max, the forward's node -> cell map, cell offsets and tie
+    counts), at the pooling's own aggr and the other one (a mean
+    pooling's tie counts recounted); one call's host ops, launches and
+    device kernels (count_host_ops: one launch of one kernel) and its
+    device ms; timed (own aggr) beside the twin and autograd through one
+    scatter_reduce (amax or mean) over the same rows."""
     from dagr_tpu_torch.ops.pool import (
         pool_features_backward, pool_features_backward_plain)
 
     checks = []
     for args, kw in cap.calls:
-        gp, feat, pooled, order, start = args
+        gp, feat, pooled, seg, start, ties = args
         B, N, C = feat.shape
         G = B * pooled.shape[1]
-        for aggr in (kw["aggr"], {"max": "mean", "mean": "max"}[kw["aggr"]]):
-            a = pool_features_backward(*args, aggr=aggr)
-            b = pool_features_backward_plain(*args, aggr=aggr)
-            require(torch.equal(a, b), f"K9b {aggr} on the {kw['aggr']} "
-                    f"pooling of {pooled.shape[1]} cells: bit-equal to twin")
-        aggr = kw["aggr"]
-        rank = torch.searchsorted(start, torch.arange(
-            B * N, device=feat.device, dtype=start.dtype), right=True) - 1
-        seg = torch.empty(B * N, dtype=torch.long, device=feat.device)
-        seg[order.long()] = rank.long()
+        own = kw["aggr"]
+        tie_of = {"max": recount_ties(feat, pooled, seg) if ties is None
+                  else ties, "mean": None}
+        for aggr in (own, {"max": "mean", "mean": "max"}[own]):
+            targs = (gp, feat, pooled, seg, start, tie_of[aggr])
+            a = pool_features_backward(*targs, aggr=aggr)
+            b = pool_features_backward_plain(*targs, aggr=aggr)
+            require(torch.equal(a, b), f"K9b {aggr} on the {own} pooling "
+                    f"of {pooled.shape[1]} cells: bit-equal to twin")
+        aggr, targs = own, (gp, feat, pooled, seg, start, tie_of[own])
+
+        def call():
+            return pool_features_backward(*targs, aggr=aggr)
+
+        ops, launches, kernels = count_host_ops(call)
+        require(launches == 1 and all("pool_backward_kernel" in k
+                                      for k in kernels),
+                f"K9b is one launch a call: {ops}; {launches}; {kernels}")
         x = feat.reshape(B * N, C).detach().requires_grad_(True)
         lib_out = torch.zeros((G + 1, C), device=feat.device).scatter_reduce(
-            0, seg[:, None].expand(B * N, C), x,
+            0, seg.long()[:, None].expand(B * N, C), x,
             "amax" if aggr == "max" else "mean", include_self=False)
         g_lib = torch.cat([gp.reshape(G, C), gp.new_zeros(1, C)])
         # the data's needs: grad_pooled of the non-empty cells, for max
@@ -1881,19 +1978,26 @@ def check_pool_backward(cap, card):
         n_cells = int((start[1:] > start[:-1]).sum())
         per_cell = 2 if aggr == "max" else 1
         rec = record(
-            0.0, cuda_ms(lambda: pool_features_backward(*args, aggr=aggr), 20),
-            cuda_ms(lambda: pool_features_backward_plain(*args, aggr=aggr), 5),
+            0.0, cuda_ms(call, 20),
+            cuda_ms(lambda: pool_features_backward_plain(*targs, aggr=aggr),
+                    5),
             4 * (per_cell * n_cells * C + (per_cell - 1) * n_in * C + n_in
                  + G + 1 + feat.numel()),
             n_in * C * (3 if aggr == "max" else 1),
             cuda_ms(lambda: torch.autograd.grad(lib_out, x, g_lib,
                                                 retain_graph=True), 20))
-        rec["at"] = f"{aggr} pooling B={B} N={N} C={C} -> {pooled.shape[1]} cells"
+        rec.update(at=f"{aggr} pooling B={B} N={N} C={C} -> "
+                   f"{pooled.shape[1]} cells", host_ops=len(ops),
+                   kernel_launches=launches,
+                   device_ms=kernel_times(call, 10)[0])
         checks.append(rec)
         print(f"K9b voxel_pool_backward, {rec['at']}: bit-equal to twin (max "
-              f"and mean); kernel {rec['ms']:.4f} ms, twin {rec['plain_ms']:.4f}"
-              f" ms, bound {rec['bound_ms']:.4f} ms, scatter_reduce backward "
-              f"{rec['library_ms']:.4f} ms [{card}]", flush=True)
+              f"and mean); kernel {rec['ms']:.4f} ms (device "
+              f"{rec['device_ms']:.4f}; {len(ops)} host ops "
+              f"({', '.join(ops)}), {launches} launch), twin "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms, "
+              f"scatter_reduce backward {rec['library_ms']:.4f} ms [{card}]",
+              flush=True)
     return checks
 
 
@@ -1903,6 +2007,8 @@ def merge_checks(checks, key="train_checks"):
     library time if a check has none); the checks under ``key``."""
     rec = {k: sum(c[k] for c in checks) for k in ("ms", "plain_ms",
                                                   "bound_ms")}
+    if all("device_ms" in c for c in checks):
+        rec["device_ms"] = sum(c["device_ms"] for c in checks)
     libs = [c["library_ms"] for c in checks]
     rec["library_ms"] = None if None in libs else sum(libs)
     t_bytes = sum(c["bound_ms"] for c in checks if c["bound_by"] == "bytes")
@@ -2181,11 +2287,15 @@ def timings(card, train_only=False):
     """``--timings``: the end-to-end times of the dagr_tpu_torch that is
     first on sys.path, through public entry points only (so that another
     checkout's package can be measured by the same code): the sync B=1
-    window (8 windows; and the sha256 of its 20 fused-block outputs), the
+    window (8 windows; the sha256 of its 20 fused-block outputs and of
+    its 4 poolings' outputs, with their wrapper ms), the
     DAGR-L DSEC and NCaltech101 windows (5 each), the engine's grow step
     of 256 on a ~36k store (16 steps), the S=8 server's grow step at chunk
-    1024 (steps 3-44 of one window per stream), the B=8 recipe train step
-    (12 after 2), each with device busy ms per step and idle share; the
+    1024 (steps 3-44 of one window per stream), the S=1 ring server's
+    step of 256 on a full 50176-slot ring (16 steps; and its ring update
+    replayed), the B=8 recipe train step
+    (12 after 2; and K9b's 4 calls of one more step replayed), each with
+    device busy ms per step and idle share; the
     split conv at the B=8 train step's event level and first stencil
     level (``split_conv_timings``); two recipe steps at B=64 and their
     peak memory; and the host ops of one graph search, one pooling, one
@@ -2195,6 +2305,7 @@ def timings(card, train_only=False):
     from dagr_tpu_torch.config import DagrConfig
     from dagr_tpu_torch.data.synthetic import random_events, random_targets
     from dagr_tpu_torch.models.dagr import DAGR, init_fresh
+    from dagr_tpu_torch.ops import pool as pool_mod
     from dagr_tpu_torch.train.state import (
         init_state, make_optimizer, train_step)
 
@@ -2214,6 +2325,9 @@ def timings(card, train_only=False):
           for _ in range(TRAIN_WARM + TRAIN_TIMED)][TRAIN_WARM:]
     out[f"train_b{TRAIN_B}"] = summary(
         ms, profiled(lambda: train_step(state, tev, targets), 2))
+    out["pool_backward"] = replay_calls(
+        pool_mod, "pool_features_backward", len(cfg.grid_shapes()),
+        lambda: train_step(state, tev, targets))
     if not train_only:
         out["split_conv"] = split_conv_timings(cfg, tev)
         big = random_events(trng, RECIPE_B, N_NODES, W, H, n_valid=N_VALID,
@@ -2227,6 +2341,48 @@ def timings(card, train_only=False):
             "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     out["card"] = card
     print(json.dumps({"timings": out}), flush=True)
+
+
+def replay_calls(module, name, n, step):
+    """The first ``n`` calls of ``module.name`` in one ``step()``, each
+    replayed on its own inputs (any checkout's entry, whatever its
+    signature): wrapper ms (CUDA events, 20 calls), device ms
+    (kernel_times, 10 calls), top-level aten ops and launches of one
+    call."""
+    cap = Capture(module, name, *range(n))
+    step()
+    cap.close()
+    fn, calls = getattr(module, name), []
+    for args, kw in cap.calls:
+        def call(args=args, kw=kw):
+            fn(*args, **kw)
+
+        ops, launches, _ = count_host_ops(call)
+        calls.append({"ms": cuda_ms(call, 20),
+                      "device_ms": kernel_times(call, 10)[0],
+                      "host_ops": len(ops), "launches": launches,
+                      "op_names": ops})
+    return calls
+
+
+def pool_outputs(det, window):
+    """{calls, sha256, ms} of the poolings (K3) of one request of
+    ``window`` (any checkout's ``pool_graph``): the hash of their outputs
+    and their wrapper ms summed (CUDA events, 20 calls each)."""
+    import hashlib
+
+    from dagr_tpu_torch.ops import pool as pool_mod
+
+    cap = Capture(pool_mod, "pool_graph", 0, 1, 2, 3)
+    det(window)
+    cap.close()
+    h, ms = hashlib.sha256(), 0.0
+    with torch.no_grad():
+        for args, kw in cap.calls:
+            for y in pool_mod.pool_graph(*args, **kw):
+                h.update(y.cpu().numpy().tobytes())
+            ms += cuda_ms(lambda: pool_mod.pool_graph(*args, **kw), 20)
+    return {"calls": len(cap.calls), "sha256": h.hexdigest(), "ms": ms}
 
 
 def fused_outputs_hash(det, window):
@@ -2324,6 +2480,7 @@ def eval_timings(cfg, out):
     busy = profiled(lambda: det(events[1]), 4)
     out["sync"] = summary(ms, busy)
     out["sync_fused"] = fused_outputs_hash(det, events[1])
+    out["sync_pool"] = pool_outputs(det, events[1])
     host = host_op_profile(det, events)
     for name, fields, h, w in WIDE_MODELS:
         wrng = np.random.default_rng(SEED + 2)
@@ -2380,6 +2537,27 @@ def eval_timings(cfg, out):
     # the host side of one K8 search, on the inputs of a grow step
     host["serve_search"] = search_host_ops(
         serve_mod, "search_edges_streams", lambda: srv.step(gst, *chunks[8]))
+
+    # the ring window, one stream in chunks of RING_CHUNK: filled, then
+    # 16 timed steps, 4 profiled and the ring update of one more replayed
+    p1, f1 = stream_events(events[1])
+    p2, f2 = stream_events(events[2], 1_000_000)
+    n_fill = (RING_SLOTS // RING_CHUNK + 22) * RING_CHUNK
+    px, fx = np.concatenate([p1, p2])[:n_fill], np.concatenate([f1, f2])[:n_fill]
+    rchunks = chunk_streams(px[None], fx[None], RING_CHUNK, device="cuda")
+    rsrv = MultiStreamServer(model, H, W, 1, RING_CHUNK, window_mode="ring")
+    rst = rsrv.init_state()
+    for c in rchunks[:-22]:
+        rst, _, _ = rsrv.step(rst, *c)
+    ms = []
+    for c in rchunks[-22:-6]:
+        rst, _, _, t = timed_step(rsrv, rst, c)
+        ms.append(t)
+    rst, rbusy, _ = profile_steps(rsrv, rst, rchunks[-6:-2])
+    out["serve_s1_ring"] = summary(ms, rbusy)
+    out["ring_update"] = replay_calls(
+        serve_mod, "ring_update_cells", 1,
+        lambda: rsrv.step(rst, *rchunks[-2]))[0]
     out["host_ops"] = {k: {"ops": len(v[0]), "launches": v[1],
                            "kernels": len(v[2]), "op_names": v[0]}
                        for k, v in host.items()}
@@ -2428,11 +2606,31 @@ def compare(parent: str, card, train_only=False):
                   f"{v['fwd_bwd_ms']:.4f} ms (device "
                   f"{v['fwd_bwd_busy']:.4f}, {v['fwd_bwd_host_ops']} host "
                   f"ops) [{card}]", flush=True)
+        for k, v in (("K3, the sync window's 4 poolings", t.get("sync_pool")),
+                     ("K8 ring update, a ring S=1 step", t.get("ring_update"))):
+            if v:
+                extra = (f"{v['host_ops']} host ops, {v['launches']} "
+                         f"launches, device {v['device_ms']:.4f} ms"
+                         if "host_ops" in v else f"sha256 {v['sha256'][:16]}")
+                print(f"  {k}: wrapper {v['ms']:.4f} ms; {extra} [{card}]",
+                      flush=True)
+        for j, v in enumerate(t.get("pool_backward", [])):
+            print(f"  K9b, B={TRAIN_B} train step pooling {j + 1}: wrapper "
+                  f"{v['ms']:.4f} ms, device {v['device_ms']:.4f} ms, "
+                  f"{v['host_ops']} host ops, {v['launches']} launches "
+                  f"[{card}]", flush=True)
         if f"train_b{RECIPE_B}" in t:
             v = t[f"train_b{RECIPE_B}"]
             print(f"  train step B={RECIPE_B}: {v['ms'][1]:.3f} ms (the "
                   f"second), peak memory {v['peak_gib']:.3f} GiB [{card}]",
                   flush=True)
+    pooled = {t["sync_pool"]["sha256"] for _, t in runs if "sync_pool" in t}
+    if pooled:
+        require(len(pooled) == 1, "the sync window's pooled outputs (K3) are "
+                "bit-identical in every turn")
+        print(f"sync window: the {runs[0][1]['sync_pool']['calls']} "
+              "poolings' outputs bit-identical in every turn (sha256 "
+              f"{pooled.pop()[:16]})", flush=True)
     fused = {t["sync_fused"]["sha256"] for _, t in runs if "sync_fused" in t}
     if fused:
         require(len(fused) == 1, "the sync window's fused-block outputs are "

@@ -34,7 +34,8 @@
 //      within a pixel is time order (events are time-sorted per sample),
 //      and the last pass also writes the sorted events' times.  The sort
 //      takes any int key and the index it sorts through a functor (K6
-//      and K8 sort store slots with it);
+//      and K8 sort store slots with it, K8's ring update its rows by
+//      cell through dagr_cell_sort);
 //   2. run_start[p] for every pixel id p <= B*H*W: a binary search of the
 //      sorted keys per pixel (empty pixels included);
 //   3. a warp per event: lanes take the spiral cells in rounds of 32.  A
@@ -606,7 +607,40 @@ struct SourceKey {
   __device__ int index(int e) const { return e; }
 };
 
+// Cell keys read in place from two arrays, a [na] and then b [n - na]
+// (K8's ring update, voxel_pool.cu: the evicted slots' cells, then the
+// chunk's); a key outside [0, n_ids) sorts as n_ids, past every cell.
+struct TwoPartKey {
+  const int* a;
+  const int* b;
+  int na, n_ids;
+  __device__ int operator()(int i) const {
+    const int v = i < na ? a[i] : b[i - na];
+    return (unsigned)v < (unsigned)n_ids ? v : n_ids;
+  }
+  __device__ int index(int i) const { return i; }
+};
+
 }  // namespace
+
+// Scratch words of dagr_cell_sort over n keys in [0, n_ids].
+extern "C" long long dagr_cell_sort_scratch(int n, int n_ids) {
+  return sort_scratch(n, n_ids);
+}
+
+// The stable sort of positions 0..n-1 by cell, position i's cell being
+// a[i] for i < na and b[i - na] after (n_ids: none, sorted last): the
+// sorted cells keys_s [n] and positions order [n], by K1's radix sort (2
+// passes up to 2^20 cells); launched on the caller's stream, no
+// allocation, no host synchronisation.
+extern "C" int dagr_cell_sort(const void* a, int na, const void* b, int n,
+                              int n_ids, void* scratch, void* keys_s,
+                              void* order, void* stream) {
+  radix_sort(TwoPartKey{(const int*)a, (const int*)b, na, n_ids}, n, n_ids,
+             Payload{}, (int*)scratch, (int*)keys_s, (int*)order,
+             (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
 
 // Scratch words of dagr_source_runs over n_edges edges and n_src sources:
 // the sort's and its sorted keys.

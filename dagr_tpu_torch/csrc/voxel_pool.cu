@@ -35,10 +35,14 @@
 //      lane its peers, popc of those below it its rank) and order[] at
 //      cell_start + the earlier tiles' count + rank.  So order and
 //      cell_start are bit-equal to a stable sort by cell id
-//      (graph/build.py sorted_runs), which K9b reuses in the backward;
+//      (graph/build.py sorted_runs);
 //   5. a warp per cell: the feature max spread over the lanes (32 /
 //      min(32, pow2 >= C) of the cell's rows per pass, lanes over
-//      channels, then a fixed shuffle tree; max is exact in any order);
+//      channels, then a fixed shuffle tree; max is exact in any order).
+//      For training (a ties pointer given) each lane keeps an exact
+//      (max, members equal to it) pair, merged in the same tree, and the
+//      count of each (cell, channel) is written for K9b; the eval
+//      instantiation counts nothing;
 //      the mean, the position sums, tmax and the edge bits walk the rows
 //      in node index order, reading the order entries 32 at a time and
 //      broadcasting them with shuffles, so every float sum runs in the
@@ -47,7 +51,8 @@
 //      id and mask adj & in-frame & source non-empty & destination
 //      non-empty (& t_max(dst) > t_max(src) when asked).
 // Divisions by W and H are reciprocal multiplies, as XLA compiles the
-// JAX package's divisions by those constants.
+// JAX package's divisions by those constants.  Step 1's node -> cell map
+// (seg) is an output: K9b reads it.
 //
 // K10: the streaming engine's grow-mode level-1 update.  Replaces the
 // segment_max / segment_sum update of dagr_tpu/streaming/engine.py:247-284
@@ -69,11 +74,29 @@
 // streams fold into the cell id (s*G1 + cell).  dagr_tpu writes the sums
 // as (state - sub) + add, each of sub and add taken per cell in slot
 // order from zero; any other order can flip the pooled floor (F4), so no
-// float atomics: the caller stable-sorts the 2*S*C rows (evicted first,
-// then new) by cell and one warp per cell walks them through K3's
-// per-cell loop.  Work is in proportion to the chunk, not the ring.
-// Bound by launch latency, like K10.  adj_death is an integer max, taken
-// per lane over the edge slots and then across the warp.
+// float atomics.  One C entry, dagr_serve_ring_update, takes the evicted
+// and the new cells apart and sorts the 2*S*C rows by cell itself
+// (evicted first, then new, each in row order: a stable sort of the
+// positions 0..2E-1 keyed in place), with no torch op around it, no
+// allocation and no host synchronisation (capturable in a CUDA graph):
+//   - up to kRingBlockKeys rows (the S=1 ring step of 256 has 512), one
+//     launch of a warp per row: each block of 32 warps sorts all the
+//     (cell << 32 | row) words itself in shared memory (a bitonic sort
+//     of a few kilobytes, repeated by every block in place of a second
+//     launch and a scratch buffer), then each warp takes one sorted
+//     position;
+//   - beyond, K1's radix sort (graph_search.cu's dagr_cell_sort, 2
+//     passes up to 2^20 cells) and one launch of a warp per sorted
+//     position.
+// Work is in proportion to the rows, not to the S*G1 cells, and no
+// warp walks more than one run: a new row's warp takes its edge slots
+// over the lanes into adj_death (a warp max per stencil offset, then an
+// integer atomicMax: exact in any order); the warp at a run's first
+// position reads the run 32 rows at a time (lanes load the rows'
+// positions) and lanes 0-2 add them in row order from shuffles (sub
+// over the evicted, add over the new, each from zero), with the count
+// and a warp max of the new rows' times.  Bound by launch latency: a
+// few kilobytes.
 //
 // K8, the ring's feature max.  Replaces dagr_tpu/streaming/serve.py:
 // 1361-1376, the segment max of the live x2 ring per level-1 cell, which
@@ -98,14 +121,17 @@
 // dagr_tpu/ops/pool.py:100-117: for max, JAX's scatter-max rule splits a
 // cell's gradient evenly among the members tied at the max, per channel
 // (grad * (1 / ties)); for mean, grad / count.  Bound by memory: it reads
-// grad_pooled once and, for max, each member's features twice and the
-// pooled max, and writes grad_feat once (at the first pooling of a batch
-// of 8, 400k x 16 floats: 26 MB each way).  Design: one warp per cell
-// over K3's stable cell sort (order, cell_start, reused from the
-// forward), lanes over channels; a first pass counts the ties of each
-// (cell, channel), a second writes every member's gradient once.  Exact
-// arithmetic in one order, so it is bit-equal to its twin.  Invalid rows
-// are in no cell; the caller zeroes them.
+// each row's cell and, for max, its features, and writes grad_feat once
+// (at the first pooling of a batch of 8, 400k x 16 floats: 26 MB each
+// way); the per-cell tables it gathers (grad_pooled, the pooled max, the
+// tie counts: ~1 MB) stay in L2.  Design: one element-parallel pass, a
+// thread per 4 consecutive channels of a row (16-byte loads and stores
+// where C % 4 == 0 and the pointers allow; else one channel), in
+// row-major order, so no cell's size sets the kernel's length.  A row's
+// cell is K3's step-1 map (seg), the tie counts come from K3's cell pass
+// (computed in the forward), the mean's count from cell_start.  Rows in
+// no cell get 0 from the kernel: grad_feat is written whole, one launch
+// a call.  Exact arithmetic, so it is bit-equal to its twin.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
@@ -274,7 +300,9 @@ __global__ void pool_scatter_kernel(
   }
 }
 
-// K3 step 5: one warp per cell; see the file's note.
+// K3 step 5: one warp per cell; see the file's note.  With TIES, ties
+// [n_cells_total, C] gets the members equal to each channel's max.
+template <bool TIES>
 __global__ void pool_cells_kernel(
     const int* __restrict__ order,        // [M] nodes sorted by cell
     const int* __restrict__ cell_start,   // [B*ncells + 1]
@@ -284,7 +312,7 @@ __global__ void pool_cells_kernel(
     int n_cells_total, int C, int mean, int W, int H, float inv_w,
     float inv_h, float* __restrict__ pooled, float* __restrict__ pos_out,
     uint8_t* __restrict__ cmask, float* __restrict__ tmax,
-    int* __restrict__ adj) {
+    int* __restrict__ adj, int* __restrict__ ties) {
   const int cell = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (cell >= n_cells_total) return;
@@ -315,17 +343,26 @@ __global__ void pool_cells_kernel(
     for (int cb = 0; cb < C; cb += gl) {
       const int c = cb + c0;
       float acc = -FLT_MAX;
+      int n = 0;                          // members equal to acc (TIES)
       if (c < C) {
         for (int j = st + r; j < en; j += rows) {
           const float v = feat[(size_t)order[j] * C + c];
+          if (TIES) n = v > acc ? 1 : n + (v == acc);
           acc = v > acc ? v : acc;
         }
       }
       for (int off = 16; off >= gl; off >>= 1) {
         const float v = __shfl_xor_sync(full, acc, off);
+        if (TIES) {
+          const int nv = __shfl_xor_sync(full, n, off);
+          n = v > acc ? nv : n + (v == acc ? nv : 0);
+        }
         acc = v > acc ? v : acc;
       }
-      if (r == 0 && c < C) prow[c] = count > 0 ? acc : 0.f;
+      if (r == 0 && c < C) {
+        prow[c] = count > 0 ? acc : 0.f;
+        if (TIES) ties[(size_t)cell * C + c] = n;
+      }
     }
   }
   // node-order walk: lanes 0-2 the position sums, lane 3 the max time,
@@ -435,70 +472,189 @@ __global__ void stream_accumulate_kernel(
   if (lane < 9 && ((bits >> lane) & 1)) adj[9 * warp + lane] = 1;
 }
 
-// K8: the ring window's level-1 update by one chunk.  Rows order[j] < E
-// are the slots the chunk evicts (their stored cell and position), rows
-// >= E the chunk's events (row - E); the stable sort puts a cell's
-// evicted rows first.  Lanes 0-2 own the position sums, lane 3 the
-// count and tmax; every lane then takes edge slots of the new rows for
-// adj_death.
-__global__ void serve_ring_update_kernel(
-    const int* __restrict__ order,        // [2E] rows sorted by cell
-    const int* __restrict__ cell_start,   // [ncells + 1]
-    const float* __restrict__ ev_pos,     // [E, 3]
-    const float* __restrict__ pos,        // [E, 3]
-    const int* __restrict__ nbr,          // [E, K] ring slots of the edges
-    const uint8_t* __restrict__ nbr_mask, // [E, K]
-    const int* __restrict__ cells,        // [S*NR] cell per slot (ncells: none)
-    const int* __restrict__ vid,          // [S*NR] vid per slot
-    int E, int ncells, int nx, int K,
-    int* __restrict__ cell_cnt, float* __restrict__ pos_sum,
-    float* __restrict__ tmax, int* __restrict__ adj_death) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= ncells) return;
-  const int st = cell_start[warp], en = cell_start[warp + 1];
-  if (st == en) return;
-  int mid = st;   // evicted rows order[st..mid), new rows order[mid..en)
-  while (mid < en && order[mid] < E) ++mid;
-  if (lane < 3) {
-    float sub = 0.f, add = 0.f;
-    for (int j = st; j < mid; ++j) sub += ev_pos[3 * order[j] + lane];
-    for (int j = mid; j < en; ++j) add += pos[3 * (order[j] - E) + lane];
-    float* p = pos_sum + 3 * warp + lane;
-    *p = (*p - sub) + add;
-  } else if (lane == 3) {
-    float m = -INFINITY;
-    for (int j = mid; j < en; ++j) m = fmaxf(m, pos[3 * (order[j] - E) + 2]);
-    tmax[warp] = fmaxf(tmax[warp], m);
-    cell_cnt[warp] += (en - mid) - (mid - st);
-  }
-  const int cx = warp % nx, cy = warp / nx;
+// K8: the ring window's level-1 update by one chunk; see the file's
+// note.  Sorted position p holds row(p) of cell(p): rows < E are the
+// slots the chunk evicts (their stored cell and position), rows >= E the
+// chunk's events (row - E).
+constexpr int kRingBlockKeys = 2048;  // 2E up to this: the per-block sort
+constexpr int kRingBlockThreads = 1024;
+
+struct RingArgs {
+  const float* ev_pos;    // [E, 3]
+  const float* pos;       // [E, 3]
+  const int* nbr;         // [E, K] ring slots of the edges
+  const uint8_t* nbr_mask;  // [E, K]
+  const int* cells;       // [S*NR] cell per slot (ncells: none)
+  const int* vid;         // [S*NR] vid per slot
+  int E, ncells, nx, K;
+  int* cell_cnt;
+  float* pos_sum;
+  float* tmax;
+  int* adj_death;
+};
+
+// The per-block sort's words, (cell << 32 | row) in shared memory.
+struct SharedRuns {
+  const unsigned long long* w;
+  __device__ int cell(int p) const { return (int)(w[p] >> 32); }
+  __device__ int row(int p) const { return (int)(w[p] & 0xffffffffu); }
+};
+
+// The radix path's sorted cells and rows in device memory.
+struct GlobalRuns {
+  const int* keys;
+  const int* order;
+  __device__ int cell(int p) const { return keys[p]; }
+  __device__ int row(int p) const { return order[p]; }
+};
+
+// One warp: the stencil offsets of new row `row`'s edges into `cell`,
+// adj_death[cell, o] = max(source vid) (an integer atomicMax per offset
+// after a warp max: exact in any order).
+__device__ void ring_row_edges(int cell, int row, const RingArgs& a,
+                               int lane) {
+  const int cx = cell % a.nx, cy = cell / a.nx;
   int best[9];
 #pragma unroll
   for (int o = 0; o < 9; ++o) best[o] = INT_MIN;
-  for (int j = mid; j < en; ++j) {
-    const int row = order[j] - E;
-    for (int k = lane; k < K; k += 32) {
-      const size_t rk = (size_t)row * K + k;
-      if (!nbr_mask[rk]) continue;
-      const int src = nbr[rk];
-      const int sc = cells[src];
-      if (sc >= ncells) continue;
-      const int dx = sc % nx - cx, dy = sc / nx - cy;
-      if (dx < -1 || dx > 1 || dy < -1 || dy > 1 || (dx == 0 && dy == 0))
-        continue;
-      const int o = (dy + 1) * 3 + (dx + 1);
-      const int v = vid[src];
+  for (int k = lane; k < a.K; k += 32) {
+    const size_t rk = (size_t)row * a.K + k;
+    if (!a.nbr_mask[rk]) continue;
+    const int src = a.nbr[rk];
+    const int sc = a.cells[src];
+    if (sc >= a.ncells) continue;
+    const int dx = sc % a.nx - cx, dy = sc / a.nx - cy;
+    if (dx < -1 || dx > 1 || dy < -1 || dy > 1 || (dx == 0 && dy == 0))
+      continue;
+    const int o = (dy + 1) * 3 + (dx + 1);
+    const int v = a.vid[src];
 #pragma unroll
-      for (int i = 0; i < 9; ++i)
-        if (i == o) best[i] = max(best[i], v);
-    }
+    for (int i = 0; i < 9; ++i)
+      if (i == o) best[i] = max(best[i], v);
   }
 #pragma unroll
   for (int o = 0; o < 9; ++o) {
     const int m = __reduce_max_sync(0xffffffffu, best[o]);
-    if (lane == o && m > adj_death[9 * warp + o]) adj_death[9 * warp + o] = m;
+    if (lane == o && m != INT_MIN) atomicMax(a.adj_death + 9 * cell + o, m);
   }
+}
+
+// One warp: the count, position sums and time max of `cell`, whose run
+// of the n sorted rows starts at position st (and ends at the first
+// position of another cell).
+template <class Runs>
+__device__ void ring_run_sums(const Runs& runs, int st, int n, int cell,
+                              const RingArgs& a, int lane) {
+  const unsigned full = 0xffffffffu;
+  int en = 0;
+  if (lane == 0) {            // the cells are sorted: a binary search
+    int lo = st + 1, hi = n;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (runs.cell(mid) == cell) lo = mid + 1; else hi = mid;
+    }
+    en = lo;
+  }
+  en = __shfl_sync(full, en, 0);
+  // 32 rows at a time: each lane loads a row's position; lanes 0-2 add
+  // their coordinate of every row in row order (evicted rows into sub,
+  // new ones into add, each from zero); the time max of the new rows
+  float sub = 0.f, add = 0.f, tm = -INFINITY;
+  int n_ev = 0;
+  for (int j0 = st; j0 < en; j0 += 32) {
+    const int m = min(32, en - j0);
+    int row = 0;
+    float px = 0.f, py = 0.f, pt = 0.f;
+    if (lane < m) {
+      row = runs.row(j0 + lane);
+      const float* q = row < a.E ? a.ev_pos + 3 * (size_t)row
+                                 : a.pos + 3 * (size_t)(row - a.E);
+      px = q[0];
+      py = q[1];
+      pt = q[2];
+      if (row >= a.E) tm = fmaxf(tm, pt);
+    }
+    const unsigned evicted = __ballot_sync(full, lane < m && row < a.E);
+    n_ev += __popc(evicted);
+    for (int q = 0; q < m; ++q) {
+      const float x = __shfl_sync(full, px, q);
+      const float y = __shfl_sync(full, py, q);
+      const float t = __shfl_sync(full, pt, q);
+      const float v = lane == 0 ? x : lane == 1 ? y : t;
+      if ((evicted >> q) & 1) sub += v; else add += v;
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    tm = fmaxf(tm, __shfl_xor_sync(full, tm, off));
+  if (lane < 3) {
+    float* p = a.pos_sum + 3 * (size_t)cell + lane;
+    *p = (*p - sub) + add;
+  } else if (lane == 3) {
+    a.tmax[cell] = fmaxf(a.tmax[cell], tm);
+    a.cell_cnt[cell] += (en - st) - 2 * n_ev;
+  }
+}
+
+// One warp's share of the update at sorted position j: its row's edges
+// if it is a new row, and the run's sums if j starts a cell's run.
+template <class Runs>
+__device__ void ring_position_update(const Runs& runs, int j, int n,
+                                     const RingArgs& a, int lane) {
+  const int cell = runs.cell(j);
+  if (cell >= a.ncells) return;           // rows of no cell sort last
+  const int row = runs.row(j);
+  if (row >= a.E) ring_row_edges(cell, row - a.E, a, lane);
+  if (j == 0 || runs.cell(j - 1) != cell)
+    ring_run_sums(runs, j, n, cell, a, lane);
+}
+
+// Up to kRingBlockKeys rows: every block sorts all 2E of them in shared
+// memory (position i < E is evicted row i, cell ev_cell[i]; E + i new
+// row i, cell cell[i]; a cell outside [0, ncells) sorts as ncells, after
+// every cell), then its warps take a sorted position each.  n2: 2E
+// rounded up to a power of 2; n2 words of dynamic shared memory.
+__global__ void __launch_bounds__(kRingBlockThreads) ring_update_block_kernel(
+    const int* __restrict__ ev_cell, const int* __restrict__ cell, int n2,
+    RingArgs a) {
+  extern __shared__ unsigned long long w[];
+  const int n = 2 * a.E;
+  for (int i = threadIdx.x; i < n2; i += kRingBlockThreads) {
+    unsigned long long key = ~0ull;       // padding: past every row
+    if (i < n) {
+      const int v = i < a.E ? ev_cell[i] : cell[i - a.E];
+      const unsigned c = (unsigned)v < (unsigned)a.ncells ? v : a.ncells;
+      key = ((unsigned long long)c << 32) | (unsigned)i;
+    }
+    w[i] = key;
+  }
+  __syncthreads();
+  // bitonic sort of the distinct words: stable by row within a cell
+  for (int k = 2; k <= n2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < n2; i += kRingBlockThreads) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const unsigned long long x = w[i], y = w[ixj];
+          if ((x > y) == ((i & k) == 0)) {
+            w[i] = y;
+            w[ixj] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const int j = blockIdx.x * (kRingBlockThreads / 32) + (threadIdx.x >> 5);
+  if (j < n) ring_position_update(SharedRuns{w}, j, n, a, threadIdx.x & 31);
+}
+
+// The radix path: a warp per sorted position.
+__global__ void ring_update_runs_kernel(const int* __restrict__ keys,
+                                        const int* __restrict__ order, int n,
+                                        RingArgs a) {
+  const int j = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (j < n)
+    ring_position_update(GlobalRuns{keys, order}, j, n, a, threadIdx.x & 31);
 }
 
 // K8: the feature max of each cell over its rows; -FLT_MAX for a cell
@@ -528,35 +684,76 @@ __global__ void __launch_bounds__(kCellMaxThreads) cell_max_kernel(
   }
 }
 
-// K9b: one warp per cell over its members order[st..en).
+// K9b: a thread per V consecutive channels (V = 4: 16-byte accesses,
+// C % 4 == 0 and aligned pointers) of the M x C grad_feat, row-major.
+template <int V>
+struct Vec {
+  float f[V];
+};
+
+template <int V>
+__device__ __forceinline__ Vec<V> load_vec(const float* __restrict__ p) {
+  Vec<V> r;
+  if constexpr (V == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    r.f[0] = q.x;
+    r.f[1] = q.y;
+    r.f[2] = q.z;
+    r.f[3] = q.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) r.f[i] = p[i];
+  }
+  return r;
+}
+
+template <int V>
 __global__ void pool_backward_kernel(
-    const int* __restrict__ order,        // [M] nodes sorted by cell
-    const int* __restrict__ cell_start,   // [n_cells_total + 1]
-    const float* __restrict__ grad_pooled, // [n_cells_total, C]
-    const float* __restrict__ feat,       // [M, C]
-    const float* __restrict__ pooled,     // [n_cells_total, C]
-    int n_cells_total, int C, int mean, float* __restrict__ grad_feat) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= n_cells_total) return;
-  const int st = cell_start[warp], en = cell_start[warp + 1];
-  if (st == en) return;
-  for (int c = lane; c < C; c += 32) {
-    const size_t pc = (size_t)warp * C + c;
-    const float g = grad_pooled[pc];
+    const int* __restrict__ seg,          // [M] cell per row, G: none
+    const int* __restrict__ cell_start,   // [G + 1] (mean: the counts)
+    const int* __restrict__ ties,         // [G, C] (max)
+    const float* __restrict__ grad_pooled,  // [G, C]
+    const float* __restrict__ feat,       // [M, C] (max)
+    const float* __restrict__ pooled,     // [G, C] (max)
+    size_t n_vec, int C, int G, int mean, float* __restrict__ grad_feat) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_vec) return;
+  const size_t e = t * V, row = e / C;
+  const int g = seg[row];
+  Vec<V> out;
+#pragma unroll
+  for (int i = 0; i < V; ++i) out.f[i] = 0.f;
+  if (g < G) {
+    const size_t pc = (size_t)g * C + (e - row * C);
+    const Vec<V> gp = load_vec<V>(grad_pooled + pc);
     if (mean) {
-      const float v = g / (float)(en - st);
-      for (int j = st; j < en; ++j) grad_feat[(size_t)order[j] * C + c] = v;
-      continue;
+      const float count = (float)(cell_start[g + 1] - cell_start[g]);
+#pragma unroll
+      for (int i = 0; i < V; ++i) out.f[i] = gp.f[i] / count;
+    } else {
+      const Vec<V> f = load_vec<V>(feat + e), m = load_vec<V>(pooled + pc);
+      int n[V];
+      if constexpr (V == 4) {
+        const int4 q = __ldg(reinterpret_cast<const int4*>(ties + pc));
+        n[0] = q.x;
+        n[1] = q.y;
+        n[2] = q.z;
+        n[3] = q.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) n[i] = ties[pc + i];
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        out.f[i] = f.f[i] == m.f[i] ? gp.f[i] * (1.f / (float)n[i]) : 0.f;
     }
-    const float m = pooled[pc];
-    int ties = 0;
-    for (int j = st; j < en; ++j) ties += feat[(size_t)order[j] * C + c] == m;
-    const float v = g * (1.f / (float)ties);
-    for (int j = st; j < en; ++j) {
-      const size_t r = (size_t)order[j] * C + c;
-      grad_feat[r] = feat[r] == m ? v : 0.f;
-    }
+  }
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(grad_feat + e) =
+        make_float4(out.f[0], out.f[1], out.f[2], out.f[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) grad_feat[e + i] = out.f[i];
   }
 }
 
@@ -583,30 +780,32 @@ __global__ void pool_stencil_kernel(
 
 }  // namespace
 
-// Scratch words dagr_voxel_pool needs: seg and bits [M], the (cell,
-// tile) counts, count [G + 1] and adj [G], G = B*ny*nx.
+// Scratch words dagr_voxel_pool needs: bits [M], the (cell, tile)
+// counts, count [G + 1] and adj [G], G = B*ny*nx.
 extern "C" long long dagr_voxel_pool_scratch(int B, int N, int ny, int nx) {
   const long long tpb = (N + kPoolTile - 1) / kPoolTile;
   const long long M = (long long)B * N, G = (long long)B * ny * nx;
-  return 2 * M + (G + B) * tpb + (G + 1) + G;
+  return M + (G + B) * tpb + (G + 1) + G;
 }
 
 // K3: the pooling of B samples of N nodes onto ny x nx cells, with the
-// stable cell runs order [M] and cell_start [G + 1] for K9b.
+// stable cell runs order [M] and cell_start [G + 1], each node's cell
+// seg [M] (G: none) and, if ties is not null (max only), the members
+// equal to each (cell, channel)'s max, ties [G, C], for K9b.
 extern "C" int dagr_voxel_pool(
     const void* feat, const void* pos, const void* mask, const void* nbr_mask,
     const void* nbr_dpos, const void* nbr, int B, int N, int K, int C,
     int ny, int nx, int mean, int temporal, int W, int H, float inv_w,
-    float inv_h, void* order, void* cell_start, void* scratch, void* pooled,
-    void* pos_out, void* cmask, void* tmax, void* nbr_out, void* mask_out,
-    void* stream) {
+    float inv_h, void* order, void* cell_start, void* seg_out, void* ties,
+    void* scratch, void* pooled, void* pos_out, void* cmask, void* tmax,
+    void* nbr_out, void* mask_out, void* stream) {
   const int ncells = ny * nx, G = B * ncells;
   const int tpb = (N + kPoolTile - 1) / kPoolTile;
   const size_t hist_smem = (size_t)(ncells + 1) * sizeof(int);
   if (hist_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int* seg = (int*)scratch;
-  int* bits = seg + (size_t)B * N;
+  int* seg = (int*)seg_out;
+  int* bits = (int*)scratch;
   int* hist = bits + (size_t)B * N;
   int* count = hist + (size_t)(G + B) * tpb;
   int* adj = count + G + 1;
@@ -626,10 +825,13 @@ extern "C" int dagr_voxel_pool(
   }
   if (G > 0) {
     const int threads = 256;   // 8 warps, one cell each
-    pool_cells_kernel<<<(G + 7) / 8, threads, 0, s>>>(
+    auto cells = mean || !ties ? pool_cells_kernel<false>
+                               : pool_cells_kernel<true>;
+    cells<<<(G + 7) / 8, threads, 0, s>>>(
         (const int*)order, (const int*)cell_start, (const float*)feat,
         (const float*)pos, bits, G, C, mean, W, H, inv_w, inv_h,
-        (float*)pooled, (float*)pos_out, (uint8_t*)cmask, (float*)tmax, adj);
+        (float*)pooled, (float*)pos_out, (uint8_t*)cmask, (float*)tmax, adj,
+        (int*)ties);
     pool_stencil_kernel<<<(G * 9 + threads - 1) / threads, threads, 0, s>>>(
         (const uint8_t*)cmask, (const float*)tmax, adj, G, ny, nx, temporal,
         (int*)nbr_out, (uint8_t*)mask_out);
@@ -654,20 +856,49 @@ extern "C" int dagr_stream_accumulate(
   return (int)cudaGetLastError();
 }
 
+extern "C" long long dagr_cell_sort_scratch(int n, int n_ids);
+extern "C" int dagr_cell_sort(const void* a, int na, const void* b, int n,
+                              int n_ids, void* scratch, void* keys_s,
+                              void* order, void* stream);
+
+// Scratch words of dagr_serve_ring_update at E rows a chunk over ncells
+// cells: none for the per-block sort; else the radix sort's, its sorted
+// cells and rows.
+extern "C" long long dagr_serve_ring_update_scratch(int E, int ncells) {
+  const int n = 2 * E;
+  return n <= kRingBlockKeys ? 0 : dagr_cell_sort_scratch(n, ncells) + 2ll * n;
+}
+
+// K8's ring update (see the file's note): one launch up to
+// kRingBlockKeys rows, else the radix sort's six launches and one.
 extern "C" int dagr_serve_ring_update(
-    const void* order, const void* cell_start, const void* ev_pos,
+    const void* ev_cell, const void* cell, const void* ev_pos,
     const void* pos, const void* nbr, const void* nbr_mask,
     const void* cells, const void* vid, int E, int ncells, int nx, int K,
     void* cell_cnt, void* pos_sum, void* tmax, void* adj_death,
-    void* stream) {
-  if (ncells > 0) {
-    const int threads = 256;   // 8 warps, one cell each
-    serve_ring_update_kernel<<<(ncells + 7) / 8, threads, 0,
-                               (cudaStream_t)stream>>>(
-        (const int*)order, (const int*)cell_start, (const float*)ev_pos,
-        (const float*)pos, (const int*)nbr, (const uint8_t*)nbr_mask,
-        (const int*)cells, (const int*)vid, E, ncells, nx, K,
-        (int*)cell_cnt, (float*)pos_sum, (float*)tmax, (int*)adj_death);
+    void* scratch, void* stream) {
+  const int n = 2 * E;
+  if (n == 0 || ncells == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const RingArgs a{(const float*)ev_pos, (const float*)pos, (const int*)nbr,
+                   (const uint8_t*)nbr_mask, (const int*)cells,
+                   (const int*)vid, E, ncells, nx, K, (int*)cell_cnt,
+                   (float*)pos_sum, (float*)tmax, (int*)adj_death};
+  if (n <= kRingBlockKeys) {
+    int n2 = 1;
+    while (n2 < n) n2 <<= 1;
+    const int per_block = kRingBlockThreads / 32;
+    ring_update_block_kernel<<<(n + per_block - 1) / per_block,
+                               kRingBlockThreads,
+                               n2 * sizeof(unsigned long long), s>>>(
+        (const int*)ev_cell, (const int*)cell, n2, a);
+  } else {
+    int* keys_s = (int*)scratch + dagr_cell_sort_scratch(n, ncells);
+    int* order = keys_s + n;
+    const int err = dagr_cell_sort(ev_cell, E, cell, n, ncells, scratch,
+                                   keys_s, order, stream);
+    if (err != 0) return err;
+    ring_update_runs_kernel<<<(n + 7) / 8, 256, 0, s>>>(keys_s, order, n, a);
   }
   return (int)cudaGetLastError();
 }
@@ -701,17 +932,24 @@ extern "C" int dagr_cell_max(
   return (int)cudaGetLastError();
 }
 
+// K9b over M rows of C channels and G cells; ties and pooled only for
+// max, feat may be null for mean.
 extern "C" int dagr_voxel_pool_backward(
-    const void* order, const void* cell_start, const void* grad_pooled,
-    const void* feat, const void* pooled, int n_cells_total, int C, int mean,
-    void* grad_feat, void* stream) {
-  if (n_cells_total > 0) {
-    const int threads = 256;   // 8 warps, one cell each
-    pool_backward_kernel<<<(n_cells_total + 7) / 8, threads, 0,
-                           (cudaStream_t)stream>>>(
-        (const int*)order, (const int*)cell_start, (const float*)grad_pooled,
-        (const float*)feat, (const float*)pooled, n_cells_total, C, mean,
-        (float*)grad_feat);
-  }
+    const void* seg, const void* cell_start, const void* ties,
+    const void* grad_pooled, const void* feat, const void* pooled, int M,
+    int G, int C, int mean, void* grad_feat, void* stream) {
+  const size_t n = (size_t)M * C;
+  if (n == 0) return (int)cudaGetLastError();
+  const void* ptrs[] = {ties, grad_pooled, feat, pooled, grad_feat};
+  bool v4 = C % 4 == 0;
+  for (const void* p : ptrs) v4 = v4 && (uintptr_t)p % 16 == 0;
+  const int threads = 256;
+  const size_t n_vec = v4 ? n / 4 : n;
+  const unsigned blocks = (unsigned)((n_vec + threads - 1) / threads);
+  auto kernel = v4 ? pool_backward_kernel<4> : pool_backward_kernel<1>;
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int*)seg, (const int*)cell_start, (const int*)ties,
+      (const float*)grad_pooled, (const float*)feat, (const float*)pooled,
+      n_vec, C, G, mean, (float*)grad_feat);
   return (int)cudaGetLastError();
 }

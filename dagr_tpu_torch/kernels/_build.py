@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 The sources in ``dagr_tpu_torch/csrc/*.cu`` have a plain C interface
-(no PyTorch headers), so ``nvcc`` builds all of them into one shared
-library in seconds.  The build happens at first use, into
+(no PyTorch headers): one ``nvcc`` per source, all started together,
+compiles each to an object, and one more links them into one shared
+library, in seconds.  The build happens at first use, into
 ``dagr_tpu_torch/_build/`` (git-ignored), under a name keyed by the
 sources' and flags' hash, so an edited source is rebuilt and a stale
 library is never loaded.  The library is loaded with ``ctypes``.
@@ -37,9 +38,10 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # --fmad=false: no multiply-add contraction, so the kernels' float
 # arithmetic rounds op by op as the plain PyTorch versions' does (the
 # pooled positions and the NMS IoU test must agree bit for bit)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler",
+    "-fPIC",
 )
 
 LAUNCHES = {"graph_search": 0, "spline_conv": 0,
@@ -75,13 +77,31 @@ def build() -> Path:
     if not Path(nvcc).exists():
         raise RuntimeError("nvcc not found: the CUDA kernels build only "
                            "where the CUDA toolkit is installed")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    Path(f"{out}.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    objs = BUILD_DIR / f"objs.{os.getpid()}"
+    objs.mkdir(parents=True, exist_ok=True)
+    jobs = [(src, objs / f"{src.stem}.o") for src in sources()]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in jobs]
+    log, failed = [], []
+    for (src, _), proc in zip(jobs, procs):
+        stdout, stderr = proc.communicate()
+        log.append(f"== {src.name}\n{stdout}{stderr}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{stderr}")
+    if not failed:
+        res = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+             *(str(obj) for _, obj in jobs)], capture_output=True, text=True)
+        log.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr}")
+    shutil.rmtree(objs, ignore_errors=True)
+    Path(f"{out}.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

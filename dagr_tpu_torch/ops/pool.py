@@ -22,8 +22,11 @@ tensors, ``pool_features_backward_plain`` on CPU tensors), is what
 ``jax.grad`` derives from dagr_tpu's segment reductions: for ``max`` a
 cell's gradient is split evenly among its tied maxima (JAX's
 scatter-max rule, ``grad * (1 / ties)``), for ``mean`` it is divided by
-the cell's count.  It walks the forward's stable cell sort (``order`` /
-``cell_start``), so nothing is sorted twice on the card.
+the cell's count.  The forward keeps what it needs: each node's cell
+(``seg``), ``cell_start`` (the counts) and, for ``max``, the tie count
+of each (cell, channel), which K3's cell pass computes beside the max on
+the card (``pool_backward_tables`` on the CPU); nothing is sorted for
+the backward.
 
 ``accumulate_cells`` adds one chunk of new events to the streaming
 engine's level-1 aggregates in place (``csrc/voxel_pool.cu``'s
@@ -36,9 +39,10 @@ folded into one table (cell id ``s * G1 + cell``).
 ``ring_update_cells`` (K8) is the server's ring-window counterpart: the
 slots a chunk overwrites leave the counts and position sums and the
 chunk enters them, as ``(state - sub) + add`` with each sum taken per
-cell in slot order (``dagr_serve_ring_update`` /
-``ring_update_cells_plain``).  ``cell_max`` (K8) is the feature max of
-the live ring per cell (``dagr_cell_max`` / ``cell_max_plain``).
+cell in slot order (``dagr_serve_ring_update``, which sorts the rows by
+cell itself, / ``ring_update_cells_plain``).  ``cell_max`` (K8) is the
+feature max of the live ring per cell (``dagr_cell_max`` /
+``cell_max_plain``).
 """
 from __future__ import annotations
 
@@ -124,82 +128,104 @@ class _PoolGraph(torch.autograd.Function):
         feat = feat.contiguous()
         args = (feat, pos, mask, nbr, nbr_mask, nbr_dpos)
         if feat.is_cuda:
-            out, order, start = _pool_graph_cuda(*args, **kw)
+            out, _, start, seg, ties = _pool_graph_cuda(
+                *args, **kw, with_ties=kw["aggr"] == "max")
         else:
-            # the CPU twin sorts nothing: the backward's cell runs
-            B, N, _ = feat.shape
-            ny, nx = kw["grid_ny"], kw["grid_nx"]
-            cell = _cell(pos[..., 0], nx) + nx * _cell(pos[..., 1], ny)
-            base = torch.arange(B, device=feat.device)[:, None] * (ny * nx)
-            key = torch.where(mask, base + cell, B * ny * nx).reshape(B * N)
             out = pool_graph_plain(*args, **kw)
-            _, order, start = sorted_runs(key, B * ny * nx)
+            seg, start, ties = pool_backward_tables(feat, pos, mask, out[0],
+                                                    **kw)
         ctx.mark_non_differentiable(*out[1:])
-        ctx.save_for_backward(feat, out[0], order, start)
+        ctx.save_for_backward(feat, out[0], seg, start, ties)
         ctx.aggr = kw["aggr"]
         return out
 
     @staticmethod
     def backward(ctx, grad_pooled, *_):
-        feat, pooled, order, start = ctx.saved_tensors
+        feat, pooled, seg, start, ties = ctx.saved_tensors
         grad_feat = pool_features_backward(
-            grad_pooled.contiguous(), feat, pooled, order, start,
+            grad_pooled.contiguous(), feat, pooled, seg, start, ties,
             aggr=ctx.aggr)
         return (grad_feat,) + (None,) * 6
 
 
+def pool_backward_tables(feat, pos, mask, pooled, *, grid_ny, grid_nx, aggr,
+                         **_):
+    """What K3 keeps for K9b, as PyTorch ops: each node's cell ``seg``
+    [B*N] i32 (b * ny*nx + cell; B*ny*nx for an invalid node),
+    ``cell_start`` [B*ny*nx + 1] i32 (the exclusive sum of the cells'
+    counts) and, for ``max``, ``ties`` [B*ny*nx, C] i32, the members
+    equal to the pooled max per (cell, channel) (None for ``mean``)."""
+    B, N, C = feat.shape
+    ncells = grid_ny * grid_nx
+    G = B * ncells
+    cell = _cell(pos[..., 0], grid_nx) + grid_nx * _cell(pos[..., 1], grid_ny)
+    base = torch.arange(B, device=feat.device)[:, None] * ncells
+    seg = torch.where(mask, base + cell, G).reshape(B * N)
+    start = torch.zeros(G + 1, dtype=torch.int32, device=feat.device)
+    start[1:] = torch.bincount(seg, minlength=G + 1)[:G].cumsum(0)
+    ties = None
+    if aggr == "max":
+        pf = torch.cat([pooled.reshape(G, C), pooled.new_zeros(1, C)])
+        eq = (feat.reshape(B * N, C) == pf[seg]) & (seg < G)[:, None]
+        ties = torch.zeros((G + 1, C), dtype=torch.int32,
+                           device=feat.device).index_add_(
+            0, seg, eq.to(torch.int32))[:G]
+    return seg.to(torch.int32), start, ties
+
+
 def pool_features_backward(grad_pooled: torch.Tensor, feat: torch.Tensor,
-                           pooled: torch.Tensor, order: torch.Tensor,
-                           cell_start: torch.Tensor, *,
+                           pooled: torch.Tensor, seg: torch.Tensor,
+                           cell_start: torch.Tensor, ties, *,
                            aggr: str) -> torch.Tensor:
     """grad_feat [B, N, C] of ``pool_graph``'s pooled features [B, G, C]
-    given ``grad_pooled`` [B, G, C]: the nodes of cell g are
-    ``order[cell_start[g]:cell_start[g + 1]]`` (cell g = b * G + cell;
-    rows past ``cell_start[B*G]`` are invalid and get 0).  For ``max``
-    a node gets ``grad_pooled * (1 / ties)`` on the channels where it
-    equals the cell's max, for ``mean`` ``grad_pooled / count``.
-    Kernel K9b on CUDA tensors (one warp per cell, exact, so bit-equal to
-    its twin), ``pool_features_backward_plain`` on CPU tensors."""
+    given ``grad_pooled`` [B, G, C]: node i lies in cell ``seg[i]``
+    (b * G + cell; B*G for an invalid node, whose gradient is 0), cell g
+    holds ``cell_start[g + 1] - cell_start[g]`` nodes and, for ``max``,
+    ``ties[g, c]`` of them equal its max on channel c (``ties`` [B*G,
+    C] i32; None for ``mean``).  For ``max`` a node gets ``grad_pooled *
+    (1 / ties)`` on the channels where it equals the cell's max, for
+    ``mean`` ``grad_pooled / count``.  Kernel K9b on CUDA tensors (one
+    element-parallel launch, exact, so bit-equal to its twin),
+    ``pool_features_backward_plain`` on CPU tensors."""
     if aggr not in ("max", "mean"):
         raise ValueError(f"aggr must be max or mean, not {aggr!r}")
     B, N, C = feat.shape
     G = B * pooled.shape[1]
     if pooled.dim() != 3 or pooled.shape[::2] != (B, C) \
             or grad_pooled.shape != pooled.shape \
-            or order.shape != (B * N,) or cell_start.shape != (G + 1,):
+            or seg.shape != (B * N,) or cell_start.shape != (G + 1,) \
+            or (aggr == "max" and (ties is None or ties.shape != (G, C))):
         raise ValueError("pool_features_backward: grad_pooled and pooled "
-                         "[B, G, C], feat [B, N, C], order [B*N], "
-                         "cell_start [B*G + 1] expected")
+                         "[B, G, C], feat [B, N, C], seg [B*N], "
+                         "cell_start [B*G + 1], ties [B*G, C] (max) expected")
     if not feat.is_cuda:
-        return pool_features_backward_plain(grad_pooled, feat, pooled, order,
-                                            cell_start, aggr=aggr)
+        return pool_features_backward_plain(grad_pooled, feat, pooled, seg,
+                                            cell_start, ties, aggr=aggr)
+    mean = aggr == "mean"
     if not all(t.dtype == torch.float32 for t in (grad_pooled, feat, pooled)) \
-            or order.dtype != torch.int32 or cell_start.dtype != torch.int32:
-        raise ValueError("pool_features_backward: f32 features, i32 runs")
+            or seg.dtype != torch.int32 or cell_start.dtype != torch.int32 \
+            or not (mean or ties.dtype == torch.int32):
+        raise ValueError("pool_features_backward: f32 features, i32 cells, "
+                         "counts and ties")
     _build.check_cuda("pool_features_backward", grad_pooled, feat, pooled,
-                      order, cell_start)
-    grad_feat = torch.zeros_like(feat)
-    i = ctypes.c_int
+                      seg, cell_start, *(() if mean else (ties,)))
+    grad_feat = torch.empty_like(feat)
+    i, null = ctypes.c_int, ctypes.c_void_p(None)
     _build.launch(
         "voxel_pool_backward", "dagr_voxel_pool_backward",
-        _build.ptr(order), _build.ptr(cell_start), _build.ptr(grad_pooled),
-        _build.ptr(feat), _build.ptr(pooled), i(G), i(C), i(aggr == "mean"),
-        _build.ptr(grad_feat))
+        _build.ptr(seg), _build.ptr(cell_start),
+        null if mean else _build.ptr(ties), _build.ptr(grad_pooled),
+        null if mean else _build.ptr(feat), null if mean else _build.ptr(pooled),
+        i(B * N), i(G), i(C), i(mean), _build.ptr(grad_feat))
     return grad_feat
 
 
-def pool_features_backward_plain(grad_pooled, feat, pooled, order, cell_start,
-                                 *, aggr):
+def pool_features_backward_plain(grad_pooled, feat, pooled, seg, cell_start,
+                                 ties, *, aggr):
     """The K9b backward as PyTorch ops (the kernel's twin)."""
     B, N, C = feat.shape
     G, M = B * pooled.shape[1], B * N
-    dev = feat.device
-    # each node's cell from the runs; G for the rows in none
-    rank = torch.searchsorted(
-        cell_start, torch.arange(M, device=dev, dtype=cell_start.dtype),
-        right=True) - 1
-    seg = torch.empty(M, dtype=torch.long, device=dev)
-    seg[order.long()] = rank.long()
+    seg = seg.long()
     gp = torch.cat([grad_pooled.reshape(G, C), grad_pooled.new_zeros(1, C)])
     if aggr == "mean":
         count = (cell_start[1:] - cell_start[:-1]).clamp(min=1)
@@ -207,17 +233,19 @@ def pool_features_backward_plain(grad_pooled, feat, pooled, order, cell_start,
         return (gp / count[:, None])[seg].reshape(B, N, C)
     pf = torch.cat([pooled.reshape(G, C), pooled.new_zeros(1, C)])
     eq = (feat.reshape(M, C) == pf[seg]) & (seg < G)[:, None]
-    ties = torch.zeros((G + 1, C), dtype=feat.dtype, device=dev).index_add_(
-        0, seg, eq.to(feat.dtype))
-    share = gp * (1.0 / ties)
+    n = torch.cat([ties, ties.new_ones(1, C)]).to(feat.dtype)
+    share = gp * (1.0 / n)
     return torch.where(eq, share[seg], 0.0).reshape(B, N, C)
 
 
 def _pool_graph_cuda(feat, pos, mask, nbr, nbr_mask, nbr_dpos, *, grid_ny,
-                     grid_nx, width, height, aggr, keep_temporal_ordering):
+                     grid_nx, width, height, aggr, keep_temporal_ordering,
+                     with_ties=False):
     """K3 on the card: one C entry (its node pass, the counting sort of the
     nodes by cell, the cell reduction and the stencil pass), nothing
-    sorted by torch.  Returns the outputs, order and cell_start."""
+    sorted by torch.  Returns the outputs, order, cell_start, each node's
+    cell ``seg`` and, ``with_ties`` (max only), the tie count [G, C] of
+    each (cell, channel)'s max (else None)."""
     B, N, C = feat.shape
     K = nbr.shape[-1]
     M, ncells = B * N, grid_ny * grid_nx
@@ -241,13 +269,16 @@ def _pool_graph_cuda(feat, pos, mask, nbr, nbr_mask, nbr_dpos, *, grid_ny,
     mask, nbr_mask = mask.contiguous(), nbr_mask.contiguous()
     src = nbr_dpos.contiguous() if nbr_dpos is not None else nbr.contiguous()
     _build.check_cuda("pool_graph", feat, pos, mask, nbr_mask, src)
-    # one int32 buffer: order, cell_start, the stencil ids and the scratch
-    ints = torch.empty(M + G + 1 + 9 * G + _pool_scratch(B, N, grid_ny,
-                                                           grid_nx),
+    # one int32 buffer: the tie counts first (16-byte aligned for K9b's
+    # loads), order, cell_start, the stencil ids, seg and the scratch
+    n_ties = G * C if with_ties and aggr == "max" else 0
+    sizes = [n_ties, M, G + 1, 9 * G, M]
+    ints = torch.empty(sum(sizes) + _pool_scratch(B, N, grid_ny, grid_nx),
                        dtype=torch.int32, device=dev)
-    order, cell_start, nbr_out, scratch = ints.split(
-        [M, G + 1, 9 * G, ints.numel() - (M + 10 * G + 1)])
+    ties, order, cell_start, nbr_out, seg, scratch = ints.split(
+        sizes + [ints.numel() - sum(sizes)])
     nbr_out = nbr_out.view(B, ncells, 9)
+    ties = ties.view(G, C) if n_ties else None
     pooled = torch.empty((B, ncells, C), dtype=torch.float32, device=dev)
     pos_out = torch.empty((B, ncells, 3), dtype=torch.float32, device=dev)
     tmax = torch.empty((B, ncells), dtype=torch.float32, device=dev)
@@ -263,10 +294,12 @@ def _pool_graph_cuda(feat, pos, mask, nbr, nbr_mask, nbr_dpos, *, grid_ny,
         i(C), i(grid_ny), i(grid_nx), i(aggr == "mean"),
         i(keep_temporal_ordering), i(width), i(height), f(_inv(width)),
         f(_inv(height)), _build.ptr(order), _build.ptr(cell_start),
+        _build.ptr(seg), null if ties is None else _build.ptr(ties),
         _build.ptr(scratch), _build.ptr(pooled), _build.ptr(pos_out),
         _build.ptr(cmask), _build.ptr(tmax), _build.ptr(nbr_out),
         _build.ptr(mask_out))
-    return (pooled, pos_out, cmask, nbr_out, mask_out, tmax), order, cell_start
+    return ((pooled, pos_out, cmask, nbr_out, mask_out, tmax), order,
+            cell_start, seg, ties)
 
 
 @functools.lru_cache(maxsize=None)
@@ -537,17 +570,30 @@ def ring_update_cells(
     _build.check_cuda("ring_update_cells", cell_cnt, pos_sum, tmax,
                       adj_death, *args)
     ev_cell, ev_pos, cell, pos, nbr, nbr_mask, cells, vid = args
-    # evicted rows first, then the new ones: a stable sort keeps that
-    # order inside each cell
-    _, order, start = sorted_runs(torch.cat([ev_cell, cell]), G)
+    # the entry sorts the rows by cell itself (evicted rows first, then
+    # the new ones); scratch only past its per-block sort
+    words = _ring_scratch(E, G)
+    scratch = (torch.empty(words, dtype=torch.int32, device=cell.device)
+               if words else None)
     i = ctypes.c_int
     _build.launch(
         "serve_ring_update", "dagr_serve_ring_update",
-        _build.ptr(order), _build.ptr(start), _build.ptr(ev_pos),
+        _build.ptr(ev_cell), _build.ptr(cell), _build.ptr(ev_pos),
         _build.ptr(pos), _build.ptr(nbr), _build.ptr(nbr_mask),
         _build.ptr(cells), _build.ptr(vid), i(E), i(G), i(grid_nx), i(K),
         _build.ptr(cell_cnt), _build.ptr(pos_sum), _build.ptr(tmax),
-        _build.ptr(adj_death))
+        _build.ptr(adj_death),
+        ctypes.c_void_p(None) if scratch is None else _build.ptr(scratch))
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_scratch(E: int, n_cells: int) -> int:
+    """int32 words of the ring update's scratch (0 for the per-block
+    sort; csrc/voxel_pool.cu's own count)."""
+    fn = _build.library().dagr_serve_ring_update_scratch
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_longlong
+    return int(fn(E, n_cells))
 
 
 def ring_update_cells_plain(cell_cnt, pos_sum, tmax, adj_death, ev_cell,

@@ -14,6 +14,9 @@ K6 and K8's search on rings wrapped three times, not yet full or all
 dead, at the paths' widths (the engine's 50k ring, S=8 rings of 8192
 with 20-bit folded pixels, the server's 50176-slot ring) and C = 1;
 each replayed from a CUDA graph and profiled (one C call, no sort).
+K8's ring update on both sides of its per-block sort (2048 keys) and at
+the S=8 x 1024 step's 16384, replayed from a CUDA graph; K9b on one
+cell of 50,000 members at C = 16 and 130 (one launch a call).
 
 Tolerances as in chip_smoke.py: K1, K4, K6 and K8's search's discrete
 outputs and K3's masks, ids and positions exact, K2 (the aggregation
@@ -46,8 +49,9 @@ from dagr_tpu_torch.models.functional import spline_gather, spline_gather_plain
 from dagr_tpu_torch.ops.nms import postprocess, postprocess_plain
 from dagr_tpu_torch.ops.pool import (
     _cell, _pool_graph_cuda, accumulate_cells, accumulate_cells_plain,
-    cell_max, cell_max_plain, pool_features_backward, pool_graph,
-    pool_graph_plain, ring_update_cells, ring_update_cells_plain)
+    cell_max, cell_max_plain, pool_features_backward,
+    pool_features_backward_plain, pool_graph, pool_graph_plain,
+    ring_update_cells, ring_update_cells_plain)
 from dagr_tpu_torch.ops.spline import (
     BatchNormStats, LevelEdges, block_shared_memory, fused_block_fits,
     level_edges, source_runs_plain, spline_conv, spline_conv_backward,
@@ -480,33 +484,88 @@ def test_serve_search_edge_cases(dev, case):
     assert bool(a[1].any()) == (bool(case[4]) and case[6:] != (True,))
 
 
-@pytest.mark.parametrize("rows,n_valid", [(2 * 1024, 1500), (2, 1), (512, 0)])
-def test_ring_update_cells_bit_equal(dev, rows, n_valid):
-    """Two streams' folded cells against the twin on the CPU, two chunks
-    in a row: evicted rows (some dead), a hot cell, invalid rows."""
-    G, nx, K, N = 2 * 40 * 56, 56, 15, 2 * 3072
-    rng = np.random.default_rng(rows)
+def ring_case(rows, streams, seed):
+    """A ring update's state of ``streams`` folded 40 x 56 grids and a
+    chunk generator: evicted rows (some dead), a hot cell, invalid rows
+    past ``n_valid``."""
+    G, K, N = streams * 40 * 56, 15, streams * 3072
+    rng = np.random.default_rng(seed)
     state = [torch.from_numpy(rng.integers(0, 50, G).astype(np.int32)),
              torch.from_numpy(rng.random((G, 3), np.float32) * 40),
              torch.from_numpy(rng.random(G, np.float32)),
              torch.from_numpy(rng.integers(-5, N, (G, 9)).astype(np.int32))]
     cells = torch.from_numpy(rng.integers(0, G + 1, N).astype(np.int32))
     vid = torch.from_numpy(rng.integers(0, 10 * N, N).astype(np.int32))
-    got = [s.to(dev) for s in state]
-    for _ in range(2):
+
+    def chunk(n_valid):
         ev_cell = rng.integers(0, G + 1, rows).astype(np.int32)
         cell = rng.integers(0, G, rows).astype(np.int32)
         cell[: rows // 3] = 777                       # a hot cell
         cell[n_valid:] = G
-        chunk = [torch.from_numpy(a) for a in (
+        return [torch.from_numpy(a) for a in (
             ev_cell, rng.random((rows, 3), np.float32), cell,
             rng.random((rows, 3), np.float32),
             rng.integers(0, N, (rows, K)).astype(np.int32),
             rng.random((rows, K)) < 0.8)] + [cells, vid]
-        ring_update_cells_plain(*state, *chunk, grid_nx=nx)
-        ring_update_cells(*got, *(a.to(dev) for a in chunk), grid_nx=nx)
+
+    return state, chunk
+
+
+# 1024 rows: 2048 keys, the per-block sort's most; 1025 and 2048: the
+# radix path; 8192 at 8 streams: the S=8 x 1024 server step's 16384 keys
+@pytest.mark.parametrize("rows,n_valid", [(2 * 1024, 1500), (2, 1), (512, 0),
+                                          (1024, 1000), (1025, 1000),
+                                          (8192, 8000)])
+def test_ring_update_cells_bit_equal(dev, rows, n_valid):
+    """Folded cells of 2 streams (8 at 8192 rows) against the twin on the
+    CPU, two chunks in a row: evicted rows (some dead), a hot cell,
+    invalid rows."""
+    state, chunk = ring_case(rows, 8 if rows == 8192 else 2, rows)
+    got = [s.to(dev) for s in state]
+    for _ in range(2):
+        c = chunk(n_valid)
+        ring_update_cells_plain(*state, *c, grid_nx=56)
+        ring_update_cells(*got, *(a.to(dev) for a in c), grid_nx=56)
     for a, b in zip(got, state):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("streams,rows", [(1, 256), (8, 8192)])
+def test_ring_update_in_a_cuda_graph(dev, streams, rows):
+    """The ring update at the S=1 ring step's 256 rows (one launch, no
+    aten op) and at S=8 x 1024 (the radix path: 7 kernels, one
+    aten::empty for its scratch): one C call that sorts its own rows,
+    never synchronises and allocates nothing in C, captured in a CUDA
+    graph and replayed over other states and chunks, bit-equal to the
+    twin on the CPU each time."""
+    state, chunk = ring_case(rows, streams, 5)
+    static_state = [t.to(dev) for t in state]
+    static = [t.to(dev) for t in chunk(rows - 3)]
+
+    def call():
+        ring_update_cells(*static_state, *static, grid_nx=56)
+
+    launches, kernels = host_launches(call)
+    assert launches == (1 if streams == 1 else 7) and all(
+        any(w in k for w in ("ring_update_", "radix_"))
+        and "sort" not in k.lower() for k in kernels), (launches, kernels)
+    ops = top_level_ops(call)
+    assert ops == ([] if streams == 1 else ["aten::empty"]), ops
+    before = _build.launch_counts()["serve_ring_update"]
+    call()
+    assert _build.launch_counts()["serve_ring_update"] == before + 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    for _ in range(2):
+        c = chunk(rows // 2)
+        for t, a in zip(static_state + static, state + c):
+            t.copy_(a)
+        graph.replay()
+        ring_update_cells_plain(*state, *c, grid_nx=56)
+        torch.cuda.synchronize()
+        for a, b in zip(static_state, state):
+            assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("n,c", [(50176, 16), (1, 16), (777, 33), (4096, 8)])
@@ -618,6 +677,29 @@ def top_level_ops(fn):
             if e.device_type == DeviceType.CPU and e.name.startswith("aten::")
             and (e.cpu_parent is None
                  or not e.cpu_parent.name.startswith("aten::"))]
+
+
+def host_launches(fn):
+    """The CUDA kernel launches one call of ``fn`` makes on the host
+    (torch.profiler's runtime-API events, after a warm-up call), and the
+    device kernels the trace saw: a trace has been seen to lose a call's
+    device kernels on the card, never its launch calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = sum(1 for e in prof.events() if e.name in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == DeviceType.CPU}
+    return launches, [e.key for e in events
+                      if e.device_type == DeviceType.CUDA
+                      and e.key not in host]
 
 
 def device_kernels(fn):
@@ -953,6 +1035,68 @@ def test_pool_backward_matches_twin_on_ragged_windows(dev):
         assert torch.equal(g.cpu(), gc), aggr
 
 
+@pytest.mark.parametrize("C", [16, 130])
+def test_pool_backward_one_crowded_cell(dev, C):
+    """Every node of a 50,000-node window in one cell (7 invalid), with
+    features of three values (thousands tie at each channel's max): K3's
+    tie counts equal a recount of feat == pooled, and K9b on the
+    forward's tables is one launch (one aten op: its output) bit-equal
+    to the twin on the card, max and mean; through the
+    autograd Function one launch a backward."""
+    N = 50_000
+    rng = np.random.default_rng(C)
+    pos = np.zeros((1, N, 3), np.float32)
+    pos[..., :2] = [0.4, 0.6]
+    pos[..., 2] = np.sort(rng.random(N))
+    mask = np.ones((1, N), bool)
+    mask[0, -7:] = False
+    feat = np.clip(np.round(rng.standard_normal((1, N, C))), -1, 1).astype(
+        np.float32)                       # -1, 0, 1: ~15k members tie at 1
+    feat, pos, mask = (torch.from_numpy(a).to(dev) for a in (feat, pos, mask))
+    nbr = torch.zeros((1, N, 1), dtype=torch.int32, device=dev)
+    args = (feat, pos, mask, nbr, mask[..., None], None)
+    for aggr in ("max", "mean"):
+        kw = dict(grid_ny=40, grid_nx=56, width=W, height=H, aggr=aggr,
+                  keep_temporal_ordering=False)
+        out, _, start, seg, ties = _pool_graph_cuda(
+            *args, **kw, with_ties=aggr == "max")
+        pooled = out[0]
+        G = pooled.shape[1]
+        assert int(start[-1]) == N - 7 and int((start[1:] > start[:-1]).sum()) == 1
+        if aggr == "max":
+            s = seg.long()
+            pf = torch.cat([pooled[0], pooled.new_zeros(1, C)])
+            eq = (feat[0] == pf[s]) & (s < G)[:, None]
+            want = torch.zeros((G + 1, C), dtype=torch.int32,
+                               device=dev).index_add_(0, s, eq.int())
+            assert torch.equal(ties, want[:G]) and int(ties.max()) > 1000
+        else:
+            assert ties is None
+        gp = torch.randn_like(pooled)
+        targs = (gp, feat, pooled, seg, start, ties)
+
+        def call():
+            return pool_features_backward(*targs, aggr=aggr)
+
+        before = _build.launch_counts()["voxel_pool_backward"]
+        got = call()
+        assert _build.launch_counts()["voxel_pool_backward"] == before + 1
+        launches, kernels = host_launches(call)
+        assert launches == 1 and all("pool_backward_kernel" in k
+                                     for k in kernels), (launches, kernels)
+        assert top_level_ops(call) == ["aten::empty_like"]
+        want = pool_features_backward_plain(*targs, aggr=aggr)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), aggr
+        assert not got[0, -7:].any()
+        x = feat.clone().requires_grad_(True)
+        y = pool_graph(x, *args[1:], **kw)[0]
+        before = _build.launch_counts()["voxel_pool_backward"]
+        (g,) = torch.autograd.grad(y, x, gp)
+        assert _build.launch_counts()["voxel_pool_backward"] == before + 1
+        assert torch.equal(g, got)
+
+
 def test_backward_wrappers_refuse_bad_inputs(dev):
     edges, ts = random_level(0, 50, 9, 4, 3)
     e_dev = LevelEdges(*(t.to(dev) for t in edges))
@@ -969,19 +1113,31 @@ def test_backward_wrappers_refuse_bad_inputs(dev):
         spline_conv_backward(x, gy, LevelEdges(
             e_dev.nbr.long(), e_dev.mask, e_dev.attr), w, root)
     feat = torch.zeros((1, 4, 2), device=dev)
-    order = torch.arange(4, dtype=torch.int32, device=dev)
+    seg = torch.zeros(4, dtype=torch.int32, device=dev)
     start = torch.tensor([0, 4, 4], dtype=torch.int32, device=dev)
+    ties = torch.tensor([[4, 4], [0, 0]], dtype=torch.int32, device=dev)
     gp = torch.ones((1, 2, 2), device=dev)
     with pytest.raises(ValueError):
-        pool_features_backward(gp.double(), feat, gp, order, start, aggr="max")
-    with pytest.raises(ValueError):
-        pool_features_backward(gp, feat, gp, order.long(), start, aggr="max")
-    with pytest.raises(ValueError):
-        pool_features_backward(gp.transpose(1, 2), feat, gp, order, start,
+        pool_features_backward(gp.double(), feat, gp, seg, start, ties,
                                aggr="max")
-    out = pool_features_backward(gp, feat, gp * 0, order, start, aggr="max")
+    with pytest.raises(ValueError):
+        pool_features_backward(gp, feat, gp, seg.long(), start, ties,
+                               aggr="max")
+    with pytest.raises(ValueError):
+        pool_features_backward(gp, feat, gp, seg, start, ties.float(),
+                               aggr="max")
+    with pytest.raises(ValueError):                       # max needs ties
+        pool_features_backward(gp, feat, gp, seg, start, None, aggr="max")
+    with pytest.raises(ValueError):
+        pool_features_backward(gp.transpose(1, 2), feat, gp, seg, start,
+                               ties, aggr="max")
+    out = pool_features_backward(gp, feat, gp * 0, seg, start, ties,
+                                 aggr="max")
+    mean = pool_features_backward(gp, feat, gp * 0, seg, start, None,
+                                  aggr="mean")
     torch.cuda.synchronize()
     assert torch.equal(out.cpu(), torch.full((1, 4, 2), 0.25))
+    assert torch.equal(mean.cpu(), torch.full((1, 4, 2), 0.25))
 
 
 def test_train_step_matches_cpu_and_eval_launches_no_backward(dev):
@@ -1137,13 +1293,14 @@ def test_voxel_pool_runs_and_outputs(dev, case):
                 ns.graph.nbr_dpos)
         kw = dict(grid_ny=gy, grid_nx=gx, width=W, height=H, aggr="max",
                   keep_temporal_ordering=False)
-        got, order, start = _pool_graph_cuda(*args, **kw)
+        got, order, start, seg, _ = _pool_graph_cuda(*args, **kw)
         cell = _cell(ns.pos[..., 0], gx) + gx * _cell(ns.pos[..., 1], gy)
         base = torch.arange(B, device=dev)[:, None] * (gy * gx)
         key = torch.where(ns.mask, base + cell, B * gy * gx).reshape(-1)
         _, want_order, want_start = sorted_runs(key, B * gy * gx)
         torch.cuda.synchronize()
         assert torch.equal(order, want_order) and torch.equal(start, want_start)
+        assert torch.equal(seg, key.int())
         want = pool_graph_plain(*[a.cpu() if a is not None else None
                                   for a in args], **kw)
         for name, a, b in zip(("feat", "pos", "mask", "nbr", "nbr_mask",

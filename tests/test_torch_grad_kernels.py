@@ -272,14 +272,20 @@ def test_pool_function_gradcheck_float64(aggr):
 
 
 def test_pool_backward_wrapper_checks_shapes():
+    """Four nodes in cell 0 of two, all tied at the max."""
     feat = torch.zeros((1, 4, 2))
+    seg = torch.zeros(4, dtype=torch.int32)
+    start = torch.tensor([0, 4, 4], dtype=torch.int32)
+    ties = torch.tensor([[4, 4], [0, 0]], dtype=torch.int32)
     with pytest.raises(ValueError):
         pool_features_backward(torch.zeros((1, 3, 2)), feat,
-                               torch.zeros((1, 2, 2)),
-                               torch.zeros(4, dtype=torch.int32),
-                               torch.zeros(3, dtype=torch.int32), aggr="max")
+                               torch.zeros((1, 2, 2)), seg, start, ties,
+                               aggr="max")
+    with pytest.raises(ValueError):          # max needs the tie counts
+        pool_features_backward(torch.ones((1, 2, 2)), feat,
+                               torch.zeros((1, 2, 2)), seg, start, None,
+                               aggr="max")
     out = pool_features_backward_plain(
-        torch.ones((1, 2, 2)), feat, torch.zeros((1, 2, 2)),
-        torch.arange(4, dtype=torch.int32),
-        torch.tensor([0, 4, 4], dtype=torch.int32), aggr="max")
+        torch.ones((1, 2, 2)), feat, torch.zeros((1, 2, 2)), seg, start, ties,
+        aggr="max")
     np.testing.assert_array_equal(out[0].numpy(), np.full((4, 2), 0.25))
