@@ -36,7 +36,11 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
 6. streams through ``dagr_tpu_torch.streaming.engine.StreamingDetector``
    on the same model: holds the streaming kernels K6, K7 and K10 against
    their twins at the engine's shapes (a 1024-event chunk against a
-   45k-event store, K6 append-only and in a wrapped ring) and profiles
+   45k-event store, K6 append-only and in a wrapped ring; K7, the
+   gathered block, at both event blocks with the model's weights at C =
+   1024, 256 and 1, 1e-5 of the output's max; K10 bit-equal at 1 to
+   2049 rows, one launch and no aten op up to 2048; each with its host
+   ops, launches and device ms) and profiles
    K6 (one C call, at most 5 host ops, only the port's kernels, no sort
    or searchsorted); feeds one 45k-event window in 1024-event chunks
    (grow), whose final raw outputs must equal the sync raw of the same
@@ -44,7 +48,8 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    held against its twin on the inputs of its middle step; feeds 90k
    events (two windows, the second 1 s later) through a 50k-event ring,
    with K6, K7, K2 and K3 launched on every ring step and K10 on none,
-   (18 fused blocks a step, no split conv, in both modes), and K6
+   (2 gathered blocks and 18 fused blocks a step, no split conv and no
+   separate aggregation kernel, in both modes), and K6
    held against its twin on the inputs of a step after the wrap,
    which must equal grow before it evicts and, after, hold exactly the
    last 50k events, with level-1 cells equal to a numpy recompute from
@@ -76,7 +81,7 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    and timed; the cell max one launch a call, timed against one
    ``scatter_reduce_`` amax in three turns), and K2 (both event convs,
    split convs, and every distinct fused block of the tail at batch S),
-   K10 (the S*G1 folded cells) and
+   K10 (the S*G1 folded cells, 8192 rows: the radix path, 7 launches) and
    K3 (the tail's first pooling, with its cell runs) on a grow step.
    Times the steps and profiles their device time;
 9. trains DAGR-S through the recipe step (``dagr_tpu_torch.train.state.
@@ -121,7 +126,9 @@ server step, the S=1 ring server step of 256 on a full ring and the
 B=8 train step, each with its device busy time and idle share; the
 ring update of one ring step and K9b's 4 calls of one train step,
 replayed on their own inputs (wrapper and device ms, host ops,
-launches); the split conv of the B=8 train step's event level and
+launches), and the same for the event level's two blocks (K7) and K10
+of an engine grow step of 1024 and K10 of an S=8 server step; the
+split conv of the B=8 train step's event level and
 first stencil level, forward and forward + backward (the backward
 building the level's transposed edges), wrapper and device ms; the
 peak memory of the recipe's B=64 step; and the host ops of one graph
@@ -161,10 +168,12 @@ WIDE_MODELS = (
                                 dataset="ncaltech101", num_scales=1),
      180, 240))
 # the kernels a grow step launches (a ring step: K3 in place of K10)
-STREAM_KERNELS = ("graph_search_store", "spline_gather", "stream_accumulate",
-                  "spline_conv_block", "voxel_pool")
-RING_KERNELS = ("graph_search_store", "spline_gather", "spline_conv_block",
-                "voxel_pool")
+STREAM_KERNELS = ("graph_search_store", "spline_gather_block",
+                  "stream_accumulate", "spline_conv_block", "voxel_pool")
+RING_KERNELS = ("graph_search_store", "spline_gather_block",
+                "spline_conv_block", "voxel_pool")
+# the engine's two event conv blocks: one gathered block (K7) each
+EVENT_BLOCKS = 2
 # the kernels a multi-stream serve step launches, per window mode (its
 # two event convs are split convs)
 SERVE_KERNELS = ("serve_search", "spline_conv", "spline_conv_block",
@@ -185,8 +194,8 @@ KERNEL_TABLE = {
     "voxel_pool": ("voxel_pool.cu", "dagr_tpu/ops/pool.py:46"),
     "nms": ("nms.cu", "dagr_tpu/ops/nms.py:54"),
     "graph_search_store": ("graph_search.cu", "dagr_tpu/graph/build.py:389"),
-    "spline_gather": ("spline_aggregate.cu",
-                      "dagr_tpu/models/functional.py:109"),
+    "spline_gather_block": ("spline_conv.cu",
+                            "dagr_tpu/models/functional.py:109"),
     "stream_accumulate": ("voxel_pool.cu",
                           "dagr_tpu/streaming/engine.py:247"),
     "serve_search": ("graph_search.cu", "dagr_tpu/streaming/serve.py:406"),
@@ -303,6 +312,19 @@ def require_blocks(before, after, blocks, split, what):
     require(got == (blocks, split),
             f"{what} launches {got[0]} fused blocks and {got[1]} split "
             f"convs, not {blocks} and {split}")
+
+
+def require_gather_blocks(before, after, what):
+    """An engine step's event level: EVENT_BLOCKS gathered blocks (K7)
+    between two launch counts, and no separate aggregation kernel: the
+    library has no such entry."""
+    from dagr_tpu_torch.kernels import _build
+
+    n = after["spline_gather_block"] - before["spline_gather_block"]
+    require(n == EVENT_BLOCKS, f"{what} launches {n} gathered blocks, not "
+            f"{EVENT_BLOCKS}")
+    require(not hasattr(_build.library(), "dagr_spline_aggregate_gather"),
+            "no spline_gather aggregation kernel in the library")
 
 
 def check_pool_runs(args, kw, what):
@@ -848,15 +870,19 @@ def stream_events(window, shift_us: int = 0):
     return pos_px, window.feat[0, :N_VALID].cpu().numpy()
 
 
-def check_stream_kernels(cfg, window, card):
+def check_stream_kernels(cfg, model, window, card):
     """Phase 6a: K6, K7 and K10 against their twins at the streaming
     engine's shapes: a 1024-event chunk against a 45k-event store (K6
     append-only and in a wrapped 50k ring, each profiled: one C call, no
-    sort).  Returns {kernel: record(...)}, ms per grow step."""
+    sort); K7, the gathered block, at both of the engine's event blocks
+    with ``model``'s weights at C = 1024, 256 and 1 (1e-5 of the output's
+    max, timed, host ops and launches); K10 bit-equal at 1, 256, 1024,
+    2048 and 2049 rows (both sides of its per-block sort), timed, host
+    ops and launches.  Returns {kernel: record(...)}."""
     from dagr_tpu_torch.graph.build import (
         search_edges_into_store, search_edges_into_store_plain)
     from dagr_tpu_torch.models.functional import (
-        spline_gather, spline_gather_plain)
+        spline_conv_gather_block, spline_conv_gather_block_plain)
     from dagr_tpu_torch.ops.pool import (
         _cell, accumulate_cells, accumulate_cells_plain)
 
@@ -906,55 +932,169 @@ def check_stream_kernels(cfg, window, card):
             nbr_mask = torch.cat([torch.ones_like(a[1][:, :1]), a[1]], 1)
             store_pos = cuda(spos.astype(np.float32) * inv)
 
-    # K7 at the two event-level widths: Cin 3 (feat, x, y) and 16
+    # K7: the engine's two event blocks (Cin 3 -> 16, then 16 -> 16 with
+    # the skip of 3) on the store, with the model's weights
+    mv = cfg.cartesian_max_values(W)[0]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    dst = store_pos[N_VALID - C:N_VALID]
-    err, ms, plain_ms, k7_bytes, k7_ops = 0.0, 0.0, 0.0, 0, 0
-    for cin in (3, 16):
-        x = torch.rand((N_NODES, cin), generator=gen, device="cuda")
-        args = (x, store_pos, dst, nbr, nbr_mask)
-        a = spline_gather(*args, max_value=cfg.cartesian_max_values(W)[0])
-        b = spline_gather_plain(*args, max_value=cfg.cartesian_max_values(W)[0])
-        e = max_err(a, b)
-        require(e <= 1e-5 * max(1.0, float(b.abs().max())),
-                f"K7 Cin {cin}: max |g - twin| = {e}")
-        err = max(err, e)
-        mv = cfg.cartesian_max_values(W)[0]
-        ms += cuda_ms(lambda: spline_gather(*args, max_value=mv), 50)
-        plain_ms += cuda_ms(lambda: spline_gather_plain(*args, max_value=mv), 10)
-        k7_bytes += nbytes(*args, a)
-        k7_ops += 8 * cin * int(nbr_mask.sum())
-        print(f"K7 spline_gather Cin {cin}: C={C} K={K} N={N_NODES} "
-              f"err={e:.3g}", flush=True)
-    out["spline_gather"] = record(err, ms, plain_ms, k7_bytes, k7_ops)
+    layer = model.backbone.conv_block1
+    feat_t = cuda(np.zeros((N_NODES, 1), np.float32))
+    feat_t[:N_VALID] = cuda(feat)
+    x_in = torch.cat([feat_t, store_pos[:, :2]], 1)
+    x1 = torch.rand((N_NODES, cfg.channels()[1]), generator=gen, device="cuda")
+    checks, rec = [], None
+    for C_ in (1024, 256, 1):
+        rows = slice(N_VALID - C_, N_VALID)
+        nb, nm = nbr[-C_:].contiguous(), nbr_mask[-C_:].contiguous()
+        cv = nm[:, 0].contiguous()
+        dst, x_dst = store_pos[rows], x_in[rows]
+        calls = []
+        for blk, table, root_rows, skip in (
+                (layer.conv_block1, x_in, x_dst, None),
+                (layer.conv_block2, x1, None, x_dst)):
+            kw = dict(max_value=mv, bn=blk.norm.stats(), act=blk.activation,
+                      mask=cv)
+            if skip is not None:
+                kw.update(skip=skip, lin=blk.lin.weight,
+                          bn_skip=blk.norm_skip.stats())
+                root_rows = calls[0][2]          # block 1's output
+            args = (table, store_pos, dst, root_rows, nb, nm,
+                    blk.conv.weight, blk.conv.root)
+            with torch.no_grad():
+                a = spline_conv_gather_block(*args, **kw)
+                b = spline_conv_gather_block_plain(*args, **kw)
+            calls.append((args, kw, a, b))
+        for i, (args, kw, a, b) in enumerate(calls):
+            e, top = max_err(a, b), float(b.abs().max())
+            require(e <= 1e-5 * max(top, 1e-30),
+                    f"K7 block {i + 1} at C={C_}: max |out - twin| = {e} "
+                    f"against an output max of {top}")
+        with torch.no_grad():
+            def both():
+                for args, kw, _, _ in calls:
+                    spline_conv_gather_block(*args, **kw)
+
+            def both_plain():
+                for args, kw, _, _ in calls:
+                    spline_conv_gather_block_plain(*args, **kw)
+
+            ops, launches, kernels = count_host_ops(both)
+            require(launches == 2 and all(
+                "spline_conv_block_kernel" in k for k in kernels),
+                f"K7 at C={C_}: one launch a block: {launches}, {kernels}")
+            chk = record(
+                max(max_err(a, b) for _, _, a, b in calls), cuda_ms(both, 50),
+                cuda_ms(both_plain, 10),
+                *gather_block_work([(args, kw) for args, kw, _, _ in calls]),
+                ops_per_s=TF32X3_OPS_PER_S)
+            chk.update(at=f"engine event level, C={C_}", host_ops=len(ops),
+                       kernel_launches=launches,
+                       device_ms=kernel_times(both, 20)[0],
+                       rel_err=max(max_err(a, b) / max(float(b.abs().max()),
+                                                        1e-30)
+                                   for _, _, a, b in calls))
+        checks.append(chk)
+        print(f"K7 gathered block, engine event level C={C_} (3 -> 16, "
+              f"16 -> 16 skip 3): err {chk['max_abs_err']:.3g} "
+              f"({chk['rel_err']:.3g} of the output max); {len(ops)} host "
+              f"ops ({', '.join(ops)}), {launches} launches; wrapper "
+              f"{chk['ms']:.4f} ms, device {chk['device_ms']:.4f} ms, twin "
+              f"{chk['plain_ms']:.4f} ms, bound {chk['bound_ms']:.5f} ms "
+              f"({chk['bound_by']}) [{card}]", flush=True)
+    out["spline_gather_block"] = dict(checks[0], path_checks=checks,
+                                      max_abs_err=max(
+                                          c["max_abs_err"] for c in checks))
 
     # K10: two chunks into fresh level-1 tables, against the twin on the
-    # CPU (which adds in chunk order, as the kernel does)
+    # CPU (which adds in chunk order, as the kernel does); the store's
+    # rows as the chunk, repeated past the 1024 the search gave
     ny, nx = cfg.grid_shapes()[0]
     G, c1 = ny * nx, cfg.channels()[1]
-    tables = [torch.zeros(G, dtype=torch.int32),
-              torch.full((G, c1), torch.finfo(torch.float32).min),
-              torch.zeros((G, 3)), torch.full((G,), -np.inf),
-              torch.zeros((G, 9), dtype=torch.bool)]
-    got = [t.cuda() for t in tables]
     cells = _cell(store_pos[:, 0], nx) + nx * _cell(store_pos[:, 1], ny)
-    for rows in (slice(N_VALID - 2 * C, N_VALID - C), slice(N_VALID - C, N_VALID)):
-        chunk = (cells[rows].contiguous(),
-                 torch.rand((C, c1), generator=gen, device="cuda"),
-                 store_pos[rows].contiguous(), nbr, nbr_mask, cells)
-        accumulate_cells(*got, *chunk, grid_nx=nx)
-        accumulate_cells_plain(*tables, *(t.cpu() for t in chunk), grid_nx=nx)
-    for name, a, b in zip(("cell_cnt", "cell_max", "pos_sum", "tmax", "adj"),
-                          got, tables):
-        require(torch.equal(a.cpu(), b), f"K10 {name} bit-equal to twin")
-    ms = cuda_ms(lambda: accumulate_cells(*got, *chunk, grid_nx=nx), 50)
-    plain_ms = cuda_ms(lambda: accumulate_cells_plain(*got, *chunk, grid_nx=nx), 10)
-    # the level-1 tables are read and written
-    out["stream_accumulate"] = record(0.0, ms, plain_ms,
-                                      nbytes(*chunk) + 2 * nbytes(*got), C * c1)
-    print(f"K10 stream_accumulate: bit-equal to twin; "
-          f"{int(tables[0].gt(0).sum())} cells", flush=True)
+    checks = []
+    for R in (1024, 256, 1, 2048, 2049):
+        tables = [torch.zeros(G, dtype=torch.int32),
+                  torch.full((G, c1), torch.finfo(torch.float32).min),
+                  torch.zeros((G, 3)), torch.full((G,), -np.inf),
+                  torch.zeros((G, 9), dtype=torch.bool)]
+        got = [t.cuda() for t in tables]
+        idx = torch.arange(N_VALID - R, N_VALID, device="cuda")
+        e_idx = (idx - (N_VALID - C)) % C
+        for rows in (idx - R, idx):
+            chunk = (cells[rows].contiguous(),
+                     torch.rand((R, c1), generator=gen, device="cuda"),
+                     store_pos[rows].contiguous(), nbr[e_idx].contiguous(),
+                     nbr_mask[e_idx].contiguous(), cells)
+            accumulate_cells(*got, *chunk, grid_nx=nx)
+            accumulate_cells_plain(*tables, *(t.cpu() for t in chunk),
+                                   grid_nx=nx)
+        for name, a, b in zip(("cell_cnt", "cell_max", "pos_sum", "tmax",
+                               "adj"), got, tables):
+            require(torch.equal(a.cpu(), b),
+                    f"K10 {name} at {R} rows bit-equal to twin")
+
+        def call():
+            accumulate_cells(*got, *chunk, grid_nx=nx)
+
+        ops, launches, kernels = count_host_ops(call)
+        require(not any(w in k.lower() for k in kernels
+                        for w in ("sort", "searchsorted")),
+                f"K10 runs no torch sort: {kernels}")
+        if R <= 2048:
+            require(not ops and launches == 1,
+                    f"K10 at {R} rows: one launch, no aten op: {ops}; "
+                    f"{launches}")
+        chk = record(0.0, cuda_ms(call, 50), cuda_ms(
+            lambda: accumulate_cells_plain(*got, *chunk, grid_nx=nx), 10),
+            *accumulate_work(chunk, G, c1))
+        chk.update(at=f"engine, {R} rows", host_ops=len(ops),
+                   kernel_launches=launches,
+                   device_ms=kernel_times(call, 20)[0])
+        checks.append(chk)
+        print(f"K10 stream_accumulate at {R} rows: bit-equal to twin "
+              f"(two chunks, {int(tables[0].gt(0).sum())} cells); "
+              f"{len(ops)} host ops, {launches} launches; wrapper "
+              f"{chk['ms']:.4f} ms, device {chk['device_ms']:.4f} ms, twin "
+              f"{chk['plain_ms']:.4f} ms, bound {chk['bound_ms']:.5f} ms "
+              f"[{card}]", flush=True)
+    out["stream_accumulate"] = dict(checks[0], path_checks=checks)
     return out
+
+
+def gather_block_work(calls):
+    """(bytes, operations at the 3xTF32 rate) of gathered-block calls
+    ``[(args, kw)]``: each input byte once (the edge tables, the distinct
+    source rows and their (x, y), the destinations' positions, root,
+    skip and mask rows, the weights and batch-norm vectors) and the
+    output; the products 2 C (26 Cin + Cs) Cout at the 3xTF32 rate plus
+    the aggregation's 8 Cin per unmasked edge at the fp32 rate, as
+    3xTF32-rate operations."""
+    n_bytes, n_ops = 0, 0.0
+    for args, kw in calls:
+        table, _, dst, x_root, nb, nm, weight, root = args
+        cin, cout = weight.shape[1], weight.shape[2]
+        C_ = nb.shape[0]
+        src = torch.unique(nb[nm]).numel()
+        cs = kw["skip"].shape[1] if kw.get("skip") is not None else 0
+        stats = [t for k in ("bn", "bn_skip") if kw.get(k) is not None
+                 for t in kw[k][:4]]
+        n_bytes += (nbytes(nb, nm, x_root, weight, root, kw.get("mask"),
+                           kw.get("skip"), kw.get("lin"), *stats)
+                    + src * (cin + 2) * 4 + C_ * 2 * 4 + C_ * cout * 4)
+        n_ops += 2 * C_ * (26 * cin + cs) * cout + 8 * cin * int(
+            nm.sum()) * TF32X3_OPS_PER_S / FP32_OPS_PER_S
+    return n_bytes, n_ops
+
+
+def accumulate_work(chunk, G, c1):
+    """(bytes, operations) of one K10 call on ``chunk`` over G cells: the
+    chunk's rows once, the source cells of its unmasked edges, and the
+    state of the cells it touches read and written; a compare per
+    feature channel."""
+    cell, feat, pos, nb, nm, cells = chunk
+    touched = torch.unique(cell[cell < G]).numel()
+    per_cell = 4 + 4 * c1 + 12 + 4 + 9
+    return (nbytes(cell, feat, pos, nb, nm) + 4 * torch.unique(
+        nb[nm]).numel() + 2 * touched * per_cell, feat.numel())
 
 
 def ring_level1_oracle(cfg, fed_px, v0, nbr_vid, nbr_valid, x2, width,
@@ -1094,6 +1234,7 @@ def stream(cfg, det, events, card):
         for k in STREAM_KERNELS:
             require(after[k] > before[k], f"kernel {k} launched on a step")
         require_blocks(before, after, TAIL_BLOCKS, 0, "a grow engine step")
+        require_gather_blocks(before, after, "a grow engine step")
         grow_raws.append(raw)
     torch.cuda.synchronize()
     launches = _build.launch_counts()
@@ -1135,6 +1276,7 @@ def stream(cfg, det, events, card):
         require(after["stream_accumulate"] == before["stream_accumulate"],
                 "no K10 launch on a ring step")
         require_blocks(before, after, TAIL_BLOCKS, 0, "a ring engine step")
+        require_gather_blocks(before, after, "a ring engine step")
         if (i + 1) * 1024 <= N_VALID:          # no eviction yet
             ring_err = max(ring_err, max_err(rraw, grow_raws[i]))
     torch.cuda.synchronize()
@@ -1184,6 +1326,8 @@ def stream(cfg, det, events, card):
             ts, _, _ = fast.step(ts, *c)
         torch.cuda.synchronize()
     kern = kernel_events(prof)
+    require(not any("aggregate" in e.key for e in kern),
+            "a grow step runs no separate spline aggregation kernel")
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / len(prof_chunks)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
     ts, ms256 = step_ms(fast, ts, chunk_events(
@@ -1346,13 +1490,28 @@ def hold_serve_step(k2_events, k10, k3_tail, what, card):
                           got, want):
         require(torch.equal(x.cpu(), y), f"K10 {what} {name} bit-equal to twin")
     scratch = [t.clone() for t in state]
+
+    def call():
+        accumulate_cells(*scratch, *rest, **kw)
+
+    # past 2048 rows: K1's radix sort (6 launches) and one more, its
+    # scratch one aten::empty
+    ops, launches, kernels = count_host_ops(call)
+    require(launches == 7 and not any(
+        w in k.lower() for k in kernels for w in ("sort", "searchsorted")),
+        f"K10 {what}: the radix path, 7 launches, no torch sort: {ops}; "
+        f"{launches}; {kernels}")
     checks["stream_accumulate"].append({
-        "at": what, "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: accumulate_cells(*scratch, *rest, **kw), 50),
+        "at": what, "max_abs_err": 0.0, "ms": cuda_ms(call, 50),
         "plain_ms": cuda_ms(
-            lambda: accumulate_cells_plain(*scratch, *rest, **kw), 10)})
+            lambda: accumulate_cells_plain(*scratch, *rest, **kw), 10),
+        "device_ms": kernel_times(call, 20)[0], "host_ops": len(ops),
+        "kernel_launches": launches})
+    c = checks["stream_accumulate"][-1]
     print(f"K10 stream_accumulate, {what}: bit-equal to twin on "
-          f"{state[0].numel()} folded cells, {rest[0].numel()} rows",
+          f"{state[0].numel()} folded cells, {rest[0].numel()} rows; "
+          f"{len(ops)} host ops, {launches} launches; wrapper "
+          f"{c['ms']:.4f} ms, device {c['device_ms']:.4f} ms [{card}]",
           flush=True)
 
     args, kw = k3_tail.args, k3_tail.kwargs
@@ -1633,7 +1792,7 @@ def serve_streams(cfg, det, events, card):
     # 2E = 512 rows), no torch op between the wrapper and the update
     ops, launches, kernels = count_host_ops(ring_update)
     require(not ops and launches == 1 and all(
-        "ring_update_" in k for k in kernels),
+        "cell_update_" in k for k in kernels),
         f"K8 ring update: one launch, no aten op: {ops}; {launches}; "
         f"{kernels}")
     rec = out["serve_ring_update"]
@@ -2357,12 +2516,59 @@ def replay_calls(module, name, n, step):
         def call(args=args, kw=kw):
             fn(*args, **kw)
 
-        ops, launches, _ = count_host_ops(call)
-        calls.append({"ms": cuda_ms(call, 20),
-                      "device_ms": kernel_times(call, 10)[0],
-                      "host_ops": len(ops), "launches": launches,
-                      "op_names": ops})
+        calls.append(replay_fn(call))
     return calls
+
+
+def replay_fn(call):
+    """Wrapper ms (CUDA events, 20 calls), device ms (kernel_times, 10
+    calls), top-level aten ops and launches of one ``call()``."""
+    ops, launches, _ = count_host_ops(call)
+    return {"ms": cuda_ms(call, 20), "device_ms": kernel_times(call, 10)[0],
+            "host_ops": len(ops), "launches": launches, "op_names": ops}
+
+
+def engine_replays(engine_mod, model, step):
+    """The event level (its two conv blocks) and K10 of one engine grow
+    ``step()``, replayed on their own inputs by ``replay_fn``, for any
+    checkout's engine: one that routes each block through
+    ``event_block`` (the gathered block), or the earlier form whose step
+    called ``spline_conv_gather`` twice and ran the batch norms, the skip
+    product, the activation and the masks as PyTorch ops around it,
+    replayed as that step composed them."""
+    from dagr_tpu_torch.models import functional as fmod
+    from dagr_tpu_torch.models.blocks import activation_fn
+
+    gathered = hasattr(engine_mod, "event_block")
+    caps = [Capture(engine_mod, "event_block" if gathered
+                    else "spline_conv_gather", 0, 1),
+            Capture(engine_mod, "accumulate_cells", 0)]
+    step()
+    for cap in caps:
+        cap.close()
+    ev, k10 = caps
+    if gathered:
+        def level():
+            with torch.no_grad():
+                for args, kw in ev.calls:
+                    engine_mod.event_block(*args, **kw)
+    else:
+        layer = model.backbone.conv_block1
+        cb1, cb2 = layer.conv_block1, layer.conv_block2
+        act = activation_fn(model.cfg.activation)
+        (a1, k1), (a2, k2) = ev.calls
+        cv = a1[5][:, 0]                   # the self edge's mask: the rows
+
+        def level():
+            with torch.no_grad():
+                h1 = fmod.spline_conv_gather(*a1, **k1)
+                torch.where(cv[:, None], act(fmod.bn_eval(h1, cb1.norm)), 0.0)
+                h2 = fmod.bn_eval(fmod.spline_conv_gather(*a2, **k2), cb2.norm)
+                sk = fmod.bn_eval(a1[3] @ cb2.lin.weight.t(), cb2.norm_skip)
+                torch.where(cv[:, None], act(h2 + sk), 0.0)
+
+    return {"event_level": replay_fn(level), "k10": replay_fn(
+        lambda: engine_mod.accumulate_cells(*k10.args, **k10.kwargs))}
 
 
 def pool_outputs(det, window):
@@ -2512,6 +2718,14 @@ def eval_timings(cfg, out):
     # the host side of one K6 search, on the next step's inputs
     host["store_search"] = search_host_ops(
         engine_mod, "search_edges_into_store", eng_step)
+    # K7's two blocks and K10 of one grow step of 1024, replayed
+    e0 = STREAM_WARM + 27 * 256
+    c1024 = chunk_events(p3[e0:e0 + 1024], f3[e0:e0 + 1024], 1024,
+                         device="cuda")[0]
+    rep = engine_replays(engine_mod, model,
+                         lambda: eng.step(box[0], *c1024))
+    out["event_level_1024"], out["k10_engine_1024"] = (rep["event_level"],
+                                                       rep["k10"])
 
     S, C = SERVE_S, SERVE_CHUNK
     fed = [stream_events(w) for w in events[1:1 + S]]
@@ -2537,6 +2751,9 @@ def eval_timings(cfg, out):
     # the host side of one K8 search, on the inputs of a grow step
     host["serve_search"] = search_host_ops(
         serve_mod, "search_edges_streams", lambda: srv.step(gst, *chunks[8]))
+    # K10 of one S=8 grow step (8192 folded rows), replayed
+    out["k10_serve_8192"] = replay_calls(
+        serve_mod, "accumulate_cells", 1, lambda: srv.step(gst, *chunks[9]))[0]
 
     # the ring window, one stream in chunks of RING_CHUNK: filled, then
     # 16 timed steps, 4 profiled and the ring update of one more replayed
@@ -2607,7 +2824,14 @@ def compare(parent: str, card, train_only=False):
                   f"{v['fwd_bwd_busy']:.4f}, {v['fwd_bwd_host_ops']} host "
                   f"ops) [{card}]", flush=True)
         for k, v in (("K3, the sync window's 4 poolings", t.get("sync_pool")),
-                     ("K8 ring update, a ring S=1 step", t.get("ring_update"))):
+                     ("K8 ring update, a ring S=1 step", t.get("ring_update")),
+                     ("K7, the event level's 2 blocks, an engine grow step "
+                      "of 1024", t.get("event_level_1024")),
+                     ("K10, an engine grow step of 1024",
+                      t.get("k10_engine_1024")),
+                     (f"K10, an S={SERVE_S} server grow step "
+                      f"({SERVE_S * SERVE_CHUNK} rows)",
+                      t.get("k10_serve_8192"))):
             if v:
                 extra = (f"{v['host_ops']} host ops, {v['launches']} "
                          f"launches, device {v['device_ms']:.4f} ms"
@@ -2698,7 +2922,7 @@ def main() -> int:
 
     kernels = check_kernels(cfg, events, det)
     window_ms, launches = serve(cfg, events, det)
-    kernels.update(check_stream_kernels(cfg, events[0], card))
+    kernels.update(check_stream_kernels(cfg, det.model, events[0], card))
     # K2's fused block on the 20 calls of one window
     cap = Capture(spline_mod, "spline_conv_block", *range(SYNC_BLOCKS))
     det(events[1])

@@ -48,6 +48,28 @@
 // B: ldb = 8 or 24 mod 32).  The kernels take up to 227 KB of dynamic
 // shared memory; dagr_init sets that limit once, when the library is
 // loaded, so a launch inside a CUDA-graph capture sets nothing.
+//
+// K7, the gathered block (dagr_spline_conv_gather_block): the same
+// kernel over a streaming chunk.  Replaces dagr_tpu/models/functional.py:
+// 109 spline_conv_gather and the bn_eval, activation and mask around it
+// at dagr_tpu/streaming/engine.py:208-226: the engine's two event convs
+// (Cin 3 -> 16, then 16 -> 16 with the Cs = 3 skip), whose M = C
+// destinations (1 to 1024) read K = 16 sources from the 50k-row event
+// store.  Two differences from the sync block, both in the tile build:
+// the root rows come from their own table (the chunk's rows, not row m
+// of the sources), and a slot's attribute is made from the store's and
+// the chunk's positions, clip((src - dst) / (2 mv) + 0.5, 0, 1) on (x,
+// y), divided as the twin divides, instead of read from an [M, K, 2]
+// table; every other step is the fused block's, on its 16-row tiles
+// (rows16: the 1024 destinations of a chunk are 64 blocks; on 64-row
+// tiles 16 blocks left most of the card idle and the two blocks took
+// 1.2x the device time).  What bounds it: the
+// bytes of the distinct source rows and positions, the edge tables, the
+// chunk's rows, the weights and the output (under 1 MB at C = 1024: a
+// fraction of a microsecond at 3.35 TB/s); the products, 2 C (26 Cin +
+// Cs) Cout, are 14 MFLOP at Cin = 16.  It replaces a split form that
+// wrote g [C, 25 Cin] to HBM and ran ~15 PyTorch ops and cuBLAS around
+// each aggregation launch.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -75,10 +97,15 @@ struct BatchNorm {
 };
 
 struct ConvArgs {
-  const float* x;          // [M, Cin] sources; row m is also the root input
+  const float* x;          // [N, Cin] sources (N = M unless x_root is given)
+  const float* x_root;     // [M, Cin] root rows, or null: row m of x
   const int* nbr;          // [M, K] global source rows
   const uint8_t* emask;    // [M, K]
-  const float* attr;       // [M, K, 2]
+  const float* attr;       // [M, K, 2], or null: made from the positions
+  const float* pos_src;    // [N, ps] source positions (x, y, ...)
+  const float* pos_dst;    // [M, pd] destination positions
+  int ps, pd;
+  float two_mv;            // attr = clip((src - dst) / two_mv + 0.5, 0, 1)
   const float* W;          // [P*Cin, Cout]
   const float* root;       // [Cin, Cout]
   const float* bias;       // [Cout] or null
@@ -410,8 +437,24 @@ __global__ void __launch_bounds__(kThreads) spline_conv_block_kernel(
           if (k < a.K) {
             const size_t mk = (size_t)m * a.K + k;
             if (a.emask[mk]) src[k] = a.nbr[mk];
-            ax[k] = a.attr[2 * mk];
-            ay[k] = a.attr[2 * mk + 1];
+            if (a.attr) {
+              ax[k] = a.attr[2 * mk];
+              ay[k] = a.attr[2 * mk + 1];
+            }
+          }
+        }
+        if (!a.attr) {
+          // the gathered form: each slot's attribute from the source's
+          // and the destination's positions, as the twin makes it
+          const float dx = a.pos_dst[(size_t)m * a.pd];
+          const float dy = a.pos_dst[(size_t)m * a.pd + 1];
+#pragma unroll
+          for (int k = 0; k < kMaxK; ++k) {
+            if (src[k] >= 0) {
+              const float* p = a.pos_src + (size_t)src[k] * a.ps;
+              ax[k] = (p[0] - dx) / a.two_mv + 0.5f;
+              ay[k] = (p[1] - dy) / a.two_mv + 0.5f;
+            }
           }
         }
 #pragma unroll
@@ -420,8 +463,9 @@ __global__ void __launch_bounds__(kThreads) spline_conv_block_kernel(
             add_edge(row, a.x + (size_t)src[k] * Cin, ax[k], ay[k], a.ks, Cin,
                      lane, tpd);
         }
+        const float* xr = a.x_root ? a.x_root : a.x;
         for (int c = lane; c < Cin; c += tpd)
-          row[pc + c] = a.x[(size_t)m * Cin + c];
+          row[pc + c] = xr[(size_t)m * Cin + c];
       }
     }
   }
@@ -484,20 +528,23 @@ __global__ void __launch_bounds__(kThreads) spline_conv_block_kernel(
 
 // the kernel's tile for (Cin, Cout, Cs): rows TM, the n-tiles a warp
 // takes, and the padded widths and shared-memory bytes; false if the
-// shapes do not fit
+// shapes do not fit.  rows16: 16 rows whatever the widths (the gathered
+// block: a chunk of 1024 destinations is 64 blocks, not 16; a 16-row
+// tile takes less shared memory than the 64-row one it replaces)
 struct Tile {
   int mt, ntw, ka, lda, csp, lds, coutp, ldb;
   size_t smem;
 };
 
-bool conv_tile(int cin, int cout, int cs, int ks, int K, Tile* t) {
+bool conv_tile(int cin, int cout, int cs, int ks, int K, Tile* t,
+               bool rows16 = false) {
   if (cin < 1 || cout < 1 || cout > 64 || cs < 0 || K < 0 || K > kMaxK)
     return false;
   t->ka = (ks * ks * cin + cin + 7) / 8 * 8;
   t->lda = t->ka + 4;
   t->csp = (cs + 7) / 8 * 8;
   t->lds = t->csp + 4;
-  t->mt = (size_t)64 * t->lda * 4 <= 128 * 1024 ? 4 : 1;
+  t->mt = !rows16 && (size_t)64 * t->lda * 4 <= 128 * 1024 ? 4 : 1;
   // the n-tiles of a warp, a power of 2: at 64 rows two warps share an
   // m-tile, at 16 rows every warp takes every n-tile (KSPLIT); Cout is
   // padded with zero columns up to the warps' n-tiles
@@ -1390,29 +1437,15 @@ extern "C" long long dagr_spline_conv_block_smem(int cin, int cout, int cs,
   return conv_tile(cin, cout, cs, ks, K, &t) ? (long long)t.smem : 0;
 }
 
-extern "C" int dagr_spline_conv_block(
-    const void* x, const void* nbr, const void* emask, const void* attr,
-    const void* W, const void* root, const void* bias, const void* bn_mean,
-    const void* bn_var, const void* bn_gamma, const void* bn_beta,
-    float bn_eps, const void* skip, const void* lin, const void* sk_mean,
-    const void* sk_var, const void* sk_gamma, const void* sk_beta,
-    float sk_eps, const void* mask, int M, int K, int Cin, int Cout, int Cs,
-    int ks, int act, void* out, void* stream) {
+namespace {
+
+// One launch of the fused block's kernel for the tile of a's widths.
+int launch_block(const ConvArgs& a, bool rows16, void* stream) {
   Tile t;
-  if (!conv_tile(Cin, Cout, skip ? Cs : 0, ks, K, &t))
+  if (!conv_tile(a.Cin, a.Cout, a.Cs, a.ks, a.K, &t, rows16))
     return (int)cudaErrorInvalidValue;
-  const ConvArgs a{(const float*)x, (const int*)nbr, (const uint8_t*)emask,
-                   (const float*)attr, (const float*)W, (const float*)root,
-                   (const float*)bias,
-                   {(const float*)bn_mean, (const float*)bn_var,
-                    (const float*)bn_gamma, (const float*)bn_beta, bn_eps},
-                   (const float*)skip, (const float*)lin,
-                   {(const float*)sk_mean, (const float*)sk_var,
-                    (const float*)sk_gamma, (const float*)sk_beta, sk_eps},
-                   (const uint8_t*)mask,
-                   M, K, Cin, Cout, skip ? Cs : 0, ks, act, (float*)out};
   const int tm = 16 * t.mt;
-  const int blocks = (M + tm - 1) / tm;
+  const int blocks = (a.M + tm - 1) / tm;
   if (blocks == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
 #define DAGR_CONV_LAUNCH(MT, NTW, KSPLIT)                                  \
@@ -1438,6 +1471,86 @@ extern "C" int dagr_spline_conv_block(
   }
 #undef DAGR_CONV_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// The fused block's arguments but the sources, roots and attributes.
+ConvArgs block_args(
+    const void* nbr, const void* emask, const void* W, const void* root,
+    const void* bias, const void* bn_mean, const void* bn_var,
+    const void* bn_gamma, const void* bn_beta, float bn_eps,
+    const void* skip, const void* lin, const void* sk_mean,
+    const void* sk_var, const void* sk_gamma, const void* sk_beta,
+    float sk_eps, const void* mask, int M, int K, int Cin, int Cout, int Cs,
+    int ks, int act, void* out) {
+  ConvArgs a{};
+  a.nbr = (const int*)nbr;
+  a.emask = (const uint8_t*)emask;
+  a.W = (const float*)W;
+  a.root = (const float*)root;
+  a.bias = (const float*)bias;
+  a.bn = {(const float*)bn_mean, (const float*)bn_var,
+          (const float*)bn_gamma, (const float*)bn_beta, bn_eps};
+  a.skip = (const float*)skip;
+  a.lin = (const float*)lin;
+  a.bn_skip = {(const float*)sk_mean, (const float*)sk_var,
+               (const float*)sk_gamma, (const float*)sk_beta, sk_eps};
+  a.mask = (const uint8_t*)mask;
+  a.M = M;
+  a.K = K;
+  a.Cin = Cin;
+  a.Cout = Cout;
+  a.Cs = skip ? Cs : 0;
+  a.ks = ks;
+  a.act = act;
+  a.out = (float*)out;
+  return a;
+}
+
+}  // namespace
+
+extern "C" int dagr_spline_conv_block(
+    const void* x, const void* nbr, const void* emask, const void* attr,
+    const void* W, const void* root, const void* bias, const void* bn_mean,
+    const void* bn_var, const void* bn_gamma, const void* bn_beta,
+    float bn_eps, const void* skip, const void* lin, const void* sk_mean,
+    const void* sk_var, const void* sk_gamma, const void* sk_beta,
+    float sk_eps, const void* mask, int M, int K, int Cin, int Cout, int Cs,
+    int ks, int act, void* out, void* stream) {
+  ConvArgs a = block_args(nbr, emask, W, root, bias, bn_mean, bn_var,
+                          bn_gamma, bn_beta, bn_eps, skip, lin, sk_mean,
+                          sk_var, sk_gamma, sk_beta, sk_eps, mask, M, K, Cin,
+                          Cout, Cs, ks, act, out);
+  a.x = (const float*)x;
+  a.attr = (const float*)attr;
+  return launch_block(a, false, stream);
+}
+
+// K7 (see the note on the gathered block above): the fused block over M
+// destinations whose K sources are rows of a table x [N, Cin] with
+// positions pos_src [N, ps], the destinations' own rows x_root [M, Cin]
+// and positions pos_dst [M, pd], each slot's attribute made from the two
+// position tables.
+extern "C" int dagr_spline_conv_gather_block(
+    const void* x, const void* pos_src, const void* pos_dst,
+    const void* x_root, const void* nbr, const void* emask, const void* W,
+    const void* root, const void* bias, const void* bn_mean,
+    const void* bn_var, const void* bn_gamma, const void* bn_beta,
+    float bn_eps, const void* skip, const void* lin, const void* sk_mean,
+    const void* sk_var, const void* sk_gamma, const void* sk_beta,
+    float sk_eps, const void* mask, int M, int K, int Cin, int Cout, int Cs,
+    int ks, int act, int ps, int pd, float two_mv, void* out, void* stream) {
+  ConvArgs a = block_args(nbr, emask, W, root, bias, bn_mean, bn_var,
+                          bn_gamma, bn_beta, bn_eps, skip, lin, sk_mean,
+                          sk_var, sk_gamma, sk_beta, sk_eps, mask, M, K, Cin,
+                          Cout, Cs, ks, act, out);
+  a.x = (const float*)x;
+  a.x_root = (const float*)x_root;
+  a.pos_src = (const float*)pos_src;
+  a.pos_dst = (const float*)pos_dst;
+  a.ps = ps;
+  a.pd = pd;
+  a.two_mv = two_mv;
+  return launch_block(a, true, stream);
 }
 
 // The split route's conv: out [M, Cout] = A(x_src) @ W + x_root @ root

@@ -1,6 +1,6 @@
-// The degree-1 bilinear taps of one spline-conv edge, shared by K7's
-// gathered aggregation (spline_aggregate.cu) and the fused block, the
-// split-route conv and its backward (spline_conv.cu).
+// The degree-1 bilinear taps of one spline-conv edge, shared by the fused
+// block (K2's and K7's gathered form), the split-route conv and its
+// backward (spline_conv.cu).
 #pragma once
 
 namespace {

@@ -54,17 +54,6 @@
 // JAX package's divisions by those constants.  Step 1's node -> cell map
 // (seg) is an output: K9b reads it.
 //
-// K10: the streaming engine's grow-mode level-1 update.  Replaces the
-// segment_max / segment_sum update of dagr_tpu/streaming/engine.py:247-284
-// (cell count, feature max, position sum, max time, and the stencil
-// adjacency OR-ed in from the chunk's new edges).  The same trap as K3:
-// the chunk's position sum must be taken per cell in chunk-index order,
-// from zero, and added to the state once, or the pooled floor flips; so
-// the caller stable-sorts the chunk's cell ids and one warp per cell
-// walks its rows through K3's per-cell reduction, updating the state in
-// place.  Bound by launch latency: a chunk touches a few hundred of the
-// 2240 cells, a few kilobytes.
-//
 // K8, level 1 of the multi-stream server's ring window.  Replaces the
 // sliding-window update of dagr_tpu/streaming/serve.py:1223-1308: the C
 // slots a chunk overwrites leave the cell counts and position sums, the
@@ -79,7 +68,7 @@
 // (evicted first, then new, each in row order: a stable sort of the
 // positions 0..2E-1 keyed in place), with no torch op around it, no
 // allocation and no host synchronisation (capturable in a CUDA graph):
-//   - up to kRingBlockKeys rows (the S=1 ring step of 256 has 512), one
+//   - up to kCellBlockKeys rows (the S=1 ring step of 256 has 512), one
 //     launch of a warp per row: each block of 32 warps sorts all the
 //     (cell << 32 | row) words itself in shared memory (a bitonic sort
 //     of a few kilobytes, repeated by every block in place of a second
@@ -97,6 +86,27 @@
 // over the evicted, add over the new, each from zero), with the count
 // and a warp max of the new rows' times.  Bound by launch latency: a
 // few kilobytes.
+//
+// K10: the grow window's level-1 update (the streaming engine's and the
+// multi-stream server's, S streams folded as above).  Replaces the
+// segment_max / segment_sum update of dagr_tpu/streaming/engine.py:247-284:
+// per cell the count, the feature max, the position sum, the max time,
+// and the stencil adjacency OR-ed in from the chunk's new edges.  The
+// same trap as K3: the chunk's position sum is taken per cell in row
+// order, from zero, and added to the state once (F4).  K10 is the ring
+// update's second client, with no evicted rows: one C entry,
+// dagr_stream_accumulate, sorts the Cn rows by cell itself (one launch
+// of the per-block sort up to kCellBlockKeys rows: the engine's chunks
+// of 1, 256 and 1024; K1's radix sort and one launch beyond: the S=8
+// server's 8192), and a row's warp adds its C channels into the cell's
+// max with integer atomics on the float's bits (as the cell max below:
+// exact, order-free, +0 above -0) and its edge slots' 9 stencil bits (a
+// warp OR, then idempotent stores of 1 into adj); the run's first warp
+// adds the positions in row order, the count and the time max.  The
+// work follows the rows, not the 2240 (S=8: 17,920) cells, and no warp
+// walks a crowded cell's rows for their features or edges.  Bound by
+// launch latency: a 1024-row chunk is 0.2 MB of features, edges and
+// positions.
 //
 // K8, the ring's feature max.  Replaces dagr_tpu/streaming/serve.py:
 // 1361-1376, the segment max of the live x2 ring per level-1 cell, which
@@ -392,105 +402,29 @@ __global__ void pool_cells_kernel(
   }
 }
 
-// One warp reduces a cell's rows order[st..en), in that order: each
-// lane's feature channels (max from -FLT_MAX) go to chan(c, value); lanes
-// 0-2 return their position sum, lane 3 the max time (-inf for an empty
-// run).  K10's per-cell walk.
-template <class Chan>
-__device__ __forceinline__ float warp_cell_reduce(
-    const int* __restrict__ order, int st, int en,
-    const float* __restrict__ feat, const float* __restrict__ pos, int C,
-    int lane, Chan chan) {
-  for (int c = lane; c < C; c += 32) {
-    float acc = -FLT_MAX;
-    for (int j = st; j < en; ++j) {
-      const float v = feat[(size_t)order[j] * C + c];
-      acc = v > acc ? v : acc;
-    }
-    chan(c, acc);
-  }
-  float r = 0.f;
-  if (lane < 3) {
-    for (int j = st; j < en; ++j) r += pos[3 * order[j] + lane];
-  } else if (lane == 3) {
-    r = -INFINITY;
-    for (int j = st; j < en; ++j) r = fmaxf(r, pos[3 * order[j] + 2]);
-  }
-  return r;
-}
+// K8's ring update and K10: a level-1 update by one chunk; see the
+// file's note.  Sorted position p holds row(p) of cell(p): rows < n_ev
+// leave their cells (the slots a ring chunk evicts: their stored cell and
+// position; none in K10), rows >= n_ev are the chunk's events (row -
+// n_ev) and enter them.
+constexpr int kCellBlockKeys = 2048;  // keys up to this: the per-block sort
+constexpr int kCellBlockThreads = 1024;
 
-// K10: the grow-mode streaming update of the level-1 cell aggregates by
-// one chunk.  One warp per cell with chunk rows: count, feature max,
-// position sum (chunk rows in index order from 0, then added to the
-// state once), max time, and the 9-bit stencil mask of the rows' edges
-// (lanes own the K edge slots of a row; the source's cell comes from
-// the store's cell table).
-__global__ void stream_accumulate_kernel(
-    const int* __restrict__ order,        // [Cn] chunk rows sorted by cell
-    const int* __restrict__ cell_start,   // [ncells + 1]
-    const float* __restrict__ feat,       // [Cn, C]
-    const float* __restrict__ pos,        // [Cn, 3]
-    const int* __restrict__ nbr,          // [Cn, K] store slots
-    const uint8_t* __restrict__ nbr_mask, // [Cn, K]
-    const int* __restrict__ cells,        // [N] level-1 cell per slot
-    int ncells, int nx, int C, int K,
-    int* __restrict__ cell_cnt, float* __restrict__ cell_max,
-    float* __restrict__ pos_sum, float* __restrict__ tmax,
-    uint8_t* __restrict__ adj) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= ncells) return;
-  const int st = cell_start[warp], en = cell_start[warp + 1];
-  if (st == en) return;
-  const float r = warp_cell_reduce(
-      order, st, en, feat, pos, C, lane, [&](int c, float m) {
-        float* dst = cell_max + (size_t)warp * C + c;
-        *dst = fmaxf(*dst, m);
-      });
-  if (lane < 3) {
-    pos_sum[3 * warp + lane] = pos_sum[3 * warp + lane] + r;
-  } else if (lane == 3) {
-    tmax[warp] = fmaxf(tmax[warp], r);
-    cell_cnt[warp] += en - st;
-  }
-  const int cx = warp % nx, cy = warp / nx;
-  int bits = 0;
-  for (int j = st; j < en; ++j) {
-    const int row = order[j];
-    for (int k = lane; k < K; k += 32) {
-      const size_t rk = (size_t)row * K + k;
-      if (!nbr_mask[rk]) continue;
-      const int sc = cells[nbr[rk]];
-      if (sc >= ncells) continue;
-      const int dx = sc % nx - cx, dy = sc / nx - cy;
-      if (dx < -1 || dx > 1 || dy < -1 || dy > 1 || (dx == 0 && dy == 0))
-        continue;
-      bits |= 1 << ((dy + 1) * 3 + (dx + 1));
-    }
-  }
-  bits = __reduce_or_sync(0xffffffffu, bits);
-  if (lane < 9 && ((bits >> lane) & 1)) adj[9 * warp + lane] = 1;
-}
-
-// K8: the ring window's level-1 update by one chunk; see the file's
-// note.  Sorted position p holds row(p) of cell(p): rows < E are the
-// slots the chunk evicts (their stored cell and position), rows >= E the
-// chunk's events (row - E).
-constexpr int kRingBlockKeys = 2048;  // 2E up to this: the per-block sort
-constexpr int kRingBlockThreads = 1024;
-
-struct RingArgs {
-  const float* ev_pos;    // [E, 3]
+struct CellArgs {
+  const float* ev_pos;    // [n_ev, 3]
   const float* pos;       // [E, 3]
-  const int* nbr;         // [E, K] ring slots of the edges
+  const int* nbr;         // [E, K] store or ring slots of the edges
   const uint8_t* nbr_mask;  // [E, K]
-  const int* cells;       // [S*NR] cell per slot (ncells: none)
-  const int* vid;         // [S*NR] vid per slot
-  int E, ncells, nx, K;
+  const int* cells;       // [N] cell per slot (ncells: none)
+  const int* vid;         // [N] vid per slot (the ring)
+  const float* feat;      // [E, C] (K10)
+  int n_ev, ncells, nx, K, C;
   int* cell_cnt;
   float* pos_sum;
   float* tmax;
-  int* adj_death;
+  int* adj_death;         // [ncells, 9] (the ring)
+  uint8_t* adj;           // [ncells, 9] (K10)
+  float* cell_max;        // [ncells, C] (K10)
 };
 
 // The per-block sort's words, (cell << 32 | row) in shared memory.
@@ -508,43 +442,90 @@ struct GlobalRuns {
   __device__ int row(int p) const { return order[p]; }
 };
 
-// One warp: the stencil offsets of new row `row`'s edges into `cell`,
-// adj_death[cell, o] = max(source vid) (an integer atomicMax per offset
-// after a warp max: exact in any order).
-__device__ void ring_row_edges(int cell, int row, const RingArgs& a,
-                               int lane) {
-  const int cx = cell % a.nx, cy = cell / a.nx;
-  int best[9];
-#pragma unroll
-  for (int o = 0; o < 9; ++o) best[o] = INT_MIN;
-  for (int k = lane; k < a.K; k += 32) {
-    const size_t rk = (size_t)row * a.K + k;
-    if (!a.nbr_mask[rk]) continue;
-    const int src = a.nbr[rk];
-    const int sc = a.cells[src];
-    if (sc >= a.ncells) continue;
-    const int dx = sc % a.nx - cx, dy = sc / a.nx - cy;
-    if (dx < -1 || dx > 1 || dy < -1 || dy > 1 || (dx == 0 && dy == 0))
-      continue;
-    const int o = (dy + 1) * 3 + (dx + 1);
-    const int v = a.vid[src];
-#pragma unroll
-    for (int i = 0; i < 9; ++i)
-      if (i == o) best[i] = max(best[i], v);
-  }
-#pragma unroll
-  for (int o = 0; o < 9; ++o) {
-    const int m = __reduce_max_sync(0xffffffffu, best[o]);
-    if (lane == o && m != INT_MIN) atomicMax(a.adj_death + 9 * cell + o, m);
+// The stencil offset of the edge from slot src into `cell` (at cx, cy),
+// or -1: no cell, out of the stencil, or the self offset.
+__device__ __forceinline__ int edge_offset(int src, int cx, int cy,
+                                           const CellArgs& a) {
+  const int sc = a.cells[src];
+  if (sc >= a.ncells) return -1;
+  const int dx = sc % a.nx - cx, dy = sc / a.nx - cy;
+  if (dx < -1 || dx > 1 || dy < -1 || dy > 1 || (dx == 0 && dy == 0))
+    return -1;
+  return (dy + 1) * 3 + (dx + 1);
+}
+
+// max(*dst, v) on the float's bits, exact in any order (+0 above -0): a
+// signed atomicMax for a value whose sign bit is clear (non-negative
+// floats order as their bits), an unsigned atomicMin for one whose sign
+// bit is set (negative floats order inversely to their bits); any
+// non-negative value's bits beat any negative one's under both.
+__device__ __forceinline__ void atomic_max_float(float* dst, float v) {
+  const int b = __float_as_int(v);
+  if (b >= 0) {
+    atomicMax(reinterpret_cast<int*>(dst), b);
+  } else {
+    atomicMin(reinterpret_cast<unsigned*>(dst), (unsigned)b);
   }
 }
+
+// What a new row contributes in the ring: adj_death[cell, o] = max(source
+// vid) over its edges at stencil offset o (a warp max per offset, then an
+// integer atomicMax: exact in any order).
+struct RingRow {
+  __device__ void operator()(int cell, int row, const CellArgs& a,
+                             int lane) const {
+    const int cx = cell % a.nx, cy = cell / a.nx;
+    int best[9];
+#pragma unroll
+    for (int o = 0; o < 9; ++o) best[o] = INT_MIN;
+    for (int k = lane; k < a.K; k += 32) {
+      const size_t rk = (size_t)row * a.K + k;
+      if (!a.nbr_mask[rk]) continue;
+      const int src = a.nbr[rk];
+      const int o = edge_offset(src, cx, cy, a);
+      if (o < 0) continue;
+      const int v = a.vid[src];
+#pragma unroll
+      for (int i = 0; i < 9; ++i)
+        if (i == o) best[i] = max(best[i], v);
+    }
+#pragma unroll
+    for (int o = 0; o < 9; ++o) {
+      const int m = __reduce_max_sync(0xffffffffu, best[o]);
+      if (lane == o && m != INT_MIN) atomicMax(a.adj_death + 9 * cell + o, m);
+    }
+  }
+};
+
+// What a new row contributes in K10: its C feature channels into the
+// cell's max (lanes over channels, atomic_max_float), and its edges'
+// stencil offsets into adj (a warp OR of the 9 bits, then idempotent
+// stores of 1).
+struct GrowRow {
+  __device__ void operator()(int cell, int row, const CellArgs& a,
+                             int lane) const {
+    const float* f = a.feat + (size_t)row * a.C;
+    float* m = a.cell_max + (size_t)cell * a.C;
+    for (int c = lane; c < a.C; c += 32) atomic_max_float(m + c, f[c]);
+    const int cx = cell % a.nx, cy = cell / a.nx;
+    int bits = 0;
+    for (int k = lane; k < a.K; k += 32) {
+      const size_t rk = (size_t)row * a.K + k;
+      if (!a.nbr_mask[rk]) continue;
+      const int o = edge_offset(a.nbr[rk], cx, cy, a);
+      if (o >= 0) bits |= 1 << o;
+    }
+    bits = __reduce_or_sync(0xffffffffu, bits);
+    if (lane < 9 && ((bits >> lane) & 1)) a.adj[9 * cell + lane] = 1;
+  }
+};
 
 // One warp: the count, position sums and time max of `cell`, whose run
 // of the n sorted rows starts at position st (and ends at the first
 // position of another cell).
 template <class Runs>
-__device__ void ring_run_sums(const Runs& runs, int st, int n, int cell,
-                              const RingArgs& a, int lane) {
+__device__ void run_sums(const Runs& runs, int st, int n, int cell,
+                         const CellArgs& a, int lane) {
   const unsigned full = 0xffffffffu;
   int en = 0;
   if (lane == 0) {            // the cells are sorted: a binary search
@@ -567,14 +548,14 @@ __device__ void ring_run_sums(const Runs& runs, int st, int n, int cell,
     float px = 0.f, py = 0.f, pt = 0.f;
     if (lane < m) {
       row = runs.row(j0 + lane);
-      const float* q = row < a.E ? a.ev_pos + 3 * (size_t)row
-                                 : a.pos + 3 * (size_t)(row - a.E);
+      const float* q = row < a.n_ev ? a.ev_pos + 3 * (size_t)row
+                                    : a.pos + 3 * (size_t)(row - a.n_ev);
       px = q[0];
       py = q[1];
       pt = q[2];
-      if (row >= a.E) tm = fmaxf(tm, pt);
+      if (row >= a.n_ev) tm = fmaxf(tm, pt);
     }
-    const unsigned evicted = __ballot_sync(full, lane < m && row < a.E);
+    const unsigned evicted = __ballot_sync(full, lane < m && row < a.n_ev);
     n_ev += __popc(evicted);
     for (int q = 0; q < m; ++q) {
       const float x = __shfl_sync(full, px, q);
@@ -588,40 +569,40 @@ __device__ void ring_run_sums(const Runs& runs, int st, int n, int cell,
     tm = fmaxf(tm, __shfl_xor_sync(full, tm, off));
   if (lane < 3) {
     float* p = a.pos_sum + 3 * (size_t)cell + lane;
-    *p = (*p - sub) + add;
+    *p = (*p - sub) + add;    // K10: sub is 0, and (s - 0) + add == s + add
   } else if (lane == 3) {
     a.tmax[cell] = fmaxf(a.tmax[cell], tm);
     a.cell_cnt[cell] += (en - st) - 2 * n_ev;
   }
 }
 
-// One warp's share of the update at sorted position j: its row's edges
-// if it is a new row, and the run's sums if j starts a cell's run.
-template <class Runs>
-__device__ void ring_position_update(const Runs& runs, int j, int n,
-                                     const RingArgs& a, int lane) {
+// One warp's share of the update at sorted position j: its row's
+// contribution if it is a new row, and the run's sums if j starts a
+// cell's run.
+template <class Row, class Runs>
+__device__ void position_update(const Runs& runs, int j, int n,
+                                const CellArgs& a, int lane) {
   const int cell = runs.cell(j);
   if (cell >= a.ncells) return;           // rows of no cell sort last
   const int row = runs.row(j);
-  if (row >= a.E) ring_row_edges(cell, row - a.E, a, lane);
-  if (j == 0 || runs.cell(j - 1) != cell)
-    ring_run_sums(runs, j, n, cell, a, lane);
+  if (row >= a.n_ev) Row()(cell, row - a.n_ev, a, lane);
+  if (j == 0 || runs.cell(j - 1) != cell) run_sums(runs, j, n, cell, a, lane);
 }
 
-// Up to kRingBlockKeys rows: every block sorts all 2E of them in shared
-// memory (position i < E is evicted row i, cell ev_cell[i]; E + i new
-// row i, cell cell[i]; a cell outside [0, ncells) sorts as ncells, after
-// every cell), then its warps take a sorted position each.  n2: 2E
+// Up to kCellBlockKeys rows: every block sorts all n of them in shared
+// memory (position i < n_ev is evicted row i, cell ev_cell[i]; n_ev + i
+// new row i, cell cell[i]; a cell outside [0, ncells) sorts as ncells,
+// after every cell), then its warps take a sorted position each.  n2: n
 // rounded up to a power of 2; n2 words of dynamic shared memory.
-__global__ void __launch_bounds__(kRingBlockThreads) ring_update_block_kernel(
-    const int* __restrict__ ev_cell, const int* __restrict__ cell, int n2,
-    RingArgs a) {
+template <class Row>
+__global__ void __launch_bounds__(kCellBlockThreads) cell_update_block_kernel(
+    const int* __restrict__ ev_cell, const int* __restrict__ cell, int n,
+    int n2, CellArgs a) {
   extern __shared__ unsigned long long w[];
-  const int n = 2 * a.E;
-  for (int i = threadIdx.x; i < n2; i += kRingBlockThreads) {
+  for (int i = threadIdx.x; i < n2; i += kCellBlockThreads) {
     unsigned long long key = ~0ull;       // padding: past every row
     if (i < n) {
-      const int v = i < a.E ? ev_cell[i] : cell[i - a.E];
+      const int v = i < a.n_ev ? ev_cell[i] : cell[i - a.n_ev];
       const unsigned c = (unsigned)v < (unsigned)a.ncells ? v : a.ncells;
       key = ((unsigned long long)c << 32) | (unsigned)i;
     }
@@ -631,7 +612,7 @@ __global__ void __launch_bounds__(kRingBlockThreads) ring_update_block_kernel(
   // bitonic sort of the distinct words: stable by row within a cell
   for (int k = 2; k <= n2; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n2; i += kRingBlockThreads) {
+      for (int i = threadIdx.x; i < n2; i += kCellBlockThreads) {
         const int ixj = i ^ j;
         if (ixj > i) {
           const unsigned long long x = w[i], y = w[ixj];
@@ -644,17 +625,19 @@ __global__ void __launch_bounds__(kRingBlockThreads) ring_update_block_kernel(
       __syncthreads();
     }
   }
-  const int j = blockIdx.x * (kRingBlockThreads / 32) + (threadIdx.x >> 5);
-  if (j < n) ring_position_update(SharedRuns{w}, j, n, a, threadIdx.x & 31);
+  const int j = blockIdx.x * (kCellBlockThreads / 32) + (threadIdx.x >> 5);
+  if (j < n)
+    position_update<Row>(SharedRuns{w}, j, n, a, threadIdx.x & 31);
 }
 
 // The radix path: a warp per sorted position.
-__global__ void ring_update_runs_kernel(const int* __restrict__ keys,
+template <class Row>
+__global__ void cell_update_runs_kernel(const int* __restrict__ keys,
                                         const int* __restrict__ order, int n,
-                                        RingArgs a) {
+                                        CellArgs a) {
   const int j = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (j < n)
-    ring_position_update(GlobalRuns{keys, order}, j, n, a, threadIdx.x & 31);
+    position_update<Row>(GlobalRuns{keys, order}, j, n, a, threadIdx.x & 31);
 }
 
 // K8: the feature max of each cell over its rows; -FLT_MAX for a cell
@@ -674,13 +657,7 @@ __global__ void __launch_bounds__(kCellMaxThreads) cell_max_kernel(
   for (size_t i = first; i < n_in; i += stride) {
     const int cell = cells[i / C];
     if (cell < 0 || cell >= ncells) continue;
-    const int v = __float_as_int(feat[i]);
-    float* dst = out + (size_t)cell * C + i % C;
-    if (v >= 0) {
-      atomicMax(reinterpret_cast<int*>(dst), v);
-    } else {
-      atomicMin(reinterpret_cast<unsigned*>(dst), (unsigned)v);
-    }
+    atomic_max_float(out + (size_t)cell * C + i % C, feat[i]);
   }
 }
 
@@ -839,68 +816,111 @@ extern "C" int dagr_voxel_pool(
   return (int)cudaGetLastError();
 }
 
-extern "C" int dagr_stream_accumulate(
-    const void* order, const void* cell_start, const void* feat,
-    const void* pos, const void* nbr, const void* nbr_mask,
-    const void* cells, int ncells, int nx, int C, int K, void* cell_cnt,
-    void* cell_max, void* pos_sum, void* tmax, void* adj, void* stream) {
-  if (ncells > 0) {
-    const int threads = 256;   // 8 warps, one cell each
-    stream_accumulate_kernel<<<(ncells + 7) / 8, threads, 0,
-                               (cudaStream_t)stream>>>(
-        (const int*)order, (const int*)cell_start, (const float*)feat,
-        (const float*)pos, (const int*)nbr, (const uint8_t*)nbr_mask,
-        (const int*)cells, ncells, nx, C, K, (int*)cell_cnt,
-        (float*)cell_max, (float*)pos_sum, (float*)tmax, (uint8_t*)adj);
-  }
-  return (int)cudaGetLastError();
-}
-
 extern "C" long long dagr_cell_sort_scratch(int n, int n_ids);
 extern "C" int dagr_cell_sort(const void* a, int na, const void* b, int n,
                               int n_ids, void* scratch, void* keys_s,
                               void* order, void* stream);
 
-// Scratch words of dagr_serve_ring_update at E rows a chunk over ncells
-// cells: none for the per-block sort; else the radix sort's, its sorted
-// cells and rows.
-extern "C" long long dagr_serve_ring_update_scratch(int E, int ncells) {
-  const int n = 2 * E;
-  return n <= kRingBlockKeys ? 0 : dagr_cell_sort_scratch(n, ncells) + 2ll * n;
+namespace {
+
+// Scratch words of a level-1 update over n sorted keys and ncells cells:
+// none for the per-block sort; else the radix sort's, its sorted cells
+// and rows.
+long long cell_update_scratch(int n, int ncells) {
+  return n <= kCellBlockKeys ? 0 : dagr_cell_sort_scratch(n, ncells) + 2ll * n;
 }
 
-// K8's ring update (see the file's note): one launch up to
-// kRingBlockKeys rows, else the radix sort's six launches and one.
+// The n keys (a.n_ev evicted rows of cells ev_cell, then the new rows of
+// cells cell) sorted and updated: one launch up to kCellBlockKeys, else
+// the radix sort's six launches and one.
+template <class Row>
+int cell_update(const int* ev_cell, const int* cell, int n, const CellArgs& a,
+                void* scratch, cudaStream_t s) {
+  if (n == 0 || a.ncells == 0) return (int)cudaGetLastError();
+  if (n <= kCellBlockKeys) {
+    int n2 = 1;
+    while (n2 < n) n2 <<= 1;
+    const int per_block = kCellBlockThreads / 32;
+    cell_update_block_kernel<Row><<<(n + per_block - 1) / per_block,
+                                     kCellBlockThreads,
+                                     n2 * sizeof(unsigned long long), s>>>(
+        ev_cell, cell, n, n2, a);
+  } else {
+    int* keys_s = (int*)scratch + dagr_cell_sort_scratch(n, a.ncells);
+    int* order = keys_s + n;
+    const int err = dagr_cell_sort(ev_cell, a.n_ev, cell, n, a.ncells,
+                                   scratch, keys_s, order, s);
+    if (err != 0) return err;
+    cell_update_runs_kernel<Row><<<(n + 7) / 8, 256, 0, s>>>(keys_s, order,
+                                                             n, a);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Scratch words of dagr_stream_accumulate at Cn rows over ncells cells.
+extern "C" long long dagr_stream_accumulate_scratch(int Cn, int ncells) {
+  return cell_update_scratch(Cn, ncells);
+}
+
+// K10 (see the file's note): the Cn chunk rows sorted by cell and added
+// to the level-1 state in place.
+extern "C" int dagr_stream_accumulate(
+    const void* cell, const void* feat, const void* pos, const void* nbr,
+    const void* nbr_mask, const void* cells, int Cn, int ncells, int nx,
+    int C, int K, void* cell_cnt, void* cell_max, void* pos_sum, void* tmax,
+    void* adj, void* scratch, void* stream) {
+  CellArgs a{};
+  a.pos = (const float*)pos;
+  a.nbr = (const int*)nbr;
+  a.nbr_mask = (const uint8_t*)nbr_mask;
+  a.cells = (const int*)cells;
+  a.feat = (const float*)feat;
+  a.ncells = ncells;
+  a.nx = nx;
+  a.K = K;
+  a.C = C;
+  a.cell_cnt = (int*)cell_cnt;
+  a.pos_sum = (float*)pos_sum;
+  a.tmax = (float*)tmax;
+  a.adj = (uint8_t*)adj;
+  a.cell_max = (float*)cell_max;
+  return cell_update<GrowRow>(nullptr, (const int*)cell, Cn, a, scratch,
+                              (cudaStream_t)stream);
+}
+
+// Scratch words of dagr_serve_ring_update at E rows a chunk over ncells
+// cells (2E keys).
+extern "C" long long dagr_serve_ring_update_scratch(int E, int ncells) {
+  return cell_update_scratch(2 * E, ncells);
+}
+
+// K8's ring update (see the file's note): the E evicted and E new rows
+// sorted by cell and the state updated in place.
 extern "C" int dagr_serve_ring_update(
     const void* ev_cell, const void* cell, const void* ev_pos,
     const void* pos, const void* nbr, const void* nbr_mask,
     const void* cells, const void* vid, int E, int ncells, int nx, int K,
     void* cell_cnt, void* pos_sum, void* tmax, void* adj_death,
     void* scratch, void* stream) {
-  const int n = 2 * E;
-  if (n == 0 || ncells == 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  const RingArgs a{(const float*)ev_pos, (const float*)pos, (const int*)nbr,
-                   (const uint8_t*)nbr_mask, (const int*)cells,
-                   (const int*)vid, E, ncells, nx, K, (int*)cell_cnt,
-                   (float*)pos_sum, (float*)tmax, (int*)adj_death};
-  if (n <= kRingBlockKeys) {
-    int n2 = 1;
-    while (n2 < n) n2 <<= 1;
-    const int per_block = kRingBlockThreads / 32;
-    ring_update_block_kernel<<<(n + per_block - 1) / per_block,
-                               kRingBlockThreads,
-                               n2 * sizeof(unsigned long long), s>>>(
-        (const int*)ev_cell, (const int*)cell, n2, a);
-  } else {
-    int* keys_s = (int*)scratch + dagr_cell_sort_scratch(n, ncells);
-    int* order = keys_s + n;
-    const int err = dagr_cell_sort(ev_cell, E, cell, n, ncells, scratch,
-                                   keys_s, order, stream);
-    if (err != 0) return err;
-    ring_update_runs_kernel<<<(n + 7) / 8, 256, 0, s>>>(keys_s, order, n, a);
-  }
-  return (int)cudaGetLastError();
+  CellArgs a{};
+  a.ev_pos = (const float*)ev_pos;
+  a.pos = (const float*)pos;
+  a.nbr = (const int*)nbr;
+  a.nbr_mask = (const uint8_t*)nbr_mask;
+  a.cells = (const int*)cells;
+  a.vid = (const int*)vid;
+  a.n_ev = E;
+  a.ncells = ncells;
+  a.nx = nx;
+  a.K = K;
+  a.cell_cnt = (int*)cell_cnt;
+  a.pos_sum = (float*)pos_sum;
+  a.tmax = (float*)tmax;
+  a.adj_death = (int*)adj_death;
+  return cell_update<RingRow>((const int*)ev_cell, (const int*)cell, 2 * E,
+                              a, scratch, (cudaStream_t)stream);
 }
 
 extern "C" int dagr_cell_max(

@@ -46,7 +46,7 @@ NVCC_FLAGS = ARCH_FLAGS + (
 
 LAUNCHES = {"graph_search": 0, "spline_conv": 0,
             "spline_conv_block": 0, "voxel_pool": 0,
-            "nms": 0, "graph_search_store": 0, "spline_gather": 0,
+            "nms": 0, "graph_search_store": 0, "spline_gather_block": 0,
             "stream_accumulate": 0, "serve_search": 0,
             "serve_ring_update": 0, "cell_max": 0,
             "spline_conv_backward": 0, "voxel_pool_backward": 0}

@@ -28,13 +28,15 @@ of each (cell, channel), which K3's cell pass computes beside the max on
 the card (``pool_backward_tables`` on the CPU); nothing is sorted for
 the backward.
 
-``accumulate_cells`` adds one chunk of new events to the streaming
+``accumulate_cells`` (K10) adds one chunk of new events to the streaming
 engine's level-1 aggregates in place (``csrc/voxel_pool.cu``'s
-``dagr_stream_accumulate`` on CUDA tensors, ``accumulate_cells_plain``
-on CPU tensors); the chunk's position sum is taken per cell in chunk
-order and added once, as ``dagr_tpu``'s ``state.pos_sum + segment_sum``.
-The multi-stream server's grow window calls it on S streams' cells
-folded into one table (cell id ``s * G1 + cell``).
+``dagr_stream_accumulate`` on CUDA tensors, which sorts the rows by cell
+itself, as the ring update does, and adds each row's features and edges
+in a warp of its own; ``accumulate_cells_plain`` on CPU tensors); the
+chunk's position sum is taken per cell in chunk order and added once, as
+``dagr_tpu``'s ``state.pos_sum + segment_sum``.  The multi-stream
+server's grow window calls it on S streams' cells folded into one table
+(cell id ``s * G1 + cell``).
 
 ``ring_update_cells`` (K8) is the server's ring-window counterpart: the
 slots a chunk overwrites leave the counts and position sums and the
@@ -55,7 +57,6 @@ import torch.nn.functional as F
 
 from dagr_tpu_torch.core.types import (
     EventGraph, GRID_OFFSETS, GRID_SELF_OFFSET, NodeSet)
-from dagr_tpu_torch.graph.build import sorted_runs
 from dagr_tpu_torch.kernels import _build
 
 _CLIP_HI = 0.9999999
@@ -462,19 +463,23 @@ def accumulate_cells(
             nbr_mask, cells)
     if not cell_max.is_cuda:
         return accumulate_cells_plain(*args, grid_nx=grid_nx)
-    feat, pos, nbr, nbr_mask = (t.contiguous() for t in (feat, pos, nbr,
-                                                          nbr_mask))
+    cell, feat, pos, nbr, nbr_mask = (t.contiguous() for t in (
+        cell, feat, pos, nbr, nbr_mask))
     _build.check_cuda("accumulate_cells", cell_cnt, cell_max, pos_sum, tmax,
                       adj, cell, feat, pos, nbr, nbr_mask, cells)
-    _, order, start = sorted_runs(cell, G)
+    # the entry sorts the rows by cell itself; scratch only past its
+    # per-block sort
+    words = _update_scratch("dagr_stream_accumulate_scratch", Cn, G)
+    scratch = (torch.empty(words, dtype=torch.int32, device=cell.device)
+               if words else None)
     i = ctypes.c_int
     _build.launch(
         "stream_accumulate", "dagr_stream_accumulate",
-        _build.ptr(order), _build.ptr(start),
-        _build.ptr(feat), _build.ptr(pos), _build.ptr(nbr),
-        _build.ptr(nbr_mask), _build.ptr(cells), i(G), i(grid_nx), i(C),
-        i(K), _build.ptr(cell_cnt), _build.ptr(cell_max), _build.ptr(pos_sum),
-        _build.ptr(tmax), _build.ptr(adj))
+        _build.ptr(cell), _build.ptr(feat), _build.ptr(pos), _build.ptr(nbr),
+        _build.ptr(nbr_mask), _build.ptr(cells), i(Cn), i(G), i(grid_nx),
+        i(C), i(K), _build.ptr(cell_cnt), _build.ptr(cell_max),
+        _build.ptr(pos_sum), _build.ptr(tmax), _build.ptr(adj),
+        ctypes.c_void_p(None) if scratch is None else _build.ptr(scratch))
 
 
 def accumulate_cells_plain(cell_cnt, cell_max, pos_sum, tmax, adj, cell,
@@ -572,7 +577,7 @@ def ring_update_cells(
     ev_cell, ev_pos, cell, pos, nbr, nbr_mask, cells, vid = args
     # the entry sorts the rows by cell itself (evicted rows first, then
     # the new ones); scratch only past its per-block sort
-    words = _ring_scratch(E, G)
+    words = _update_scratch("dagr_serve_ring_update_scratch", E, G)
     scratch = (torch.empty(words, dtype=torch.int32, device=cell.device)
                if words else None)
     i = ctypes.c_int
@@ -587,13 +592,13 @@ def ring_update_cells(
 
 
 @functools.lru_cache(maxsize=None)
-def _ring_scratch(E: int, n_cells: int) -> int:
-    """int32 words of the ring update's scratch (0 for the per-block
-    sort; csrc/voxel_pool.cu's own count)."""
-    fn = _build.library().dagr_serve_ring_update_scratch
+def _update_scratch(query: str, rows: int, n_cells: int) -> int:
+    """int32 words of K10's or the ring update's scratch at ``rows`` rows
+    (0 for the per-block sort; csrc/voxel_pool.cu's own count, ``query``)."""
+    fn = getattr(_build.library(), query)
     fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_longlong
-    return int(fn(E, n_cells))
+    return int(fn(rows, n_cells))
 
 
 def ring_update_cells_plain(cell_cnt, pos_sum, tmax, adj_death, ev_cell,

@@ -67,7 +67,7 @@ ACTIVATIONS = {
     "silu": F.silu,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
 }
-_ACT_CODES = {None: 0, "relu": 1, "elu": 2, "silu": 3, "gelu": 4}
+ACT_CODES = {None: 0, "relu": 1, "elu": 2, "silu": 3, "gelu": 4}
 
 
 class BatchNormStats(NamedTuple):
@@ -488,23 +488,33 @@ def spline_conv_block(
             given += stats[:4]
     _build.check_cuda("spline_conv_block", *given, *edges)
     out = torch.empty((M, cout), dtype=torch.float32, device=x.device)
-    i, f = ctypes.c_int, ctypes.c_float
+    i = ctypes.c_int
+    _build.launch(
+        "spline_conv_block", "dagr_spline_conv_block",
+        _build.ptr(x), _build.ptr(edges.nbr), _build.ptr(edges.mask),
+        _build.ptr(edges.attr), *block_weight_args(
+            weight, root, bias, bn, skip, lin, bn_skip, mask),
+        i(M), i(K), i(cin), i(cout), i(cs), i(kernel_size),
+        i(ACT_CODES[act]), _build.ptr(out))
+    return out
+
+
+def block_weight_args(weight, root, bias, bn, skip, lin, bn_skip, mask):
+    """The fused block's C arguments from ``W`` to ``mask`` (null for
+    what is not given), as both block entries take them."""
+    f = ctypes.c_float
 
     def stats_args(stats):
         if stats is None:
             return [_opt(None)] * 4 + [f(0.0)]
         return [_build.ptr(t) for t in stats[:4]] + [f(stats.eps)]
 
-    _build.launch(
-        "spline_conv_block", "dagr_spline_conv_block",
-        _build.ptr(x), _build.ptr(edges.nbr), _build.ptr(edges.mask),
-        _build.ptr(edges.attr), _build.ptr(weight), _build.ptr(root),
-        _opt(bias), *stats_args(bn), _opt(skip), _opt(lin),
-        *stats_args(bn_skip), _opt(mask), i(M), i(K), i(cin), i(cout),
-        i(cs), i(kernel_size), i(_ACT_CODES[act]), _build.ptr(out))
-    return out
+    return [_build.ptr(weight), _build.ptr(root), _opt(bias),
+            *stats_args(bn), _opt(skip), _opt(lin), *stats_args(bn_skip),
+            _opt(mask)]
 
 
+@functools.lru_cache(maxsize=None)
 def fused_block_fits(cin: int, cout: int, cs: int, kernel_size: int,
                      K: int) -> bool:
     """Whether ``spline_conv_block``'s kernel takes these widths (Cs = 0
@@ -546,53 +556,73 @@ def block_shared_memory(cin: int, cout: int, cs: int, kernel_size: int,
 def _check_block_args(x, edges, weight, root, bias, bn, skip, lin, bn_skip,
                       act, mask, kernel_size):
     M, K = edges.nbr.shape
-    P = kernel_size * kernel_size
-    if weight.dim() != 3 or weight.shape[0] != P:
-        raise ValueError(f"spline_conv_block: weight must be [{P}, Cin, Cout]")
-    _, cin, cout = weight.shape
-    f32 = torch.float32
-    if x.dim() != 2 or tuple(x.shape) != (M, cin) or x.dtype != f32:
-        raise ValueError(f"spline_conv_block: x must be f32 [{M}, {cin}]")
     if edges.attr.shape != (M, K, 2) or edges.mask.shape != (M, K):
         raise ValueError("edge tables must be [M, K] and [M, K, 2]")
     _check_edge_types("spline_conv_block", edges)
+    if x.dim() != 2 or x.shape[0] != M:
+        raise ValueError(f"spline_conv_block: x must be f32 [{M}, Cin]")
+    check_block_params("spline_conv_block", x, weight, root, bias, bn, skip,
+                       lin, bn_skip, act, mask, kernel_size)
+
+
+def check_block_params(name, x_root, weight, root, bias, bn, skip, lin,
+                       bn_skip, act, mask, kernel_size):
+    """A fused block's arguments but its edges, for M = ``x_root``'s rows
+    (its root inputs): shapes and types, raising ValueError."""
+    M = x_root.shape[0]
+    P = kernel_size * kernel_size
+    if weight.dim() != 3 or weight.shape[0] != P:
+        raise ValueError(f"{name}: weight must be [{P}, Cin, Cout]")
+    _, cin, cout = weight.shape
+    f32 = torch.float32
+    if x_root.dim() != 2 or tuple(x_root.shape) != (M, cin) \
+            or x_root.dtype != f32:
+        raise ValueError(f"{name}: x must be f32 [{M}, {cin}]")
     shapes = [(weight, (P, cin, cout)), (root, (cin, cout))]
     if bias is not None:
         shapes.append((bias, (cout,)))
     if (skip is None) != (lin is None) or (bn_skip is not None
                                            and skip is None):
-        raise ValueError("spline_conv_block: skip and lin go together, "
-                         "bn_skip only with them")
+        raise ValueError(f"{name}: skip and lin go together, bn_skip only "
+                         "with them")
     if skip is not None:
         if skip.dim() != 2 or skip.shape[0] != M:
-            raise ValueError(f"spline_conv_block: skip must be [{M}, Cs]")
+            raise ValueError(f"{name}: skip must be [{M}, Cs]")
         shapes += [(skip, (M, skip.shape[1])), (lin, (cout, skip.shape[1]))]
     for stats in (bn, bn_skip):
         if stats is not None:
             shapes += [(t, (cout,)) for t in stats[:4]]
     for t, shape in shapes:
         if tuple(t.shape) != shape or t.dtype != f32:
-            raise ValueError(f"spline_conv_block: f32 {list(shape)} expected, "
-                             f"got {t.dtype} {list(t.shape)}")
+            raise ValueError(f"{name}: f32 {list(shape)} expected, got "
+                             f"{t.dtype} {list(t.shape)}")
     if mask is not None and (tuple(mask.shape) != (M,)
                              or mask.dtype != torch.bool):
-        raise ValueError(f"spline_conv_block: mask must be bool [{M}]")
-    if act not in _ACT_CODES:
-        raise ValueError(f"spline_conv_block: act {act!r} is not one of "
+        raise ValueError(f"{name}: mask must be bool [{M}]")
+    if act not in ACT_CODES:
+        raise ValueError(f"{name}: act {act!r} is not one of "
                          f"{sorted(ACTIVATIONS)} or None")
 
 
 def spline_conv_block_plain(x, edges, weight, root, bias=None, *, bn=None,
                             skip=None, lin=None, bn_skip=None, act=None,
-                            mask=None, kernel_size=5):
+                            mask=None, kernel_size=5, x_root=None):
     """The fused block as the split route's PyTorch ops, one by one (the
-    kernel's twin): K2's aggregation, ``@ W``, ``+ x @ root``, ``+ bias``,
-    the batch norm, the skip ``Linear`` and its batch norm, the
-    activation and ``torch.where`` on the mask."""
+    kernel's twin): K2's aggregation, ``@ W``, ``+ x_root @ root`` (x_root
+    defaulting to x), then ``block_epilogue``."""
     P, cin, cout = weight.shape
     y = spline_aggregate_plain(x, edges, kernel_size) @ weight.reshape(
         P * cin, cout)
-    y = y + x @ root
+    y = y + (x if x_root is None else x_root) @ root
+    return block_epilogue(y, bias, bn=bn, skip=skip, lin=lin,
+                          bn_skip=bn_skip, act=act, mask=mask)
+
+
+def block_epilogue(y, bias=None, *, bn=None, skip=None, lin=None,
+                   bn_skip=None, act=None, mask=None):
+    """The fused block's epilogue as PyTorch ops: ``+ bias``, the batch
+    norm, the skip ``Linear`` and its batch norm, the activation and
+    ``torch.where`` on the mask (each only where given)."""
     if bias is not None:
         y = y + bias
     if bn is not None:

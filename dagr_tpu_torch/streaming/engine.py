@@ -9,8 +9,9 @@ change) and recomputes the pooled pyramid and the head densely, so the
 outputs equal the sync forward.
 
 On CUDA tensors every irregular op of a step runs a hand-written kernel:
-the chunk-against-store edge search (K6), the two event-level spline
-convs' gathered aggregation (K7), the grow-mode level-1 update (K10) or,
+the chunk-against-store edge search (K6), the two event-level conv
+blocks as one gathered fused block each (K7), the grow-mode level-1
+update (K10) or,
 in ring mode, voxel pooling of the live store (K3), and the dense tail's
 spline aggregation (K2) and pooling (K3).  ``step`` updates every
 tensor of the state in place (the JAX package donates them) and never
@@ -41,9 +42,8 @@ import torch
 
 from dagr_tpu_torch.core.types import EventGraph, NodeSet
 from dagr_tpu_torch.graph.build import search_edges_into_store
-from dagr_tpu_torch.models.blocks import activation_fn
 from dagr_tpu_torch.models.dagr import DAGR
-from dagr_tpu_torch.models.functional import bn_eval, spline_conv_gather
+from dagr_tpu_torch.models.functional import event_block
 from dagr_tpu_torch.models.net import with_rel_delta
 from dagr_tpu_torch.ops.pool import (
     _cell, _inv, accumulate_cells, pool_graph, pool_nodeset, stencil_srcs,
@@ -153,7 +153,6 @@ class StreamingDetector:
         self.grids = cfg.grid_shapes()
         self.ny1, self.nx1 = self.grids[0]
         self.mv = cfg.cartesian_max_values(width)
-        self.act = activation_fn(cfg.activation)
         self._const = DeviceConsts()
 
     # ------------------------------------------------------------------
@@ -258,17 +257,13 @@ class StreamingDetector:
         x_in = torch.cat([state.feat, torch.where(
             state.valid[:, None], state.pos[:, :2], 0.0)], dim=1)  # [N, 3]
         x_in_dst = x_in.index_select(0, slots_c)
-        h1 = spline_conv_gather(
-            x_in, state.pos, pos_norm, x_in_dst, nbr, nbr_mask,
-            cb1.conv.weight, cb1.conv.root, max_value=self.mv[0])
-        h1 = torch.where(cv[:, None], self.act(bn_eval(h1, cb1.norm)), 0.0)
+        # each conv block one launch of the gathered block (K7) where the
+        # fused tile takes its widths
+        h1 = event_block(cb1, x_in, state.pos, pos_norm, x_in_dst, nbr,
+                         nbr_mask, cv, max_value=self.mv[0])
         put(state.x1, h1)
-        h2 = spline_conv_gather(
-            state.x1, state.pos, pos_norm, h1, nbr, nbr_mask,
-            cb2.conv.weight, cb2.conv.root, max_value=self.mv[0])
-        h2 = bn_eval(h2, cb2.norm)
-        sk = bn_eval(x_in_dst @ cb2.lin.weight.t(), cb2.norm_skip)
-        x2 = torch.where(cv[:, None], self.act(h2 + sk), 0.0)
+        x2 = event_block(cb2, state.x1, state.pos, pos_norm, h1, nbr,
+                         nbr_mask, cv, max_value=self.mv[0], skip=x_in_dst)
         put(state.x2, x2)
 
         # ---- the chunk's edges and cells ------------------------------

@@ -20,7 +20,8 @@ cell of 50,000 members at C = 16 and 130 (one launch a call).
 
 Tolerances as in chip_smoke.py: K1, K4, K6 and K8's search's discrete
 outputs and K3's masks, ids and positions exact, K2 (the aggregation
-and the fused eval block) and K7 to 1e-5 relative, K3 features to 1e-5,
+and the fused eval block) and K7's gathered block to 1e-5 of the
+output's max, K3 features to 1e-5,
 K3's cell runs bit-equal to a stable torch sort, K10 and K8's ring
 update and cell max bit-equal.  K3, K10 and K8's ring update are held against their twins on
 the CPU, which sum in node order as the kernels do (index_add_ on the
@@ -44,8 +45,10 @@ from dagr_tpu_torch.graph.build import (
     search_edges_into_store_plain, search_edges_streams,
     search_edges_streams_plain, sorted_runs)
 from dagr_tpu_torch.kernels import _build
+from dagr_tpu_torch.models.blocks import ConvBlockWithSkip
 from dagr_tpu_torch.models.dagr import DAGR, eval_routes, init_fresh
-from dagr_tpu_torch.models.functional import spline_gather, spline_gather_plain
+from dagr_tpu_torch.models.functional import (
+    event_block, spline_conv_gather_block, spline_conv_gather_block_plain)
 from dagr_tpu_torch.ops.nms import postprocess, postprocess_plain
 from dagr_tpu_torch.ops.pool import (
     _cell, _pool_graph_cuda, accumulate_cells, accumulate_cells_plain,
@@ -67,7 +70,8 @@ pytestmark = pytest.mark.cuda
 W, H = 320, 240
 # eval convs are fused blocks; training runs the split conv
 SYNC_KERNELS = ("graph_search", "spline_conv_block", "voxel_pool", "nms")
-STREAM_KERNELS = ("graph_search_store", "spline_gather", "spline_conv_block",
+STREAM_KERNELS = ("graph_search_store", "spline_gather_block",
+                  "spline_conv_block",
                   "voxel_pool")
 TRAIN_KERNELS = ("graph_search", "spline_conv", "voxel_pool")
 GRAPH_KW = dict(width=W, height=H, radius=4, delta_t_us=10_000,
@@ -356,49 +360,175 @@ def test_store_search_edge_cases(dev, case):
     assert bool(a[1].any()) == (bool(q_valid.any()) and not dead)
 
 
-@pytest.mark.parametrize("cin,rows", [(1, 333), (3, 1024), (16, 1024),
-                                      (16, 1), (66, 200), (3, 0)])
-def test_spline_gather_widths(dev, cin, rows):
-    g = torch.Generator(device="cpu").manual_seed(cin + rows)
-    N, K = 5000, 16
-    x = torch.randn((N, cin), generator=g)
-    pos = torch.rand((N, 3), generator=g)
-    dst = torch.rand((rows, 3), generator=g)
-    nbr = torch.randint(0, N, (rows, K), generator=g, dtype=torch.int32)
-    mask = torch.rand((rows, K), generator=g) < 0.7
-    args = [a.to(dev) for a in (x, pos, dst, nbr, mask)]
-    a = spline_gather(*args, max_value=0.05)
-    b = spline_gather_plain(*args, max_value=0.05)
-    assert a.shape == (rows, 25 * cin)
+def gather_block_case(seed, rows, cin, cout, cs, K, all_off=False, N=5000):
+    """A gathered block's arguments (on the CPU): C = ``rows``
+    destinations of a table of N rows, K slots, a skip of Cs channels (0:
+    none), every slot masked off with ``all_off``; and its keywords."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    vec = lambda lo, hi: lo + (hi - lo) * torch.rand(cout, generator=g)
+    bn = lambda: BatchNormStats(vec(-0.1, 0.1), vec(0.5, 1.5), vec(0.8, 1.2),
+                                vec(-0.1, 0.1), 1e-5)
+    mask = torch.rand((rows, K), generator=g) < (0.0 if all_off else 0.7)
+    args = [torch.randn((N, cin), generator=g),
+            torch.rand((N, 3), generator=g), torch.rand((rows, 3), generator=g),
+            torch.randn((rows, cin), generator=g),
+            torch.randint(0, N, (rows, K), generator=g, dtype=torch.int32),
+            mask,
+            torch.randn((25, cin, cout), generator=g) * (25 * cin) ** -0.5,
+            torch.randn((cin, cout), generator=g) * cin ** -0.5]
+    kw = dict(max_value=0.05, bn=bn(), act="relu",
+              mask=torch.rand(rows, generator=g) < 0.8)
+    if cs:
+        kw.update(skip=torch.randn((rows, cs), generator=g),
+                  lin=torch.randn((cout, cs), generator=g) * cs ** -0.5,
+                  bn_skip=bn())
+    return args, kw
+
+
+@pytest.mark.parametrize("rows,cin,cout,cs,K,all_off", [
+    (1024, 3, 16, 0, 16, False),     # the engine's conv block 1 at chunk 1024
+    (1024, 16, 16, 3, 16, False),    # its conv block 2, skip 3
+    (1, 16, 16, 3, 16, False),       # chunk 1
+    (333, 1, 64, 0, 9, False),
+    (200, 66, 16, 0, 16, False),     # a wide input, a tile of 16 rows
+    (2049, 16, 64, 3, 9, False),
+    (256, 3, 16, 0, 16, True),       # every slot masked off
+    (0, 16, 16, 3, 16, False),       # no rows
+])
+def test_spline_conv_gather_block_widths(dev, rows, cin, cout, cs, K,
+                                         all_off):
+    """K7's gathered block against its twin on the card, 1e-5 of the
+    output's max; one launch a call."""
+    args, kw = gather_block_case(rows + cin, rows, cin, cout, cs, K, all_off)
+    args = [a.to(dev) for a in args]
+    kw = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in kw.items()}
+    for k in ("bn", "bn_skip"):
+        if k in kw:
+            kw[k] = BatchNormStats(*[t.to(dev) for t in kw[k][:4]], 1e-5)
+    assert fused_block_fits(cin, cout, cs, 5, K)
+    before = _build.launch_counts()["spline_gather_block"]
+    a = spline_conv_gather_block(*args, **kw)
+    assert _build.launch_counts()["spline_gather_block"] == before + 1
+    b = spline_conv_gather_block_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert a.shape == (rows, cout)
     if rows:
-        assert float((a - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
+        top = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-5 * max(top, 1e-30)
 
 
-@pytest.mark.parametrize("rows,n_valid", [(1024, 900), (1, 1), (256, 0)])
-def test_accumulate_cells_bit_equal(dev, rows, n_valid):
-    """Against the twin on the CPU: a hot cell, invalid rows, an empty
-    chunk; two chunks in a row."""
-    G, nx, C, K, N = 40 * 56, 56, 16, 16, 5000
-    rng = np.random.default_rng(rows)
+def test_event_block_takes_the_split_route_where_the_tile_does_not_fit(dev):
+    """At Cout 96 (``fused_block_fits`` false) the gathered block refuses
+    the widths and ``event_block`` runs the split conv and the epilogue:
+    equal to the gathered twin to 1e-5 of its max."""
+    rows, cin, cout, cs = 700, 3, 96, 3
+    args, kw = gather_block_case(7, rows, cin, cout, cs, 16)
+    args = [a.to(dev) for a in args]
+    assert not fused_block_fits(cin, cout, cs, 5, 16)
+    with pytest.raises(ValueError):
+        spline_conv_gather_block(*args, max_value=0.05)
+    block = ConvBlockWithSkip(cin, cout, cs).to(dev).eval()
+    with torch.no_grad():
+        block.conv.weight.copy_(args[6])
+        block.conv.root.copy_(args[7])
+        block.lin.weight.copy_(kw["lin"])
+        for norm, stats in ((block.norm, kw["bn"]),
+                            (block.norm_skip, kw["bn_skip"])):
+            for name, t in zip(("running_mean", "running_var", "weight",
+                                "bias"), stats[:4]):
+                getattr(norm, name).copy_(t)
+        before = _build.launch_counts()
+        got = event_block(block, *args[:6], kw["mask"].to(dev),
+                          max_value=0.05, skip=kw["skip"].to(dev))
+        after = _build.launch_counts()
+    assert after["spline_conv"] == before["spline_conv"] + 1
+    assert after["spline_gather_block"] == before["spline_gather_block"]
+    want = spline_conv_gather_block_plain(*[a.cpu() for a in args], **kw)
+    top = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * top
+
+
+def level1_case(seed, rows, n_valid, streams=1, hot=777, one_cell=False):
+    """K10's state of ``streams`` folded 40 x 56 grids and a chunk
+    generator: a hot cell (``one_cell``: every valid row in it), invalid
+    rows past ``n_valid``."""
+    G, nx, C, K, N = streams * 40 * 56, 56, 16, 16, streams * 5000
+    rng = np.random.default_rng(seed)
     state = [torch.zeros(G, dtype=torch.int32),
              torch.full((G, C), torch.finfo(torch.float32).min),
              torch.zeros((G, 3)), torch.full((G,), -np.inf),
              torch.zeros((G, 9), dtype=torch.bool)]
     cells = torch.from_numpy(rng.integers(0, G + 1, N).astype(np.int32))
+
+    def chunk():
+        cell = rng.integers(0, G, rows).astype(np.int32)
+        cell[: rows if one_cell else rows // 3] = hot
+        cell[n_valid:] = G
+        return [torch.from_numpy(a) for a in (
+            cell, rng.random((rows, C), np.float32),
+            rng.random((rows, 3), np.float32),
+            rng.integers(0, N, (rows, K)).astype(np.int32),
+            rng.random((rows, K)) < 0.8)] + [cells]
+
+    return state, chunk, nx
+
+
+# up to 2048 rows: the per-block sort; 2049 and 8192 (the S=8 server's
+# folded chunk): K1's radix sort
+@pytest.mark.parametrize("rows,n_valid,streams,one_cell", [
+    (1024, 900, 1, False), (1, 1, 1, False), (256, 0, 1, False),
+    (2048, 2000, 1, False), (2049, 2049, 1, False), (8192, 8000, 8, False),
+    (2000, 2000, 1, True), (4000, 3999, 1, True)])
+def test_accumulate_cells_bit_equal(dev, rows, n_valid, streams, one_cell):
+    """Against the twin on the CPU: a hot cell (or one cell holding every
+    row), invalid rows, an empty chunk; two chunks in a row."""
+    state, chunk, nx = level1_case(rows, rows, n_valid, streams,
+                                   one_cell=one_cell)
     got = [s.to(dev) for s in state]
     for _ in range(2):
-        cell = rng.integers(0, G, rows).astype(np.int32)
-        cell[: rows // 3] = 777                       # a hot cell
-        cell[n_valid:] = G
-        chunk = (torch.from_numpy(cell),
-                 torch.from_numpy(rng.random((rows, C), np.float32)),
-                 torch.from_numpy(rng.random((rows, 3), np.float32)),
-                 torch.from_numpy(rng.integers(0, N, (rows, K)).astype(np.int32)),
-                 torch.from_numpy(rng.random((rows, K)) < 0.8), cells)
-        accumulate_cells_plain(*state, *chunk, grid_nx=nx)
-        accumulate_cells(*got, *(a.to(dev) for a in chunk), grid_nx=nx)
+        c = chunk()
+        accumulate_cells_plain(*state, *c, grid_nx=nx)
+        accumulate_cells(*got, *(a.to(dev) for a in c), grid_nx=nx)
     for a, b in zip(got, state):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("streams,rows", [(1, 1024), (1, 2048), (8, 8192)])
+def test_accumulate_cells_in_a_cuda_graph(dev, streams, rows):
+    """K10 at the engine's chunk of 1024 and at 2048 (one launch of the
+    per-block sort, no aten op) and at the S=8 server's 8192 folded rows
+    (the radix path: 7 kernels, one aten::empty for its scratch): one C
+    call that sorts its own rows, no sort or searchsorted of torch,
+    captured in a CUDA graph and replayed over other states and chunks,
+    bit-equal to the twin on the CPU each time."""
+    state, chunk, nx = level1_case(5, rows, rows - 3, streams)
+    static_state = [t.to(dev) for t in state]
+    static = [t.to(dev) for t in chunk()]
+
+    def call():
+        accumulate_cells(*static_state, *static, grid_nx=nx)
+
+    launches, kernels = host_launches(call)
+    assert launches == (1 if rows <= 2048 else 7) and all(
+        any(w in k for w in ("cell_update_", "radix_"))
+        and "sort" not in k.lower() for k in kernels), (launches, kernels)
+    ops = top_level_ops(call)
+    assert ops == ([] if rows <= 2048 else ["aten::empty"]), ops
+    before = _build.launch_counts()["stream_accumulate"]
+    call()
+    assert _build.launch_counts()["stream_accumulate"] == before + 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    for _ in range(2):
+        c = chunk()
+        for t, a in zip(static_state + static, state + c):
+            t.copy_(a)
+        graph.replay()
+        accumulate_cells_plain(*state, *c, grid_nx=nx)
+        torch.cuda.synchronize()
+        for a, b in zip(static_state, state):
+            assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("mode", ["grow", "ring"])
@@ -547,7 +677,7 @@ def test_ring_update_in_a_cuda_graph(dev, streams, rows):
 
     launches, kernels = host_launches(call)
     assert launches == (1 if streams == 1 else 7) and all(
-        any(w in k for w in ("ring_update_", "radix_"))
+        any(w in k for w in ("cell_update_", "radix_"))
         and "sort" not in k.lower() for k in kernels), (launches, kernels)
     ops = top_level_ops(call)
     assert ops == ([] if streams == 1 else ["aten::empty"]), ops
@@ -1346,6 +1476,7 @@ def test_grow_step_with_fused_blocks_in_a_cuda_graph(dev):
         _, graph_raw, _ = eng.step(copy_st, *inputs)
     after = _build.launch_counts()
     assert after["spline_conv_block"] - before["spline_conv_block"] == 18
+    assert after["spline_gather_block"] - before["spline_gather_block"] == 2
     assert after["spline_conv"] == before["spline_conv"]
     for c in chunks[5:8]:
         for t, v in zip(inputs, c):
