@@ -14,7 +14,13 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    (one C entry: its host ops, launches and device kernels, none a sort
    or searchsorted); K3's cell runs (order, cell_start), sorted inside
    its kernels, bit-equal to ``sorted_runs`` on the four poolings of a
-   window;
+   window; K4 as ``detect`` runs it, one launch from the raw head outputs
+   (decode, top K and NMS) on 8 windows and on crowded boxes with tied
+   scores, keeps, labels and order equal to the twin (decode_outputs
+   then postprocess_plain on the card), boxes and scores within 1e-6,
+   and its decoded-input entry as before; ``detect`` at one window timed
+   (decode included), with its host ops (one allocation, no decode op),
+   launches (one) and device ms;
 4. serves 8 single-window requests, then the same 8 windows as one
    batch; checks the outputs (the batch must repeat each window's), that
    every kernel was launched on every request (K2 as 20 fused eval
@@ -32,6 +38,14 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    the window's own 12 (10) split calls (1e-5 of each output's max,
    timed); timed and
    profiled;
+4c. sizes no published config reaches (P2): DAGR-S at
+   pooling_dim_at_output 12x16 (960 anchors, a 96 x 128 first grid) and
+   8x10 (400 anchors), a window each against the CPU plain path (raw
+   1e-4, keeps and labels identical, every sync kernel launched), timed;
+   K3 at 96 x 128 and 240 x 320 cells and K4 at 4032 anchors with
+   max_out 2000, each against its twin and timed (``p2_checks`` in the
+   kernels line); a 12x16 window streamed in grow mode, its final raw
+   equal to sync (1e-4);
 5. times the requests and each kernel beside its twin (CUDA events);
 6. streams through ``dagr_tpu_torch.streaming.engine.StreamingDetector``
    on the same model: holds the streaming kernels K6, K7 and K10 against
@@ -120,7 +134,8 @@ instance the parent commit's: ``git archive HEAD~ dagr_tpu_torch | tar
 -x -C DIR``) against this one on the same card, in turns (parent,
 change, change, parent): the sync B=1 window (and hashes of its 20
 fused-block outputs and of its 4 poolings' outputs, each of which must
-be the same in every turn, with the poolings' wrapper ms), the DAGR-L
+be the same in every turn, with the poolings' wrapper ms), ``detect``
+on its raw outputs (wrapper and device ms, host ops, launches), the DAGR-L
 DSEC and NCaltech101 windows, the engine's grow step of 256, the S=8
 server step, the S=1 ring server step of 256 on a full ring and the
 B=8 train step, each with its device busy time and idle share; the
@@ -180,6 +195,13 @@ SERVE_KERNELS = ("serve_search", "spline_conv", "spline_conv_block",
                  "voxel_pool", "stream_accumulate")
 SERVE_RING_KERNELS = ("serve_search", "serve_ring_update", "cell_max",
                       "spline_conv", "spline_conv_block", "voxel_pool")
+# the P2 phase: DAGR-S at finer output poolings (pooling_dim_at_output,
+# anchors), K3 at grids the card once refused, K4 at 4032 anchors
+# (three scales) and max_out 2000
+P2_POOLINGS = (("12x16", 960), ("8x10", 400))
+P2_GRIDS = ((96, 128), (240, 320))
+P2_ANCHORS = ([(48, 64), (24, 32), (12, 16)], [5, 10, 20])
+P2_MAX_OUT = 2000
 # the multi-stream phase: S streams of one window each, grow; one ring
 SERVE_S, SERVE_CHUNK, RING_CHUNK, RING_SLOTS = 8, 1024, 256, 50_176
 # H100 SXM peaks: HBM bytes/s, fp32 FLOP/s, and 3xTF32's (three TF32
@@ -439,6 +461,9 @@ def count_host_ops(fn):
                            for _ in range(e.count)]
 
 
+# the kernels of one K3 call: the node pass, K1's radix passes (one or
+# two, of three kernels), the run table, the cell and stencil passes
+POOL_KERNELS = ("pool_", "radix_", "run_start_kernel")
 # the kernels of one K6 or K8 call: the vid window (ring stores), two
 # radix passes of three, the run table, the search
 SEARCH_KERNELS = ("vid_window_kernel", "radix_", "run_start_kernel",
@@ -561,9 +586,6 @@ def check_kernels(cfg, events, det):
     Returns {kernel: record(...)}."""
     from dagr_tpu_torch.core.types import EventGraph, NodeSet
     from dagr_tpu_torch.graph.build import build_graph, build_graph_plain
-    from dagr_tpu_torch.models.dagr import anchor_geometry
-    from dagr_tpu_torch.models.head import decode_outputs
-    from dagr_tpu_torch.ops.nms import postprocess, postprocess_plain
     from dagr_tpu_torch.ops.pool import pool_graph, pool_graph_plain
 
     out = {}
@@ -669,32 +691,113 @@ def check_kernels(cfg, events, det):
         ns = with_width(ns, ch[level + 2])
     out["voxel_pool"] = record(k3_err, k3_ms, k3_plain_ms, k3_bytes, k3_ops)
 
-    # K4: on the decoded head outputs of 8 windows, and on 8 images of
-    # crowded, overlapping boxes with tied scores (random weights
-    # suppress nothing); timed at one window
+    out["nms"] = check_detect(cfg, events, det)
+    return out
+
+
+def hold_detect(raw, grids, strides, what, **kw):
+    """K4's one launch (decode_postprocess) against its twin on the card,
+    decode_outputs then postprocess_plain (ATen's CUDA exp and sigmoid):
+    keeps and labels identical, boxes and scores within 1e-6 (bit-equal
+    if the decode rounds as ATen's does).  Returns (max error, kept,
+    rows over conf, whether bit-equal)."""
+    from dagr_tpu_torch.ops.nms import (
+        decode_outputs, decode_postprocess, postprocess_plain)
+
+    a = decode_postprocess(raw, grids, strides, **kw)
+    b = postprocess_plain(decode_outputs(raw, grids, strides), **kw)
+    for name in ("labels", "valid"):
+        require(torch.equal(a[name], b[name]), f"K4 {what}: {name} == twin")
+    err = max(max_err(a["boxes"], b["boxes"]),
+              max_err(a["scores"], b["scores"]))
+    require(err <= 1e-6, f"K4 {what}: boxes/scores err {err}")
+    over = int((b["scores"] >= kw.get("conf_thresh", 1e-3)).sum())
+    same = all(torch.equal(a[k], b[k]) for k in ("boxes", "scores"))
+    return err, int(a["valid"].sum()), over, same
+
+
+def detect_work(raw, K, over):
+    """(bytes, operations) K4 must move and do on ``raw`` [B, A, 5 + C]
+    at K rows an image: raw and the anchor tables read once, the rows'
+    outputs (box, score, label, keep: 25 bytes) written once; ~20 ops a
+    raw value (a sigmoid or the decode), ~16 an IoU among the ``over``
+    rows that pass conf (taken as spread evenly over the B images)."""
+    B, A, _ = raw.shape
+    per = over / B
+    return (nbytes(raw) + 12 * A + 25 * B * K,
+            20 * raw.numel() + B * 16 * per * (per - 1) / 2)
+
+
+def check_detect(cfg, events, det):
+    """K4 on the main path: its one launch from the raw head outputs of 8
+    windows and of 8 images of crowded boxes with tied scores (random
+    weights suppress nothing), and its decoded-input entry (postprocess)
+    as before, each against the twin; then ``detect``'s whole path timed
+    at one window (the wrapper: anchor tables, one allocation, one
+    launch) with its host ops, launches and device ms."""
+    from dagr_tpu_torch.models.dagr import _anchor_tables, detect
+    from dagr_tpu_torch.ops.nms import (
+        MAX_DETECTIONS, decode_outputs, postprocess, postprocess_plain)
+
     raw, _ = det(events_batch(events[1:9]))
-    grids, strides = (torch.from_numpy(a).cuda()
-                      for a in anchor_geometry(cfg, H))
-    dec = decode_outputs(raw, grids, strides)
+    grids, strides = _anchor_tables(cfg, H, raw.device)
     pkw = dict(num_classes=cfg.num_classes, height=H, width=W)
-    err, kept = 0.0, []
+    err, kept, bit_equal = 0.0, [], True
+    crowded = crowded_raw(raw.shape, grids, strides)
+    for what, case in (("head outputs", raw), ("crowded", crowded)):
+        e, k, over, same = hold_detect(case, grids, strides, what, **pkw)
+        err, bit_equal = max(err, e), bit_equal and same
+        kept.append(f"{k} of {case.shape[0] * case.shape[1]} ({what})")
+    dec = decode_outputs(raw, grids, strides)
     for case in (dec, crowded_boxes(dec.shape, cfg.num_classes)):
         a, b = postprocess(case, **pkw), postprocess_plain(case, **pkw)
         for name in ("labels", "valid"):
             require(torch.equal(a[name], b[name]), f"K4 {name} == twin")
         err = max(err, max_err(a["boxes"], b["boxes"]),
                   max_err(a["scores"], b["scores"]))
-        kept.append(f"{int(a['valid'].sum())} of {a['valid'].numel()}")
     require(err <= 1e-6, f"K4 boxes/scores err {err}")
-    one = dec[:1].contiguous()
-    # operations: ~16 per anchor pair (IoU and its test)
-    out["nms"] = record(err, cuda_ms(lambda: postprocess(one, **pkw), 50),
-                        cuda_ms(lambda: postprocess_plain(one, **pkw), 5),
-                        nbytes(one, *postprocess(one, **pkw).values()),
-                        16 * one.shape[1] ** 2)
-    print(f"K4 nms: keep/labels/order equal to twin; kept {kept[0]} "
-          f"(head outputs), {kept[1]} (crowded)", flush=True)
-    return out
+    one = raw[:1].contiguous()
+    over = hold_detect(one, grids, strides, "one window", **pkw)[2]
+
+    def call():
+        return detect(one, cfg, H, W)
+
+    ops, launches, kernels = count_host_ops(call)
+    require(launches == 1 and ops.count("aten::empty") == 1 and not any(
+        w in o for o in ops for w in ("exp", "sigmoid", "cat", "add", "mul")),
+        f"detect: one launch, one allocation, no decode op: {ops}")
+    device_ms, by_kernel = kernel_times(call, 10)
+    n_bytes, n_ops = detect_work(one, min(MAX_DETECTIONS, one.shape[1]), over)
+    rec = record(err, cuda_ms(call, 50), cuda_ms(lambda: postprocess_plain(
+        decode_outputs(one, grids, strides), **pkw), 5), n_bytes, n_ops)
+    rec.update(host_ops=len(ops), op_names=ops, kernel_launches=launches,
+               device_ms=device_ms, bit_equal=bit_equal)
+    print(f"K4 detect: keep/labels/order equal to twin, boxes and scores "
+          f"{'bit-equal' if bit_equal else f'within {err:.3g}'}; kept "
+          f"{'; '.join(kept)}; one window: wrapper {rec['ms']:.4f} ms "
+          f"(decode included), twin {rec['plain_ms']:.4f} ms, {len(ops)} "
+          f"host ops ({', '.join(ops)}), {launches} launch, device "
+          f"{device_ms:.4f} ms", flush=True)
+    for kname, kms, n in by_kernel:
+        print(f"  {kms:8.4f} ms  x{n:<4d} {kname}", flush=True)
+    return rec
+
+
+def crowded_raw(shape, grids, strides):
+    """Raw head outputs [B, A, 5 + C] whose decoded boxes crowd around a
+    few centres, with obj and class logits from small sets so that scores
+    tie (some under conf), rows 10-19 copies of row 0."""
+    B, A, D = shape
+    g = np.random.default_rng(SEED)
+    grids, strides = grids.cpu().numpy(), strides.cpu().numpy()
+    centre = g.uniform(40, 280, (B, 6, 2))[:, g.integers(0, 6, A)]
+    raw = np.zeros((B, A, D), np.float32)
+    raw[..., :2] = (centre + g.normal(0, 4, (B, A, 2))) / strides - grids
+    raw[..., 2:4] = np.log(g.uniform(20, 40, (B, A, 2)) / strides)
+    raw[..., 4] = g.choice([-9.0, -1.0, 0.0, 2.0], (B, A))
+    raw[..., 5:] = g.choice([-2.0, 0.0, 1.0], (B, A, D - 5))
+    raw[:, 10:20] = raw[:, 0:1]
+    return torch.from_numpy(raw).cuda()
 
 
 def crowded_boxes(shape, num_classes: int) -> torch.Tensor:
@@ -834,6 +937,153 @@ def wide_windows(card):
         for kname, kms, n in top[:10]:
             print(f"  {kms:8.4f} ms  x{n:<4d} {kname}", flush=True)
     return total, checks
+
+
+def p2_sizes(cfg, events, card):
+    """Phase 4c: sizes that no published config reaches and that the card
+    refused before.  DAGR-S at pooling_dim_at_output 12x16 (960 anchors,
+    a 96 x 128 first grid) and 8x10 (400 anchors): one window each, the
+    counts reset before it and read after (every sync kernel launched,
+    the convs on the routes ``eval_routes`` gives), raw against the CPU
+    plain path (1e-4), keeps and labels identical, then timed; K3 on a
+    window's event level at 96 x 128 and 240 x 320 cells, its runs
+    bit-equal to ``sorted_runs``
+    and its outputs to the twin, timed;
+    K4 at 4032 anchors with max_out 2000 against its twin, timed; a 12x16
+    window streamed in grow mode in chunks of 1024, every streaming
+    kernel on every step, its final raw equal to sync (1e-4).  Returns
+    {kernel: [checks]}."""
+    from dagr_tpu_torch.graph.build import build_graph
+    from dagr_tpu_torch.kernels import _build
+    from dagr_tpu_torch.models.dagr import eval_routes
+    from dagr_tpu_torch.models.head import make_grids_strides
+    from dagr_tpu_torch.ops.nms import (
+        decode_outputs, decode_postprocess, postprocess_plain)
+    from dagr_tpu_torch.ops.pool import pool_graph, pool_graph_plain
+    from dagr_tpu_torch.serve import Detector
+    from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
+
+    window, dets = events[1], {}
+    for pooling, A in P2_POOLINGS:
+        pcfg = cfg.replace(pooling_dim_at_output=pooling)
+        det = Detector(pcfg, H, W, "cuda", seed=SEED)
+        fused, split = eval_routes(det.model)
+        det(events[0])
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        raw, out = det(window)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        for k in SYNC_KERNELS:
+            require(counts[k] > 0, f"{pooling}: kernel {k} launched")
+        require((counts["spline_conv_block"], counts["spline_conv"])
+                == (fused, split), f"{pooling}: {fused} fused blocks and "
+                f"{split} split convs")
+        cpu = Detector(pcfg, H, W, "cpu", state_dict=det.model.state_dict())
+        raw_cpu, out_cpu = cpu(window.to("cpu"))
+        require(tuple(raw.shape) == (1, A, 5 + pcfg.num_classes)
+                and bool(torch.isfinite(raw).all()),
+                f"{pooling}: raw {tuple(raw.shape)} finite")
+        err = max_err(raw, raw_cpu)
+        require(torch.allclose(raw.cpu(), raw_cpu, atol=1e-4, rtol=1e-4),
+                f"{pooling} raw vs CPU plain path: max err {err}")
+        for k in ("valid", "labels"):
+            require(torch.equal(out[k].cpu(), out_cpu[k]),
+                    f"{pooling}: {k} equal to the CPU plain path")
+        ms = [timed(lambda: det(ev)) for ev in events[2:7]]
+        kept = int(out["valid"].sum())
+        print(f"DAGR-S at pooling_dim_at_output {pooling} ({A} anchors, "
+              f"grids {pcfg.grid_shapes()}): every sync kernel launched, "
+              f"{fused} fused blocks; raw vs CPU plain path max abs err "
+              f"{err:.3g}, keeps and labels identical ({kept} kept); p50 "
+              f"{np.median(ms):.3f} ms (min {min(ms):.3f}, max "
+              f"{max(ms):.3f}) [{card}]", flush=True)
+        dets[pooling] = det
+
+    checks = {"voxel_pool": [], "nms": []}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    g = build_graph(window.pos_px(), window.mask, width=W, height=H,
+                    radius=cfg.radius_px(W), delta_t_us=cfg.delta_t_us(),
+                    max_neighbors=cfg.max_neighbors,
+                    queue_size=cfg.max_queue_size)
+    feat = torch.rand((1, window.num_nodes, cfg.channels()[1]), generator=gen,
+                      device="cuda") * window.mask[..., None]
+    args = (feat, window.pos, window.mask, g.nbr, g.nbr_mask, g.nbr_dpos)
+    for gy, gx in P2_GRIDS:
+        kw = dict(grid_ny=gy, grid_nx=gx, width=W, height=H, aggr="max",
+                  keep_temporal_ordering=False)
+        got = pool_graph(*args, **kw)
+        check_pool_runs(args, kw, f"{gy}x{gx} cells")
+        want = pool_graph_plain(*[a.cpu() for a in args], **kw)
+        err = 0.0
+        for name, a, b in zip(("feat", "pos", "mask", "nbr", "nbr_mask",
+                               "tmax"), got, want):
+            if name == "feat":
+                err = max_err(a, b)
+                require(err <= 1e-5, f"K3 {gy}x{gx} feat err {err}")
+            else:
+                require(torch.equal(a.cpu(), b),
+                        f"K3 {gy}x{gx} {name} bit-equal to twin")
+        rec = record(err, cuda_ms(lambda: pool_graph(*args, **kw), 20),
+                     cuda_ms(lambda: pool_graph_plain(*args, **kw), 3),
+                     nbytes(*args, *got), feat.numel())
+        rec.update(at=f"event level at {gy}x{gx} cells",
+                   device_ms=kernel_times(lambda: pool_graph(*args, **kw),
+                                          10)[0])
+        checks["voxel_pool"].append(rec)
+        print(f"K3 voxel_pool at {gy}x{gx} cells ({gy * gx}; a window's "
+              f"event level): runs bit-equal to sorted_runs, outputs to the "
+              f"twin; wrapper {rec['ms']:.4f} ms, device "
+              f"{rec['device_ms']:.4f} ms, twin {rec['plain_ms']:.4f} ms "
+              f"[{card}]", flush=True)
+
+    grids, strides = (torch.from_numpy(a).cuda()
+                      for a in make_grids_strides(*P2_ANCHORS))
+    A = grids.shape[0]
+    raw = crowded_raw((1, A, 5 + cfg.num_classes), grids, strides)
+    pkw = dict(num_classes=cfg.num_classes, height=H, width=W,
+               max_out=P2_MAX_OUT)
+    err, kept, over, same = hold_detect(
+        raw, grids, strides, f"{A} anchors, max_out {P2_MAX_OUT}", **pkw)
+
+    def call():
+        return decode_postprocess(raw, grids, strides, **pkw)
+
+    n_bytes, n_ops = detect_work(raw, min(P2_MAX_OUT, A), over)
+    rec = record(err, cuda_ms(call, 20), cuda_ms(lambda: postprocess_plain(
+        decode_outputs(raw, grids, strides), **pkw), 1), n_bytes, n_ops)
+    rec.update(at=f"{A} anchors, max_out {P2_MAX_OUT}", bit_equal=same,
+               device_ms=kernel_times(call, 5)[0])
+    checks["nms"].append(rec)
+    print(f"K4 at {A} anchors, max_out {P2_MAX_OUT}: keep/labels/order "
+          f"equal to twin, boxes and scores "
+          f"{'bit-equal' if same else f'within {err:.3g}'}; {kept} kept of "
+          f"{over} over conf; wrapper {rec['ms']:.4f} ms, device "
+          f"{rec['device_ms']:.4f} ms, twin {rec['plain_ms']:.4f} ms "
+          f"[{card}]", flush=True)
+
+    det = dets["12x16"]
+    p1, f1 = stream_events(window)
+    eng = StreamingDetector(det.model, H, W, chunk=1024)
+    st = eng.init_state()
+    chunks = chunk_events(p1, f1, 1024, device="cuda")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    for c in chunks:
+        before = _build.launch_counts()
+        st, raw_s, _ = eng.step(st, *c)
+        after = _build.launch_counts()
+        for k in STREAM_KERNELS:
+            require(after[k] > before[k], f"12x16 grow: kernel {k} launched "
+                    "on a step")
+    raw_sync, _ = det(window)
+    err = max_err(raw_s, raw_sync)
+    require(torch.allclose(raw_s, raw_sync, atol=1e-4, rtol=1e-4),
+            f"12x16 grow streaming vs sync raw: max err {err}")
+    print(f"DAGR-S at 12x16, grow streaming: {len(chunks)} steps of 1024, "
+          f"every streaming kernel on every step; final raw vs sync raw max "
+          f"abs err {err:.3g}", flush=True)
+    return checks
 
 
 def kernel_times(fn, n):
@@ -2447,7 +2697,8 @@ def timings(card, train_only=False):
     first on sys.path, through public entry points only (so that another
     checkout's package can be measured by the same code): the sync B=1
     window (8 windows; the sha256 of its 20 fused-block outputs and of
-    its 4 poolings' outputs, with their wrapper ms), the
+    its 4 poolings' outputs, with their wrapper ms; ``detect`` on its raw
+    outputs, replayed), the
     DAGR-L DSEC and NCaltech101 windows (5 each), the engine's grow step
     of 256 on a ~36k store (16 steps), the S=8 server's grow step at chunk
     1024 (steps 3-44 of one window per stream), the S=1 ring server's
@@ -2572,9 +2823,9 @@ def engine_replays(engine_mod, model, step):
 
 
 def pool_outputs(det, window):
-    """{calls, sha256, ms} of the poolings (K3) of one request of
-    ``window`` (any checkout's ``pool_graph``): the hash of their outputs
-    and their wrapper ms summed (CUDA events, 20 calls each)."""
+    """{calls, sha256, ms, device_ms, host_ops, launches} of the poolings
+    (K3) of one request of ``window`` (any checkout's ``pool_graph``): the
+    hash of their outputs, and ``replay_fn``'s numbers summed over them."""
     import hashlib
 
     from dagr_tpu_torch.ops import pool as pool_mod
@@ -2582,13 +2833,17 @@ def pool_outputs(det, window):
     cap = Capture(pool_mod, "pool_graph", 0, 1, 2, 3)
     det(window)
     cap.close()
-    h, ms = hashlib.sha256(), 0.0
+    h = hashlib.sha256()
+    out = {"calls": len(cap.calls), "ms": 0.0, "device_ms": 0.0,
+           "host_ops": 0, "launches": 0}
     with torch.no_grad():
         for args, kw in cap.calls:
             for y in pool_mod.pool_graph(*args, **kw):
                 h.update(y.cpu().numpy().tobytes())
-            ms += cuda_ms(lambda: pool_mod.pool_graph(*args, **kw), 20)
-    return {"calls": len(cap.calls), "sha256": h.hexdigest(), "ms": ms}
+            r = replay_fn(lambda: pool_mod.pool_graph(*args, **kw))
+            for k in ("ms", "device_ms", "host_ops", "launches"):
+                out[k] += r[k]
+    return {**out, "sha256": h.hexdigest()}
 
 
 def fused_outputs_hash(det, window):
@@ -2671,6 +2926,7 @@ def eval_timings(cfg, out):
     """The eval paths of ``timings`` and the host ops, into ``out``."""
     from dagr_tpu_torch.config import DagrConfig
     from dagr_tpu_torch.data.synthetic import random_events
+    from dagr_tpu_torch.models.dagr import detect
     from dagr_tpu_torch.serve import Detector
     from dagr_tpu_torch.streaming import engine as engine_mod
     from dagr_tpu_torch.streaming import serve as serve_mod
@@ -2687,6 +2943,9 @@ def eval_timings(cfg, out):
     out["sync"] = summary(ms, busy)
     out["sync_fused"] = fused_outputs_hash(det, events[1])
     out["sync_pool"] = pool_outputs(det, events[1])
+    # K4: detect's whole path (any checkout's) on one window's raw outputs
+    raw1, _ = det(events[1])
+    out["detect"] = replay_fn(lambda: detect(raw1, cfg, H, W))
     host = host_op_profile(det, events)
     for name, fields, h, w in WIDE_MODELS:
         wrng = np.random.default_rng(SEED + 2)
@@ -2824,6 +3083,8 @@ def compare(parent: str, card, train_only=False):
                   f"{v['fwd_bwd_busy']:.4f}, {v['fwd_bwd_host_ops']} host "
                   f"ops) [{card}]", flush=True)
         for k, v in (("K3, the sync window's 4 poolings", t.get("sync_pool")),
+                     ("K4, detect on a sync window's raw outputs",
+                      t.get("detect")),
                      ("K8 ring update, a ring S=1 step", t.get("ring_update")),
                      ("K7, the event level's 2 blocks, an engine grow step "
                       "of 1024", t.get("event_level_1024")),
@@ -2933,9 +3194,10 @@ def main() -> int:
     host = host_op_profile(det, events)
     print_host_ops(host, card)
     pool_kernels = host["pooling"][2]
-    require(all("pool_" in k for k in pool_kernels) and not any(
-        w in k.lower() for k in pool_kernels for w in ("sort", "searchsorted")),
-        f"a pooling runs only the port's kernels, no sort: {pool_kernels}")
+    require(all(any(w in k for w in POOL_KERNELS) for k in pool_kernels)
+            and not any(w in k.lower() for k in pool_kernels
+                        for w in ("sort", "searchsorted")),
+            f"a pooling runs only the port's kernels, no sort: {pool_kernels}")
 
     # the same model and window through the plain path on the CPU
     cpu = Detector(cfg, H, W, "cpu", state_dict=det.model.state_dict())
@@ -2962,6 +3224,7 @@ def main() -> int:
         print("profile: the profiler saw no device kernels; device busy "
               "time not measured", flush=True)
     wide_launches, wide_checks = wide_windows(card)
+    p2_checks = p2_sizes(cfg, events, card)
     grow_launches, ring_launches, store_checks = stream(cfg, det, events,
                                                         card)
     served, checks, serve_launches, serve_ring_launches = serve_streams(
@@ -2970,12 +3233,15 @@ def main() -> int:
     kernels["graph_search_store"]["path_checks"] = store_checks
     serve_split = checks.pop("spline_conv")
     # the kernels held against their twins again at the serving path's
-    # shapes: the row's error is the largest of all its checks
-    for name, cs in checks.items():
-        rec = kernels[name]
-        rec["serve_checks"] = cs
-        rec["max_abs_err"] = max([rec["max_abs_err"]]
-                                 + [c["max_abs_err"] for c in cs])
+    # shapes and at the P2 sizes: the row's error is the largest of all
+    # its checks
+    for key, by_kernel in (("serve_checks", checks),
+                           ("p2_checks", p2_checks)):
+        for name, cs in by_kernel.items():
+            rec = kernels[name]
+            rec[key] = cs
+            rec["max_abs_err"] = max([rec["max_abs_err"]]
+                                     + [c["max_abs_err"] for c in cs])
     # each kernel's launches on its own path: the sync requests, the
     # engine's grow run, or the server's grow (search) or ring run
     launches.update({k: v for k, v in grow_launches.items()

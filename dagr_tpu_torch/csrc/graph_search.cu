@@ -642,6 +642,16 @@ extern "C" int dagr_cell_sort(const void* a, int na, const void* b, int n,
   return (int)cudaGetLastError();
 }
 
+// run_start [n_ids] of n sorted keys keys_s (dagr_cell_sort's): the first
+// sorted position whose key is >= p, for p = 0..n_ids - 1; launched on
+// the caller's stream.
+extern "C" int dagr_run_starts(const void* keys_s, int n, int n_ids,
+                               void* run_start, void* stream) {
+  run_start_kernel<<<(n_ids + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const int*)keys_s, n, n_ids, (int*)run_start);
+  return (int)cudaGetLastError();
+}
+
 // Scratch words of dagr_source_runs over n_edges edges and n_src sources:
 // the sort's and its sorted keys.
 extern "C" long long dagr_source_runs_scratch(int n_edges, int n_src) {

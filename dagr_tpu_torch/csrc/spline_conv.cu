@@ -46,8 +46,8 @@
 // and writes [M, Cout] once.  Row strides are padded so that
 // the fragment loads hit 32 distinct banks (A: lda = 4 mod 8 words;
 // B: ldb = 8 or 24 mod 32).  The kernels take up to 227 KB of dynamic
-// shared memory; dagr_init sets that limit once, when the library is
-// loaded, so a launch inside a CUDA-graph capture sets nothing.
+// shared memory; dagr_spline_conv_init sets that limit once, when the
+// library is loaded, so a launch inside a CUDA-graph capture sets nothing.
 //
 // K7, the gathered block (dagr_spline_conv_gather_block): the same
 // kernel over a streaming chunk.  Replaces dagr_tpu/models/functional.py:
@@ -1399,7 +1399,7 @@ cudaError_t split_smem_limits() {
 
 // Sets the dynamic shared-memory limit of every fused-block and
 // split-route kernel, once, when the library is loaded.
-extern "C" int dagr_init(void) {
+extern "C" int dagr_spline_conv_init(void) {
   const void* kernels[] = {
       (const void*)spline_conv_block_kernel<4, 1, false>,
       (const void*)spline_conv_block_kernel<4, 2, false>,

@@ -16,27 +16,25 @@
 //
 // Design: the floor in the pooled position flips if the position sum
 // rounds differently, so no float atomics are used.  One C entry,
-// dagr_voxel_pool, and no host op between its six launches; the stable
-// sort of the nodes by cell is a one-digit counting sort done here
-// (B*ny*nx <= 17920 keys at DAGR-S's B = 8), with integer atomics only
-// in shared memory:
-//   1. nodes (a block per tile of kPoolTile nodes of one sample): each
-//      node's cell id (invalid nodes go to the pad cell B*ny*nx, past
-//      the last) and the 9-bit mask of its valid in-stencil, non-self
-//      edges (from nbr_dpos at the event level, else from the sources'
-//      own positions, the sample's base added to the local neighbour
-//      ids here), and the tile's histogram over its sample's cells;
-//   2. per (cell, tile): the exclusive prefix of the cell's counts over
-//      its sample's tiles (the pad cell over every tile), and the cell's
-//      count;
-//   3. one block: the exclusive scan of the counts, cell_start;
-//   4. a warp per tile: each node's stable rank in its cell (the tile's
-//      nodes in index order, 32 at a time: __match_any_sync gives a
-//      lane its peers, popc of those below it its rank) and order[] at
-//      cell_start + the earlier tiles' count + rank.  So order and
+// dagr_voxel_pool, and no host op between its launches:
+//   1. nodes (a thread each): each node's cell id (invalid nodes go to
+//      the pad cell B*ny*nx, past the last) and the 9-bit mask of its
+//      valid in-stencil, non-self edges (from nbr_dpos at the event
+//      level, else from the sources' own positions, the sample's base
+//      added to the local neighbour ids here);
+//   2. K1's radix sort of the node -> cell map (graph_search.cu's
+//      dagr_cell_sort: stable, one pass under 1024 cells and two up to
+//      2^20), and cell_start[g], the first sorted position whose cell is
+//      >= g, by a binary search per cell (dagr_run_starts).  So order and
 //      cell_start are bit-equal to a stable sort by cell id
-//      (graph/build.py sorted_runs);
-//   5. a warp per cell: the feature max spread over the lanes (32 /
+//      (graph/build.py sorted_runs), at any grid.  The sort's work
+//      follows the nodes, not cells x tiles: a one-digit counting sort
+//      with each tile's histogram in shared memory (6 launches a pooling
+//      against 10) took 0.4005-0.4077 ms of device time over a DAGR-S
+//      window's 4 poolings against this route's 0.3775-0.3778, and
+//      0.2207 ms against 0.1424 at 96 x 128 cells (an H100 80GB HBM3 at
+//      700 W, chip_smoke.py --compare and its P2 phase);
+//   3. a warp per cell: the feature max spread over the lanes (32 /
 //      min(32, pow2 >= C) of the cell's rows per pass, lanes over
 //      channels, then a fixed shuffle tree; max is exact in any order).
 //      For training (a ties pointer given) each lane keeps an exact
@@ -47,7 +45,7 @@
 //      in node index order, reading the order entries 32 at a time and
 //      broadcasting them with shuffles, so every float sum runs in the
 //      order of the plain PyTorch version's index_add_ on the CPU;
-//   6. per (cell, stencil slot) (one thread each): the coarse neighbour
+//   4. per (cell, stencil slot) (one thread each): the coarse neighbour
 //      id and mask adj & in-frame & source non-empty & destination
 //      non-empty (& t_max(dst) > t_max(src) when asked).
 // Divisions by W and H are reciprocal multiplies, as XLA compiles the
@@ -156,161 +154,55 @@ __device__ __forceinline__ int cell_coord(float p, int n) {
   return min(max((int)(q * (float)n), 0), n - 1);
 }
 
-constexpr int kPoolTile = 2048;     // nodes of one sample per sort tile
-
-// K3 step 1: a block per tile of one sample's nodes.  hist holds, for
-// cell g = b*ncells + c, the counts of its sample's tiles at g*tpb + t,
-// and after the B*ncells cells the pad cell's count of every tile.
+// K3 step 1: a thread per node of the B samples' M = B*N.
 __global__ void pool_nodes_kernel(
     const float* __restrict__ pos,        // [M, 3]
     const uint8_t* __restrict__ mask,     // [M]
     const uint8_t* __restrict__ nbr_mask, // [M, K]
     const float* __restrict__ nbr_dpos,   // [M, K, 2] or null
     const int* __restrict__ nbr,          // [M, K] ids within the sample
-    int N, int K, int ny, int nx, int n_cells_total, int tpb, int W, int H,
-    float inv_w, float inv_h, int* __restrict__ seg, int* __restrict__ bits,
-    int* __restrict__ hist) {
-  extern __shared__ int h[];              // [ncells + 1], the pad last
-  const int ncells = ny * nx;
-  const int b = blockIdx.x / tpb, t = blockIdx.x - b * tpb;
-  for (int c = threadIdx.x; c <= ncells; c += blockDim.x) h[c] = 0;
-  __syncthreads();
-  const int lo = b * N + t * kPoolTile;
-  const int hi = b * N + min(N, (t + 1) * kPoolTile);
-  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    const int cx = cell_coord(pos[3 * i], nx);
-    const int cy = cell_coord(pos[3 * i + 1], ny);
-    if (!mask[i]) {
-      seg[i] = n_cells_total;   // past every cell: sorts last
-      bits[i] = 0;
-      atomicAdd(&h[ncells], 1);
-      continue;
-    }
-    seg[i] = b * ncells + cx + nx * cy;
-    atomicAdd(&h[cx + nx * cy], 1);
-    int out = 0;
-    float xd = 0.f, yd = 0.f;
+    int M, int N, int K, int ny, int nx, int n_cells_total, int W, int H,
+    float inv_w, float inv_h, int* __restrict__ seg, int* __restrict__ bits) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M) return;
+  const int ncells = ny * nx, b = i / N;
+  const int cx = cell_coord(pos[3 * i], nx);
+  const int cy = cell_coord(pos[3 * i + 1], ny);
+  if (!mask[i]) {
+    seg[i] = n_cells_total;   // past every cell: sorts last
+    bits[i] = 0;
+    return;
+  }
+  seg[i] = b * ncells + cx + nx * cy;
+  int out = 0;
+  float xd = 0.f, yd = 0.f;
+  if (nbr_dpos) {
+    xd = floorf(pos[3 * i] * (float)W + 1e-3f);
+    yd = floorf(pos[3 * i + 1] * (float)H + 1e-3f);
+  }
+  for (int k = 0; k < K; ++k) {
+    const size_t ik = (size_t)i * K + k;
+    if (!nbr_mask[ik]) continue;
+    int sx, sy;
     if (nbr_dpos) {
-      xd = floorf(pos[3 * i] * (float)W + 1e-3f);
-      yd = floorf(pos[3 * i + 1] * (float)H + 1e-3f);
+      const float fx = (xd + rintf(nbr_dpos[2 * ik] * (float)W)) * inv_w;
+      const float fy = (yd + rintf(nbr_dpos[2 * ik + 1] * (float)H)) * inv_h;
+      sx = cell_coord(fx, nx);
+      sy = cell_coord(fy, ny);
+    } else {
+      const int s = b * N + nbr[ik];
+      if (!mask[s]) continue;
+      sx = cell_coord(pos[3 * s], nx);
+      sy = cell_coord(pos[3 * s + 1], ny);
     }
-    for (int k = 0; k < K; ++k) {
-      const size_t ik = (size_t)i * K + k;
-      if (!nbr_mask[ik]) continue;
-      int sx, sy;
-      if (nbr_dpos) {
-        const float fx = (xd + rintf(nbr_dpos[2 * ik] * (float)W)) * inv_w;
-        const float fy = (yd + rintf(nbr_dpos[2 * ik + 1] * (float)H)) * inv_h;
-        sx = cell_coord(fx, nx);
-        sy = cell_coord(fy, ny);
-      } else {
-        const int s = b * N + nbr[ik];
-        if (!mask[s]) continue;
-        sx = cell_coord(pos[3 * s], nx);
-        sy = cell_coord(pos[3 * s + 1], ny);
-      }
-      const int dx = sx - cx, dy = sy - cy;
-      if (dx < -1 || dx > 1 || dy < -1 || dy > 1 || (dx == 0 && dy == 0)) continue;
-      out |= 1 << ((dy + 1) * 3 + (dx + 1));
-    }
-    bits[i] = out;
+    const int dx = sx - cx, dy = sy - cy;
+    if (dx < -1 || dx > 1 || dy < -1 || dy > 1 || (dx == 0 && dy == 0)) continue;
+    out |= 1 << ((dy + 1) * 3 + (dx + 1));
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < ncells; c += blockDim.x)
-    hist[(size_t)(b * ncells + c) * tpb + t] = h[c];
-  if (threadIdx.x == 0)
-    hist[(size_t)n_cells_total * tpb + blockIdx.x] = h[ncells];
+  bits[i] = out;
 }
 
-// K3 step 2: one thread per cell (the pad cell last): its tiles' counts
-// become their exclusive prefix, in place; count[g] the total.
-__global__ void pool_tile_prefix_kernel(int n_cells_total, int B, int tpb,
-                                        int* __restrict__ hist,
-                                        int* __restrict__ count) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g > n_cells_total) return;
-  const int n = g < n_cells_total ? tpb : B * tpb;
-  int* hg = hist + (size_t)g * tpb;
-  int run = 0;
-  for (int j = 0; j < n; ++j) {
-    const int v = hg[j];
-    hg[j] = run;
-    run += v;
-  }
-  count[g] = run;
-}
-
-// K3 step 3: one block of 1024 threads; cell_start[g] = sum of
-// count[0..g) for g <= n (a thread scans a run of consecutive cells).
-__global__ void __launch_bounds__(1024) pool_scan_kernel(
-    const int* __restrict__ count, int n, int* __restrict__ cell_start) {
-  __shared__ int warp_sum[32];
-  const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
-  int own = 0;
-  for (int i = lo; i < hi; ++i) own += count[i];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int inc = own;                          // inclusive scan in the warp
-  for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, inc, off);
-    if (lane >= off) inc += v;
-  }
-  if (lane == 31) warp_sum[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < (int)(blockDim.x >> 5) ? warp_sum[lane] : 0;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, w, off);
-      if (lane >= off) w += v;
-    }
-    warp_sum[lane] = w;                   // inclusive over warps
-  }
-  __syncthreads();
-  int run = inc - own + (warp > 0 ? warp_sum[warp - 1] : 0);
-  for (int i = lo; i < hi; ++i) {
-    cell_start[i] = run;
-    run += count[i];
-  }
-  if (threadIdx.x == blockDim.x - 1) cell_start[n] = run;
-}
-
-// K3 step 4: a warp per tile writes its nodes into order[], stably.
-__global__ void pool_scatter_kernel(
-    const int* __restrict__ seg, const int* __restrict__ hist,
-    const int* __restrict__ cell_start, int N, int ncells,
-    int n_cells_total, int tpb, int* __restrict__ order) {
-  extern __shared__ int run[];            // [ncells + 1]: next slot per cell
-  const int lane = threadIdx.x;
-  const int b = blockIdx.x / tpb, t = blockIdx.x - b * tpb;
-  for (int c = lane; c < ncells; c += 32) {
-    const int g = b * ncells + c;
-    run[c] = cell_start[g] + hist[(size_t)g * tpb + t];
-  }
-  if (lane == 0)
-    run[ncells] = cell_start[n_cells_total]
-                  + hist[(size_t)n_cells_total * tpb + blockIdx.x];
-  __syncwarp();
-  const int lo = b * N + t * kPoolTile;
-  const int hi = b * N + min(N, (t + 1) * kPoolTile);
-  const unsigned below = (1u << lane) - 1u;
-  for (int base = lo; base < hi; base += 32) {
-    const int i = base + lane;
-    const bool active = i < hi;
-    int key = -1;                         // inactive lanes: the tail
-    if (active) {
-      const int sg = seg[i];
-      key = sg == n_cells_total ? ncells : sg - b * ncells;
-    }
-    const unsigned peers = __match_any_sync(0xffffffffu, key);
-    const int rank = __popc(peers & below);
-    if (active) order[run[key] + rank] = i;
-    __syncwarp();
-    if (active && rank == 0) run[key] += __popc(peers);
-    __syncwarp();
-  }
-}
-
-// K3 step 5: one warp per cell; see the file's note.  With TIES, ties
+// K3 step 3: one warp per cell; see the file's note.  With TIES, ties
 // [n_cells_total, C] gets the members equal to each channel's max.
 template <bool TIES>
 __global__ void pool_cells_kernel(
@@ -757,12 +649,18 @@ __global__ void pool_stencil_kernel(
 
 }  // namespace
 
-// Scratch words dagr_voxel_pool needs: bits [M], the (cell, tile)
-// counts, count [G + 1] and adj [G], G = B*ny*nx.
+extern "C" long long dagr_cell_sort_scratch(int n, int n_ids);
+extern "C" int dagr_cell_sort(const void* a, int na, const void* b, int n,
+                              int n_ids, void* scratch, void* keys_s,
+                              void* order, void* stream);
+extern "C" int dagr_run_starts(const void* keys_s, int n, int n_ids,
+                               void* run_start, void* stream);
+
+// Scratch words dagr_voxel_pool needs, G = B*ny*nx: bits [M], the radix
+// sort's scratch, its sorted cells [M] and adj [G].
 extern "C" long long dagr_voxel_pool_scratch(int B, int N, int ny, int nx) {
-  const long long tpb = (N + kPoolTile - 1) / kPoolTile;
   const long long M = (long long)B * N, G = (long long)B * ny * nx;
-  return M + (G + B) * tpb + (G + 1) + G;
+  return M + dagr_cell_sort_scratch((int)M, (int)G) + M + G;
 }
 
 // K3: the pooling of B samples of N nodes onto ny x nx cells, with the
@@ -776,30 +674,25 @@ extern "C" int dagr_voxel_pool(
     float inv_h, void* order, void* cell_start, void* seg_out, void* ties,
     void* scratch, void* pooled, void* pos_out, void* cmask, void* tmax,
     void* nbr_out, void* mask_out, void* stream) {
-  const int ncells = ny * nx, G = B * ncells;
-  const int tpb = (N + kPoolTile - 1) / kPoolTile;
-  const size_t hist_smem = (size_t)(ncells + 1) * sizeof(int);
-  if (hist_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  // ids of nodes, cells and a cell's lanes (pool_cells_kernel) are ints
+  if ((long long)B * N > INT_MAX || 32ll * B * ny * nx > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int G = B * ny * nx, M = B * N;
   cudaStream_t s = (cudaStream_t)stream;
   int* seg = (int*)seg_out;
   int* bits = (int*)scratch;
-  int* hist = bits + (size_t)B * N;
-  int* count = hist + (size_t)(G + B) * tpb;
-  int* adj = count + G + 1;
-  const int tiles = B * tpb;
-  if (tiles > 0) {
-    pool_nodes_kernel<<<tiles, 256, hist_smem, s>>>(
+  int* sort = bits + M;
+  int* keys_s = sort + dagr_cell_sort_scratch(M, G);
+  int* adj = keys_s + M;
+  if (M > 0) {
+    pool_nodes_kernel<<<(M + 255) / 256, 256, 0, s>>>(
         (const float*)pos, (const uint8_t*)mask, (const uint8_t*)nbr_mask,
-        (const float*)nbr_dpos, (const int*)nbr, N, K, ny, nx, G, tpb, W, H,
-        inv_w, inv_h, seg, bits, hist);
+        (const float*)nbr_dpos, (const int*)nbr, M, N, K, ny, nx, G, W, H,
+        inv_w, inv_h, seg, bits);
   }
-  pool_tile_prefix_kernel<<<(G + 1 + 255) / 256, 256, 0, s>>>(G, B, tpb, hist,
-                                                              count);
-  pool_scan_kernel<<<1, 1024, 0, s>>>(count, G, (int*)cell_start);
-  if (tiles > 0) {
-    pool_scatter_kernel<<<tiles, 32, hist_smem, s>>>(
-        seg, hist, (const int*)cell_start, N, ncells, G, tpb, (int*)order);
-  }
+  int err = dagr_cell_sort(nullptr, 0, seg, M, G, sort, keys_s, order, s);
+  if (err == 0) err = dagr_run_starts(keys_s, M, G + 1, cell_start, s);
+  if (err != 0) return err;
   if (G > 0) {
     const int threads = 256;   // 8 warps, one cell each
     auto cells = mean || !ties ? pool_cells_kernel<false>
@@ -815,11 +708,6 @@ extern "C" int dagr_voxel_pool(
   }
   return (int)cudaGetLastError();
 }
-
-extern "C" long long dagr_cell_sort_scratch(int n, int n_ids);
-extern "C" int dagr_cell_sort(const void* a, int na, const void* b, int n,
-                              int n_ids, void* scratch, void* keys_s,
-                              void* order, void* stream);
 
 namespace {
 

@@ -11,10 +11,11 @@ library is never loaded.  The library is loaded with ``ctypes``.
 Every C entry point takes its CUDA stream last and returns
 ``cudaGetLastError()`` after its launches; ``launch`` raises on a
 non-zero code, because a refused launch never runs and a later
-synchronise does not report it.  ``dagr_init`` runs once, when the
-library is loaded: it raises the dynamic shared-memory limit of the
-kernels that need more than 48 KB, so that no launch sets an attribute
-(a launch may be inside a CUDA-graph capture).
+synchronise does not report it.  A source whose kernels need more than
+48 KB of shared memory exports ``dagr_<stem>_init`` (``spline_conv.cu``:
+``dagr_spline_conv_init``), which raises their dynamic shared-memory
+limit; each runs once, when the library is loaded, so that no launch
+sets an attribute (a launch may be inside a CUDA-graph capture).
 
 ``LAUNCHES`` counts the launches per kernel name.  It is process-wide on
 purpose: a run resets it, drives the main path, and reads it to show
@@ -112,10 +113,15 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.dagr_error_string.argtypes = [ctypes.c_int]
         lib.dagr_error_string.restype = ctypes.c_char_p
-        err = lib.dagr_init()
-        if err != 0:
-            msg = lib.dagr_error_string(err).decode()
-            raise RuntimeError(f"dagr_init: CUDA error {err}: {msg}")
+        for src in sources():
+            init = getattr(lib, f"dagr_{src.stem}_init", None)
+            if init is None:
+                continue
+            err = init()
+            if err != 0:
+                msg = lib.dagr_error_string(err).decode()
+                raise RuntimeError(
+                    f"dagr_{src.stem}_init: CUDA error {err}: {msg}")
         _library = lib
     return _library
 

@@ -4,8 +4,9 @@ Counterpart of ``dagr_tpu.models.dagr``: ``DAGR`` returns raw
 per-anchor outputs, in train mode (``nn.Module.train()``: batch norm on
 batch statistics) or eval mode; ``detection_loss`` is the YOLOX/SimOTA
 loss of raw outputs against targets; ``detect`` decodes them and runs
-the confidence filter and class-aware NMS (kernel K4).  ``eval_routes``
-counts a window's eval convs by route (fused block or split).
+the confidence filter and class-aware NMS (kernel K4, one launch on the
+card).  ``eval_routes`` counts a window's eval convs by route (fused
+block or split).
 """
 from __future__ import annotations
 
@@ -20,11 +21,10 @@ from dagr_tpu_torch.config import DagrConfig
 from dagr_tpu_torch.core.types import EventBatch, GRID_OFFSETS
 from dagr_tpu_torch.models.blocks import (
     MaskedBatchNorm, SplineConvLayer, init_uniform)
-from dagr_tpu_torch.models.head import (
-    GNNHead, decode_outputs, make_grids_strides)
+from dagr_tpu_torch.models.head import GNNHead, make_grids_strides
 from dagr_tpu_torch.models.net import Net
 from dagr_tpu_torch.models.yolox_loss import yolox_losses
-from dagr_tpu_torch.ops.nms import postprocess
+from dagr_tpu_torch.ops.nms import decode_postprocess
 from dagr_tpu_torch.ops.spline import fused_block_fits
 
 CONF_THRESHOLD = 0.001
@@ -129,9 +129,10 @@ def detection_loss(raw: torch.Tensor, targets: torch.Tensor,
 def detect(raw: torch.Tensor, cfg: DagrConfig, height: int, width: int,
            conf_thresh: float = CONF_THRESHOLD,
            nms_thresh: float = NMS_THRESHOLD) -> Dict[str, torch.Tensor]:
-    """Decode + confidence filter + class-aware NMS, fixed-size outputs."""
+    """Decode + confidence filter + class-aware NMS, fixed-size outputs:
+    one K4 launch on the card (``ops.nms.decode_postprocess``)."""
     grids, strides = _anchor_tables(cfg, height, raw.device)
-    dec = decode_outputs(raw, grids, strides)
-    return postprocess(dec, num_classes=cfg.num_classes,
-                       conf_thresh=conf_thresh, nms_thresh=nms_thresh,
-                       height=height, width=width)
+    return decode_postprocess(raw, grids, strides,
+                              num_classes=cfg.num_classes,
+                              conf_thresh=conf_thresh, nms_thresh=nms_thresh,
+                              height=height, width=width)

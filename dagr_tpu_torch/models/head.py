@@ -119,12 +119,3 @@ class GNNHead(nn.Module):
             out = torch.cat([reg_o, obj_o, cls_o], dim=-1)
             outs.append(out.reshape(out.shape[0], -1, out.shape[-1]))
         return torch.cat(outs, dim=1)
-
-
-def decode_outputs(raw: torch.Tensor, grids: torch.Tensor,
-                   strides: torch.Tensor) -> torch.Tensor:
-    """Eval decode: xy = (xy + grid) * stride, wh = exp(wh) * stride,
-    sigmoid on obj and cls."""
-    xy = (raw[..., :2] + grids) * strides
-    wh = torch.exp(raw[..., 2:4]) * strides
-    return torch.cat([xy, wh, torch.sigmoid(raw[..., 4:])], dim=-1)

@@ -5,11 +5,12 @@ Counterpart of ``dagr_tpu.ops.pool``: the pooled level is a dense
 ``ny * nx`` cell table (node id == cell id ``cx + nx * cy``), empty
 cells masked, and its edges are the 9-cell stencil in ``GRID_OFFSETS``
 order.  On CUDA tensors ``pool_graph`` runs ``csrc/voxel_pool.cu``'s one
-entry ``dagr_voxel_pool``, which also sorts the nodes by cell (a
-counting sort in the kernels, bit-equal to ``graph.build.sorted_runs``;
-no torch op sorts); on CPU tensors ``pool_graph_plain``, which mirrors
-the JAX function op for op.  Both sum positions in node-index order, so
-the pooled x, y (floored to pixel centres) agree bit for bit.
+entry ``dagr_voxel_pool``, which also sorts the nodes by cell (K1's
+radix sort, bit-equal to ``graph.build.sorted_runs``; no torch op
+sorts) at any grid; on CPU
+tensors ``pool_graph_plain``, which mirrors the JAX function op for op.
+Both sum positions in node-index order, so the pooled x, y (floored to
+pixel centres) agree bit for bit.
 
 Divisions by the frame size are multiplies by ``f32(1/W)``: XLA
 compiles the JAX package's divisions by those constants that way.
@@ -242,11 +243,12 @@ def pool_features_backward_plain(grad_pooled, feat, pooled, seg, cell_start,
 def _pool_graph_cuda(feat, pos, mask, nbr, nbr_mask, nbr_dpos, *, grid_ny,
                      grid_nx, width, height, aggr, keep_temporal_ordering,
                      with_ties=False):
-    """K3 on the card: one C entry (its node pass, the counting sort of the
-    nodes by cell, the cell reduction and the stencil pass), nothing
-    sorted by torch.  Returns the outputs, order, cell_start, each node's
-    cell ``seg`` and, ``with_ties`` (max only), the tie count [G, C] of
-    each (cell, channel)'s max (else None)."""
+    """K3 on the card: one C entry (its node pass, K1's radix sort of
+    the nodes by cell, the cell reduction and the stencil pass), nothing
+    sorted by torch, at any grid.  Returns the
+    outputs, order, cell_start, each node's cell ``seg`` and, with
+    ``with_ties`` (max only), the tie count [G, C] of each (cell,
+    channel)'s max (else None)."""
     B, N, C = feat.shape
     K = nbr.shape[-1]
     M, ncells = B * N, grid_ny * grid_nx
@@ -263,9 +265,9 @@ def _pool_graph_cuda(feat, pos, mask, nbr, nbr_mask, nbr_dpos, *, grid_ny,
     if nbr_dpos is not None and (nbr_dpos.shape != (B, N, K, 2)
                                  or nbr_dpos.dtype != torch.float32):
         raise ValueError("pool_graph: nbr_dpos must be f32 [B, N, K, 2]")
-    if (ncells + 1) * 4 > 48 * 1024:
-        raise ValueError(f"pool_graph: {ncells} cells need more shared "
-                         "memory than a block gets by default")
+    if M > 2**31 - 1 or 32 * G > 2**31 - 1:
+        raise ValueError(f"pool_graph: {M} nodes and {G} cells (a warp "
+                         "each) must have int32 ids")
     feat, pos = feat.contiguous(), pos.contiguous()
     mask, nbr_mask = mask.contiguous(), nbr_mask.contiguous()
     src = nbr_dpos.contiguous() if nbr_dpos is not None else nbr.contiguous()

@@ -18,6 +18,13 @@ K8's ring update on both sides of its per-block sort (2048 keys) and at
 the S=8 x 1024 step's 16384, replayed from a CUDA graph; K9b on one
 cell of 50,000 members at C = 16 and 130 (one launch a call).
 
+Sizes the published configs never reach: K4's one launch (decode, top K
+and NMS) at 175, 400, 960 and 4032 anchors and max_out 50, 300 and 2000
+(boxes and scores bit-equal to the twin on the card, one launch and one
+allocation a call, no decode op); K3 at 96 x 128 and 240 x 320 cells
+and at half of each, with K9b on the result; the Detector at
+pooling_dim_at_output 8x10 and 12x16.
+
 Tolerances as in chip_smoke.py: K1, K4, K6 and K8's search's discrete
 outputs and K3's masks, ids and positions exact, K2 (the aggregation
 and the fused eval block) and K7's gathered block to 1e-5 of the
@@ -46,13 +53,15 @@ from dagr_tpu_torch.graph.build import (
     search_edges_streams_plain, sorted_runs)
 from dagr_tpu_torch.kernels import _build
 from dagr_tpu_torch.models.blocks import ConvBlockWithSkip
-from dagr_tpu_torch.models.dagr import DAGR, eval_routes, init_fresh
+from dagr_tpu_torch.models.dagr import DAGR, detect, eval_routes, init_fresh
 from dagr_tpu_torch.models.functional import (
     event_block, spline_conv_gather_block, spline_conv_gather_block_plain)
-from dagr_tpu_torch.ops.nms import postprocess, postprocess_plain
+from dagr_tpu_torch.models.head import make_grids_strides
+from dagr_tpu_torch.ops.nms import (
+    decode_outputs, decode_postprocess, postprocess, postprocess_plain)
 from dagr_tpu_torch.ops.pool import (
     _cell, _pool_graph_cuda, accumulate_cells, accumulate_cells_plain,
-    cell_max, cell_max_plain, pool_features_backward,
+    cell_max, cell_max_plain, pool_backward_tables, pool_features_backward,
     pool_features_backward_plain, pool_graph, pool_graph_plain,
     ring_update_cells, ring_update_cells_plain)
 from dagr_tpu_torch.ops.spline import (
@@ -1411,11 +1420,11 @@ def pool_runs_case(case, dev):
 @pytest.mark.parametrize("case", ["all_invalid", "one_cell",
                                   "batch8_full_grid", "ragged_tile"])
 def test_voxel_pool_runs_and_outputs(dev, case):
-    """K3's in-kernel counting sort: order and cell_start bit-equal to a
+    """K3's in-kernel sort (K1's radix sort): order and cell_start bit-equal to a
     stable torch sort of the cell ids (invalid nodes last), and the
     outputs against the twin on the CPU, at the event level (40 x 56,
     edges from nbr_dpos) and again at the next (20 x 28, from the
-    sources' positions); N not a multiple of the 2048-node tile."""
+    sources' positions); N not a multiple of the sort's 2048-key tile."""
     ns = pool_runs_case(case, dev)
     for gy, gx in ((40, 56), (20, 28)):
         B, N, _ = ns.feat.shape
@@ -1485,3 +1494,174 @@ def test_grow_step_with_fused_blocks_in_a_cuda_graph(dev):
         st, raw, _ = eng.step(st, *c)
         torch.cuda.synchronize()
         torch.testing.assert_close(graph_raw, raw, atol=1e-5, rtol=1e-5)
+
+
+# anchor tables (grids, strides) by anchor count: DAGR-S's head at
+# pooling_dim_at_output 5x7, 8x10 and 12x16, and three scales of 4032
+ANCHOR_TABLES = {
+    175: ([(10, 14), (5, 7)], [20, 40]),
+    400: ([(16, 20), (8, 10)], [15, 30]),
+    960: ([(24, 32), (12, 16)], [10, 20]),
+    4032: ([(48, 64), (24, 32), (12, 16)], [5, 10, 20]),
+}
+
+
+def crowded_head_outputs(seed, A, B=2, C=2):
+    """Raw head outputs [B, A, 5 + C] and the anchor tables: boxes that
+    crowd around a few centres, obj and class logits from small sets (so
+    that scores tie, some under conf), rows 10-19 copies of row 0."""
+    grids, strides = make_grids_strides(*ANCHOR_TABLES[A])
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform(40, 280, (B, 5, 2))[:, rng.integers(0, 5, A)]
+    centre += rng.normal(0, 3, (B, A, 2))
+    raw = np.zeros((B, A, 5 + C), np.float32)
+    raw[..., :2] = centre / strides - grids
+    raw[..., 2:4] = np.log(rng.uniform(30, 60, (B, A, 2)) / strides)
+    raw[..., 4] = rng.choice([-9.0, -1.0, 0.0, 2.0], (B, A))
+    raw[..., 5:] = rng.choice([-2.0, 0.0, 1.0], (B, A, C))
+    raw[:, 10:20] = raw[:, 0:1]
+    return raw, grids, strides
+
+
+@pytest.mark.parametrize("max_out", [50, 300, 2000])
+@pytest.mark.parametrize("A", sorted(ANCHOR_TABLES))
+def test_decode_postprocess_matches_twin(dev, A, max_out):
+    """K4's one launch against its twin on the card (decode_outputs then
+    postprocess_plain, ATen's CUDA exp and sigmoid): keeps, labels and
+    order identical, boxes and scores bit-equal; with ties, duplicates and
+    rows under conf, at every anchor count and max_out (K = min(max_out,
+    A) rows: 2000 at 4032 anchors)."""
+    raw, grids, strides = (torch.from_numpy(a).to(dev) for a in
+                           crowded_head_outputs(A + max_out, A))
+    kw = dict(num_classes=2, height=H, width=W, max_out=max_out)
+    before = _build.launch_counts()["nms"]
+    got = decode_postprocess(raw, grids, strides, **kw)
+    assert _build.launch_counts()["nms"] == before + 1
+    want = postprocess_plain(decode_outputs(raw, grids, strides), **kw)
+    torch.cuda.synchronize()
+    K = min(max_out, A)
+    for k, dtype in (("boxes", torch.float32), ("scores", torch.float32),
+                     ("labels", torch.int32), ("valid", torch.bool)):
+        assert got[k].dtype == dtype and got[k].shape[:2] == (2, K), k
+        assert torch.equal(got[k], want[k]), k
+    assert 0 < int(got["valid"].sum()) < got["valid"].numel()
+
+
+def test_decode_postprocess_at_100_classes(dev):
+    """NCaltech101's 100 classes at 960 anchors, every class logit
+    distinct per row: the first argmax and the scores bit-equal."""
+    raw, grids, strides = crowded_head_outputs(7, 960, C=100)
+    raw[..., 5:] = np.random.default_rng(8).standard_normal(
+        raw[..., 5:].shape)
+    raw, grids, strides = (torch.from_numpy(a).to(dev)
+                           for a in (raw, grids, strides))
+    kw = dict(num_classes=100, height=H, width=W)
+    got = decode_postprocess(raw, grids, strides, **kw)
+    want = postprocess_plain(decode_outputs(raw, grids, strides), **kw)
+    for k in ("boxes", "scores", "labels", "valid"):
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_detect_is_one_launch_and_one_allocation(dev):
+    """detect on the card: one launch (host_launches), one allocation and
+    no decode op (top_level_ops: views of the one buffer besides), its
+    parts 16-byte aligned views of that buffer."""
+    cfg = DagrConfig()
+    raw = torch.from_numpy(crowded_head_outputs(3, 175, B=1)[0]).to(dev)
+
+    def call():
+        return detect(raw, cfg, H, W)
+
+    launches, kernels = host_launches(call)
+    assert launches == 1
+    assert all("detect_kernel" in k for k in kernels), kernels
+    ops = top_level_ops(call)
+    assert [o for o in ops if "empty" in o or "zeros" in o] == ["aten::empty"]
+    assert not any(w in o for o in ops for w in (
+        "exp", "sigmoid", "cat", "add", "mul", "sort", "topk", "copy")), ops
+    out = call()
+    base = out["boxes"].untyped_storage().data_ptr()
+    for k, v in out.items():
+        assert v.untyped_storage().data_ptr() == base, k
+        assert v.data_ptr() % 16 == 0 and v.is_contiguous(), k
+
+
+LARGE_GRIDS = [(96, 128), (240, 320)]
+
+
+@pytest.mark.parametrize("aggr", ["max", "mean"])
+@pytest.mark.parametrize("grid", LARGE_GRIDS)
+def test_voxel_pool_at_large_grids(dev, grid, aggr):
+    """K3 at 96 x 128 cells (12,288) and 240 x 320 (76,800), the grids
+    the card once refused, on 8 windows, then at half the grid from the
+    sources' positions (48 x 64 and 120 x 160): order and
+    cell_start bit-equal to sorted_runs, seg to the cell ids, the outputs
+    to the twin on the CPU; with ties (max) the tables K9b reads equal
+    pool_backward_tables', and K9b on them bit-equal to its twin."""
+    ns = pool_runs_case("batch8_full_grid", dev)
+    gy, gx = grid
+    for ny, nx in ((gy, gx), (gy // 2, gx // 2)):
+        B = ns.feat.shape[0]
+        args = (ns.feat, ns.pos, ns.mask, ns.graph.nbr, ns.graph.nbr_mask,
+                ns.graph.nbr_dpos)
+        kw = dict(grid_ny=ny, grid_nx=nx, width=W, height=H, aggr=aggr,
+                  keep_temporal_ordering=True)
+        got, order, start, seg, ties = _pool_graph_cuda(
+            *args, **kw, with_ties=aggr == "max")
+        cell = _cell(ns.pos[..., 0], nx) + nx * _cell(ns.pos[..., 1], ny)
+        base = torch.arange(B, device=dev)[:, None] * (ny * nx)
+        key = torch.where(ns.mask, base + cell, B * ny * nx).reshape(-1)
+        _, want_order, want_start = sorted_runs(key, B * ny * nx)
+        torch.cuda.synchronize()
+        assert torch.equal(order, want_order)
+        assert torch.equal(start, want_start)
+        assert torch.equal(seg, key.int())
+        want = pool_graph_plain(*[a.cpu() if a is not None else None
+                                  for a in args], **kw)
+        for name, a, b in zip(("feat", "pos", "mask", "nbr", "nbr_mask",
+                               "tmax"), got, want):
+            if name == "feat":
+                assert float((a.cpu() - b).abs().max()) <= 1e-5
+            else:
+                assert torch.equal(a.cpu(), b), name
+        _, _, want_ties = pool_backward_tables(ns.feat, ns.pos, ns.mask,
+                                               got[0], **kw)
+        assert (ties is None) == (want_ties is None)
+        if ties is not None:
+            assert torch.equal(ties, want_ties)
+        gp = torch.randn_like(got[0])
+        g = pool_features_backward(gp, ns.feat, got[0], seg, start, ties,
+                                   aggr=aggr)
+        gw = pool_features_backward_plain(gp, ns.feat, got[0], seg, start,
+                                          ties, aggr=aggr)
+        assert torch.equal(g, gw)
+        feat, pos, mask, nbr, nbr_mask, tmax = got
+        ns = NodeSet(feat=feat, pos=pos, mask=mask,
+                     graph=EventGraph(nbr=nbr, nbr_mask=nbr_mask),
+                     tmax=tmax, grid_hw=(ny, nx))
+
+
+@pytest.mark.parametrize("pooling", ["8x10", "12x16"])
+def test_detector_at_fine_poolings_matches_cpu(dev, pooling):
+    """DAGR-S at pooling_dim_at_output 8x10 (400 anchors) and 12x16 (960
+    anchors, a 96 x 128 first grid) against the CPU plain path: raw to
+    1e-4, keeps and labels identical, every sync kernel launched and the
+    convs on the routes eval_routes gives."""
+    cfg = DagrConfig(n_nodes=4000, pooling_dim_at_output=pooling)
+    det = Detector(cfg, H, W, dev, seed=14)
+    cpu = Detector(cfg, H, W, "cpu", state_dict=det.model.state_dict())
+    ev = ragged_windows(14, dev)
+    fused, split = eval_routes(det.model)
+    before = _build.launch_counts()
+    raw, dets = det(ev)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert all(after[k] > before[k] for k in SYNC_KERNELS)
+    assert after["spline_conv_block"] - before["spline_conv_block"] == fused
+    assert after["spline_conv"] - before["spline_conv"] == split
+    raw_cpu, dets_cpu = cpu(ev.to("cpu"))
+    A = sum(ny * nx for ny, nx in cfg.output_sizes())
+    assert raw.shape == (3, A, 7) and A == {"8x10": 400, "12x16": 960}[pooling]
+    torch.testing.assert_close(raw.cpu(), raw_cpu, atol=1e-4, rtol=1e-4)
+    for k in ("valid", "labels"):
+        assert torch.equal(dets[k].cpu(), dets_cpu[k]), k

@@ -1,31 +1,43 @@
 """dagr_tpu_torch decode + postprocess (K4's plain twin on the CPU)
-against dagr_tpu's, on crowded boxes with tied scores.
+against dagr_tpu's, on crowded boxes with tied scores, at DAGR-S's 175
+anchors and at the 400 and 960 of pooling_dim_at_output 8x10 and 12x16
+(max_out 300, and 2000: every anchor a row), and a tiny DAGR at 12x16
+through both packages.
 
 Tolerances: keeps, labels and order exact.  On the same decoded input,
 boxes and scores exact too; through the decode, boxes to 1e-4 px and
-scores to 1e-6 (exp and sigmoid round differently in XLA and PyTorch).
+scores to 1e-6 (exp and sigmoid round differently in XLA and PyTorch);
+the tiny DAGR's raw outputs to 1e-4 (the repo's sync bar).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from dagr_tpu.config import DagrConfig as JaxDagrConfig
+from dagr_tpu.data.synthetic import random_events as jax_random_events
+from dagr_tpu.models.dagr import DAGR as JaxDAGR
 from dagr_tpu.models.dagr import detect as jax_detect
+from dagr_tpu.models.head import decode_outputs as jax_decode_outputs
 from dagr_tpu.ops.nms import iou_xyxy as jax_iou_xyxy
 from dagr_tpu.ops.nms import postprocess as jax_postprocess
 from dagr_tpu_torch.config import DagrConfig
+from dagr_tpu_torch.data.synthetic import random_events
+from dagr_tpu_torch.models.bridge import from_flax
 from dagr_tpu_torch.models.dagr import anchor_geometry, detect
-from dagr_tpu_torch.ops.nms import iou_xyxy, postprocess
+from dagr_tpu_torch.ops.nms import decode_postprocess, iou_xyxy, postprocess
+from dagr_tpu_torch.serve import Detector
 
 W, H = 320, 240
 
 
-def crowded_raw(seed, B=3):
-    """Raw head outputs [B, 175, 7] whose decoded boxes crowd around a
-    few centres, with obj/cls logits from a small set so scores tie."""
+def crowded_raw(seed, B=3, cfg=DagrConfig()):
+    """Raw head outputs [B, A, 7] at ``cfg``'s anchors whose decoded boxes
+    crowd around a few centres, with obj/cls logits from a small set so
+    scores tie."""
     rng = np.random.default_rng(seed)
-    grids, strides = anchor_geometry(DagrConfig(), H)
+    grids, strides = anchor_geometry(cfg, H)
     A = grids.shape[0]
     centre = rng.uniform(40, 280, (B, 5, 2))[:, rng.integers(0, 5, A)]
     centre += rng.normal(0, 3, (B, A, 2))
@@ -55,6 +67,65 @@ def test_detect_matches_jax_package(seed):
     np.testing.assert_allclose(got["scores"], want["scores"], atol=1e-6)
     kept = got["valid"].sum(axis=1)
     assert (kept > 0).all() and (kept < got["valid"].shape[1]).all()
+
+
+def assert_detections_match(got, want):
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    np.testing.assert_array_equal(got["labels"], want["labels"])
+    np.testing.assert_allclose(got["boxes"], want["boxes"], atol=1e-4)
+    np.testing.assert_allclose(got["scores"], want["scores"], atol=1e-6)
+
+
+@pytest.mark.parametrize("max_out", [300, 2000])
+@pytest.mark.parametrize("pooling,A", [("8x10", 400), ("12x16", 960)])
+def test_detect_at_fine_poolings_matches_jax_package(pooling, A, max_out):
+    """The anchor geometry of pooling_dim_at_output 8x10 and 12x16, where
+    the card once refused more than 384 anchors: keeps, labels and order
+    as dagr_tpu's decode_outputs + postprocess, at max_out 300 and 2000
+    (K = A), through ``decode_postprocess``, the entry ``detect`` calls."""
+    cfg = DagrConfig(pooling_dim_at_output=pooling)
+    raw = crowded_raw(A + max_out, B=2, cfg=cfg)
+    assert raw.shape[1] == A
+    grids, strides = anchor_geometry(cfg, H)
+    dec = jax_decode_outputs(jnp.asarray(raw), jnp.asarray(grids),
+                             jnp.asarray(strides))
+    want = to_np(jax_postprocess(dec, num_classes=2, height=H, width=W,
+                                 max_out=max_out))
+    got = {k: v.numpy() for k, v in decode_postprocess(
+        torch.from_numpy(raw), torch.from_numpy(grids),
+        torch.from_numpy(strides), num_classes=2, height=H, width=W,
+        max_out=max_out).items()}
+    assert got["valid"].shape == (2, min(max_out, A))
+    assert_detections_match(got, want)
+    kept = got["valid"].sum(axis=1)
+    assert (kept > 0).all() and (kept < got["valid"].shape[1]).all()
+
+
+def test_tiny_dagr_at_12x16_matches_jax_package():
+    """A tiny events-only DAGR-S at pooling_dim_at_output 12x16 (a 96 x 128
+    first grid, one cell a pixel at 128 x 96; 960 anchors; 300 events)
+    through dagr_tpu's DAGR and the port's with bridged weights: raw to
+    1e-4, keeps and labels identical."""
+    w, h = 128, 96
+    kw = dict(n_nodes=300, max_neighbors=8, radius=0.05,
+              pooling_dim_at_output="12x16")
+    model = JaxDAGR(JaxDagrConfig(node_chunk=512, **kw), height=h, width=w)
+    ev = jax_random_events(np.random.default_rng(21), 1, 300, width=w,
+                           height=h, n_valid=280)
+    variables = jax.jit(lambda k, e: model.init(k, e, train=False))(
+        jax.random.key(3), ev)
+    raw_j = np.asarray(jax.jit(lambda v, e: model.apply(v, e, train=False))(
+        variables, ev))
+    det_j = to_np(jax_detect(raw_j, model.cfg, h, w))
+    det = Detector(DagrConfig(**kw), h, w, "cpu",
+                   state_dict=from_flax(variables))
+    raw, dets = det(random_events(np.random.default_rng(21), 1, 300,
+                                  width=w, height=h, n_valid=280))
+    assert raw.shape == raw_j.shape == (1, 960, 7)
+    np.testing.assert_allclose(raw.numpy(), raw_j, atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(dets["valid"].numpy(), det_j["valid"])
+    np.testing.assert_array_equal(dets["labels"].numpy(), det_j["labels"])
+    assert dets["valid"].any()
 
 
 @pytest.mark.parametrize("max_out", [300, 50])

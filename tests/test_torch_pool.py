@@ -1,5 +1,6 @@
 """dagr_tpu_torch voxel pooling (K3's plain twin on the CPU) against
-dagr_tpu.ops.pool on the same numpy inputs.
+dagr_tpu.ops.pool on the same numpy inputs, at DAGR-S's grids and at
+96 x 128 and 240 x 320 cells.
 
 Tolerances: cell masks, counts, neighbour ids, adjacency masks, pooled
 positions and t_max exact (the position sums run in node-index order on
@@ -76,6 +77,21 @@ def test_stencil_level_path(aggr, temporal):
     t = pool_nodeset(tns, grid_ny=20, grid_nx=28, aggr=aggr, **kw)
     assert_pooled_matches(j, t)
     assert t.graph.nbr_mask.any()
+
+
+@pytest.mark.parametrize("grid", [(96, 128), (240, 320)])
+def test_large_grids(grid):
+    """The grids the card once refused (past 12,287 cells): the event
+    level of pooling_dim_at_output 12x16 (96 x 128) and one cell a pixel
+    (240 x 320), then half of each from the sources' positions."""
+    jns, tns = event_level(6)
+    gy, gx = grid
+    kw = dict(width=W, height=H, keep_temporal_ordering=True)
+    for ny, nx in ((gy, gx), (gy // 2, gx // 2)):
+        jns = jax_pool_nodeset(jns, grid_ny=ny, grid_nx=nx, **kw)
+        tns = pool_nodeset(tns, grid_ny=ny, grid_nx=nx, **kw)
+        assert_pooled_matches(jns, tns)
+        assert tns.graph.nbr_mask.any()
 
 
 @pytest.mark.parametrize("aggr", ["max", "mean"])
