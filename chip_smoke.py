@@ -121,10 +121,41 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    batch of 64; the learning gate (the two-box overfit, 400 Adam steps,
    AP50 >= 0.9 and AP >= 0.5).  No backward kernel may launch in the
    sync, streaming or serving runs;
-10. prints the kernel table (every kernel's error, time, twin time,
+10. image fusion (``fusion``): DAGR-S + ResNet-50 (``use_image``,
+   ``img_net="resnet50"``) at 240x320 with seeded random weights through
+   ``serve.Detector``: 8 B=1 requests and their B=8 batch (the batch
+   repeats each window's raw), each launching K1, K3, K4, 17 fused blocks
+   and 3 split convs (the conv_block1s at 130 -> 64, ``eval_routes``);
+   one window's hybrid raw and image raw against the CPU plain path
+   (1e-4; keeps and labels identical); its 17 fused blocks (Cin 19 and
+   82, skips of 19, 82 and 130) and 3 split convs (1e-5 of each output's
+   max) and its 4 poolings at the fusion widths 80 and 128 (K3's
+   runs bit-equal to sorted_runs, features 1e-5, the rest bit-equal) held
+   against their twins on its own calls; the p50, device busy and the
+   trunk's share of it; one window's train-mode dual loss on the card
+   against the CPU plain path (1e-5) and its gradient in the two parts
+   the detaching splits it into: the event side's (the hybrid loss;
+   backbone and GNN head) on the same detached image features and CNN
+   logits on both sides, every leaf to 1e-4 of its max, the CPU's
+   backward taking the card's branches (each ReLU's signs; each
+   pooling's forward outputs: values a rounding apart can fall on either
+   side of a ReLU's 0 or tie for a cell's max on one device only; the
+   entries that do are counted and reported), and the image branch's (the
+   image loss; trunk, reductions, CNN head) in float64 on both sides, to
+   1e-4, with the CNN head's float32 leaves to 1e-4 (the trunk's float32
+   train-mode gradients at random weights are chaotic: reported); the
+   fusion widths' split backward (Cin 19, 82, 130; 1e-5, two runs
+   bit-identical) and K9b (bit-equal) on that backward's own inputs; then
+   2 + 6 fusion steps at B=8 with ``frozen=("cnn",)`` (finite losses, the
+   trunk and reductions bit-identical, every other parameter moved, the
+   EMA following; every train kernel launched on every step), the p50
+   step, peak memory and device busy;
+11. prints the kernel table (every kernel's error, time, twin time,
    bound and library-call time, and its launches on each path, the wide
-   windows' as ``wide_launches``), the card line and, last, the result
-   line.
+   windows' as ``wide_launches``, a fusion request's as
+   ``fusion_launches`` and a fusion step's as
+   ``fusion_train_launches_per_step``; the fusion window's checks as
+   ``fusion_checks``), the card line and, last, the result line.
 
 Usage: ``python3 chip_smoke.py`` from the repository root;
 ``python3 chip_smoke.py --train-only`` runs the build and phase 9 alone
@@ -162,6 +193,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -233,6 +265,9 @@ TRAIN_B, TRAIN_WARM, TRAIN_TIMED, RECIPE_B, GATE_STEPS = 8, 2, 12, 64, 400
 BACKWARD_KERNELS = ("spline_conv_backward", "voxel_pool_backward")
 TRAIN_KERNELS = ("graph_search", "spline_conv", "voxel_pool") \
     + BACKWARD_KERNELS
+# the fusion phase: B=1 windows served (and one batch of 8 of them), train
+# steps after warm-up ones
+FUSION_WINDOWS, FUSION_WARM, FUSION_TIMED = 8, 2, 6
 
 
 def require(ok: bool, what: str) -> None:
@@ -2657,6 +2692,441 @@ def train(cfg, card):
     return out, launches, n_steps
 
 
+def fusion_batch(rng, B):
+    """B synthetic windows of N_VALID events and their seeded [0, 1)
+    images [B, 3, H, W] on the card."""
+    from dagr_tpu_torch.data.synthetic import random_events
+
+    events = random_events(rng, B, N_NODES, W, H, n_valid=N_VALID,
+                           device="cuda")
+    images = torch.from_numpy(rng.random((B, 3, H, W), dtype=np.float32))
+    return events, images.cuda()
+
+
+def check_poolings(cap, what, card):
+    """K3 on the inputs of a path's own poolings (``cap`` of
+    ``_pool_graph_cuda``): its cell runs bit-equal to ``sorted_runs``,
+    its outputs against the twin on the CPU (features to 1e-5 of their
+    max, the rest bit for bit), timed beside the twin.  Returns the
+    checks."""
+    from dagr_tpu_torch.ops.pool import pool_graph, pool_graph_plain
+
+    checks = []
+    for j, (args, kw) in enumerate(cap.calls):
+        check_pool_runs(args, kw, f"{what}, pooling {j + 1}")
+        got = pool_graph(*args, **kw)
+        want = pool_graph_plain(*[a.cpu() if a is not None else None
+                                  for a in args], **kw)
+        err, top = max_err(got[0], want[0]), float(want[0].abs().max())
+        require(err <= 1e-5 * max(top, 1.0),
+                f"K3 {what} pooling {j + 1} feat err {err} (max {top})")
+        for name, a, b in zip(("pos", "mask", "nbr", "nbr_mask", "tmax"),
+                              got[1:], want[1:]):
+            require(torch.equal(a.cpu(), b), f"K3 {what} pooling {j + 1} "
+                    f"{name} bit-equal to twin")
+        C = args[0].shape[-1]
+        rec = record(err, cuda_ms(lambda: pool_graph(*args, **kw), 20),
+                     cuda_ms(lambda: pool_graph_plain(*args, **kw), 3),
+                     nbytes(*args, *got), args[0].numel())
+        rec.update(at=f"{what} pooling {j + 1}: C={C}, "
+                   f"{kw['grid_ny']}x{kw['grid_nx']} cells, {kw['aggr']}",
+                   bit_equal=err == 0.0)
+        checks.append(rec)
+        print(f"K3, {rec['at']}: feat err {err:.3g}, the rest bit-equal, runs "
+              f"bit-equal to sorted_runs; kernel {rec['ms']:.4f} ms, twin "
+              f"{rec['plain_ms']:.4f} ms [{card}]", flush=True)
+    return checks
+
+
+def fusion_grads(model, events, images, targets, targets0):
+    """Train-mode dual loss of ``model`` on a copy and the gradient of
+    every parameter the loss reaches: (losses, {name: grad})."""
+    import copy
+
+    from dagr_tpu_torch.models.dagr import detection_loss_fusion
+
+    m = copy.deepcopy(model).train()
+    hybrid, image_raw = m(events, images)
+    tgt = [torch.as_tensor(t, device=hybrid.device) for t in (targets,
+                                                               targets0)]
+    losses = detection_loss_fusion(hybrid, image_raw, *tgt, m.cfg, H)
+    names, params = zip(*m.named_parameters())
+    grads = torch.autograd.grad(losses["total_loss"], params,
+                                allow_unused=True)
+    return ({k: v.detach() for k, v in losses.items()},
+            {n: g for n, g in zip(names, grads) if g is not None})
+
+
+def hybrid_inputs(model, images):
+    """What the image branch of a train-mode copy of ``model`` hands the
+    event side, detached: (the 5 feature maps, per scale the CNN head's
+    (cls, reg, obj) canvases)."""
+    import copy
+
+    with torch.no_grad():
+        feats, cnn_outs = copy.deepcopy(model).train().image_branch(images)
+    return feats, cnn_outs
+
+
+def event_side_grads(model, events, inputs, targets, branches=None):
+    """The hybrid loss's gradient of the event side (backbone, GNN head)
+    of a train-mode copy of ``model`` given the image branch's detached
+    ``inputs`` (``hybrid_inputs``, on any device): ({name: grad}, the
+    branches the run took through its piecewise-linear ops: each ReLU's
+    sign mask in forward order, the inputs of its 4 pooling backwards in
+    backward order).  With ``branches`` (that second return of another
+    run) the run takes those: each ReLU passes the gradient where that
+    run's input was positive, each pooling backward takes that run's
+    forward outputs (features, pooled, cells, ties) in place of its own.
+    Values a rounding apart on two devices can fall on either side of a
+    ReLU's 0 or tie for a cell's max on one device only, and the
+    gradient of every level before such an entry then moves by
+    percents."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from dagr_tpu_torch.models.dagr import detection_loss
+    from dagr_tpu_torch.ops import pool as pool_mod
+
+    m = copy.deepcopy(model).train()
+    dev = events.pos.device
+    dtype = next(m.parameters()).dtype
+    feats = [f.to(dev, dtype) for f in inputs[0]]
+    cnn_outs = [tuple(t.to(dev, dtype) for t in ts) for ts in inputs[1]]
+    signs, own = [], pool_mod.pool_features_backward
+    theirs = None if branches is None else [iter(b) for b in branches]
+
+    def relu(x):
+        signs.append(x.detach() > 0)
+        if theirs is None:
+            return F.relu(x)
+        return x * next(theirs[0]).to(dev)
+
+    if theirs is not None:
+        def routed(grad, *args, **kw):
+            args, kw = next(theirs[1])
+            return own(grad, *[a.to(dev) if torch.is_tensor(a) else a
+                               for a in args[1:]], **kw)
+
+        pool_mod.pool_features_backward = routed
+    for mod in m.modules():
+        if getattr(mod, "act", None) is F.relu:
+            mod.act = relu
+    cap = Capture(pool_mod, "pool_features_backward", *range(4))
+    try:
+        hybrid = m.head(m.backbone(events, feats), cnn_outs)
+        loss = detection_loss(hybrid, torch.as_tensor(
+            targets, dtype=hybrid.dtype, device=dev), m.cfg, H)["total_loss"]
+        names, params = zip(*[(n, p) for n, p in m.named_parameters()
+                              if n.startswith(("backbone.", "head."))])
+        grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    finally:
+        cap.close()
+        pool_mod.pool_features_backward = own
+    require(theirs is None or next(theirs[0], None) is None,
+            "the event side took every ReLU of the other run")
+    return grads, (signs, cap.calls)
+
+
+def branch_flips(card, cpu, channels):
+    """Where the card's and the CPU's runs of ``event_side_grads`` took
+    different branches: per ReLU the entries of another sign, per
+    pooling in forward order the (cell, channel) entries of the GNN's own
+    channels (the first ``channels[j + 1]``; the sampled image channels
+    behind them get no gradient) whose members equal to the max, or
+    their count, differ (0 for a mean pooling).  Reported: the CPU's run
+    takes the card's branches."""
+    relus = [int((a.cpu() != b.cpu()).sum()) for a, b in zip(card[0], cpu[0])]
+    flips = []
+    for j, (a, b) in enumerate(zip(card[1][::-1], cpu[1][::-1])):
+        if a[0][5] is None:
+            flips.append(0)
+            continue
+        c = channels[j + 1]
+        routes = []
+        for _, feat, pooled, seg, _, ties in (a[0], b[0]):
+            B, N, C = feat.shape
+            G = B * pooled.shape[1]
+            pf = torch.cat([pooled.reshape(G, C), pooled.new_zeros(1, C)])
+            s = seg.long()
+            eq = (feat.reshape(B * N, C) == pf[s]) & (s < G)[:, None]
+            routes.append((eq[:, :c].cpu(), ties[:, :c].cpu()))
+        (ea, ta), (eb, tb) = routes
+        flips.append(int((ta != tb).sum()) + int((ea != eb).sum()))
+    return relus, flips
+
+
+def image_branch_grads(model, images, targets0, dtype):
+    """The image loss's gradient of the image branch (trunk, reductions,
+    CNN head) of a train-mode copy of ``model`` in ``dtype`` (the hybrid
+    path is detached from the branch): {name: grad}."""
+    import copy
+
+    from dagr_tpu_torch.models.dagr import detection_loss
+    from dagr_tpu_torch.models.head import flat_raw
+
+    m = copy.deepcopy(model).to(dtype).train()
+    _, cnn_outs = m.image_branch(images.to(dtype))
+    loss = detection_loss(flat_raw(cnn_outs), torch.as_tensor(
+        targets0, dtype=dtype, device=images.device), m.cfg, H)["total_loss"]
+    names, params = zip(*[(n, p) for n, p in m.named_parameters()
+                          if n.startswith("cnn")])
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return {n: g for n, g in zip(names, grads) if g is not None}
+
+
+def fusion(card):
+    """Phase 10: image fusion, DAGR-S + ResNet-50 (``use_image``,
+    ``img_net="resnet50"``) at 240x320 with seeded random weights.
+    Eval through ``serve.Detector``: FUSION_WINDOWS B=1 requests and one
+    of their B=8 batch, each launching K1, K3, K4 and the routes of
+    ``eval_routes`` (17 fused blocks, 3 split convs); one window's hybrid
+    raw and image raw against the CPU plain path (1e-4; keeps and labels
+    identical); the 17 fused blocks (at the fusion widths: Cin 19 and
+    82, skips of 19, 82 and 130), the 3 split convs and the 4 poolings
+    (at C 80 and 128) held against their twins on that window's own
+    calls;
+    the p50, device busy and the trunk's share of it.  Train: one
+    window's dual loss on the card against the CPU plain path (1e-5),
+    its gradient held in two parts, as the hybrid path's detaching splits
+    it: the event side's (backbone, GNN head: the hybrid loss) on the
+    same detached image features and CNN logits on both sides, the CPU's
+    ReLUs and max poolings routing the gradient as the card's did
+    (values a rounding apart can fall on either side of a ReLU's 0 or
+    tie on one device only: ``branch_flips`` counts them), every leaf,
+    and the image branch's (trunk, reductions, CNN
+    head: the image loss) in float64 on both sides, each leaf to 1e-4 of
+    its max, the CNN head's float32 leaves too (the trunk's float32
+    train-mode gradients are chaotic at random weights; the whole float32
+    step's are reported); the split backward at the fusion widths and
+    K9b on that backward's own inputs (``check_split_backward``,
+    ``check_pool_backward``), then FUSION_WARM +
+    FUSION_TIMED fusion steps at B=TRAIN_B with the trunk frozen (the
+    recipe with a pretrained image net): finite losses, the trunk and
+    its reductions bit-identical, the rest moved, the EMA following;
+    the p50 step, peak memory and device busy.  Returns ({kernel:
+    checks}, eval launches per request, train launches per step)."""
+    from dagr_tpu_torch.config import DagrConfig
+    from dagr_tpu_torch.data.synthetic import random_targets
+    from dagr_tpu_torch.kernels import _build
+    from dagr_tpu_torch.models.dagr import DAGR, eval_routes, init_params
+    from dagr_tpu_torch.ops import pool as pool_mod
+    from dagr_tpu_torch.ops import spline as spline_mod
+    from dagr_tpu_torch.serve import Detector
+    from dagr_tpu_torch.train.state import (
+        init_state, make_optimizer, train_step_fusion)
+
+    cfg = DagrConfig(use_image=True, img_net="resnet50")
+    rng = np.random.default_rng(SEED + 3)
+    windows = [fusion_batch(rng, 1) for _ in range(FUSION_WINDOWS + 1)]
+    det = Detector(cfg, H, W, "cuda", seed=SEED)
+    fused, split = eval_routes(det.model)
+    require((fused, split) == (17, 3), f"fusion routes {(fused, split)}")
+    A = sum(ny * nx for ny, nx in cfg.output_sizes())
+    det(*windows[0])
+    torch.cuda.synchronize()
+    batch8 = (events_batch([e for e, _ in windows[1:9]]),
+              torch.cat([i for _, i in windows[1:9]]))
+    _build.reset_launch_counts()
+    ms, raws = [], []
+    for ev, img in windows[1:] + [batch8]:
+        before = _build.launch_counts()
+        t = timed(lambda: raws.append(det(ev, img)[0]))
+        after = _build.launch_counts()
+        B = img.shape[0]
+        require(tuple(raws[-1].shape) == (B, A, 5 + cfg.num_classes)
+                and bool(torch.isfinite(raws[-1]).all()),
+                f"fusion raw {tuple(raws[-1].shape)} finite")
+        for k in SYNC_KERNELS:
+            require(after[k] > before[k], f"fusion: kernel {k} launched")
+        require_blocks(before, after, fused, split, f"a fusion B={B} request")
+        if B == 1:
+            ms.append(t)
+    launches = _build.launch_counts()
+    n_req = FUSION_WINDOWS + 1
+    err = max_err(raws[-1], torch.cat(raws[:8]))
+    require(err <= 1e-4, f"fusion batch of 8 vs single windows: {err}")
+
+    # one window's convs and poolings against their twins
+    caps = [Capture(spline_mod, "spline_conv_forward", *range(split)),
+            Capture(pool_mod, "_pool_graph_cuda", *range(4)),
+            Capture(spline_mod, "spline_conv_block", *range(fused))]
+    ev, img = windows[1]
+    with torch.no_grad():
+        hybrid, image_raw = det.model(ev, img)
+    for cp in caps:
+        cp.close()
+    widths = sorted({a[0].shape[-1] for a, _ in caps[1].calls})
+    require(widths == [80, 128], f"fusion poolings at C {widths}")
+    checks = {"spline_conv": check_split_convs(caps[0], "fusion window",
+                                               card),
+              "voxel_pool": check_poolings(caps[1], "fusion window", card),
+              "spline_conv_block": check_fused_blocks(
+                  caps[2], "fusion window", card)}
+    del caps
+    cpu = Detector(cfg, H, W, "cpu", state_dict=det.model.state_dict())
+    with torch.no_grad():
+        hybrid_cpu, image_cpu = cpu.model(ev.to("cpu"), img.cpu())
+    _, dets = det(ev, img)
+    _, dets_cpu = cpu(ev.to("cpu"), img.cpu())
+    errs = (max_err(hybrid, hybrid_cpu), max_err(image_raw, image_cpu))
+    require(torch.allclose(hybrid.cpu(), hybrid_cpu, atol=1e-4, rtol=1e-4)
+            and torch.allclose(image_raw.cpu(), image_cpu, atol=1e-4,
+                               rtol=1e-4),
+            f"fusion hybrid / image raw vs CPU plain path: {errs}")
+    for k in ("valid", "labels"):
+        require(torch.equal(dets[k].cpu(), dets_cpu[k]),
+                f"fusion detections {k} == CPU")
+    del cpu
+    p50 = float(np.median(ms))
+    it = iter(windows[1:])
+    busy, top = kernel_times(lambda: det(*next(it)), 4)
+    with torch.no_grad():
+        trunk = kernel_times(lambda: det.model.cnn.trunk(img), 4)[0]
+    print(f"DAGR-S + ResNet-50 fusion window (240x320, {N_VALID} events and "
+          f"an image): {fused} fused blocks and {split} split convs a "
+          f"request, as eval_routes gives; hybrid / image raw vs CPU plain "
+          f"path max abs err {errs[0]:.3g} / {errs[1]:.3g}, keeps and labels "
+          f"identical; B=8 batch == its windows ({err:.3g}); p50 {p50:.3f} "
+          f"ms (min {min(ms):.3f}, max {max(ms):.3f}, {len(ms)} windows), "
+          f"device busy {busy:.3f} ms a window (idle share "
+          f"{1 - busy / p50:.3f}), the trunk {trunk:.3f} ms of it "
+          f"({trunk / busy:.3f}) [{card}]", flush=True)
+    for kname, kms, n in top[:12]:
+        print(f"  {kms:8.4f} ms  x{n:<4d} {kname}", flush=True)
+    del det
+
+    # train: one window against the CPU, then steps with the trunk frozen
+    tcfg = cfg.replace(batch_size=TRAIN_B)
+    model = DAGR(tcfg, H, W)
+    init_params(model, torch.Generator().manual_seed(SEED))
+    model.cuda()
+    t1, t0 = (random_targets(rng, TRAIN_B, n_boxes=30) for _ in range(2))
+    got = fusion_grads(model, ev, img, t1[:1], t0[:1])
+    want = fusion_grads(model.cpu(), ev.to("cpu"), img.cpu(), t1[:1], t0[:1])
+    model.cuda()
+    for k, v in want[0].items():
+        require(abs(float(got[0][k]) - float(v))
+                <= 1e-5 * max(1.0, abs(float(v))),
+                f"fusion loss {k}: card {float(got[0][k])} vs CPU {float(v)}")
+    require(set(got[1]) == set(want[1]), "fusion gradient leaves")
+    rel = {n: max_err(got[1][n], g) / max(float(g.abs().max()), 1e-30)
+           for n, g in want[1].items()}
+    # the dual loss's event side is the hybrid loss of the detached image
+    # features and CNN logits: held on the same inputs on both sides, the
+    # CPU's max poolings routing the gradient as the card's did (values a
+    # rounding apart on the two devices can tie on one of them)
+    inputs = hybrid_inputs(model, img)
+    bwd = Capture(spline_mod, "spline_conv_backward", *range(20))
+    g_ev, card_branches = event_side_grads(model, ev, inputs, t1[:1])
+    bwd.close()
+    c_ev, cpu_branches = event_side_grads(model.cpu(), ev.to("cpu"), inputs,
+                                          t1[:1], card_branches)
+    model.cuda()
+    relu_flips, flips = branch_flips(card_branches, cpu_branches,
+                                     cfg.channels())
+    require(set(g_ev) == set(c_ev)
+            and any(n.startswith("backbone.layer5.") for n in c_ev)
+            and any(n.startswith("head.") for n in c_ev),
+            "fusion event side gradient leaves")
+    rel_ev = {n: max_err(g_ev[n], g) / max(float(g.abs().max()), 1e-30)
+              for n, g in c_ev.items()}
+    worst_ev = max(rel_ev.values())
+    top_ev = sorted(rel_ev, key=rel_ev.get)[-3:]
+    require(worst_ev <= 1e-4, "fusion event side grads card vs CPU: " +
+            ", ".join(f"{n} {rel_ev[n]:.3g}" for n in top_ev))
+    # the fusion widths' K9a and K9b on this backward's own inputs
+    bwd.calls = [c for c in bwd.calls if c[0][3].shape[1] in (19, 82, 130)]
+    checks["spline_conv_backward"] = check_split_backward(bwd, card)
+    checks["voxel_pool_backward"] = check_pool_backward(
+        SimpleNamespace(calls=card_branches[1]), card)
+    # the image branch's float32 train-mode gradients are chaotic at
+    # random weights (batch norm over 50 layers; the CPU's own float32 and
+    # float64 runs differ by percents): held in float64 on both sides
+    g64 = image_branch_grads(model, img, t0[:1], torch.float64)
+    c64 = image_branch_grads(model.cpu(), img.cpu(), t0[:1], torch.float64)
+    model.cuda()
+    require(set(g64) == set(c64) and any(n.startswith("cnn.trunk.")
+                                         for n in g64), "image branch leaves")
+    # of each leaf's max, or of 1e-8 for a leaf of no gradient (the
+    # biases of the reductions feeding the CNN head's train-mode batch
+    # norms: float64 rounding noise on both sides)
+    rel64 = {n: max_err(g64[n], g) / max(float(g.abs().max()), 1e-8)
+             for n, g in c64.items()}
+    worst64 = max(rel64.values())
+    top64 = sorted(rel64, key=rel64.get)[-3:]
+    require(worst64 <= 1e-4, f"image branch float64 grads card vs CPU: " +
+            ", ".join(f"{n} {rel64[n]:.3g} (max "
+                      f"{float(c64[n].abs().max()):.3g})" for n in top64))
+    f32 = {side: max(v for n, v in rel.items() if n.startswith(side))
+           for side in ("backbone.", "head.", "cnn.", "cnn_head.")}
+    # the CNN head's float32 gradients stay well-conditioned (six layers)
+    require(f32["cnn_head."] <= 1e-4, f"fusion CNN head grads card vs CPU "
+            f"{f32['cnn_head.']:.3g} of a leaf's max")
+    print(f"fusion train, card vs CPU plain path (1 window): total loss "
+          f"{float(got[0]['total_loss']):.6f} vs "
+          f"{float(want[0]['total_loss']):.6f}; entries whose branch "
+          f"differs, per ReLU: {relu_flips}, per max pooling: {flips} (the "
+          f"CPU's backward takes the card's); the event side's {len(c_ev)} leaves on the same "
+          f"detached image inputs within {worst_ev:.3g} of the leaf's max "
+          f"|g|; the image branch's "
+          f"{len(c64)} leaves in float64 within {worst64:.3g}; the whole "
+          f"step in float32 (the CNN head's held at 1e-4): " + ", ".join(
+              f"{k[:-1]} {v:.3g}" for k, v in f32.items()), flush=True)
+    del got, want, g64, c64, g_ev, c_ev, inputs, bwd, card_branches, cpu_branches
+
+    events, images = fusion_batch(rng, TRAIN_B)
+    recipe, sched = make_optimizer(tcfg, 10, frozen=("cnn",))
+    state = init_state(model, recipe)
+    p0 = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    step_ms, n_steps = [], FUSION_WARM + FUSION_TIMED
+    for i in range(n_steps):
+        losses = {}
+        t = timed(lambda: losses.update(train_step_fusion(
+            state, events, images, t1, t0)))
+        require(all(bool(torch.isfinite(v)) for v in losses.values()),
+                f"fusion step {i}: losses finite")
+        if i >= FUSION_WARM:
+            step_ms.append(t)
+    train_launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for k in TRAIN_KERNELS:
+        require(train_launches[k] >= n_steps,
+                f"fusion train: kernel {k} launched on every step")
+    sd, ema = model.state_dict(), state.ema.state_dict()
+    frozen = [n for n, _ in model.named_parameters() if n.startswith("cnn.")]
+    rest = [n for n, _ in model.named_parameters()
+            if not n.startswith("cnn.")]
+    require(all(torch.equal(sd[n], p0[n]) for n in frozen),
+            "fusion train: the frozen trunk and reductions bit-identical")
+    require(all(not torch.equal(sd[n], p0[n]) for n in rest),
+            "fusion train: every trained parameter moved")
+    moved = max(max_err(sd[k], p0[k]) for k in rest)
+    lag = max(max_err(ema[k], sd[k]) for k in rest)
+    require(lag <= 0.05 * moved, f"fusion EMA follows (lag {lag:.3g}, moved "
+            f"{moved:.3g})")
+    p50_step = float(np.median(step_ms))
+    busy_step = profiled(lambda: train_step_fusion(state, events, images, t1,
+                                                   t0), 2)
+    per_step = {k: v / n_steps for k, v in train_launches.items()}
+    print(f"DAGR-S + ResNet-50 fusion train step, B={TRAIN_B} x {N_VALID} "
+          f"events and images, trunk frozen: p50 {p50_step:.3f} ms (min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}, {len(step_ms)} steps)"
+          f", device busy {busy_step:.3f} ms a step (idle share "
+          f"{1 - busy_step / p50_step:.3f}), peak memory {peak:.3f} GiB; last "
+          f"total loss {float(losses['total_loss']):.4f}, weights moved up to "
+          f"{moved:.3g}, EMA within {lag:.3g}; launches per step: "
+          + ", ".join(f"{k} {per_step[k]:g}" for k in TRAIN_KERNELS)
+          + f" [{card}]", flush=True)
+    del state, model
+    torch.cuda.empty_cache()
+    return checks, {k: v / n_req for k, v in launches.items()}, per_step
+
+
 def busy_of(prof, n):
     """Device busy ms per step of a profile over ``n`` steps."""
     return sum(e.self_device_time_total for e in kernel_events(prof)) / 1e3 / n
@@ -3267,6 +3737,12 @@ def main() -> int:
     rec["max_abs_err"] = max([rec["max_abs_err"]] + [
         c["max_abs_err"] for c in wide_checks + serve_split])
     launches.update({k: train_launches[k] for k in BACKWARD_KERNELS})
+    checked, fusion_launches, fusion_train = fusion(card)
+    for name, cs in checked.items():
+        rec = kernels[name]
+        rec["fusion_checks"] = cs
+        rec["max_abs_err"] = max([rec["max_abs_err"]]
+                                 + [c["max_abs_err"] for c in cs])
     rows = []
     for name, rec in kernels.items():
         require(launches[name] > 0, f"kernel {name} launched on its path")
@@ -3285,6 +3761,8 @@ def main() -> int:
                      "serve_ring_launches": serve_ring_launches[name],
                      "train_launches": train_launches[name],
                      "train_launches_per_step": train_launches[name] / n_steps,
+                     "fusion_launches": fusion_launches[name],
+                     "fusion_train_launches_per_step": fusion_train[name],
                      **rec})
     print(json.dumps({"kernels": rows}))
     print(card)

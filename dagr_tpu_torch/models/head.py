@@ -1,18 +1,19 @@
 """YOLOX-style detection head on graph features.
 
-Counterpart of ``dagr_tpu.models.head`` (no image-branch ``cnn_outs``):
-per scale a stem ConvBlock, cls/reg ConvBlocks and spline-conv
-prediction layers; the reg and obj predictions share their input and
-run as one conv over concatenated output channels.  Outputs per anchor
-are [reg(4), obj(1), cls(C)], anchors row-major per scale, scales
-concatenated.  In eval mode under ``torch.no_grad`` every conv of a
-scale, the prediction convs included, is one fused block where the
-kernel's tile takes its widths (``models.blocks.eval_route`` and
+Counterpart of ``dagr_tpu.models.head``: per scale a stem ConvBlock,
+cls/reg ConvBlocks and spline-conv prediction layers; the reg and obj
+predictions share their input and run as one conv over concatenated
+output channels.  Outputs per anchor are [reg(4), obj(1), cls(C)],
+anchors row-major per scale, scales concatenated (``flat_raw``).  With
+image fusion, the CNN head's (cls, reg, obj) maps of each scale are
+added to its canvases first.  In eval mode under ``torch.no_grad`` every
+conv of a scale, the prediction convs included, is one fused block where
+the kernel's tile takes its widths (``models.blocks.eval_route`` and
 ``ops.spline.fused_block_fits``), else the split route.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -112,10 +113,24 @@ class GNNHead(nn.Module):
                 cin, n_reg, cfg.num_classes, mvs[k], cfg.activation,
                 cfg.kernel_size))
 
-    def forward(self, xin: List[NodeSet]) -> torch.Tensor:
+    def forward(self, xin: List[NodeSet],
+                cnn_outs: Optional[Sequence[Tuple[torch.Tensor, ...]]] = None
+                ) -> torch.Tensor:
+        """``cnn_outs``: per scale the (cls, reg, obj) canvases
+        [B, ny, nx, C] of the image branch, added as they are (the caller
+        detaches them)."""
         outs = []
         for k, ns in enumerate(xin):
-            cls_o, reg_o, obj_o = getattr(self, f"scale{k + 1}")(ns)
-            out = torch.cat([reg_o, obj_o, cls_o], dim=-1)
-            outs.append(out.reshape(out.shape[0], -1, out.shape[-1]))
-        return torch.cat(outs, dim=1)
+            out = getattr(self, f"scale{k + 1}")(ns)
+            if cnn_outs is not None:
+                out = tuple(o + c for o, c in zip(out, cnn_outs[k]))
+            outs.append(out)
+        return flat_raw(outs)
+
+
+def flat_raw(outs) -> torch.Tensor:
+    """Per-anchor raw outputs [B, A, 5 + C] ([reg, obj, cls], anchors
+    row-major, scales concatenated) of per-scale (cls, reg, obj)
+    canvases [B, ny, nx, .]."""
+    return torch.cat([torch.cat([reg, obj, cls], dim=-1).flatten(1, 2)
+                      for cls, reg, obj in outs], dim=1)

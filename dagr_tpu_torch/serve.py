@@ -1,10 +1,10 @@
 """Sync detection serving: one request = one event window.
 
-Counterpart of the events-only eval loop of
-``dagr_tpu.train.harness.run_test`` (model forward, then ``detect``).
-A ``Detector`` owns a ``DAGR`` on one device in eval mode and answers a
-batch of windows with the raw head outputs and fixed-size detections,
-one row per window.
+Counterpart of the eval loop of ``dagr_tpu.train.harness.run_test``
+(model forward, then ``detect``).  A ``Detector`` owns a ``DAGR`` on one
+device in eval mode and answers a batch of windows (and, with
+``cfg.use_image``, their images) with the raw head outputs (the hybrid
+ones with fusion) and fixed-size detections, one row per window.
 """
 from __future__ import annotations
 
@@ -27,8 +27,10 @@ class Detector:
         self.cfg, self.height, self.width = cfg, height, width
         self.device = torch.device(device)
         if self.device.type == "cuda":
-            # full float32 in the spline convs' products (the parity bar)
+            # full float32 in the spline convs' products and the image
+            # branch's convs (the parity bar)
             torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         model = DAGR(cfg, height, width)
         if state_dict is None:
             init_params(model, torch.Generator().manual_seed(seed))
@@ -37,11 +39,21 @@ class Detector:
         self.model = model.to(self.device).eval()
 
     @torch.no_grad()
-    def __call__(self, events: EventBatch
+    def __call__(self, events: EventBatch, image: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """raw [B, A, 5 + C] and {boxes [B, K, 4], scores [B, K],
-        labels [B, K], valid [B, K]} for a batch of B windows."""
+        labels [B, K], valid [B, K]} for a batch of B windows; with
+        ``cfg.use_image`` their images [B, 3, H, W] float32 are required
+        and raw is the hybrid head's."""
         if (events.width, events.height) != (self.width, self.height):
             raise ValueError("event geometry differs from the detector's")
-        raw = self.model(events.to(self.device))
+        if image is not None:
+            B = events.pos.shape[0]
+            if tuple(image.shape) != (B, 3, self.height, self.width):
+                raise ValueError(f"the detector takes images "
+                                 f"[{B}, 3, {self.height}, {self.width}]")
+            image = image.to(self.device, torch.float32)
+        raw = self.model(events.to(self.device), image)
+        if self.cfg.use_image:
+            raw = raw[0]
         return raw, detect(raw, self.cfg, self.height, self.width)

@@ -1,10 +1,14 @@
-"""Train and eval loops over a loader of (events, targets) batches.
+"""Train and eval loops over a loader of batches.
 
 Counterpart of ``dagr_tpu.train.harness`` (the reference's script-level
-loops, scripts/train_dsec.py:42-100 and utils/testing.py:16-55), events
-only: ``train_epoch`` runs ``train_step`` over the loader and logs the
-losses; ``run_test`` runs the EMA (or trained) weights in eval mode,
-decodes with ``detect`` (K4 on the card) and fills a ``DetectionBuffer``.
+loops, scripts/train_dsec.py:42-100 and utils/testing.py:16-55):
+``train_epoch`` runs ``train_step`` over (events, targets) batches, or
+for a fusion model ``train_step_fusion`` over (events, targets, images,
+targets0) batches, and logs the losses; ``run_test`` runs the EMA (or
+trained) weights in eval mode over (events, targets) or, for a fusion
+model, (events, targets, images) batches, decodes the (hybrid) raw
+outputs with ``detect`` (K4 on the card) and fills a
+``DetectionBuffer``.
 """
 from __future__ import annotations
 
@@ -13,7 +17,8 @@ from typing import Optional, Sequence
 from dagr_tpu_torch.eval.buffers import (
     DetectionBuffer, detections_to_list, targets_to_list)
 from dagr_tpu_torch.models.dagr import detect
-from dagr_tpu_torch.train.state import TrainState, eval_forward, train_step
+from dagr_tpu_torch.train.state import (
+    TrainState, eval_forward, train_step, train_step_fusion)
 from dagr_tpu_torch.utils.logging import MetricLogger
 
 
@@ -24,8 +29,12 @@ def run_test(loader, state: TrainState, height: int, width: int,
     cfg = state.model.cfg
     buf = DetectionBuffer(height=height, width=width, classes=classes)
     compiled = []
-    for i, (events, targets) in enumerate(loader):
-        raw = eval_forward(state, events, use_ema=use_ema)
+    for i, batch in enumerate(loader):
+        events, targets = batch[0], batch[1]
+        if cfg.use_image:
+            raw, _ = eval_forward(state, events, batch[2], use_ema=use_ema)
+        else:
+            raw = eval_forward(state, events, use_ema=use_ema)
         det_list = detections_to_list(detect(raw, cfg, height, width))
         buf.update(det_list, targets_to_list(targets))
         if compile_detections:
@@ -38,9 +47,15 @@ def run_test(loader, state: TrainState, height: int, width: int,
 def train_epoch(loader, state: TrainState,
                 logger: Optional[MetricLogger] = None, log_every: int = 10):
     """One training epoch; returns (state, the last step's losses)."""
+    use_image = state.model.cfg.use_image
     losses = None
-    for i, (events, targets) in enumerate(loader):
-        losses = train_step(state, events, targets)
+    for i, batch in enumerate(loader):
+        if use_image:
+            events, targets, images, targets0 = batch
+            losses = train_step_fusion(state, events, images, targets,
+                                       targets0)
+        else:
+            losses = train_step(state, batch[0], batch[1])
         if logger is not None and i % log_every == 0:
             logger.log({f"training/loss/{k}": float(v)
                         for k, v in losses.items()}, step=state.step)

@@ -18,6 +18,11 @@ K8's ring update on both sides of its per-block sort (2048 keys) and at
 the S=8 x 1024 step's 16384, replayed from a CUDA graph; K9b on one
 cell of 50,000 members at C = 16 and 130 (one launch a call).
 
+Image fusion (DAGR-S + ResNet-50): the Detector against the CPU with
+its routes counted (17 fused blocks, 3 split convs), K3 at the fusion
+widths 80 and 128 bit-equal to its twin, features included, and the
+split conv and its backward at 130 -> 64, K = 9.
+
 Sizes the published configs never reach: K4's one launch (decode, top K
 and NMS) at 175, 400, 960 and 4032 anchors and max_out 50, 300 and 2000
 (boxes and scores bit-equal to the twin on the card, one launch and one
@@ -1665,3 +1670,64 @@ def test_detector_at_fine_poolings_matches_cpu(dev, pooling):
     torch.testing.assert_close(raw.cpu(), raw_cpu, atol=1e-4, rtol=1e-4)
     for k in ("valid", "labels"):
         assert torch.equal(dets[k].cpu(), dets_cpu[k]), k
+
+
+def test_fusion_detector_matches_cpu(dev):
+    """DAGR-S + ResNet-50 image fusion on the card against the same
+    model on the CPU: hybrid raw and image raw to 1e-4, keeps and labels
+    identical; every sync kernel launched, 17 fused blocks and the 3
+    conv_block1s at 130 -> 64 as split convs (``eval_routes``)."""
+    cfg = DagrConfig(n_nodes=4000, use_image=True, img_net="resnet50")
+    det = Detector(cfg, H, W, dev, seed=15)
+    cpu = Detector(cfg, H, W, "cpu", state_dict=det.model.state_dict())
+    ev = ragged_windows(15, dev)
+    img = torch.rand((3, 3, H, W), generator=torch.Generator().manual_seed(15))
+    assert eval_routes(det.model) == (17, 3)
+    before = _build.launch_counts()
+    raw, dets = det(ev, img.to(dev))
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert all(after[k] > before[k] for k in SYNC_KERNELS)
+    assert after["spline_conv_block"] - before["spline_conv_block"] == 17
+    assert after["spline_conv"] - before["spline_conv"] == 3
+    raw_cpu, dets_cpu = cpu(ev.to("cpu"), img)
+    torch.testing.assert_close(raw.cpu(), raw_cpu, atol=1e-4, rtol=1e-4)
+    for k in ("valid", "labels"):
+        assert torch.equal(dets[k].cpu(), dets_cpu[k]), k
+    with torch.no_grad():
+        _, image_raw = det.model(ev, img.to(dev))
+        _, image_cpu = cpu.model(ev.to("cpu"), img)
+    torch.testing.assert_close(image_raw.cpu(), image_cpu, atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("C,level,aggr", [(80, 0, "max"), (128, 1, "max"),
+                                          (128, 3, "mean")])
+def test_voxel_pool_at_fusion_widths(dev, C, level, aggr):
+    """K3 at the fusion DAGR-S's pooled widths (the first pooling takes 16
+    + 64 channels, the others 64 + 64) bit-equal to its twin on the CPU,
+    features included, on a ragged batch."""
+    ev = ragged_windows(20 + C + level, dev)
+    graph = build_graph(ev.pos_px(), ev.mask, **GRAPH_KW)
+    gy, gx = DagrConfig().grid_shapes()[level]
+    feat = torch.randn((3, ev.num_nodes, C), device=dev) * ev.mask[..., None]
+    args = (feat, ev.pos, ev.mask, graph.nbr, graph.nbr_mask, graph.nbr_dpos)
+    kw = dict(grid_ny=gy, grid_nx=gx, width=W, height=H, aggr=aggr)
+    got = pool_graph(*args, **kw)
+    want = pool_graph_plain(*[a.cpu() for a in args], **kw)
+    for name, a, b in zip(("feat", "pos", "mask", "nbr", "nbr_mask", "tmax"),
+                          got, want):
+        assert torch.equal(a.cpu(), b), name
+
+
+def test_split_conv_at_the_fusion_width(dev):
+    """The split conv of the fusion model's conv_block1s (130 -> 64, K = 9
+    stencil slots) and its backward against their twins, 1e-5 of each
+    output's max, at a B=8 first stencil level's 17920 rows."""
+    edges, (x, w, root, bias, gy) = conv_case(130, 8 * 40 * 56, 9, 130, 64,
+                                              dev)
+    assert_close_to_max(spline_conv_forward(x, edges, w, root, bias),
+                        spline_conv_plain(x, edges, w, root, bias), "fwd")
+    for a, b in zip(spline_conv_backward(x, gy, edges, w, root),
+                    spline_conv_backward_plain(x, gy, edges, w, root)):
+        assert_close_to_max(a, b, "bwd")

@@ -131,7 +131,8 @@ def jax_run():
 
 
 def to_port(jstate):
-    return train_state_from_flax(jstate, DagrConfig(**KW), H, W, NI)
+    return train_state_from_flax(jstate, DagrConfig(**KW), H, W, NI,
+                                 device="cpu")
 
 
 def raw_grads(state, events, targets):
