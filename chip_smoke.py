@@ -70,9 +70,23 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    the fed events; times steps at chunk 256 and 1 on a warm store of
    about 40k events and ring steps on a full store, and profiles the
    device time of a step;
-7. captures one grow step of 256 in a CUDA graph and replays it over
-   fresh chunks beside the eager step on a copy of the state: the raw
-   outputs must agree (1e-5), and both are timed;
+7. (``graphs``, run after phase 8) every path's compiled step, the
+   port's ``make_*`` forms (``utils.graphs.StepGraphs``: two eager
+   warm-up calls, then one CUDA graph captured per key and replayed),
+   beside its eager step on its own copy of the state: the Detector at
+   B=1 and B=8 (``make_forward``), the engine's grow and ring steps of
+   256 on a warm and a full store (``make_step``), the S=8 server at
+   tail_every 1 and 4 (``make_step``; at most two graphs, fresh and
+   stale), the S=1 ring server of 256 past its wrap, the decoding chain
+   (``make_chain(4, decode=True)``, S=8, tail_every 4: K4 inside the
+   fresh step's graph) and the B=8 recipe train step
+   (``make_train_step``); every call checked (raw to 1e-5 of its max,
+   detections as K4's checks, integer tables exact after the run; the
+   train step's losses to 1e-5 and, after 3 replays, every parameter,
+   EMA leaf and Adam moment to 1e-5 of its max); the replay and eager
+   p50 (fresh and stale steps apart), and one profiled replay per path
+   that must show the path's kernels by name (replays bypass the launch
+   counters), with its device busy and idle share;
 8. serves through ``dagr_tpu_torch.streaming.serve.MultiStreamServer``
    on the same model: 8 windows as 8 lockstep streams in chunks of 1024
    (grow, ring 8192; each stream's final raw must equal its window's
@@ -159,7 +173,7 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
 
 Usage: ``python3 chip_smoke.py`` from the repository root;
 ``python3 chip_smoke.py --train-only`` runs the build and phase 9 alone
-and prints no result line.  ``python3 chip_smoke.py --compare DIR``
+and prints no result line; ``--graphs-only`` the build and phase 7.  ``python3 chip_smoke.py --compare DIR``
 measures another checkout's package (``DIR/dagr_tpu_torch``, for
 instance the parent commit's: ``git archive HEAD~ dagr_tpu_torch | tar
 -x -C DIR``) against this one on the same card, in turns (parent,
@@ -188,6 +202,7 @@ prints a result line.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -1642,64 +1657,413 @@ def stream(cfg, det, events, card):
     else:
         print("profile: the profiler saw no device kernels; device busy "
               "time not measured", flush=True)
-
-    # a grow step in a CUDA graph, on events that go on from the store's
-    p5, f5 = stream_events(events[4], int(p3[-1, 2]) + 1)
-    graph_replay(fast, ts, chunk_events(p5[:18 * 256], f5[:18 * 256], 256,
-                                        device="cuda"), card)
     return launches, ring_launches, checks
 
 
-def graph_replay(eng, state, chunks, card):
-    """Phase 7: one step of ``eng`` captured in a CUDA graph (after two
-    warm-up steps on a side stream) and replayed over ``chunks[2:]``, each
-    chunk copied into the captured inputs, beside the eager step on
-    ``state`` itself; the graph runs on a copy of it.  Raw outputs must
-    agree to 1e-5 and the event counts and edge tables exactly; prints
-    the p50 ms of each (CUDA events, synchronised after each step)."""
-    copy = dataclasses.replace(state, **{
-        f.name: getattr(state, f.name).clone()
-        for f in dataclasses.fields(state) if getattr(state, f.name) is not None})
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for c in chunks[:2]:
-            copy, _, _ = eng.step(copy, *c)
-    torch.cuda.current_stream().wait_stream(side)
-    for c in chunks[:2]:
-        state, _, _ = eng.step(state, *c)
-    inputs = [t.clone() for t in chunks[0]]
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        _, graph_raw, _ = eng.step(copy, *inputs)
-    err, ms_graph, ms_eager = 0.0, [], []
-    for c in chunks[2:]:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        for t, v in zip(inputs, c):
-            t.copy_(v)
-        graph.replay()
-        ev[1].record()
-        torch.cuda.synchronize()
-        ev[2].record()
-        state, raw, _ = eng.step(state, *c)
-        ev[3].record()
-        torch.cuda.synchronize()
-        ms_graph.append(ev[0].elapsed_time(ev[1]))
-        ms_eager.append(ev[2].elapsed_time(ev[3]))
-        err = max(err, max_err(graph_raw, raw))
-    require(err <= 1e-5, f"CUDA-graph replay vs eager step raw: max err {err}")
-    for f in ("num", "nbr_slots", "nbr_valid", "cell_cnt", "adj"):
-        require(torch.equal(getattr(copy, f), getattr(state, f)),
-                f"CUDA-graph replay vs eager step: {f} equal")
-    n = int(state.num)
-    print(f"CUDA-graph replay of a grow step of 256, store {n - 16 * 256}-{n} "
-          f"events: p50 {np.median(ms_graph):.3f} ms (min {min(ms_graph):.3f}, "
-          f"max {max(ms_graph):.3f}) against the eager step's p50 "
-          f"{np.median(ms_eager):.3f} ms (min {min(ms_eager):.3f}, max "
-          f"{max(ms_eager):.3f}), {len(ms_graph)} steps each; raw max abs err "
-          f"{err:.3g} [{card}]", flush=True)
+# the graphs phase: replays timed per path after the warm-up and capture,
+# and the device kernel by which each port kernel shows in a profile
+GRAPH_TIMED = 10
+PROFILE_TRIES = 3
+DEVICE_KERNEL = {
+    "graph_search": "graph_search_kernel",
+    "spline_conv_block": "spline_conv_block_kernel",
+    "spline_gather_block": "spline_conv_block_kernel",
+    "voxel_pool": "pool_nodes_kernel", "nms": "detect_kernel",
+    "graph_search_store": "store_search_kernel",
+    "serve_search": "store_search_kernel",
+    "stream_accumulate": "cell_update_", "serve_ring_update": "cell_update_",
+    "cell_max": "cell_max_kernel", "spline_conv": "split_conv_kernel",
+    "spline_conv_backward": "split_conv_wgrad_kernel",
+    "voxel_pool_backward": "pool_backward_kernel"}
 
+
+def clone_state(state):
+    """A copy of a streaming or serving state, every tensor cloned."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone()
+        for f in dataclasses.fields(state)
+        if torch.is_tensor(getattr(state, f.name))})
+
+
+def snapshot(state):
+    """A function that puts ``state`` (a streaming, serving or train
+    state; None: nothing) back as it is now, in place: every tensor it
+    holds (a model's or an optimizer's too) and its host counts."""
+    if state is None:
+        return lambda: None
+    live, counts = [], {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if torch.is_tensor(v):
+            live.append(v)
+        elif isinstance(v, torch.nn.Module):
+            live += list(v.state_dict().values())
+        elif isinstance(v, torch.optim.Optimizer):
+            live += [t for st in v.state.values() for t in st.values()
+                     if torch.is_tensor(t)]
+        elif isinstance(v, int) and not isinstance(v, bool):
+            counts[f.name] = v
+    saved = [t.clone() for t in live]
+
+    def restore():
+        with torch.no_grad():
+            for t, s in zip(live, saved):
+                t.copy_(s)
+        for k, v in counts.items():
+            setattr(state, k, v)
+    return restore
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return max_err(got, want) / max(float(want.abs().max()), 1e-30)
+
+
+def graph_path(what, compiled, eager, n, check, kernels, card, graphs,
+               per_call=1, after=None, kind=None, state=None):
+    """One path of the graphs phase: call i (of ``n``) of the path is
+    ``compiled(i)`` (a make_* step, ``per_call`` steps of its
+    ``StepGraphs`` ``graphs`` a call: the first WARMUP calls of a graph
+    warm up, the next captures and replays) and ``eager(i)`` on its own
+    copy of the state; ``check(got, want)`` holds their outputs and
+    returns the error, ``after(i)``, when given, checks the states.  The
+    calls that only replayed (no warm-up, no capture) are timed beside
+    the eager calls (CUDA events, synchronised), by ``kind(i)`` where
+    given (a server's fresh and stale steps); the last call of each is
+    profiled: the replay must show the device kernel of every port
+    kernel in ``kernels``, and its busy time gives the idle share of its
+    kind's p50.  The profiler at times records none of a replayed
+    graph's kernels: a profiled replay that lacks one is made again, up
+    to PROFILE_TRIES times, from the compiled side's ``state`` put back
+    as it was before it (``snapshot``).  Prints and returns the
+    record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def captured():
+        return sum(g.graph is not None for g in graphs.graphs.values())
+
+    kind = kind or (lambda i: "step")
+    err, ms = 0.0, {}
+    for i in range(n - 1):
+        r0, c0 = graphs.replays(), captured()
+        got, t_c = timed_out(lambda: compiled(i))
+        replayed = graphs.replays() - r0 == per_call and captured() == c0
+        want, t_e = timed_out(lambda: eager(i))
+        err = max(err, check(got, want))
+        if after is not None:
+            after(i)
+        if replayed:
+            for side, t in (("replay", t_c), ("eager", t_e)):
+                ms.setdefault(kind(i), {"replay": [], "eager": []})[
+                    side].append(t)
+    def profiled(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn(n - 1)
+            torch.cuda.synchronize()
+        kern = kernel_events(prof)
+        return (out, sum(e.self_device_time_total for e in kern) / 1e3,
+                {e.key for e in kern})
+
+    busy, r0, restore = {}, graphs.replays(), snapshot(state)
+    for tries in range(1, PROFILE_TRIES + 1):
+        got, busy["replay"], names = profiled(compiled)
+        missing = [k for k in kernels
+                   if not any(DEVICE_KERNEL[k] in name for name in names)]
+        if not missing or tries == PROFILE_TRIES:
+            break
+        print(f"graphs, {what}: profiled replay {tries} shows "
+              f"{len(names)} device kernels, none of {missing}; made "
+              "again", flush=True)
+        restore()
+    out, busy["eager"], _ = profiled(eager)
+    err = max(err, check(got, out))
+    require(graphs.replays() - r0 == per_call * tries,
+            f"graphs, {what}: the profiled calls are replays")
+    require(not missing, f"graphs, {what}: {tries} profiled replays; the "
+            f"last shows {len(names)} device kernels: {sorted(names)}; none "
+            f"of {missing}, path {what}")
+    timed = {k: {side: {"p50_ms": float(np.median(t)), "min_ms": min(t),
+                        "max_ms": max(t), "n": len(t)}
+                 for side, t in v.items()} for k, v in ms.items()}
+    t = timed[kind(n - 1)]
+    p50, p50_e = t["replay"]["p50_ms"], t["eager"]["p50_ms"]
+    idle = {side: 1 - busy[side] / p if busy[side] > 0 else None
+            for side, p in (("replay", p50), ("eager", p50_e))}
+    rec = {"path": what, "calls": n, "replays": graphs.replays(),
+           "replay_p50_ms": p50, "eager_p50_ms": p50_e, "timed": timed,
+           "device_busy_ms": busy["replay"],
+           "eager_device_busy_ms": busy["eager"],
+           "idle_share": idle["replay"], "eager_idle_share": idle["eager"],
+           "max_err": err, "kernels": list(kernels),
+           "profile_tries": tries}
+    for k, v in timed.items():
+        print(f"graphs, {what}{'' if k == 'step' else ', ' + k + ' steps'}:"
+              f" replay p50 {v['replay']['p50_ms']:.3f} ms (min "
+              f"{v['replay']['min_ms']:.3f}, max {v['replay']['max_ms']:.3f})"
+              f" against eager p50 {v['eager']['p50_ms']:.3f} ms (min "
+              f"{v['eager']['min_ms']:.3f}, max {v['eager']['max_ms']:.3f}), "
+              f"{v['replay']['n']} each [{card}]", flush=True)
+    fmt = {k: "not measured" if v is None else f"{v:.3f}"
+           for k, v in idle.items()}
+    print(f"graphs, {what}: one {kind(n - 1)} call profiled: device busy "
+          f"{busy['replay']:.3f} ms replayed, {busy['eager']:.3f} eager; "
+          f"idle share {fmt['replay']} replayed, {fmt['eager']} eager; max "
+          f"err vs eager {err:.3g}; kernels {', '.join(kernels)} shown "
+          f"(profiled replay {tries}) [{card}]", flush=True)
+    return rec
+
+
+def timed_out(fn):
+    """(``fn()``, its ms between CUDA events, synchronised)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_raw(got, want, what):
+    err = rel_err(got, want)
+    require(err <= 1e-5, f"graphs, {what}: replay vs eager raw: {err} of "
+            "its max")
+    return err
+
+
+def check_detections(got, want, what):
+    """K4's outputs: keeps, labels exact, boxes and scores 1e-5."""
+    for k in ("valid", "labels"):
+        require(torch.equal(got[k], want[k]), f"graphs, {what}: {k} equal")
+    err = max(max_err(got[k], want[k]) for k in ("boxes", "scores"))
+    require(err <= 1e-5, f"graphs, {what}: boxes and scores: {err}")
+    return err
+
+
+def require_tables(a, b, fields, what):
+    for f in fields:
+        require(torch.equal(getattr(a, f), getattr(b, f)),
+                f"graphs, {what}: {f} equal after the replays")
+
+
+def graphs(cfg, det, events, card):
+    """Phase 7: ``graph_paths``, then how much more device memory is
+    allocated than before it (every step function and state it made is
+    gone by then: what is left is held by the process).  Returns the
+    records."""
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    recs = graph_paths(cfg, det, events, card)
+    gc.collect()
+    left = (torch.cuda.memory_allocated() - held) / 2 ** 20
+    print(f"graphs: {left:.1f} MiB more allocated after the phase than "
+          f"before it [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps({"graphs": recs, "mib_left": left}), flush=True)
+    return recs
+
+
+def graph_paths(cfg, det, events, card):
+    """Phase 7 (``graphs``): every path's compiled step (the make_* forms)
+    replayed from CUDA graphs beside its eager step on its own copy of
+    the state, each call checked (raw to 1e-5 of its max, integer tables
+    exact, detections as K4's checks), the replay and eager p50, device
+    busy and idle share, and one profiled replay showing the path's
+    kernels: the Detector at B=1 and B=8, the engine's grow and ring
+    steps of 256 on a warm (full) store, the S=8 server at tail_every 1
+    and 4 (at most two graphs), the S=1 ring server of 256 past its wrap,
+    the decoding chain (S=8, tail_every=4, 4 steps a chain) and the B=8
+    recipe train step (3 replays against 3 eager steps: losses to 1e-5,
+    every parameter, EMA leaf and Adam moment to 1e-5 of its max).
+    Returns the records."""
+    import copy
+
+    from dagr_tpu_torch.data.synthetic import random_events, random_targets
+    from dagr_tpu_torch.models.dagr import DAGR, init_fresh
+    from dagr_tpu_torch.streaming.engine import (
+        StreamingDetector, chunk_events)
+    from dagr_tpu_torch.streaming.serve import MultiStreamServer, chunk_streams
+    from dagr_tpu_torch.train.state import (
+        init_state, make_optimizer, make_train_step, train_step)
+    from dagr_tpu_torch.utils.graphs import WARMUP
+
+    model, recs = det.model, []
+    n = WARMUP + 1 + GRAPH_TIMED + 1
+
+    # the Detector: B=1 windows, then batches of 8
+    for B, inputs in ((1, events), (8, [events_batch(events[k:k + 8])
+                                        for k in (0, 1)])):
+        fwd = det.make_forward()
+
+        def check(got, want, what=f"Detector B={B}"):
+            return max(check_raw(got[0], want[0], what),
+                       check_detections(got[1], want[1], what))
+
+        recs.append(graph_path(
+            f"Detector B={B}", lambda i: fwd(inputs[i % len(inputs)]),
+            lambda i: det(inputs[i % len(inputs)]), n, check, SYNC_KERNELS,
+            card, fwd.graphs))
+
+    # the engine: grow on a store of STREAM_WARM events, ring on a full one
+    p3, f3 = stream_events(events[3])
+    p4, f4 = stream_events(events[4], 1_000_000)
+    for mode, n_warm in (("grow", STREAM_WARM), ("ring", N_NODES + 4096)):
+        eng = StreamingDetector(model, H, W, chunk=256, count_flops=False,
+                                window_mode=mode)
+        px, fx = np.concatenate([p3, p4]), np.concatenate([f3, f4])
+        ref = eng.init_state()
+        for c in chunk_events(px[:n_warm], fx[:n_warm], 1024, device="cuda"):
+            ref, _, _ = eng.step(ref, *c)
+        st = clone_state(ref)
+        chunks = chunk_events(px[n_warm:n_warm + 256 * n],
+                              fx[n_warm:n_warm + 256 * n], 256,
+                              device="cuda")
+        step = eng.make_step()
+        what = f"engine {mode} step of 256"
+        recs.append(graph_path(
+            what, lambda i: step(st, *chunks[i])[1],
+            lambda i: eng.step(ref, *chunks[i])[1], n,
+            lambda g, w: check_raw(g, w, what),
+            STREAM_KERNELS if mode == "grow" else RING_KERNELS, card,
+            step.graphs, state=st))
+        require_tables(st, ref, ("num", "vid", "cells", "nbr_slots",
+                                 "nbr_vid", "nbr_valid") + (
+            ("cell_cnt", "adj") if mode == "grow" else ()), what)
+        del st, ref
+
+    # the S=8 server, grow, at tail_every 1 and 4
+    windows = events[1:1 + SERVE_S]
+    fed = [stream_events(w) for w in windows]
+    s_chunks = chunk_streams(np.stack([p for p, _ in fed]),
+                             np.stack([f for _, f in fed]), SERVE_CHUNK,
+                             device="cuda")
+    for te, n_warm in ((1, 8), (4, 4)):
+        srv = MultiStreamServer(model, H, W, SERVE_S, SERVE_CHUNK,
+                                tail_every=te)
+        ref = srv.init_state()
+        for c in s_chunks[:n_warm]:
+            ref, _, _ = srv.step(ref, *c)
+        st = clone_state(ref)
+        step = srv.make_step()
+        what = f"server S={SERVE_S} grow step of {SERVE_CHUNK}, tail_every={te}"
+        todo = s_chunks[n_warm:]
+
+        def check(got, want, what=what):
+            require(got[1]["raw_fresh"] == want[1]["raw_fresh"] and
+                    torch.equal(got[1]["coverage_ok"], want[1]["coverage_ok"]),
+                    f"graphs, {what}: raw_fresh and coverage_ok equal")
+            return check_raw(got[0], want[0], what)
+
+        recs.append(graph_path(
+            what, lambda i: step(st, *todo[i])[1:],
+            lambda i: srv.step(ref, *todo[i])[1:], len(todo), check,
+            SERVE_KERNELS, card, step.graphs, kind=None if te == 1 else (
+                lambda i, w=n_warm, te=te: "fresh" if (w + i) % te == te - 1
+                else "stale"), state=st))
+        captured = [g for g in step.graphs.graphs.values() if g.graph]
+        require(len(step.graphs.graphs) == len(captured) == min(te, 2),
+                f"graphs, {what}: {len(captured)} graphs")
+        require_tables(st, ref, ("num", "pix", "t", "vid", "cells",
+                                 "cell_cnt", "adj"), what)
+        del st, ref
+
+    # the S=1 ring server of 256 past its wrap
+    p1, f1 = stream_events(events[1])
+    p2, f2 = stream_events(events[2], 1_000_000)
+    r_chunks = chunk_streams(np.concatenate([p1, p2])[None],
+                             np.concatenate([f1, f2])[None], RING_CHUNK,
+                             device="cuda")
+    rsrv = MultiStreamServer(model, H, W, 1, RING_CHUNK, window_mode="ring")
+    n_warm = rsrv.NR // RING_CHUNK + 4
+    ref = rsrv.init_state()
+    for c in r_chunks[:n_warm]:
+        ref, _, _ = rsrv.step(ref, *c)
+    st = clone_state(ref)
+    step = rsrv.make_step()
+    what = f"ring server S=1 step of {RING_CHUNK}, {rsrv.NR} slots, wrapped"
+    todo = r_chunks[n_warm:n_warm + n]
+    recs.append(graph_path(
+        what, lambda i: step(st, *todo[i])[1],
+        lambda i: rsrv.step(ref, *todo[i])[1], n,
+        lambda g, w: check_raw(g, w, what), SERVE_RING_KERNELS, card,
+        step.graphs, state=st))
+    require_tables(st, ref, ("num", "pix", "t", "vid", "cells", "cell_cnt",
+                             "adj_death"), what)
+    del st, ref
+
+    # the decoding chain: 4 steps a call (one fresh), S=8, tail_every=4
+    te, T = 4, 4
+    csrv = MultiStreamServer(model, H, W, SERVE_S, SERVE_CHUNK, tail_every=te)
+    chain = csrv.make_chain(T, decode=True)
+    st, ref = csrv.init_state(), csrv.init_state()
+    calls = [s_chunks[k:k + T] for k in range(0, len(s_chunks) - T + 1, T)]
+    stacked = [[torch.stack([c[j] for c in cs]) for j in range(3)]
+               for cs in calls]
+    what = f"decoding chain S={SERVE_S}, {T} steps of {SERVE_CHUNK}, tail_every={te}"
+
+    def check_chain(got, want):
+        require(bool(got[1]) == bool(want[1]), f"graphs, {what}: coverage")
+        (b, s), (wb, ws) = got[0], want[0]
+        require(torch.equal(s > 0, ws > 0), f"graphs, {what}: keeps equal")
+        err = max(max_err(b, wb), max_err(s, ws))
+        require(err <= 1e-5, f"graphs, {what}: boxes and scores: {err}")
+        return err
+
+    recs.append(graph_path(
+        what, lambda i: chain(st, *stacked[i])[1:],
+        lambda i: csrv.run_chain(ref, calls[i], decode=True)[1:],
+        len(calls), check_chain, SERVE_KERNELS + ("nms",), card,
+        chain.graphs, per_call=T, state=st))
+    del st, ref
+
+    # the B=8 recipe train step
+    tcfg = cfg.replace(batch_size=TRAIN_B)
+    rng = np.random.default_rng(SEED + 2)
+    tev = random_events(rng, TRAIN_B, N_NODES, W, H, n_valid=N_VALID,
+                        device="cuda")
+    targets = random_targets(rng, TRAIN_B, n_boxes=30)
+    tmodel = DAGR(tcfg, H, W)
+    init_fresh(tmodel, torch.Generator().manual_seed(SEED))
+    recipe = make_optimizer(tcfg, 10)[0]
+    tref = init_state(copy.deepcopy(tmodel).cuda(), recipe)
+    tst = init_state(tmodel.cuda(), recipe)
+    tstep = make_train_step(tst)
+    what = f"train step B={TRAIN_B}"
+
+    def check_losses(got, want):
+        err = 0.0
+        for k in want:
+            e = abs(float(got[k]) - float(want[k]))
+            require(e <= 1e-5 * max(abs(float(want[k])), 1e-6),
+                    f"graphs, {what}: loss {k}: {got[k]} vs {want[k]}")
+            err = max(err, e)
+        return err
+
+    def leaves(i):
+        if i != WARMUP + 2:          # the capture's replay and two more
+            return
+        for a, b in ((tst.model, tref.model), (tst.ema, tref.ema)):
+            sa, sb = a.state_dict(), b.state_dict()
+            for k in sb:
+                e = rel_err(sa[k], sb[k])
+                require(e <= 1e-5, f"graphs, {what}: {k} after 3 replays: "
+                        f"{e} of its max")
+        for p, q in zip(tst.model.parameters(), tref.model.parameters()):
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                e = rel_err(tst.optimizer.state[p][k],
+                            tref.optimizer.state[q][k])
+                require(e <= 1e-5, f"graphs, {what}: Adam {k}: {e}")
+        print(f"graphs, {what}: after 3 replays every parameter, EMA leaf "
+              "and Adam moment within 1e-5 of its max of the eager "
+              "steps'", flush=True)
+
+    recs.append(graph_path(
+        what, lambda i: tstep(tst, tev, targets),
+        lambda i: train_step(tref, tev, targets), n, check_losses,
+        TRAIN_KERNELS, card, tstep.graphs, after=leaves, state=tst))
+    return recs
 
 
 def timed_step(srv, state, chunk, **kw):
@@ -3407,6 +3771,11 @@ def eval_timings(cfg, out):
     events = [random_events(rng, 1, N_NODES, W, H, n_valid=N_VALID,
                             device="cuda") for _ in range(9)]
     det = Detector(cfg, H, W, "cuda", seed=SEED)
+    if sys.argv[1:] == ["--graphs-only"]:
+        # the graphs phase alone (build, replays against eager steps,
+        # timings), no result line
+        graphs(cfg, det, events, card)
+        return 0
     det(events[0])
     ms = [timed(lambda: det(w)) for w in events[1:9]]
     busy = profiled(lambda: det(events[1]), 4)
@@ -3606,8 +3975,9 @@ def main() -> int:
     train_only = rest[1:] == ["train"]
     if mode in (["--timings"], ["--compare"]) and (
             len(rest) not in (1, 2) or (len(rest) == 2 and not train_only)):
-        print("usage: chip_smoke.py [--train-only | --compare DIR [train] "
-              "| --timings DIR [train]]", file=sys.stderr)
+        print("usage: chip_smoke.py [--train-only | --graphs-only | "
+              "--compare DIR [train] | --timings DIR [train]]",
+              file=sys.stderr)
         return 2
     if mode == ["--timings"]:
         # another checkout's package goes first on the path
@@ -3650,6 +4020,11 @@ def main() -> int:
     events = [random_events(rng, 1, N_NODES, W, H, n_valid=N_VALID,
                             device="cuda") for _ in range(9)]
     det = Detector(cfg, H, W, "cuda", seed=SEED)
+    if sys.argv[1:] == ["--graphs-only"]:
+        # the graphs phase alone (build, replays against eager steps,
+        # timings), no result line
+        graphs(cfg, det, events, card)
+        return 0
 
     kernels = check_kernels(cfg, events, det)
     window_ms, launches = serve(cfg, events, det)
@@ -3699,6 +4074,7 @@ def main() -> int:
                                                         card)
     served, checks, serve_launches, serve_ring_launches = serve_streams(
         cfg, det, events, card)
+    graph_recs = graphs(cfg, det, events, card)
     kernels.update(served)
     kernels["graph_search_store"]["path_checks"] = store_checks
     serve_split = checks.pop("spline_conv")

@@ -116,7 +116,8 @@ def train_state_from_flax(jstate, cfg: DagrConfig, height: int, width: int,
     count = float(np.asarray(adam.count))
     for name, p in recipe.trainable(model):
         state.optimizer.state[p] = {
-            "step": torch.tensor(count, dtype=torch.float32),
+            "step": torch.tensor(count, dtype=torch.float32,
+                                 device=p.device),
             "exp_avg": mu[name].to(p.device),
             "exp_avg_sq": nu[name].to(p.device)}
     state.step = int(np.asarray(jstate.step))

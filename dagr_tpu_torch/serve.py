@@ -8,13 +8,14 @@ ones with fusion) and fixed-size detections, one row per window.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
 from dagr_tpu_torch.config import DagrConfig
 from dagr_tpu_torch.core.types import EventBatch
 from dagr_tpu_torch.models.dagr import DAGR, detect, init_params
+from dagr_tpu_torch.utils.graphs import StepGraphs
 
 
 class Detector:
@@ -57,3 +58,40 @@ class Detector:
         if self.cfg.use_image:
             raw = raw[0]
         return raw, detect(raw, self.cfg, self.height, self.width)
+
+    def make_forward(self) -> Callable:
+        """``__call__`` compiled for an events-only model:
+        ``forward(events) -> (raw, detections)``, one CUDA graph per
+        batch shape on the card (``window_forward``)."""
+        return window_forward(self.model, "Detector.make_forward",
+                              decode=True)
+
+
+def window_forward(model: DAGR, name: str, decode: bool) -> Callable:
+    """The eval forward of an events-only ``model`` on its device as a
+    compiled step: ``forward(events, state=None)`` -> raw [B, A, 5 + C]
+    (with ``decode`` also ``detect``'s detections) under ``no_grad``, in
+    the mode the model is in at a graph's capture; on the card one graph
+    per batch shape and time window, the events copied into static
+    device buffers (``utils.graphs.StepGraphs``), bound to ``state``."""
+    cfg, height, width = model.cfg, model.height, model.width
+    if cfg.use_image:
+        raise ValueError(f"{name}: the compiled forward takes events-only "
+                         "models; a fusion model's eval runs eagerly")
+    graphs = StepGraphs(next(model.parameters()).device, name)
+
+    def forward(events: EventBatch, state=None):
+        if (events.width, events.height) != (width, height):
+            raise ValueError("event geometry differs from the model's")
+        tw = events.time_window
+
+        @torch.no_grad()
+        def body(pos, feat, mask):
+            raw = model(EventBatch(pos, feat, mask, width, height, tw))
+            return (raw, detect(raw, cfg, height, width)) if decode else raw
+
+        return graphs(tw, body, (events.pos, events.feat, events.mask),
+                      state=state)
+
+    forward.graphs = graphs
+    return forward

@@ -30,6 +30,11 @@ Window modes:
   event, so the level-1 cells are pooled from the live store every step
   (K3 over the store, edges kept only while their source slot still holds
   the same event) and the state carries no grow aggregates.
+
+``make_step`` and ``make_step_multistream`` return the compiled forms
+(the JAX package's jitted steps with the state donated): on the card a
+step replayed from a CUDA graph bound to one state, on the CPU the same
+step run eagerly (``utils.graphs.StepGraphs``).
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ from dagr_tpu_torch.models.net import with_rel_delta
 from dagr_tpu_torch.ops.pool import (
     _cell, _inv, accumulate_cells, pool_graph, pool_nodeset, stencil_srcs,
     stencil_table)
+from dagr_tpu_torch.utils.graphs import StepGraphs
 
 _LAYERS = ("layer2", "layer3", "layer4", "layer5")
 
@@ -158,8 +164,7 @@ class StreamingDetector:
     # ------------------------------------------------------------------
     def init_state(self, device=None) -> StreamState:
         """An empty store on ``device`` (default: the model's)."""
-        dev = torch.device(device) if device is not None else next(
-            self.model.parameters()).device
+        dev = torch.device(device) if device is not None else self._device()
         N, G1, K = self.capacity, self.ny1 * self.nx1, self.cfg.max_neighbors
         c1 = self.channels[1]
         i32 = dict(dtype=torch.int32, device=dev)
@@ -284,6 +289,24 @@ class StreamingDetector:
         raw, flops = self._dense_tail(state, nbr_mask, cv, cell_c,
                                       self.count_flops)
         return state, raw, flops
+
+    def make_step(self):
+        """``step`` compiled: ``step(state, pos_px, feat, valid) -> (state,
+        raw, flops)`` as ``step``, on the card one CUDA graph per chunk
+        shape, bound to the first state it is given and updating it in
+        place; raw and flops are copies (``utils.graphs``)."""
+        graphs = StepGraphs(self._device(), "StreamingDetector.make_step")
+
+        def step(state, pos_px, feat, valid):
+            raw, flops = graphs(None, lambda *a: self.step(state, *a)[1:],
+                                (pos_px, feat, valid), state=state)
+            return state, raw, flops
+
+        step.graphs = graphs
+        return step
+
+    def _device(self) -> torch.device:
+        return next(self.model.parameters()).device
 
     # ------------------------------------------------------------------
     def level1_nodeset(self, state: StreamState) -> NodeSet:
@@ -443,6 +466,23 @@ class StreamingDetector:
         flops = {k: torch.stack([o[2][k] for o in outs]) for k in outs[0][2]}
         return ([o[0] for o in outs], torch.stack([o[1] for o in outs]),
                 flops)
+
+    def make_step_multistream(self):
+        """``step_multistream`` compiled: the S steps of a call are one
+        CUDA graph on the card (one replay a call), bound to the first
+        list of states it is given; returns (states, raw [S, 1, A,
+        5 + ncls], the flops stacked [S]) as ``dagr_tpu``'s vmapped step."""
+        graphs = StepGraphs(self._device(),
+                            "StreamingDetector.make_step_multistream")
+
+        def step(states, pos_px, feat, valid):
+            raw, flops = graphs(
+                None, lambda *a: self.step_multistream(states, *a)[1:],
+                (pos_px, feat, valid), state=list(states))
+            return states, raw, flops
+
+        step.graphs = graphs
+        return step
 
 
 def chunk_streams(pos_px, feat, chunk: int, device="cpu"):

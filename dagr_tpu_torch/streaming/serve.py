@@ -31,7 +31,15 @@ of S streams as one batch:
 On CUDA tensors every irregular op is a hand-written kernel (K8's
 search, ring update and cell max; K2, K3, K10; K4 in ``run_chain``);
 ``step`` updates the state in place and never synchronises with the
-host: the ring offset comes from a host-side step count.
+host: the chunk's ring slots come from the device count ``num``
+(``(num % NR) + arange(C)``, written and read through index tensors),
+and the host-side step count decides only the tail cadence.
+``make_step`` and ``make_chain`` are the compiled forms (the JAX
+package's jitted step and scan, the state donated): on the card each
+step is a replay of one of at most two CUDA graphs, a stale step's and a
+fresh step's (with the dense tail, and with ``decode`` K4), that share
+one memory pool; on the CPU the same step runs eagerly
+(``utils.graphs.StepGraphs``).
 
 Preconditions, as in the JAX package: each stream's chunks hold a valid
 prefix, times are non-decreasing per stream and ``t + delta_t`` fits
@@ -59,6 +67,7 @@ from dagr_tpu_torch.ops.spline import LevelEdges, spline_conv
 # streams into the lockstep chunks that ``step`` takes with it
 from dagr_tpu_torch.streaming.engine import (
     DeviceConsts, chunk_streams, level1_from_aggregates)
+from dagr_tpu_torch.utils.graphs import StepGraphs
 
 T_EMPTY = -(2 ** 30)   # time of an empty ring slot: fails every dt test
 _LAYERS = ("layer2", "layer3", "layer4", "layer5")
@@ -70,7 +79,8 @@ class ServeState:
     slot whose ``cells`` entry is S*G1 holds no valid event."""
 
     num: torch.Tensor          # i32 [] events per stream so far
-    steps: int                 # host-side step count: num == steps * C
+    steps: int                 # host-side step count (num == steps * C):
+                               # the tail cadence only
     pix: torch.Tensor          # i32 [S*NR] s*H*W + y*W + x; S*H*W: none
     t: torch.Tensor            # i32 [S, NR] event time (us); T_EMPTY: empty
     vid: torch.Tensor          # i32 [S*NR] virtual event id
@@ -140,8 +150,7 @@ class MultiStreamServer:
     def init_state(self, device=None) -> ServeState:
         """Empty rings and level-1 tables on ``device`` (default: the
         model's)."""
-        dev = torch.device(device) if device is not None else next(
-            self.model.parameters()).device
+        dev = torch.device(device) if device is not None else self._device()
         S, NR, G1, c1 = self.S, self.NR, self.ny1 * self.nx1, self.c1
         i32 = dict(dtype=torch.int32, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
@@ -169,7 +178,6 @@ class MultiStreamServer:
         return state
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
     def step(self, state: ServeState, pos_px: torch.Tensor,
              feat: torch.Tensor, valid: torch.Tensor, debug: bool = False
              ) -> Tuple[ServeState, torch.Tensor, Dict[str, torch.Tensor]]:
@@ -179,6 +187,20 @@ class MultiStreamServer:
         return (state, raw [S, A, 5 + ncls], info): ``coverage_ok``,
         ``cover_parts`` [2] and ``raw_fresh``, and with ``debug`` the
         edges as ``nbr_vid`` and ``nbr_mask`` [S, C, K]."""
+        fresh = self._fresh(state)
+        raw, info = self._step(state, pos_px, feat, valid, fresh, debug)
+        state.steps += 1
+        return state, raw, dict(info, raw_fresh=fresh)
+
+    def _fresh(self, state: ServeState) -> bool:
+        """Whether the next step runs the dense tail."""
+        return state.steps % self.tail_every == self.tail_every - 1
+
+    @torch.no_grad()
+    def _step(self, state: ServeState, pos_px, feat, valid, fresh: bool,
+              debug: bool):
+        """The step's device work: (raw, info without ``raw_fresh``); the
+        host step count is the caller's."""
         cfg = self.cfg
         S, C, NR = self.S, self.chunk, self.NR
         W, H = self.width, self.height
@@ -187,40 +209,46 @@ class MultiStreamServer:
         if tuple(pos_px.shape) != (S, C, 3) or tuple(valid.shape) != (S, C):
             raise ValueError(f"a step takes [S={S}, C={C}] chunks")
         dev = state.x1.device
-        n0 = state.steps * C
-        sl = slice(n0 % NR, n0 % NR + C)     # the chunk's ring slots
         ring_win = self.window_mode == "ring"
         cv, t = valid, pos_px[..., 2]
+        # the chunk's ring slots (NR is a multiple of C: no wrap inside)
+        n0 = state.num
+        off = n0 % NR
+        sl = off.long() + self._const(f"arange_l{C}", dev,
+                                      lambda: torch.arange(C))
+
+        def put(table, values):
+            table.index_copy_(1, sl, values)
 
         # eviction certificate: the slots about to be overwritten hold no
         # event inside any query's dt window (read before the write)
         min_t = torch.where(cv, t, 2 ** 30).amin(dim=1)
         cover = torch.stack([
-            ~(state.t[:, sl] >= (min_t - self.delta_t)[:, None]).any(),
+            ~(state.t.index_select(1, sl)
+              >= (min_t - self.delta_t)[:, None]).any(),
             self._const("true", dev, lambda: torch.ones((), dtype=torch.bool))])
 
         # the chunk enters the event rings, then is searched against them
         s_pix = self._const("s_pix", dev, lambda: torch.arange(
             S, dtype=torch.int32)[:, None] * (H * W))
-        state.pix.view(S, NR)[:, sl] = torch.where(
-            cv, s_pix + pos_px[..., 1] * W + pos_px[..., 0], S * H * W)
-        state.t[:, sl] = t
+        put(state.pix.view(S, NR), torch.where(
+            cv, s_pix + pos_px[..., 1] * W + pos_px[..., 0], S * H * W))
+        put(state.t, t)
         vids = n0 + self._const(f"arange{C}", dev, lambda: torch.arange(
             C, dtype=torch.int32))
-        state.vid.view(S, NR)[:, sl] = vids
+        put(state.vid.view(S, NR), vids.expand(S, C))
         nbr_rest, hit, spiral = search_edges_streams(
             state.pix, state.t.view(-1), state.vid, pos_px, vids, cv,
             width=W, height=H, radius=self.radius, delta_t_us=self.delta_t,
             max_neighbors=K, queue_size=cfg.max_queue_size)
         state.num += C
-        state.steps += 1
         state.coverage_ok &= cover.all()
 
         # ---- event level: the self edge first, then the picks ------------
         slots = self._const(f"slots{C}", dev, lambda: (
             torch.arange(S)[:, None] * NR + torch.arange(C)).to(torch.int32))
         cvE = cv.reshape(E)
-        nbr = torch.cat([(slots + sl.start).reshape(E, 1), nbr_rest], 1)
+        nbr = torch.cat([(slots + off).reshape(E, 1), nbr_rest], 1)
         nbr_mask = torch.cat([cvE[:, None], hit], 1)
         dpos_tab = _spiral_tables(self.radius, W, H, dev)[1]
         dpos = torch.cat([dpos_tab.new_zeros(E, 1, 2),
@@ -234,13 +262,13 @@ class MultiStreamServer:
         pos_norm = pos_px.to(torch.float32) * inv_whT             # [S, C, 3]
         xin_c = torch.cat([feat, torch.where(cv[..., None], pos_norm[..., :2],
                                              0.0)], -1)
-        state.xin[:, sl] = xin_c
+        put(state.xin, xin_c)
         xin_dst = xin_c.reshape(E, -1)
         layer = self.model.backbone.conv_block1
         cb1, cb2 = layer.conv_block1, layer.conv_block2
         h1 = self._conv(state.xin.view(S * NR, -1), edges, cb1.conv, xin_dst)
         h1 = torch.where(cvE[:, None], self.act(bn_eval(h1, cb1.norm)), 0.0)
-        state.x1[:, sl] = h1.view(S, C, -1)
+        put(state.x1, h1.view(S, C, -1))
         h2 = bn_eval(self._conv(state.x1.view(S * NR, -1), edges, cb2.conv, h1),
                      cb2.norm)
         sk = bn_eval(xin_dst @ cb2.lin.weight.t(), cb2.norm_skip)
@@ -253,17 +281,15 @@ class MultiStreamServer:
                           + nx1 * _cell(pos_norm[..., 1], self.ny1), S * G1)
         if ring_win:
             # the evicted slots' cells and positions, before the write
-            ev_cell = state.cells.view(S, NR)[:, sl].clone(
-                memory_format=torch.contiguous_format).view(E)
-            ev_pos = state.posn[:, sl].clone(
-                memory_format=torch.contiguous_format).view(E, 3)
-        state.cells.view(S, NR)[:, sl] = seg
+            ev_cell = state.cells.view(S, NR).index_select(1, sl).view(E)
+            ev_pos = state.posn.index_select(1, sl).view(E, 3)
+        put(state.cells.view(S, NR), seg)
         cnt, psum, tmax = (state.cell_cnt.view(-1), state.pos_sum.view(-1, 3),
                            state.tmax.view(-1))
         rows = (seg.view(E), pos_norm.reshape(E, 3))
         if ring_win:
-            state.posn[:, sl] = torch.where(cv[..., None], pos_norm, 0.0)
-            state.x2r[:, sl] = x2.view(S, C, -1)
+            put(state.posn, torch.where(cv[..., None], pos_norm, 0.0))
+            put(state.x2r, x2.view(S, C, -1))
             ring_update_cells(
                 cnt, psum, tmax, state.adj_death.view(-1, 9), ev_cell, ev_pos,
                 *rows, nbr_rest, hit, state.cells, state.vid, grid_nx=nx1)
@@ -274,17 +300,16 @@ class MultiStreamServer:
                 state.cells, grid_nx=nx1)
 
         # ---- dense tail on every tail_every-th step ----------------------
-        fresh = (state.steps - 1) % self.tail_every == self.tail_every - 1
         raw = (self.dense_tail(state) if fresh else torch.zeros(
             (S, self.n_anchors, 5 + cfg.num_classes), device=dev))
         info = {"coverage_ok": state.coverage_ok.clone(),
-                "cover_parts": cover, "raw_fresh": fresh}
+                "cover_parts": cover}
         if debug:
             info["nbr_vid"] = torch.cat([vids.repeat(S)[:, None],
                                          state.vid[nbr_rest.long()]],
                                         1).view(S, C, K)
             info["nbr_mask"] = nbr_mask.view(S, C, K)
-        return state, raw, info
+        return raw, info
 
     @staticmethod
     def _conv(table, edges: LevelEdges, conv, x_dst):
@@ -302,7 +327,7 @@ class MultiStreamServer:
             feat_max = cell_max(state.cells, state.x2r.view(S * self.NR, -1),
                                 S * G1).view(S, G1, -1)
             # an edge lives while its newest source still holds its slot
-            adj = state.adj_death >= state.steps * self.chunk - self.NR
+            adj = state.adj_death >= state.num - self.NR
         else:
             feat_max, adj = state.cell_max, state.adj
         wh = self._const("wh", state.x1.device, lambda: torch.tensor(
@@ -342,14 +367,70 @@ class MultiStreamServer:
         out, cover = None, None
         for c in chunks:
             state, raw, info = self.step(state, *c)
-            out = raw
-            if decode and info["raw_fresh"]:
-                det = detect(raw, self.cfg, self.height, self.width)
-                out = (det["boxes"], det["scores"])
-            elif decode:
-                n = min(MAX_DETECTIONS, self.n_anchors)
-                out = (raw.new_zeros(self.S, n, 4), raw.new_zeros(self.S, n))
+            out = self._decoded(raw, info["raw_fresh"]) if decode else raw
             ok = info["coverage_ok"]
             cover = ok if cover is None else cover & ok
         return state, out, cover
 
+    def _decoded(self, raw: torch.Tensor, fresh: bool):
+        """(boxes, scores) of ``detect`` on a fresh step's raw, zeros of
+        the same shapes on a skipped one."""
+        if fresh:
+            det = detect(raw, self.cfg, self.height, self.width)
+            return det["boxes"], det["scores"]
+        n = min(MAX_DETECTIONS, self.n_anchors)
+        return raw.new_zeros(self.S, n, 4), raw.new_zeros(self.S, n)
+
+    def _device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    # ------------------------------------------------------------------
+    def make_step(self, debug: bool = False):
+        """``step`` compiled (``dagr_tpu``'s ``make_step``): ``step(state,
+        pos_px, feat, valid) -> (state, raw, info)``; on the card a replay
+        of the stale or the fresh step's CUDA graph, bound to the first
+        state it is given and updating it in place; raw and info are
+        copies (``utils.graphs``)."""
+        graphs = StepGraphs(self._device(), "MultiStreamServer.make_step")
+
+        def step(state, pos_px, feat, valid):
+            fresh = self._fresh(state)
+            raw, info = graphs(
+                fresh, lambda *a: self._step(state, *a, fresh, debug),
+                (pos_px, feat, valid), state=state)
+            state.steps += 1
+            return state, raw, dict(info, raw_fresh=fresh)
+
+        step.graphs = graphs
+        return step
+
+    def make_chain(self, n_steps: int, decode: bool = False):
+        """``run_chain`` compiled over ``n_steps`` stacked chunks
+        (``dagr_tpu``'s ``make_chain``): ``chain(state, pos_px [T, S, C,
+        3], feat [T, S, C, F], valid [T, S, C]) -> (state, the last step's
+        output, the AND of coverage_ok)``, T = ``n_steps``.  On the card
+        each step is a replay of the stale or the fresh step's graph (K4
+        inside the fresh one with ``decode``); nothing waits on the
+        device."""
+        graphs = StepGraphs(self._device(), "MultiStreamServer.make_chain")
+
+        def body(state, fresh):
+            def run(*chunk):
+                raw, info = self._step(state, *chunk, fresh, False)
+                out = self._decoded(raw, fresh) if decode else raw
+                return out, info["coverage_ok"]
+            return run
+
+        def chain(state, pos_px, feat, valid):
+            if not len(pos_px) == len(feat) == len(valid) == n_steps:
+                raise ValueError(f"the chain takes {n_steps} stacked chunks")
+            out, cover = None, None
+            for chunk in zip(pos_px, feat, valid):
+                fresh = self._fresh(state)
+                out, ok = graphs(fresh, body(state, fresh), chunk, state=state)
+                state.steps += 1
+                cover = ok if cover is None else cover & ok
+            return state, out, cover
+
+        chain.graphs = graphs
+        return chain

@@ -41,7 +41,12 @@ def _load(path: Path, state: TrainState) -> TrainState:
                        weights_only=True)
     state.model.load_state_dict(saved["model"])
     state.ema.load_state_dict(saved["ema"])
+    # the live groups keep their device scalar lr (a compiled step reads
+    # that tensor) and their capturable flag (the device decides it)
+    live = [(g["lr"], g["capturable"]) for g in state.optimizer.param_groups]
     state.optimizer.load_state_dict(saved["optimizer"])
+    for g, (lr, capturable) in zip(state.optimizer.param_groups, live):
+        g["lr"], g["capturable"] = lr.copy_(g["lr"]), capturable
     state.step, state.ema_updates = saved["step"], saved["ema_updates"]
     return state
 

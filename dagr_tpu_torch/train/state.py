@@ -20,7 +20,18 @@ loss of ``models.dagr.detection_loss_fusion``, then the same update.
 
 A ``TrainState`` holds the model being trained, the EMA model (an eval
 copy whose parameters and running statistics are the averages),
-the optimizer and the counts.  The steps update it in place.
+the optimizer and the counts.  The steps update it in place.  The step's
+host-side values, the learning rate ``sched(step)`` and the EMA decay,
+live in device scalars (the optimizer's tensor ``lr``; ``ema_weights``)
+that are filled from the host before each step, so that a step captured
+in a CUDA graph reads them anew on every replay; the optimizer is
+``capturable`` on the card for the same reason.
+
+``make_train_step`` and ``make_eval_forward`` are the compiled forms of
+``train_step`` and ``eval_forward`` for events-only models (the JAX
+package's jitted steps): on the card each call replays a CUDA graph,
+bound to one state, whose host counts its caller advances; on the CPU
+the same steps run eagerly (``utils.graphs.StepGraphs``).
 Float32 matrix products stay full float32 on the card (TF32 off, as
 ``serve.Detector`` sets it).  The step's stages are profiler ranges
 (``train_step.forward``, ``.loss``, ``.backward``, ``.update``), so a
@@ -31,7 +42,7 @@ from __future__ import annotations
 import copy
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +52,9 @@ from dagr_tpu_torch.config import DagrConfig
 from dagr_tpu_torch.core.types import EventBatch
 from dagr_tpu_torch.models.dagr import (
     DAGR, detection_loss, detection_loss_fusion)
+from dagr_tpu_torch.serve import window_forward
 from dagr_tpu_torch.train.lr_schedule import yolox_schedule
+from dagr_tpu_torch.utils.graphs import StepGraphs
 
 
 @dataclass(frozen=True)
@@ -61,9 +74,14 @@ class Recipe:
                 if n.split(".", 1)[0] not in self.frozen]
 
     def init(self, model: torch.nn.Module) -> torch.optim.AdamW:
+        """AdamW on the model's device with a float32 tensor ``lr`` there
+        (``_set_step_scalars`` fills it), capturable on the card."""
+        dev = next(model.parameters()).device
         return torch.optim.AdamW(
-            [p for _, p in self.trainable(model)], lr=self.sched(0),
-            betas=(0.9, 0.999), eps=1e-8, weight_decay=self.weight_decay)
+            [p for _, p in self.trainable(model)],
+            lr=torch.tensor(self.sched(0), dtype=torch.float32, device=dev),
+            betas=(0.9, 0.999), eps=1e-8, weight_decay=self.weight_decay,
+            capturable=dev.type == "cuda")
 
 
 @dataclass
@@ -74,6 +92,8 @@ class TrainState:
     recipe: Recipe
     step: int = 0            # updates so far
     ema_updates: int = 0
+    # f32 [2] on the device: the next update's EMA decay d and 1 - d
+    ema_weights: Optional[torch.Tensor] = None
 
 
 def make_optimizer(cfg: DagrConfig, num_iters_per_epoch: int,
@@ -102,22 +122,67 @@ def init_state(model: DAGR, recipe: Recipe) -> TrainState:
     for p in ema.parameters():
         p.requires_grad_(False)
     return TrainState(model=model, ema=ema,
-                      optimizer=recipe.init(model),
-                      recipe=recipe)
+                      optimizer=recipe.init(model), recipe=recipe,
+                      ema_weights=torch.zeros(
+                          2, device=next(model.parameters()).device))
 
 
 def train_step(state: TrainState, events: EventBatch,
                targets) -> Dict[str, torch.Tensor]:
     """One optimisation step on a batch (train-mode forward, SimOTA loss,
     backward, scrub, clip, AdamW, EMA); returns the detached losses."""
+    device = next(state.model.parameters()).device
+    _set_step_scalars(state)
+    losses = _recipe_step(state, events.to(device), torch.as_tensor(
+        targets, dtype=torch.float32, device=device))
+    _count_update(state)
+    return losses
+
+
+def _recipe_step(state: TrainState, events: EventBatch,
+                 targets: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The device work of ``train_step`` on device inputs."""
     model = state.model.train()
-    device = next(model.parameters()).device
-    targets = torch.as_tensor(targets, dtype=torch.float32, device=device)
     with record_function("train_step.forward"):
-        raw = model(events.to(device))
+        raw = model(events)
     with record_function("train_step.loss"):
         losses = detection_loss(raw, targets, model.cfg, model.height)
     return _update(state, losses)
+
+
+def make_train_step(state: TrainState) -> Callable:
+    """``train_step`` compiled for an events-only model
+    (``dagr_tpu``'s ``make_train_step``, jitted by its callers):
+    ``step(state, events, targets) -> losses``.  On the card the forward,
+    loss, backward (K9a, K9b), scrub, clip, AdamW and EMA are one CUDA
+    graph per batch shape, bound to ``state``; the events and targets
+    [B, G, 5] are copied into static buffers, the learning rate and the
+    EMA decay filled into their device scalars and ``step`` /
+    ``ema_updates`` advanced on the host before and after each replay;
+    the losses are copies."""
+    model = state.model
+    if model.cfg.use_image:
+        raise ValueError("make_train_step takes events-only models; the "
+                         "fusion step (train_step_fusion) runs eagerly")
+    graphs = StepGraphs(next(model.parameters()).device,
+                        "make_train_step")
+
+    def step(st: TrainState, events: EventBatch, targets):
+        tw = (events.width, events.height, events.time_window)
+
+        def body(pos, feat, mask, tgt):
+            return _recipe_step(st, EventBatch(pos, feat, mask, *tw), tgt)
+
+        st.model.train()
+        _set_step_scalars(st)
+        losses = graphs(tw, body, (
+            events.pos, events.feat, events.mask,
+            torch.as_tensor(targets, dtype=torch.float32)), state=st)
+        _count_update(st)
+        return losses
+
+    step.graphs = graphs
+    return step
 
 
 def train_step_fusion(state: TrainState, events: EventBatch,
@@ -131,19 +196,38 @@ def train_step_fusion(state: TrainState, events: EventBatch,
     device = next(model.parameters()).device
     tgt = [torch.as_tensor(t, dtype=torch.float32, device=device)
            for t in (targets, targets0)]
+    _set_step_scalars(state)
     with record_function("train_step.forward"):
         raw, raw_img = model(events.to(device),
                              images.to(device, torch.float32))
     with record_function("train_step.loss"):
         losses = detection_loss_fusion(raw, raw_img, *tgt, model.cfg,
                                        model.height, pretrain_cnn)
-    return _update(state, losses)
+    losses = _update(state, losses)
+    _count_update(state)
+    return losses
+
+
+def _set_step_scalars(state: TrainState) -> None:
+    """Fill the next update's learning rate ``sched(step)`` and EMA decay
+    (at ``ema_updates + 1``) into their device scalars, from the host."""
+    for group in state.optimizer.param_groups:
+        group["lr"].fill_(state.recipe.sched(state.step))
+    d = ema_decay(state.ema_updates + 1)
+    state.ema_weights[0].fill_(d)
+    state.ema_weights[1].fill_(float(np.float32(1.0) - np.float32(d)))
+
+
+def _count_update(state: TrainState) -> None:
+    state.step += 1
+    state.ema_updates += 1
 
 
 def _update(state: TrainState, losses) -> Dict[str, torch.Tensor]:
     """Backward of the total loss into the optimizer's parameters, NaN
-    scrub, clip, AdamW at ``sched(step)``, then the EMA of every float
-    tensor of the state dict (parameters and running statistics)."""
+    scrub, clip, AdamW at the tensor ``lr``, then the EMA of every float
+    tensor of the state dict (parameters and running statistics) at
+    ``ema_weights``: device work only, the counts are the caller's."""
     model = state.model
     params = [p for g in state.optimizer.param_groups for p in g["params"]]
     with record_function("train_step.backward"):
@@ -154,19 +238,14 @@ def _update(state: TrainState, losses) -> Dict[str, torch.Tensor]:
         for p, g in zip(params, grads):
             g = torch.zeros_like(p) if g is None else g
             p.grad = torch.nan_to_num(g, nan=0.0).clamp_(-clip, clip)
-        for group in state.optimizer.param_groups:
-            group["lr"] = state.recipe.sched(state.step)
         state.optimizer.step()
-        state.step += 1
-        state.ema_updates += 1
-        d = ema_decay(state.ema_updates)
         new = model.state_dict()
         ema = [(v, new[k]) for k, v in state.ema.state_dict().items()
                if v.is_floating_point()]
         ema, new = [e for e, _ in ema], [n for _, n in ema]
-        torch._foreach_mul_(ema, d)
-        torch._foreach_add_(ema, torch._foreach_mul(new, float(
-            np.float32(1.0) - np.float32(d))))
+        torch._foreach_mul_(ema, state.ema_weights[0])
+        torch._foreach_add_(ema, torch._foreach_mul(new,
+                                                    state.ema_weights[1]))
     return {k: v.detach() for k, v in losses.items()}
 
 
@@ -181,3 +260,20 @@ def eval_forward(state: TrainState, events: EventBatch, images=None,
     if images is None:
         return model(events.to(device))
     return model(events.to(device), images.to(device, torch.float32))
+
+
+def make_eval_forward(state: TrainState, use_ema: bool = True) -> Callable:
+    """``eval_forward`` compiled for an events-only model (``dagr_tpu``'s
+    ``make_eval_forward``, jitted by its callers): ``forward(state,
+    events) -> raw``, on the card one CUDA graph per batch shape
+    (``serve.window_forward``), bound to ``state`` and reading its
+    weights as they are at each call."""
+    model = state.ema if use_ema else state.model
+    fwd = window_forward(model, "make_eval_forward", decode=False)
+
+    def forward(st: TrainState, events: EventBatch):
+        model.eval()
+        return fwd(events, state=st)
+
+    forward.graphs = fwd.graphs
+    return forward

@@ -30,6 +30,16 @@ allocation a call, no decode op); K3 at 96 x 128 and 240 x 320 cells
 and at half of each, with K9b on the result; the Detector at
 pooling_dim_at_output 8x10 and 12x16.
 
+Compiled steps: every ``make_*`` (the engine's grow and ring
+``make_step`` and ``make_step_multistream``, the server's ``make_step``
+in both window modes at tail_every 1 and 4 and ``make_chain`` with and
+without decode, ``Detector.make_forward`` at two batch shapes,
+``make_train_step`` and ``make_eval_forward``) replayed from its CUDA
+graphs against the eager step on a second state: raw to 1e-5 of its
+max, the integer tables exact, train losses to 1e-5 and every
+parameter, EMA leaf and Adam moment to 1e-5 of its max; a call with
+another state raises.
+
 Tolerances as in chip_smoke.py: K1, K4, K6 and K8's search's discrete
 outputs and K3's masks, ids and positions exact, K2 (the aggregation
 and the fused eval block) and K7's gathered block to 1e-5 of the
@@ -78,7 +88,8 @@ from dagr_tpu_torch.serve import Detector
 from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
 from dagr_tpu_torch.streaming.serve import MultiStreamServer, chunk_streams
 from dagr_tpu_torch.train.state import (
-    eval_forward, init_state, make_optimizer, train_step)
+    eval_forward, init_state, make_eval_forward, make_optimizer,
+    make_train_step, train_step)
 
 pytestmark = pytest.mark.cuda
 W, H = 320, 240
@@ -1461,8 +1472,10 @@ def test_voxel_pool_runs_and_outputs(dev, case):
 
 def test_grow_step_with_fused_blocks_in_a_cuda_graph(dev):
     """A grow step of 256 (its tail's 18 fused blocks and 3 poolings)
-    captured in a CUDA graph and replayed over fresh chunks beside the
-    eager step on a copy of the state: raw within 1e-5."""
+    captured in a CUDA graph by make_step, after two warm-up steps, and
+    replayed over fresh chunks beside the eager step on a copy of the
+    state: raw within 1e-5; the capture recorded the 2 gathered blocks
+    and 18 fused blocks of a step and no split conv."""
     cfg = DagrConfig(n_nodes=2048)
     det = Detector(cfg, H, W, dev, seed=10)
     eng = StreamingDetector(det.model, H, W, chunk=256, count_flops=False)
@@ -1475,30 +1488,26 @@ def test_grow_step_with_fused_blocks_in_a_cuda_graph(dev):
     copy_st = dataclasses.replace(st, **{
         f.name: getattr(st, f.name).clone()
         for f in dataclasses.fields(st) if getattr(st, f.name) is not None})
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for c in chunks[3:5]:
-            copy_st, _, _ = eng.step(copy_st, *c)
-    torch.cuda.current_stream().wait_stream(side)
+    step = eng.make_step()
     for c in chunks[3:5]:
+        step(copy_st, *c)
         st, _, _ = eng.step(st, *c)
-    inputs = [t.clone() for t in chunks[5]]
     before = _build.launch_counts()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        _, graph_raw, _ = eng.step(copy_st, *inputs)
+    _, graph_raw, _ = step(copy_st, *chunks[5])
     after = _build.launch_counts()
     assert after["spline_conv_block"] - before["spline_conv_block"] == 18
     assert after["spline_gather_block"] - before["spline_gather_block"] == 2
     assert after["spline_conv"] == before["spline_conv"]
-    for c in chunks[5:8]:
-        for t, v in zip(inputs, c):
-            t.copy_(v)
-        graph.replay()
+    st, raw, _ = eng.step(st, *chunks[5])
+    torch.testing.assert_close(graph_raw, raw, atol=1e-5, rtol=1e-5)
+    for c in chunks[6:8]:
+        before = _build.launch_counts()
+        _, graph_raw, _ = step(copy_st, *c)
+        assert _build.launch_counts() == before        # a replay
         st, raw, _ = eng.step(st, *c)
         torch.cuda.synchronize()
         torch.testing.assert_close(graph_raw, raw, atol=1e-5, rtol=1e-5)
+    assert step.graphs.replays() == 3
 
 
 # anchor tables (grids, strides) by anchor count: DAGR-S's head at
@@ -1731,3 +1740,207 @@ def test_split_conv_at_the_fusion_width(dev):
     for a, b in zip(spline_conv_backward(x, gy, edges, w, root),
                     spline_conv_backward_plain(x, gy, edges, w, root)):
         assert_close_to_max(a, b, "bwd")
+
+
+# ---- compiled steps: each make_* replayed from CUDA graphs against the
+# eager step on its own copy of the state --------------------------------
+
+def assert_raw_close(got, want):
+    """Within 1e-5 of the eager output's max."""
+    tol = 1e-5 * max(float(want.abs().max()), 1e-30)
+    assert float((got - want).abs().max()) <= tol
+
+
+def assert_tables_equal(a, b, fields):
+    for f in fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def stream_chunks(seed, n, chunk, dev, streams=None):
+    """n events of one stream (or ``streams`` lockstep ones) in chunks."""
+    rng = np.random.default_rng(seed)
+    if streams is None:
+        feat = rng.integers(0, 2, (n, 1)).astype(np.float32)
+        return chunk_events(event_stream(seed, n), feat, chunk, device=dev)
+    pos = np.stack([event_stream(seed + s, n) for s in range(streams)])
+    feat = rng.integers(0, 2, (streams, n, 1)).astype(np.float32)
+    return chunk_streams(pos, feat, chunk, device=dev)
+
+
+@pytest.mark.parametrize("mode", ["grow", "ring"])
+def test_engine_make_step_replays_match_eager(dev, mode):
+    """3072 events into a 2048-event store in chunks of 256 (the ring
+    wraps): make_step (2 warm-up steps, then one graph replayed 10 times)
+    against the eager step on a second state; raw within 1e-5 of its
+    max, FLOP counts and the integer tables exact; K6, K7, K2 and K3 are
+    the captured graph's kernels; another state is refused."""
+    cfg = DagrConfig(n_nodes=2048)
+    det = Detector(cfg, H, W, dev, seed=11)
+    eng = StreamingDetector(det.model, H, W, chunk=256, window_mode=mode)
+    step = eng.make_step()
+    st, ref = eng.init_state(), eng.init_state()
+    for c in stream_chunks(11, 3072, 256, dev):
+        _, raw, flops = step(st, *c)
+        ref, want, want_flops = eng.step(ref, *c)
+        torch.cuda.synchronize()
+        assert_raw_close(raw, want)
+        assert all(torch.equal(flops[k], want_flops[k]) for k in want_flops)
+    assert step.graphs.replays() == 10 and len(step.graphs.graphs) == 1
+    fields = ("num", "vid", "valid", "cells", "nbr_slots", "nbr_vid",
+              "nbr_valid") + (("cell_cnt", "adj") if mode == "grow" else ())
+    assert_tables_equal(st, ref, fields)
+    with pytest.raises(ValueError, match="another state"):
+        step(ref, *c)
+
+
+def test_engine_make_step_multistream_replays_match_eager(dev):
+    """3 streams of 1024 events in chunks of 128 through one graph a call
+    against step_multistream on other states: raw 1e-5, tables exact."""
+    cfg = DagrConfig(n_nodes=2048)
+    det = Detector(cfg, H, W, dev, seed=12)
+    eng = StreamingDetector(det.model, H, W, chunk=128)
+    step = eng.make_step_multistream()
+    sts, refs = eng.init_states(3), eng.init_states(3)
+    for c in stream_chunks(12, 1024, 128, dev, streams=3):
+        _, raw, flops = step(sts, *c)
+        refs, want, want_flops = eng.step_multistream(refs, *c)
+        torch.cuda.synchronize()
+        assert raw.shape == want.shape == (3, 1) + want.shape[2:]
+        assert_raw_close(raw, want)
+        assert torch.equal(flops["total"], want_flops["total"])
+    assert step.graphs.replays() == 6
+    for a, b in zip(sts, refs):
+        assert_tables_equal(a, b, ("num", "vid", "cells", "nbr_slots",
+                                   "cell_cnt", "adj"))
+    with pytest.raises(ValueError, match="another state"):
+        step(refs, *c)
+
+
+@pytest.mark.parametrize("mode,tail_every", [
+    ("grow", 1), ("grow", 4), ("ring", 1), ("ring", 4)])
+def test_server_make_step_replays_match_eager(dev, mode, tail_every):
+    """4 streams of 3072 events in chunks of 256 through rings of 2048
+    slots (wrapped): make_step(debug=True) against the eager step on a
+    second state; raw 1e-5 of its max, the edges, coverage_ok, raw_fresh
+    and the integer tables exact; at most two graphs (a stale and a
+    fresh step's) in one pool; another state is refused."""
+    cfg = DagrConfig(n_nodes=2048)
+    det = Detector(cfg, H, W, dev, seed=13)
+    srv = MultiStreamServer(det.model, H, W, 4, 256, ring=2048,
+                            tail_every=tail_every, window_mode=mode)
+    step = srv.make_step(debug=True)
+    st, ref = srv.init_state(), srv.init_state()
+    for c in stream_chunks(13, 3072, 256, dev, streams=4):
+        _, raw, info = step(st, *c)
+        ref, want, want_info = srv.step(ref, *c, debug=True)
+        torch.cuda.synchronize()
+        assert info["raw_fresh"] == want_info["raw_fresh"]
+        assert_raw_close(raw, want)
+        for k in ("coverage_ok", "nbr_vid", "nbr_mask"):
+            assert torch.equal(info[k], want_info[k]), k
+    graphs = step.graphs.graphs.values()
+    assert sum(g.graph is not None for g in graphs) == len(graphs) <= 2
+    assert step.graphs.replays() > 0 and st.steps == ref.steps == 12
+    assert_tables_equal(st, ref, ("num", "pix", "t", "vid", "cells",
+                                  "cell_cnt") + (
+        ("adj",) if mode == "grow" else ("adj_death",)))
+    assert int(st.num) > srv.NR
+    with pytest.raises(ValueError, match="another state"):
+        step(ref, *c)
+
+
+def test_server_make_chain_matches_run_chain(dev):
+    """make_chain(decode=True) at tail_every=2, twice over 8 stacked
+    chunks of 4 streams (K4 inside the fresh step's graph), against
+    run_chain on another state: boxes and scores within 1e-5, the AND of
+    coverage_ok equal; the raw chain's output 1e-5 of its max."""
+    cfg = DagrConfig(n_nodes=2048)
+    det = Detector(cfg, H, W, dev, seed=14)
+    srv = MultiStreamServer(det.model, H, W, 4, 256, tail_every=2)
+    chunks = stream_chunks(14, 4096, 256, dev, streams=4)
+    halves = (chunks[:8], chunks[8:])
+    for decode in (True, False):
+        chain = srv.make_chain(8, decode=decode)
+        st, ref = srv.init_state(), srv.init_state()
+        for half in halves:      # warm-up, then capture and replays
+            st, out, cover = chain(st, *(
+                torch.stack([c[j] for c in half]) for j in range(3)))
+            ref, want, want_cover = srv.run_chain(ref, half, decode=decode)
+        torch.cuda.synchronize()
+        assert bool(cover) == bool(want_cover)
+        if decode:
+            assert torch.equal(out[1] > 0, want[1] > 0)
+            for a, b in zip(out, want):
+                assert float((a - b).abs().max()) <= 1e-5
+        else:
+            assert_raw_close(out, want)
+        assert chain.graphs.replays() > 0
+
+
+def test_detector_make_forward_matches_call(dev):
+    """make_forward at B=1 and at a ragged B=3 (graph build, the fused
+    blocks, poolings, head and K4 in one graph a batch shape) against
+    __call__: raw 1e-5 of its max, keeps, labels and order exact, boxes
+    and scores 1e-5; events given on the CPU go into the static
+    buffers."""
+    cfg = DagrConfig(n_nodes=4000)
+    det = Detector(cfg, H, W, dev, seed=15)
+    fwd = det.make_forward()
+    batches = [ragged_windows(15, dev), ragged_windows(16, "cpu")]
+    one = EventBatch(pos=batches[0].pos[:1], feat=batches[0].feat[:1],
+                     mask=batches[0].mask[:1], width=W, height=H)
+    for ev in [one] * 4 + batches * 3:
+        raw, dets = fwd(ev)
+        want_raw, want = det(ev)
+        torch.cuda.synchronize()
+        assert_raw_close(raw, want_raw)
+        for k in ("valid", "labels"):
+            assert torch.equal(dets[k], want[k]), k
+        for k in ("boxes", "scores"):
+            assert float((dets[k] - want[k]).abs().max()) <= 1e-5, k
+    assert len(fwd.graphs.graphs) == 2 and fwd.graphs.replays() == 6
+
+
+def test_compiled_train_step_and_eval_forward_match_eager(dev):
+    """Three make_train_step replays (after two warm-up steps) against
+    eager train_steps on a deep copy of the state: losses to 1e-5
+    relative, every parameter, EMA leaf and Adam moment to 1e-5 of its
+    max; K9a and K9b inside the graph; then make_eval_forward against
+    eval_forward, raw 1e-5 of its max."""
+    cfg = DagrConfig(n_nodes=4000, batch_size=3)
+    model = DAGR(cfg, H, W)
+    init_fresh(model, torch.Generator().manual_seed(16))
+    recipe = make_optimizer(cfg, 10)[0]
+    state = init_state(model.to(dev), recipe)
+    ref = init_state(copy.deepcopy(model), recipe)
+    for p, q in zip(state.model.parameters(), ref.model.parameters()):
+        assert p is not q
+    ev = ragged_windows(17, dev)
+    tgt = random_targets(np.random.default_rng(17), 3, width=W, height=H,
+                         n_boxes=5)
+    step = make_train_step(state)
+    for i in range(5):
+        got, want = step(state, ev, tgt), train_step(ref, ev, tgt)
+        torch.cuda.synchronize()
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
+    assert step.graphs.replays() == 3 and state.step == ref.step == 5
+
+    def close(a, b, what):
+        tol = 1e-5 * max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= tol, what
+
+    for a, b in ((state.model, ref.model), (state.ema, ref.ema)):
+        sa, sb = a.state_dict(), b.state_dict()
+        for k in sb:
+            close(sa[k], sb[k], k)
+    for p, q in zip(state.model.parameters(), ref.model.parameters()):
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            close(state.optimizer.state[p][k], ref.optimizer.state[q][k], k)
+    with pytest.raises(ValueError, match="another state"):
+        step(ref, ev, tgt)
+    fwd = make_eval_forward(state)
+    for _ in range(4):
+        raw = fwd(state, ev)
+    assert_raw_close(raw, eval_forward(state, ev))
+    assert fwd.graphs.replays() == 2

@@ -33,6 +33,17 @@ NV = 96
 TEMPORAL = (("num_scales", 1), ("keep_temporal_ordering", True))
 
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module: its tiny CPU steps gain
+    little from more, and beside other test workers more threads only
+    contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 @functools.lru_cache(maxsize=None)
 def weights(cfg_kw=()):
     """(dagr_tpu config, flax variables, the port's eval model) of one
@@ -108,11 +119,11 @@ def test_tail_every_cadence():
         assert torch.equal(getattr(st1, f), getattr(st2, f))
 
 
-def test_chain_decode_matches_dagr_tpu():
-    """run_chain(decode=True) with tail_every=2 over 4 chunks (the last
-    one fresh) against dagr_tpu's make_chain(decode=True), and against
-    detect on the stepwise raw."""
-    jcfg, variables, model = weights()
+@functools.lru_cache(maxsize=None)
+def jax_chain():
+    """dagr_tpu's make_chain(decode=True) with tail_every=2 over 4 chunks
+    of 2 streams (the last one fresh): (chunks, boxes, scores, cover)."""
+    jcfg, variables, _ = weights()
     pos, feat = streams(np.random.default_rng(7), 2)
     chunks = chunk_streams(pos, feat, 24)
     jsrv = JaxServer(jcfg, H, W, n_streams=2, chunk=24, tail_every=2)
@@ -120,15 +131,21 @@ def test_chain_decode_matches_dagr_tpu():
                             n_steps=len(chunks), decode=True)
     stacked = tuple(np.stack([c[j].numpy() for c in chunks]) for j in range(3))
     _, (jboxes, jscores), jcover = chain(jsrv.init_state(), *stacked)
+    return chunks, np.asarray(jboxes), np.asarray(jscores), bool(jcover)
 
+
+def test_chain_decode_matches_dagr_tpu():
+    """run_chain(decode=True) with tail_every=2 over 4 chunks (the last
+    one fresh) against dagr_tpu's make_chain(decode=True), and against
+    detect on the stepwise raw."""
+    _, _, model = weights()
+    chunks, jboxes, jscores, jcover = jax_chain()
     srv = MultiStreamServer(model, H, W, 2, 24, tail_every=2)
     _, (boxes, scores), cover = srv.run_chain(srv.init_state(), chunks,
                                               decode=True)
-    assert bool(cover) and bool(jcover)
-    np.testing.assert_allclose(boxes.numpy(), np.asarray(jboxes), atol=1e-5,
-                               rtol=0)
-    np.testing.assert_allclose(scores.numpy(), np.asarray(jscores), atol=1e-5,
-                               rtol=0)
+    assert bool(cover) and jcover
+    np.testing.assert_allclose(boxes.numpy(), jboxes, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(scores.numpy(), jscores, atol=1e-5, rtol=0)
     st = srv.init_state()
     for c in chunks:
         st, raw, _ = srv.step(st, *c)
@@ -141,25 +158,110 @@ def test_chain_decode_matches_dagr_tpu():
     assert not b3.any() and not s3.any()
 
 
-def test_step_multistream_matches_dagr_tpu():
-    """The engine's init_states / step_multistream (a loop over streams)
-    against dagr_tpu's vmapped make_step_multistream
-    (tests/test_multistream.py's setup)."""
+def test_make_chain_matches_dagr_tpu():
+    """The compiled chain (make_chain(decode=True), tail_every=2, 4 stacked
+    chunks) against dagr_tpu's: the kept detections identical, boxes and
+    scores to 1e-4; without decode its raw equals run_chain's; it takes
+    only its n_steps chunks and only the state of its first call."""
+    _, _, model = weights()
+    chunks, jboxes, jscores, jcover = jax_chain()
+    stacked = [torch.stack([c[j] for c in chunks]) for j in range(3)]
+    srv = MultiStreamServer(model, H, W, 2, 24, tail_every=2)
+    chain = srv.make_chain(len(chunks), decode=True)
+    st, (boxes, scores), cover = chain(srv.init_state(), *stacked)
+    assert st.steps == len(chunks) and bool(cover) == jcover
+    np.testing.assert_array_equal(scores.numpy() > 0, jscores > 0)
+    np.testing.assert_allclose(boxes.numpy(), jboxes, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(scores.numpy(), jscores, atol=1e-4, rtol=0)
+    raw_chain = srv.make_chain(len(chunks))
+    _, raw, _ = raw_chain(srv.init_state(), *stacked)
+    _, want, _ = srv.run_chain(srv.init_state(), chunks)
+    assert torch.equal(raw, want)
+    with pytest.raises(ValueError, match="stacked chunks"):
+        raw_chain(st, *(a[:3] for a in stacked))
+    with pytest.raises(ValueError, match="another state"):
+        raw_chain(srv.init_state(), *stacked)
+
+
+@pytest.mark.parametrize("mode,tail_every", [("grow", 1), ("ring", 4)])
+def test_make_step_matches_dagr_tpu(mode, tail_every):
+    """The compiled server step (make_step(debug=True)) against dagr_tpu's
+    over 2 streams of two windows in chunks of 32 through a ring of 64
+    slots (wrapped three times): raw to 1e-4, the edges (nbr_mask, and
+    nbr_vid where masked), coverage_ok and raw_fresh identical."""
     jcfg, variables, model = weights()
+    pos, feat = streams(np.random.default_rng(3), 2, n_windows=2)
+    kw = dict(ring=64, window_mode=mode, tail_every=tail_every)
+    jsrv = JaxServer(jcfg, H, W, n_streams=2, chunk=32, **kw)
+    jstep = jsrv.make_step(variables["params"], variables["batch_stats"],
+                           debug=True)
+    jst = jsrv.init_state()
+    srv = MultiStreamServer(model, H, W, 2, 32, **kw)
+    step = srv.make_step(debug=True)
+    st = srv.init_state()
+    for c in chunk_streams(pos, feat, 32):
+        jst, jraw, jinfo = jstep(jst, *(a.numpy() for a in c))
+        st, raw, info = step(st, *c)
+        np.testing.assert_allclose(raw.numpy(), np.asarray(jraw), atol=1e-4,
+                                   rtol=0)
+        for k in ("nbr_mask", "coverage_ok", "raw_fresh"):
+            np.testing.assert_array_equal(np.asarray(info[k]),
+                                          np.asarray(jinfo[k]), err_msg=k)
+        mask = info["nbr_mask"].numpy()
+        np.testing.assert_array_equal(
+            np.where(mask, info["nbr_vid"].numpy(), 0),
+            np.where(mask, np.asarray(jinfo["nbr_vid"]), 0))
+    assert int(st.num) == st.steps * 32 > 2 * srv.NR
+
+
+@functools.lru_cache(maxsize=None)
+def jax_multistream():
+    """dagr_tpu's vmapped make_step_multistream over 3 streams
+    (tests/test_multistream.py's setup): (stacked chunks, raws)."""
+    jcfg, variables, _ = weights()
     pos, feat = streams(np.random.default_rng(0), 3)
     jeng = JaxStreaming(jcfg, H, W, chunk=32, count_flops=False)
     jstep = jeng.make_step_multistream(variables["params"],
                                        variables["batch_stats"])
     jstates = jeng.init_states(3)
-    eng = StreamingDetector(model, H, W, chunk=32, count_flops=False)
-    states = eng.init_states(3)
     per_stream = [chunk_events(pos[s], feat[s], 32) for s in range(3)]
+    chunks, raws = [], []
     for j in range(len(per_stream[0])):
         c = [torch.stack([cs[j][k] for cs in per_stream]) for k in range(3)]
         jstates, jraw, _ = jstep(jstates, *(a.numpy() for a in c))
+        chunks.append(c)
+        raws.append(np.asarray(jraw))
+    return chunks, raws
+
+
+def test_step_multistream_matches_dagr_tpu():
+    """The engine's init_states / step_multistream (a loop over streams)
+    against dagr_tpu's vmapped make_step_multistream."""
+    _, _, model = weights()
+    eng = StreamingDetector(model, H, W, chunk=32, count_flops=False)
+    states = eng.init_states(3)
+    for c, jraw in zip(*jax_multistream()):
         states, raw, flops = eng.step_multistream(states, *c)
-        assert raw.shape == tuple(np.asarray(jraw).shape)
-        np.testing.assert_allclose(raw.numpy(), np.asarray(jraw), atol=1e-5,
-                                   rtol=0)
+        assert raw.shape == jraw.shape
+        np.testing.assert_allclose(raw.numpy(), jraw, atol=1e-5, rtol=0)
     assert [int(s.num) for s in states] == [NV] * 3
     assert flops["total"].shape == (3,)
+
+
+def test_make_step_multistream_matches_dagr_tpu():
+    """The compiled form (make_step_multistream) against dagr_tpu's
+    vmapped step, 1e-5; it updates the states it is given and refuses
+    another list of states."""
+    _, _, model = weights()
+    eng = StreamingDetector(model, H, W, chunk=32)
+    step = eng.make_step_multistream()
+    states = eng.init_states(3)
+    chunks, raws = jax_multistream()
+    for c, jraw in zip(chunks, raws):
+        out, raw, flops = step(states, *c)
+        assert out is states and raw.shape == jraw.shape
+        np.testing.assert_allclose(raw.numpy(), jraw, atol=1e-5, rtol=0)
+    assert [int(s.num) for s in states] == [NV] * 3
+    assert flops["total"].shape == (3,)
+    with pytest.raises(ValueError, match="another state"):
+        step(eng.init_states(3), *chunks[0])

@@ -32,6 +32,17 @@ W, H = 64, 48
 KW = dict(max_neighbors=8, radius=0.05)
 
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module: its tiny CPU steps gain
+    little from more, and beside other test workers more threads only
+    contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 @pytest.fixture(scope="module")
 def weights():
     """(flax variables, the port's state_dict) of one seeded DAGR."""
@@ -57,10 +68,12 @@ def window(seed, n_nodes, n_valid):
             np.asarray(ev.feat[0])[:n_valid])
 
 
-def run_both(weights, n_nodes, pos_px, feat, chunk, mode, check_step=None):
+def run_both(weights, n_nodes, pos_px, feat, chunk, mode, check_step=None,
+             compiled=False):
     """Feed the same chunks to both engines, comparing raw (1e-4) and the
-    FLOP census at every step; returns (jax engine, jax state, port
-    engine, port state, last raws)."""
+    FLOP census at every step; the port's step is ``make_step``'s with
+    ``compiled``.  Returns (jax engine, jax state, port engine, port
+    state, last raws)."""
     variables, sd = weights
     jeng = JaxStreaming(JaxDagrConfig(n_nodes=n_nodes, **KW), H, W,
                         chunk=chunk, window_mode=mode)
@@ -69,9 +82,10 @@ def run_both(weights, n_nodes, pos_px, feat, chunk, mode, check_step=None):
     eng = StreamingDetector(port_model(sd, n_nodes), H, W, chunk=chunk,
                             window_mode=mode)
     st = eng.init_state()
+    step = eng.make_step() if compiled else eng.step
     for c in chunk_events(pos_px, feat, chunk):
         jst, jraw, jflops = jstep(jst, *(a.numpy() for a in c))
-        st, raw, flops = eng.step(st, *c)
+        st, raw, flops = step(st, *c)
         np.testing.assert_allclose(raw.numpy(), np.asarray(jraw),
                                    atol=1e-4, rtol=1e-4)
         assert set(flops) == set(jflops)
@@ -152,6 +166,25 @@ def test_ring_with_eviction_matches_dagr_tpu(weights):
     assert_level1_equal(eng.level1_nodeset(st), jeng._level1_nodeset(jst),
                         pos_atol=6e-8)
     assert np.isfinite(raw).all()
+
+
+def test_make_step_matches_dagr_tpu(weights):
+    """The compiled step (make_step) through the evicting ring of
+    test_ring_with_eviction_matches_dagr_tpu against dagr_tpu's jitted
+    step: raw 1e-4 and the FLOP census every step, the store exact; its
+    raw outputs are copies, and it refuses another state."""
+    _, pos_px, feat = window(0, 160, 160)
+    _, jst, eng, st, _, _ = run_both(weights, 64, pos_px, feat, 16, "ring",
+                                     compiled=True)
+    assert_store_equal(jst, st)
+    step = eng.make_step()
+    c = chunk_events(pos_px, feat, 16)
+    _, raw, _ = step(st, *c[0])
+    kept = raw.clone()
+    step(st, *c[1])
+    assert torch.equal(raw, kept)
+    with pytest.raises(ValueError, match="another state"):
+        step(eng.init_state(), *c[0])
 
 
 def test_grow_keeps_the_first_n_events():

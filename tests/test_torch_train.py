@@ -9,6 +9,11 @@ tiny config in both packages, and one step from a mid-training
 ``MaskedBatchNorm`` in train mode, the fresh init's distributions,
 checkpoints, the copies of the COCO evaluation and the harness.
 
+The compiled forms: two ``make_train_step`` steps against two eager
+``train_step``s of the port (losses, every parameter, EMA leaf and Adam
+moment to 1e-6 of its max), the first also against dagr_tpu's step;
+``make_eval_forward`` against dagr_tpu's jitted ``make_eval_forward``.
+
 Tolerances: losses per step to 1e-5 relative; each gradient leaf to
 1e-4 of its largest entry (sums over nodes, neighbours and anchors run
 in another order, and the raw outputs feed a log and an exp); params,
@@ -39,6 +44,7 @@ from dagr_tpu.train.harness import run_test as jax_run_test
 from dagr_tpu.train.lr_schedule import yolox_schedule as jax_schedule
 from dagr_tpu.train.state import ema_decay as jax_ema_decay
 from dagr_tpu.train.state import init_state as jax_init_state
+from dagr_tpu.train.state import make_eval_forward as jax_make_eval_forward
 from dagr_tpu.train.state import make_optimizer as jax_make_optimizer
 from dagr_tpu.train.state import ema_update
 from dagr_tpu_torch.config import DagrConfig
@@ -52,7 +58,8 @@ from dagr_tpu_torch.train.checkpoint import Checkpointer
 from dagr_tpu_torch.train.harness import run_test, train_epoch
 from dagr_tpu_torch.train.lr_schedule import yolox_schedule
 from dagr_tpu_torch.train.state import (
-    ema_decay, init_state, make_optimizer, train_step)
+    ema_decay, eval_forward, init_state, make_eval_forward, make_optimizer,
+    make_train_step, train_step)
 from dagr_tpu_torch.utils.logging import MetricLogger
 
 W, H = 64, 48
@@ -229,6 +236,63 @@ def test_eval_harness_matches(jax_run):
         np.testing.assert_allclose(d["boxes"], jd["boxes"], atol=1e-3)
         np.testing.assert_allclose(d["scores"], jd["scores"], atol=1e-5)
     assert buf.compute().keys() == jbuf.compute().keys()
+
+
+def test_make_train_step_matches_eager_and_dagr_tpu(jax_run):
+    """Two compiled steps (on the CPU the step body run eagerly) against
+    two eager train_steps from the same state: losses, every parameter,
+    EMA leaf and Adam moment to 1e-6 of its max; the first step against
+    dagr_tpu's; the step refuses another state."""
+    _, states, losses, _, _, tgt = jax_run
+    ev, _ = port_batch()
+    got, want = to_port(states[0]), to_port(states[0])
+    step = make_train_step(got)
+    for i in range(2):
+        a, b = step(got, ev, tgt), train_step(want, ev, tgt)
+        assert a.keys() == b.keys()
+        for k in b:
+            assert abs(float(a[k] - b[k])) <= 1e-6 * max(abs(float(b[k])),
+                                                          1e-30), k
+        if i == 0:
+            assert_losses_match(a, losses[0])
+            assert_state_matches(got, states[1])
+    assert (got.step, got.ema_updates) == (want.step, want.ema_updates) == (
+        2, 2)
+
+    def close(x, y, what):
+        tol = 1e-6 * max(float(y.abs().max()), 1e-30)
+        assert float((x - y).abs().max()) <= tol, what
+
+    for m, n in ((got.model, want.model), (got.ema, want.ema)):
+        sm, sn = m.state_dict(), n.state_dict()
+        for k in sn:
+            close(sm[k], sn[k], k)
+    for p, q in zip(got.model.parameters(), want.model.parameters()):
+        sa, sb = got.optimizer.state[p], want.optimizer.state[q]
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            close(sa[k], sb[k], k)
+    with pytest.raises(ValueError, match="another state"):
+        step(want, ev, tgt)
+
+
+def test_make_eval_forward_matches_dagr_tpu(jax_run):
+    """The compiled eval forward on the EMA weights of step 3 against
+    dagr_tpu's jitted make_eval_forward (raw 1e-4); on the trained
+    weights equal to the eager eval_forward."""
+    model, states, *_ = jax_run
+    jev = jax_random_events(np.random.default_rng(6), 2, 128, width=W,
+                            height=H)
+    jraw = jax.jit(jax_make_eval_forward(model))(states[3], jev)
+    ev = random_events(np.random.default_rng(6), 2, 128, width=W, height=H)
+    state = to_port(states[3])
+    raw = make_eval_forward(state)(state, ev)
+    np.testing.assert_allclose(raw.numpy(), np.asarray(jraw), atol=1e-4,
+                               rtol=0)
+    fwd = make_eval_forward(state, use_ema=False)
+    assert torch.equal(fwd(state, ev),
+                       eval_forward(state, ev, use_ema=False))
+    with pytest.raises(ValueError, match="another state"):
+        fwd(to_port(states[3]), ev)
 
 
 @pytest.mark.parametrize("ni,epochs,steps", [
