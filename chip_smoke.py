@@ -164,16 +164,37 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    trunk and reductions bit-identical, every other parameter moved, the
    EMA following; every train kernel launched on every step), the p50
    step, peak memory and device busy;
-11. prints the kernel table (every kernel's error, time, twin time,
+11. evaluates a checkpoint (``run_test``) as
+   ``dagr_tpu_torch.scripts.run_test`` does, at DSEC-Det's geometry (320
+   x 215), without the host readers (prints which of h5py, yaml, cv2 and
+   hdf5plugin import here; it needs none): DAGR-S with seeded weights
+   saved as an upstream-style ``.pth`` and loaded through
+   ``load_eval_checkpoint`` onto the card, bit-equal; ``evaluate`` over 8
+   in-memory windows through ``Augmentations.testing()``, ``Loader`` and
+   ``collate``, one a batch: K4 on every batch and K1, 20 fused blocks
+   and K3 on every batch that ran eagerly or captured, one CUDA-graph
+   replay on every other; the first batch's kernels against their twins
+   on its own inputs; raw against the CPU plain path (1e-4), every
+   window's detections and the COCO dict equal to the CPU's; then the
+   same loop timed over 256 windows (the 8 first, their detections
+   equal to the first run's): windows/s over the whole loop and over its
+   replayed batches, the replayed batches' p50, the host's share of the
+   loop and its work a window (transform, collate, copy), and one
+   batch's device busy;
+12. prints the kernel table (every kernel's error, time, twin time,
    bound and library-call time, and its launches on each path, the wide
    windows' as ``wide_launches``, a fusion request's as
-   ``fusion_launches`` and a fusion step's as
-   ``fusion_train_launches_per_step``; the fusion window's checks as
-   ``fusion_checks``), the card line and, last, the result line.
+   ``fusion_launches``, a fusion step's as
+   ``fusion_train_launches_per_step`` and the run_test loop's as
+   ``dsec_launches``; the fusion window's checks as ``fusion_checks``,
+   the run_test batch's as ``dsec_checks``), the card line and, last,
+   the result line.
 
 Usage: ``python3 chip_smoke.py`` from the repository root;
 ``python3 chip_smoke.py --train-only`` runs the build and phase 9 alone
-and prints no result line; ``--graphs-only`` the build and phase 7.  ``python3 chip_smoke.py --compare DIR``
+and prints no result line; ``--graphs-only`` the build and phase 7,
+``--run-test-only`` the build and phase 11.  ``python3 chip_smoke.py
+--compare DIR``
 measures another checkout's package (``DIR/dagr_tpu_torch``, for
 instance the parent commit's: ``git archive HEAD~ dagr_tpu_torch | tar
 -x -C DIR``) against this one on the same card, in turns (parent,
@@ -283,6 +304,23 @@ TRAIN_KERNELS = ("graph_search", "spline_conv", "voxel_pool") \
 # the fusion phase: B=1 windows served (and one batch of 8 of them), train
 # steps after warm-up ones
 FUSION_WINDOWS, FUSION_WARM, FUSION_TIMED = 8, 2, 6
+# the run_test phase: DSEC-Det's geometry (data.dsec.DSEC: 640 / 2 wide,
+# the 430-row crop / 2 high), 8 windows of about 45k events over 50 ms
+# (the span between two DSEC frames) ending at the time window, a few
+# ground-truth boxes each, evaluated one window a batch; the loop is timed
+# over EVAL_TIMED windows, the EVAL_WINDOWS first
+DSEC_H, DSEC_W, EVAL_WINDOWS, EVAL_B, EVAL_TIMED = 215, 320, 8, 1, 256
+DSEC_SPAN_US = 50_000
+# config/dagr-s-dsec.yaml, written out (the card needs no PyYAML)
+DAGR_S_DSEC = dict(
+    task="detection", dataset="dsec", radius=0.01, time_window_us=1_000_000,
+    max_neighbors=16, n_nodes=50_000, batch_size=64, activation="relu",
+    edge_attr_dim=2, aggr="sum", kernel_size=5, pooling_aggr="max",
+    base_width=0.5, after_pool_width=1, net_stem_width=0.5,
+    yolo_stem_width=0.5, num_scales=2, weight_decay=0.00001, clip=0.1,
+    pooling_dim_at_output="5x7", aug_trans=0.1, aug_zoom=1.5, aug_p_flip=0.5,
+    img_net="resnet18", l_r=0.0002, tot_num_epochs=801)
+HOST_READERS = ("h5py", "yaml", "cv2", "hdf5plugin")
 
 
 def require(ok: bool, what: str) -> None:
@@ -647,10 +685,8 @@ def check_kernels(cfg, events, det):
 
     # K1: bit-equal to the twin, and to the oracle on a 2k-event window
     pos_px, mask = ev.pos_px(), ev.mask
-    g = build_graph(pos_px, mask, **gkw)
-    gp = build_graph_plain(pos_px, mask, **gkw)
-    for f in ("nbr", "nbr_mask", "nbr_dpos"):
-        require(torch.equal(getattr(g, f), getattr(gp, f)), f"K1 {f} == twin")
+    g, out["graph_search"], by_kernel = graph_search_record(
+        (pos_px, mask), gkw, "B=1")
     sub = build_graph(pos_px[:, :2000].contiguous(),
                       mask[:, :2000].contiguous(), **gkw)
     onbr, omask = oracle_graph(pos_px[0, :2000].cpu().numpy(), R, dt,
@@ -675,22 +711,15 @@ def check_kernels(cfg, events, det):
         any(w in k for w in ("radix_", "run_start_kernel",
                              "graph_search_kernel")) for k in kernels),
         f"K1 runs only the port's kernels, no sort: {kernels}")
-    # operations: one run lookup per (event, spiral cell)
-    out["graph_search"] = record(
-        0.0, cuda_ms(lambda: build_graph(pos_px, mask, **gkw), 20),
-        cuda_ms(lambda: build_graph_plain(pos_px, mask, **gkw), 5),
-        nbytes(pos_px, mask, g.nbr, g.nbr_mask, g.nbr_dpos),
-        int(mask.sum()) * (2 * R + 1) ** 2)
-    device_ms, by_kernel = kernel_times(
-        lambda: build_graph(pos_px, mask, **gkw), 10)
     out["graph_search"].update(
-        device_ms=device_ms, host_ops=len(ops), kernel_launches=launches,
+        host_ops=len(ops), kernel_launches=launches,
         ms_b8=cuda_ms(lambda: build_graph(batch8.pos_px(), batch8.mask,
                                           **gkw), 10))
     print(f"K1 graph_search: bit-equal to twin and oracle (B=1) and to "
           f"twin (B=8); {g.nbr_mask.sum().item()} edges; one call: "
           f"{len(ops)} host ops ({', '.join(ops)}), {launches} launches; "
-          f"device {device_ms:.4f} ms a call:", flush=True)
+          f"device {out['graph_search']['device_ms']:.4f} ms a call:",
+          flush=True)
     for kname, kms, n in by_kernel:
         print(f"  {kms:8.4f} ms  x{n:<4d} {kname}", flush=True)
 
@@ -3491,6 +3520,471 @@ def fusion(card):
     return checks, {k: v / n_req for k, v in launches.items()}, per_step
 
 
+def host_readers():
+    """Which of the readers' host libraries import here."""
+    import importlib
+
+    found = {}
+    for name in HOST_READERS:
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    return found
+
+
+class MemoryDataset:
+    """``data.dsec.DSEC``'s interface over samples held in memory: each
+    item is a copy of its sample through the transform (after
+    ``transform.init``), as DSEC's ``__getitem__`` gives it.  Each item's
+    CPU ms on its thread goes into ``transform_ms``, its start and end
+    (``perf_counter`` s) into ``transform_spans``."""
+
+    classes = ("car", "pedestrian")
+
+    def __init__(self, samples, transform, height, width):
+        self.samples, self.transform = samples, transform
+        self.height, self.width = height, width
+        self.rng = np.random.default_rng(SEED)
+        self.transform_ms, self.transform_spans = [], []
+        transform.init(height, width)
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        t0, c0 = time.perf_counter(), time.thread_time()
+        out = self.transform(self.samples[i].copy(), self.rng)
+        self.transform_ms.append((time.thread_time() - c0) * 1e3)
+        self.transform_spans.append((t0, time.perf_counter()))
+        return out
+
+
+def dsec_samples(rng, n):
+    """``n`` DSEC-geometry samples: about 45k events each around 6
+    clusters over 50 ms, shifted so the last sits at the time window (as
+    DSEC's reader does), polarity in {-1, 1}, and 3 to 5 boxes of both
+    classes."""
+    from dagr_tpu_torch.data.sample import EventSample
+
+    out = []
+    for _ in range(n):
+        nv = int(rng.integers(N_VALID - 1000, N_VALID + 1001))
+        centers = rng.random((6, 2)) * [DSEC_W * 0.8, DSEC_H * 0.8] + [
+            DSEC_W * 0.1, DSEC_H * 0.1]
+        xy = centers[rng.integers(0, 6, nv)] + rng.normal(
+            0, DSEC_H * 0.05, (nv, 2))
+        t = np.sort(rng.integers(0, DSEC_SPAN_US, nv))
+        nb = int(rng.integers(3, 6))
+        wh = rng.uniform(20, 80, (nb, 2))
+        x0 = rng.uniform(0, 1, (nb, 2)) * ([DSEC_W, DSEC_H] - wh)
+        boxes = np.concatenate([x0, wh, rng.integers(0, 2, (nb, 1))], 1)
+        out.append(EventSample(
+            x=np.clip(xy[:, 0], 0, DSEC_W - 1).astype(np.int16),
+            y=np.clip(xy[:, 1], 0, DSEC_H - 1).astype(np.int16),
+            t=(1_000_000 + t - t[-1]).astype(np.int32),
+            p=(2 * rng.integers(0, 2, nv) - 1).astype(np.int8),
+            width=DSEC_W, height=DSEC_H,
+            bbox=boxes.astype(np.float32), bbox0=boxes.astype(np.float32)))
+    return out
+
+
+class TimedLoader:
+    """The loader of the eval loop, timed and counted batch by batch: the
+    host's part (waiting for the loader's next batch, whose samples go
+    through the transform in the loader's threads, and its ``collate``;
+    then the copy to the card), the ``collate`` and the copy alone, and
+    the whole batch (that, then the loop's forward, ``detect`` and
+    detections); the launch counts and CUDA-graph replays of each batch,
+    each batch's start and end (``perf_counter`` s), and batch
+    ``profile_at`` under torch.profiler."""
+
+    def __init__(self, loader, device, profile_at=None):
+        self.loader, self.device, self.profile_at = loader, device, profile_at
+        self.host_ms, self.batch_ms, self.launches, self.replays = \
+            [], [], [], []
+        self.collate_ms, self.copy_ms, self.spans = [], [], []
+        self.prof = None
+
+    def __iter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        from dagr_tpu_torch.data import loader as loader_mod
+        from dagr_tpu_torch.kernels import _build
+
+        collate = loader_mod.collate
+
+        def timed_collate(*args, **kw):
+            t = time.perf_counter()
+            out = collate(*args, **kw)
+            self.collate_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        loader_mod.collate = timed_collate
+        try:
+            batches = iter(self.loader)
+            for i in range(len(self.loader)):
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) \
+                    if i == self.profile_at else None
+                torch.cuda.synchronize()
+                if prof is not None:
+                    prof.__enter__()
+                t0 = time.perf_counter()
+                events, targets, images = next(batches)
+                tc = time.perf_counter()
+                events = events.to(self.device)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                before, r0 = _build.launch_counts(), REPLAYS[0]
+                yield events, targets, images
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+                    self.prof = prof
+                after = _build.launch_counts()
+                self.launches.append({k: after[k] - before[k] for k in after})
+                self.replays.append(REPLAYS[0] - r0)
+                self.host_ms.append((t1 - t0) * 1e3)
+                self.copy_ms.append((t1 - tc) * 1e3)
+                self.batch_ms.append((t2 - t0) * 1e3)
+                self.spans.append((t0, t2))
+        finally:
+            loader_mod.collate = collate
+
+
+def check_batches(loader, what):
+    """Every batch of an eval loop (a ``TimedLoader`` after the loop):
+    K4 once; K1, the 20 fused blocks and K3 on the batches that ran
+    eagerly or captured, one CUDA-graph replay and no other launch on
+    every later one.  Returns the indices of the replayed batches."""
+    captured = False
+    for i, (d, r) in enumerate(zip(loader.launches, loader.replays)):
+        require(d["nms"] == 1, f"{what} batch {i}: K4 launched once")
+        graph = (d["graph_search"], d["spline_conv_block"], d["spline_conv"],
+                 d["voxel_pool"])
+        if graph == (1, SYNC_BLOCKS, 0, 4):
+            captured = captured or r == 1
+            require(r in (0, 1), f"{what} batch {i}: {r} replays")
+        else:
+            require(captured and r == 1 and graph == (0, 0, 0, 0),
+                    f"{what} batch {i}: neither every sync kernel ({graph}"
+                    f") nor one replay of a captured forward ({r})")
+    require(captured, f"{what}: the eval forward was captured")
+    replayed = [i for i, g in enumerate(loader.launches)
+                if g["graph_search"] == 0]
+    require(len(replayed) == len(loader.launches) - 3,
+            f"{what}: {len(replayed)} batches replayed")
+    return replayed
+
+
+REPLAYS = [0]       # CUDA-graph replays, counted while run_test_phase runs
+
+
+def count_replays():
+    """Counts every ``torch.cuda.CUDAGraph.replay`` in ``REPLAYS``;
+    returns the function that stops counting."""
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(self):
+        REPLAYS[0] += 1
+        return replay(self)
+
+    torch.cuda.CUDAGraph.replay = counted
+    return lambda: setattr(torch.cuda.CUDAGraph, "replay", replay)
+
+
+def first_raw(state):
+    """Keeps the raw outputs of the EMA model's first forward (the first
+    batch's, eager); returns the list they go into."""
+    kept = []
+
+    def hook(module, args, out):
+        kept.append(out.detach().clone())
+        handle.remove()
+
+    handle = state.ema.register_forward_hook(hook)
+    return kept
+
+
+def same_detections(got, want, what, tol=1e-4):
+    """One window's detections (boxes, scores, labels) equal: each of
+    ``got`` matches one of ``want`` of its label, box and score to
+    ``tol`` (relative past 1); matched, not in order, since scores a
+    rounding apart may sort either way on the two devices.  Returns the
+    largest difference."""
+    g = {k: np.asarray(v) for k, v in got.items()}
+    w = {k: np.asarray(v) for k, v in want.items()}
+    require(len(g["labels"]) == len(w["labels"]),
+            f"{what}: {len(g['labels'])} detections against "
+            f"{len(w['labels'])}")
+    rows = np.concatenate([w["boxes"], w["scores"][:, None]], 1)
+    free, err = np.ones(len(rows), bool), 0.0
+    for box, score, label in zip(g["boxes"], g["scores"], g["labels"]):
+        row = np.append(box, score)
+        diff = np.abs(rows - row).max(1)
+        close = (np.abs(rows - row) <= tol * np.maximum(1, np.abs(row))
+                 ).all(1) & (w["labels"] == label) & free
+        require(bool(close.any()), f"{what}: detection {box} {score} "
+                f"{label} has no counterpart")
+        j = int(np.argmax(close))
+        free[j], err = False, max(err, float(diff[j]))
+    return err
+
+
+def graph_search_record(args, kw, what):
+    """K1 on one ``build_graph`` call's (args, kw): bit-equal to its twin,
+    then its record (kernel and twin times, the bytes it moves, one run
+    lookup per (event, spiral cell) as its operations) with its device
+    time.  Returns (the graph, the record, the device time by kernel)."""
+    from dagr_tpu_torch.graph.build import build_graph, build_graph_plain
+
+    g, gp = build_graph(*args, **kw), build_graph_plain(*args, **kw)
+    for f in ("nbr", "nbr_mask", "nbr_dpos"):
+        require(torch.equal(getattr(g, f), getattr(gp, f)),
+                f"K1 {what}: {f} == twin")
+    pos_px, mask = args
+    rec = record(0.0, cuda_ms(lambda: build_graph(*args, **kw), 20),
+                 cuda_ms(lambda: build_graph_plain(*args, **kw), 5),
+                 nbytes(pos_px, mask, g.nbr, g.nbr_mask, g.nbr_dpos),
+                 int(mask.sum()) * (2 * kw["radius"] + 1) ** 2)
+    device_ms, by_kernel = kernel_times(lambda: build_graph(*args, **kw), 10)
+    rec.update(device_ms=device_ms)
+    return g, rec, by_kernel
+
+
+def hold_graph_search(cap, what, card):
+    """K1 on the inputs of a path's own graph search (``cap`` of
+    ``models.net.build_graph``): ``graph_search_record``, printed."""
+    kw = cap.kwargs
+    _, rec, _ = graph_search_record(cap.args, kw, what)
+    rec.update(at=f"{what}: {kw['width']}x{kw['height']}, "
+               f"{int(cap.args[1].sum())} events, radius {kw['radius']}")
+    print(f"K1 graph_search, {rec['at']}: bit-equal to the twin; kernel "
+          f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), twin "
+          f"{rec['plain_ms']:.4f} ms [{card}]", flush=True)
+    return rec
+
+
+def run_test_phase(card):
+    """Phase 11 (``run_test``): the port's eval-from-disk path
+    (``scripts.run_test``) at DSEC-Det's geometry, 320 x 215, without the
+    host readers: which of h5py, yaml, cv2 and hdf5plugin import here
+    (none is needed); DAGR-S (config/dagr-s-dsec.yaml's fields) with
+    seeded weights written as an upstream-style ``{"ema": sd, "model":
+    {}, "epoch": 0}`` checkpoint (``models.torch_import.to_reference``),
+    ``torch.save``d and loaded through ``load_eval_checkpoint`` onto a
+    fresh model on the card (``scripts.run_test.build_state``), every
+    tensor bit-equal to the source; ``evaluate`` over EVAL_WINDOWS
+    in-memory samples through ``Augmentations.testing()``, ``Loader`` and
+    ``collate`` (one window a batch), the counts reset before it and
+    read after: K1, 20 fused blocks and K3 launched on every batch that
+    ran eagerly or captured, one CUDA-graph replay on every other (the
+    compiled eval forward), K4 on every batch; the first batch's K1, 20
+    fused blocks, 4 poolings and K4 held against their twins on its own
+    inputs; its raw outputs against the CPU plain path's (1e-4) and every
+    window's detections and the COCO dict equal to the CPU's.  Then the
+    same loop, timed: ``evaluate`` on the same state over EVAL_TIMED
+    windows, the EVAL_WINDOWS above first (their detections equal to the
+    first run's), every batch checked as above; windows/s over the whole
+    loop (warm-ups and capture included) and over the replayed batches
+    alone, both all their windows over all their time; the replayed
+    batches' p50; the host's share of the replayed batches' time
+    (waiting for the next batch, collate, the copy) and the host's work
+    a window (the transform's CPU ms in the loader's threads, collate,
+    copy); and the device busy of one replayed batch of the first run.
+    Returns ({kernel: [checks]}, launches of the first run)."""
+    import tempfile
+
+    from dagr_tpu_torch.config import DagrConfig
+    from dagr_tpu_torch.data.augment import Augmentations
+    from dagr_tpu_torch.data.loader import Loader
+    from dagr_tpu_torch.kernels import _build
+    from dagr_tpu_torch.models import net as net_mod
+    from dagr_tpu_torch.models.dagr import DAGR, _anchor_tables, init_params
+    from dagr_tpu_torch.models.torch_import import to_reference
+    from dagr_tpu_torch.ops import pool as pool_mod
+    from dagr_tpu_torch.ops import spline as spline_mod
+    from dagr_tpu_torch.scripts.run_test import build_state, evaluate
+
+    found = host_readers()
+    print("host readers importable here: " + ", ".join(
+        f"{k} {'yes' if v else 'no'}" for k, v in found.items())
+        + " (the run_test phase needs none)", flush=True)
+    cfg = DagrConfig(**DAGR_S_DSEC).replace(batch_size=EVAL_B)
+    require(cfg.strides(DSEC_H) == (22, 43), f"strides {cfg.strides(DSEC_H)}")
+    source = DAGR(cfg, DSEC_H, DSEC_W)
+    init_params(source, torch.Generator().manual_seed(SEED))
+    source = source.state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "dagr_s_seeded.pth"
+        torch.save({"ema": to_reference(source), "model": {}, "epoch": 0},
+                   path)
+        cfg = cfg.replace(checkpoint=str(path))
+        state, loaded = build_state(cfg, DSEC_H, DSEC_W, "cuda")
+        cpu_state, cpu_loaded = build_state(cfg, DSEC_H, DSEC_W, "cpu")
+    require(loaded and cpu_loaded, "the .pth checkpoint loaded")
+    for m in (state.model, state.ema):
+        sd = m.state_dict()
+        require(set(sd) == set(source) and all(
+            sd[k].is_cuda and torch.equal(sd[k].cpu(), v)
+            for k, v in source.items()),
+            "every tensor loaded bit-equal to the source")
+    print(f"checkpoint: {len(source)} tensors of DAGR-S under the reference's "
+          f"keys, torch.save'd and loaded through load_eval_checkpoint onto "
+          f"the card, model and EMA bit-equal to the source", flush=True)
+
+    samples = dsec_samples(np.random.default_rng(SEED + 14), EVAL_WINDOWS)
+    dataset = MemoryDataset(samples, Augmentations.testing(), DSEC_H, DSEC_W)
+    loader = TimedLoader(Loader(dataset, cfg.batch_size, cfg.n_nodes),
+                         "cuda", profile_at=EVAL_WINDOWS - 1)
+    caps = [Capture(net_mod, "build_graph", 0),
+            Capture(spline_mod, "spline_conv_block", *range(SYNC_BLOCKS)),
+            Capture(pool_mod, "_pool_graph_cuda", *range(4))]
+    raws = first_raw(state)
+    stop = count_replays()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    try:
+        metrics, dets = evaluate(cfg, dataset, "cuda", state=state,
+                                 loader=loader)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+    finally:
+        stop()
+    for cp in caps:
+        cp.close()
+
+    check_batches(loader, "run_test")
+
+    checks = {"graph_search": [hold_graph_search(caps[0], "DSEC eval batch",
+                                                 card)],
+              "spline_conv_block": check_fused_blocks(
+                  caps[1], "DSEC eval batch", card),
+              "voxel_pool": check_poolings(caps[2], "DSEC eval batch", card)}
+    del caps
+    raw = raws[0]
+    A = sum(ny * nx for ny, nx in cfg.output_sizes())
+    require(tuple(raw.shape) == (EVAL_B, A, 5 + cfg.num_classes)
+            and bool(torch.isfinite(raw).all()),
+            f"run_test raw {tuple(raw.shape)} finite")
+    grids, strides = _anchor_tables(cfg, DSEC_H, raw.device)
+    pkw = dict(num_classes=cfg.num_classes, height=DSEC_H, width=DSEC_W)
+    err4, kept, over, same = hold_detect(raw, grids, strides,
+                                         "DSEC eval batch", **pkw)
+    from dagr_tpu_torch.ops.nms import (
+        decode_outputs, decode_postprocess, postprocess_plain)
+    n_bytes, n_ops = detect_work(raw, A, over)
+    rec = record(err4, cuda_ms(lambda: decode_postprocess(
+        raw, grids, strides, **pkw), 20), cuda_ms(lambda: postprocess_plain(
+            decode_outputs(raw, grids, strides), **pkw), 3), n_bytes, n_ops)
+    rec.update(at=f"DSEC eval batch: {A} anchors, strides "
+               f"{cfg.strides(DSEC_H)}", bit_equal=same)
+    checks["nms"] = [rec]
+    print(f"K4 at DSEC geometry ({A} anchors, strides "
+          f"{cfg.strides(DSEC_H)}): keeps, labels and order equal to the "
+          f"twin, boxes and scores {'bit-equal' if same else err4}; {kept} "
+          f"kept [{card}]", flush=True)
+
+    # the same loop on the CPU, plain path
+    cpu_raws = first_raw(cpu_state)
+    cpu_metrics, cpu_dets = evaluate(cfg, dataset, "cpu", state=cpu_state)
+    err = max_err(raw, cpu_raws[0])
+    require(torch.allclose(raw.cpu(), cpu_raws[0], atol=1e-4, rtol=1e-4),
+            f"run_test first batch raw vs CPU plain path: max err {err}")
+    require(len(dets) == len(cpu_dets) == EVAL_WINDOWS,
+            f"{len(dets)} windows' detections")
+    det_err = max(same_detections(a, b, f"run_test window {i}")
+                  for i, (a, b) in enumerate(zip(dets, cpu_dets)))
+    require(metrics == cpu_metrics, f"run_test COCO card {metrics} against "
+            f"CPU {cpu_metrics}")
+    print(f"run_test at DSEC geometry ({DSEC_W}x{DSEC_H}, "
+          f"{EVAL_WINDOWS} windows of {min(s.num_events for s in samples)}-"
+          f"{max(s.num_events for s in samples)} events): first batch raw vs "
+          f"CPU plain path max abs err {err:.3g}; detections of every window "
+          f"equal to the CPU's ({sum(len(d['labels']) for d in dets)}, max "
+          f"diff {det_err:.3g}); COCO dict equal: {metrics}", flush=True)
+
+    # the timed loop: the same state, EVAL_TIMED windows
+    timed_set = MemoryDataset(samples + dsec_samples(
+        np.random.default_rng(SEED + 15), EVAL_TIMED - EVAL_WINDOWS),
+        Augmentations.testing(), DSEC_H, DSEC_W)
+    timed = TimedLoader(Loader(timed_set, cfg.batch_size, cfg.n_nodes),
+                        "cuda")
+    stop = count_replays()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        timed_metrics, timed_dets = evaluate(cfg, timed_set, "cuda",
+                                             state=state, loader=timed)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+    finally:
+        stop()
+    replayed = check_batches(timed, "run_test timed loop")
+    require(len(timed_dets) == EVAL_TIMED, f"{len(timed_dets)} windows' "
+            f"detections in the timed loop")
+    for i in range(EVAL_WINDOWS):
+        same_detections(timed_dets[i], dets[i], f"timed loop window {i}")
+    loop_s = timed.spans[-1][1] - timed.spans[0][0]
+    replayed_s = timed.spans[-1][1] - timed.spans[replayed[0]][0]
+    batch_ms = np.array(timed.batch_ms)[replayed]
+    host_ms = np.array(timed.host_ms)[replayed]
+    p50 = float(np.median(batch_ms))
+    share = float(host_ms.sum() / batch_ms.sum())
+    per_window = [float(np.mean(timed_set.transform_ms)),
+                  float(np.mean(np.array(timed.collate_ms)[replayed])
+                        ) / EVAL_B,
+                  float(np.mean(np.array(timed.copy_ms)[replayed])) / EVAL_B]
+    n_rep = len(replayed) * EVAL_B
+    spans = np.array(timed_set.transform_spans)
+    pool_s = spans[:, 1].max() - spans[:, 0].min()
+    late = int((spans[:, 1] > timed.spans[replayed[0]][0]).sum())
+    print(f"run_test eval loop timed, DAGR-S at {DSEC_W}x{DSEC_H}, B="
+          f"{EVAL_B}: {EVAL_TIMED} windows, the first {EVAL_WINDOWS} with "
+          f"detections equal to the first run's; COCO {timed_metrics}; "
+          f"whole evaluate (2 eager warm-up batches, the capture, the "
+          f"loop, COCO) {whole_s:.3f} s = {EVAL_TIMED / whole_s:.3f} "
+          f"windows/s; loop (first batch's start to last batch's end) "
+          f"{loop_s:.3f} s = {EVAL_TIMED / loop_s:.3f} windows/s; replayed "
+          f"batches ({len(replayed)}, first start to last end) "
+          f"{replayed_s:.3f} s = {n_rep / replayed_s:.3f} windows/s; "
+          f"replayed batch p50 {p50:.3f} ms (p10 "
+          f"{float(np.percentile(batch_ms, 10)):.3f}, p90 "
+          f"{float(np.percentile(batch_ms, 90)):.3f}, max "
+          f"{float(batch_ms.max()):.3f}) [{card}]", flush=True)
+    print(f"run_test timed loop, host: waiting for the next batch + "
+          f"collate + copy to the card take {share:.3f} of the replayed "
+          f"batches' time (host p50 {float(np.median(host_ms)):.3f} ms a "
+          f"batch); host work a window: transform {per_window[0]:.3f} ms "
+          f"of CPU (in the loader's 4 threads, {len(timed_set.transform_ms)}"
+          f" windows), collate {per_window[1]:.3f} ms, copy "
+          f"{per_window[2]:.3f} ms, sum {sum(per_window):.3f} ms against "
+          f"{1e3 * replayed_s / n_rep:.3f} ms of replayed loop a window; "
+          f"the loader's threads (all {EVAL_TIMED} transforms queued at "
+          f"the loop's start) took {pool_s:.3f} s = "
+          f"{EVAL_TIMED / pool_s:.3f} windows/s from the first start to "
+          f"the last end, {late} of them ending after the first replayed "
+          f"batch began [{card}]", flush=True)
+    busy = busy_of(loader.prof, 1) if loader.prof is not None else 0.0
+    shown = {e.key for e in kernel_events(loader.prof)} \
+        if loader.prof is not None else set()
+    missing = [k for k in SYNC_KERNELS
+               if not any(DEVICE_KERNEL[k] in n for n in shown)]
+    if busy > 0 and not missing:
+        print(f"run_test: one replayed batch of the first run profiled: "
+              f"device busy {busy:.3f} ms, idle share {1 - busy / p50:.3f} "
+              f"of the timed loop's p50 batch [{card}]", flush=True)
+    else:
+        print(f"run_test: the profiled batch shows none of {missing}; device "
+              f"busy not measured", flush=True)
+    del state, cpu_state
+    torch.cuda.empty_cache()
+    return checks, launches
+
+
 def busy_of(prof, n):
     """Device busy ms per step of a profile over ``n`` steps."""
     return sum(e.self_device_time_total for e in kernel_events(prof)) / 1e3 / n
@@ -3976,7 +4470,8 @@ def main() -> int:
     if mode in (["--timings"], ["--compare"]) and (
             len(rest) not in (1, 2) or (len(rest) == 2 and not train_only)):
         print("usage: chip_smoke.py [--train-only | --graphs-only | "
-              "--compare DIR [train] | --timings DIR [train]]",
+              "--run-test-only | --compare DIR [train] | --timings DIR "
+              "[train]]",
               file=sys.stderr)
         return 2
     if mode == ["--timings"]:
@@ -4015,6 +4510,13 @@ def main() -> int:
         for name, rec in trained.items():
             print(json.dumps({"name": name, "launches": counts[name],
                               "train_steps": n_steps, **rec}))
+        return 0
+    if sys.argv[1:] == ["--run-test-only"]:
+        # the run_test phase alone (build, checks, timings), no result line
+        checked, counts = run_test_phase(card)
+        for name, cs in checked.items():
+            print(json.dumps({"name": name, "dsec_launches": counts[name],
+                              "dsec_checks": cs}))
         return 0
     rng = np.random.default_rng(SEED)
     events = [random_events(rng, 1, N_NODES, W, H, n_valid=N_VALID,
@@ -4119,6 +4621,15 @@ def main() -> int:
         rec["fusion_checks"] = cs
         rec["max_abs_err"] = max([rec["max_abs_err"]]
                                  + [c["max_abs_err"] for c in cs])
+    checked, dsec_launches = run_test_phase(card)
+    for name, cs in checked.items():
+        rec = kernels[name]
+        rec["dsec_checks"] = cs
+        rec["max_abs_err"] = max([rec["max_abs_err"]]
+                                 + [c["max_abs_err"] for c in cs])
+    for name in SYNC_KERNELS:
+        require(dsec_launches[name] > 0,
+                f"kernel {name} launched on the run_test path")
     rows = []
     for name, rec in kernels.items():
         require(launches[name] > 0, f"kernel {name} launched on its path")
@@ -4139,6 +4650,7 @@ def main() -> int:
                      "train_launches_per_step": train_launches[name] / n_steps,
                      "fusion_launches": fusion_launches[name],
                      "fusion_train_launches_per_step": fusion_train[name],
+                     "dsec_launches": dsec_launches[name],
                      **rec})
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,4 +1,5 @@
-"""Model configuration and its derived static geometry.
+"""Model configuration, its derived static geometry, and the YAML + CLI
+flag system.
 
 Field names and defaults follow ``dagr_tpu.config.DagrConfig`` (and so
 the reference YAML schema, ``config/dagr-*.yaml``), so the same YAML
@@ -6,15 +7,23 @@ files load unmodified.  ``stream_chunk`` is the streaming engine's
 default chunk (``streaming.engine.StreamingDetector``).  The JAX
 package's TPU formulation switches (``node_chunk``, ``graph_fast_path``,
 ``dp``) have no counterpart here; YAML keys the dataclass does not know
-are ignored.
+are ignored, and so are those switches given as flags
+(``TPU_ONLY_FLAGS``), so that one command line runs the CLIs of both
+packages.
+
+Flags follow the reference (src/dagr/utils/args.py): every field is an
+optional ``--<field>`` whose default is ``argparse.SUPPRESS``, so the
+YAML of ``--config`` fills any field the command line did not set.
+``yaml`` is imported only where a file is read.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import math
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -134,14 +143,72 @@ class DagrConfig:
         return int(self.radius * self.time_window_us)
 
 
-def config_from_yaml(path: Path, **overrides) -> DagrConfig:
-    """Config from a YAML file plus keyword overrides (overrides win)."""
+# dagr_tpu's TPU formulation switches: accepted as flags, then ignored
+# (name, type, dagr_tpu's default)
+TPU_ONLY_FLAGS = (("dp", int, 1), ("node_chunk", int, 2048),
+                  ("graph_fast_path", str, "slab"))
+_PATH_FIELDS = ("dataset_directory", "output_directory", "checkpoint",
+                "img_net_checkpoint")
+
+
+def load_yaml(path: Path) -> dict:
     import yaml
 
     with Path(path).open() as f:
-        raw = yaml.safe_load(f) or {}
+        return yaml.safe_load(f) or {}
+
+
+def config_from_yaml(path: Path, **overrides) -> DagrConfig:
+    """Config from a YAML file plus keyword overrides (overrides win; an
+    override of None is no override)."""
+    raw = load_yaml(path)
     fields = {f.name for f in dataclasses.fields(DagrConfig)}
     known = {k: v for k, v in raw.items() if k in fields}
     known.update({k: v for k, v in overrides.items()
                   if v is not None and k in fields})
+    for k in _PATH_FIELDS:
+        if known.get(k) is not None:
+            known[k] = str(known[k])
     return DagrConfig(**known)
+
+
+def add_config_flags(parser: argparse.ArgumentParser
+                     ) -> argparse.ArgumentParser:
+    """Every DagrConfig field as ``--<field>`` (a bool as a switch), and
+    dagr_tpu's TPU-only flags, all with SUPPRESS defaults."""
+    for f in dataclasses.fields(DagrConfig):
+        if isinstance(f.default, bool):
+            parser.add_argument(f"--{f.name}", action="store_true",
+                                default=argparse.SUPPRESS)
+        else:
+            parser.add_argument(f"--{f.name}", type=type(f.default),
+                                default=argparse.SUPPRESS)
+    for name, ty, default in TPU_ONLY_FLAGS:
+        parser.add_argument(
+            f"--{name}", type=ty, default=argparse.SUPPRESS,
+            help=f"dagr_tpu's TPU-only setting (default there {default}); "
+                 "accepted and ignored here")
+    return parser
+
+
+def flags_parser(prog: str = "dagr_tpu_torch") -> argparse.ArgumentParser:
+    """A parser of ``--config`` (a YAML file) and the config flags; a CLI
+    adds its own arguments, then calls ``config_from_args``."""
+    parser = argparse.ArgumentParser(prog)
+    parser.add_argument("--config", type=Path, default=None,
+                        help="YAML file; the flags given override it")
+    return add_config_flags(parser)
+
+
+def config_from_args(args: argparse.Namespace) -> DagrConfig:
+    """The config of parsed flags: the YAML of ``args.config`` (if any)
+    with the config flags given on top; other arguments are ignored."""
+    fields = {f.name for f in dataclasses.fields(DagrConfig)}
+    overrides = {k: v for k, v in vars(args).items() if k in fields}
+    if args.config is not None:
+        return config_from_yaml(args.config, **overrides)
+    return DagrConfig(**overrides)
+
+
+def parse_flags(argv: Optional[Sequence[str]] = None) -> DagrConfig:
+    return config_from_args(flags_parser().parse_args(argv))

@@ -7,7 +7,9 @@ place of orbax: ``<dir>/last_model/state.pt`` every epoch,
 beside ``<name>.meta.json`` with the epoch.  The saved state is the
 whole ``TrainState``: model, EMA, the optimizer's moments and step
 count, and the update counts, so a resumed run continues the same run
-bit for bit.
+bit for bit.  ``load_eval_checkpoint`` resolves the eval CLIs'
+``--checkpoint``: a reference ``.pth`` through
+``models.torch_import``, anything else through a ``Checkpointer``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from dagr_tpu_torch.models.torch_import import (
+    load_reference_checkpoint, load_weights)
 from dagr_tpu_torch.train.state import TrainState
 
 
@@ -102,3 +106,25 @@ class Checkpointer:
         epoch = json.loads(meta.read_text()).get("epoch", 0) + 1 \
             if meta.exists() else 0
         return state, epoch
+
+
+def load_eval_checkpoint(state: TrainState, cfg) -> Tuple[TrainState, bool]:
+    """Resolve ``cfg.checkpoint`` into eval weights (dagr_tpu's
+    ``load_eval_checkpoint``): a reference-style torch ``.pth``/``.pt``
+    file loads through ``models.torch_import`` into the model and the
+    EMA alike (reference: readme.md:66-76, scripts/run_test.py:57-58);
+    anything else restores ``Checkpointer(<its parent>)``, the best
+    checkpoint before the last.  Returns ``(state, loaded)``."""
+    if not cfg.checkpoint:
+        return state, False
+    path = Path(cfg.checkpoint)
+    if path.suffix in (".pth", ".pt"):
+        sd = load_reference_checkpoint(path, cfg)
+        load_weights(state.model, sd)
+        load_weights(state.ema, sd)
+        return state, True
+    restored, _ = Checkpointer(path.parent).restore_if_existing(state,
+                                                                best=True)
+    if restored is not None:
+        return restored, True
+    return state, False
