@@ -181,19 +181,35 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    replayed batches, the replayed batches' p50, the host's share of the
    loop and its work a window (transform, collate, copy), and one
    batch's device busy;
-12. prints the kernel table (every kernel's error, time, twin time,
+12. runs the rest of the command-line path (``scripts``): the train CLI's
+   loop (``scripts.train_dsec.train``) at DSEC-Det's geometry on
+   in-memory windows, B=8, 2 epochs of 3 steps with the dry-run eval,
+   the epoch-0 eval and its overlays: every step's losses bit-equal to
+   ``make_train_step``'s from the same state on the same batches, K1,
+   the split conv, its backward, K3 and K9b launched on every eager or
+   captured step and one CUDA-graph replay on every other,
+   ``last_model`` restoring every tensor bit-equal, its steps/s;
+   ``count_flops --synthetic 1`` at flagship size and one 2048-event
+   window's census equal on the card and the CPU plain path;
+   ``entry()``'s raw equal to ``serve.Detector``'s (1e-4); ``--dp 1``
+   over NCCL bit-equal to the plain compiled step (the all-reduces
+   captured in its graph), and two gloo ranks sharing this card (B=8 as
+   4 + 4) equal to the one-rank step (losses rtol 1e-4, weights 1e-5);
+13. prints the kernel table (every kernel's error, time, twin time,
    bound and library-call time, and its launches on each path, the wide
    windows' as ``wide_launches``, a fusion request's as
    ``fusion_launches``, a fusion step's as
-   ``fusion_train_launches_per_step`` and the run_test loop's as
-   ``dsec_launches``; the fusion window's checks as ``fusion_checks``,
-   the run_test batch's as ``dsec_checks``), the card line and, last,
-   the result line.
+   ``fusion_train_launches_per_step``, the run_test loop's as
+   ``dsec_launches`` and the train CLI's run (its evals included) as
+   ``scripts_launches``; the fusion window's checks as
+   ``fusion_checks``, the run_test batch's as ``dsec_checks``), the card
+   line and, last, the result line.
 
 Usage: ``python3 chip_smoke.py`` from the repository root;
 ``python3 chip_smoke.py --train-only`` runs the build and phase 9 alone
 and prints no result line; ``--graphs-only`` the build and phase 7,
-``--run-test-only`` the build and phase 11.  ``python3 chip_smoke.py
+``--run-test-only`` the build and phase 11, ``--scripts-only`` the build
+and phase 12.  ``python3 chip_smoke.py
 --compare DIR``
 measures another checkout's package (``DIR/dagr_tpu_torch``, for
 instance the parent commit's: ``git archive HEAD~ dagr_tpu_torch | tar
@@ -321,6 +337,11 @@ DAGR_S_DSEC = dict(
     pooling_dim_at_output="5x7", aug_trans=0.1, aug_zoom=1.5, aug_p_flip=0.5,
     img_net="resnet18", l_r=0.0002, tot_num_epochs=801)
 HOST_READERS = ("h5py", "yaml", "cv2", "hdf5plugin")
+# the scripts phase: the train CLI at B=8 over SCRIPT_EPOCHS epochs of
+# SCRIPT_STEPS steps with SCRIPT_VAL validation windows; the census
+# compared on a CENSUS_EVENTS window; DP_STEPS steps of --dp 1
+SCRIPT_B, SCRIPT_EPOCHS, SCRIPT_STEPS, SCRIPT_VAL = 8, 2, 3, 16
+CENSUS_EVENTS, DP_STEPS = 2048, 5
 
 
 def require(ok: bool, what: str) -> None:
@@ -3985,6 +4006,446 @@ def run_test_phase(card):
     return checks, launches
 
 
+def scripts_phase(card):
+    """Phase 12 (``scripts``): the rest of the port's command-line path at
+    DSEC-Det's geometry and DAGR-S, without the host readers.
+
+    (a) ``scripts.train_dsec.train`` on in-memory windows
+    (``MemoryDataset``: SCRIPT_TRAIN windows through
+    ``Augmentations.training``, SCRIPT_VAL through ``testing``), B=8,
+    SCRIPT_EPOCHS epochs of SCRIPT_STEPS steps, the dry-run eval and the
+    epoch-0 eval and overlays included; every step's inputs, losses,
+    launches and CUDA-graph replays recorded (K1, the split conv, its
+    backward, K3 and K9b on each step that ran eagerly or captured, one
+    replay and no launch on each later one); the same batches through
+    ``make_train_step`` from the same initial state give bit-equal losses;
+    ``last_model`` restores every tensor of the model, the EMA and the
+    optimizer bit-equal; the loop's steps/s.  (b) ``count_flops
+    --synthetic 1`` at flagship size on the card, and the census of one
+    2048-event window on the card equal to the CPU plain path's.  (c)
+    ``entry()``: its compiled forward's raw == ``serve.Detector``'s on
+    the same window (1e-4).  (d) ``--dp 1`` over NCCL: the sharded step
+    (a CUDA-graph replay with the collectives captured) bit-equal to the
+    plain compiled step over DP_STEPS steps; two gloo ranks with CUDA
+    tensors on this one card run B=8 as 4 + 4 and equal the one-rank B=8
+    step (losses rtol 1e-4, weights and EMA atol 1e-5).  Returns the
+    launches of the train CLI's run (its evals included)."""
+    import tempfile
+
+    from dagr_tpu_torch.config import DagrConfig
+    from dagr_tpu_torch.data.augment import Augmentations
+    from dagr_tpu_torch.kernels import _build
+    from dagr_tpu_torch.scripts import train_dsec
+    from dagr_tpu_torch.train.checkpoint import Checkpointer
+    from dagr_tpu_torch.train.state import make_train_step
+
+    cfg = DagrConfig(**DAGR_S_DSEC).replace(
+        batch_size=SCRIPT_B, tot_num_epochs=SCRIPT_EPOCHS)
+    rng = np.random.default_rng(SEED + 16)
+    train_ds = MemoryDataset(
+        dsec_samples(rng, SCRIPT_B * SCRIPT_STEPS),
+        Augmentations.training(cfg.aug_p_flip, cfg.aug_zoom, cfg.aug_trans),
+        DSEC_H, DSEC_W)
+    val_ds = MemoryDataset(dsec_samples(rng, SCRIPT_VAL),
+                           Augmentations.testing(), DSEC_H, DSEC_W)
+    steps = []        # (events, targets, losses, launches, replays, ms)
+
+    def recording(state):
+        step = make_train_step(state)
+
+        def rec(st, events, targets):
+            torch.cuda.synchronize()
+            before, r0 = _build.launch_counts(), REPLAYS[0]
+            start = time.perf_counter()
+            losses = step(st, events, targets)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - start) * 1e3
+            after = _build.launch_counts()
+            steps.append((events, targets, losses,
+                          {k: after[k] - before[k] for k in after},
+                          REPLAYS[0] - r0, ms))
+            return losses
+        return rec
+
+    stop = count_replays()
+    train_dsec.make_train_step = recording
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            state = train_dsec.train(cfg, train_ds, val_ds, "cuda", tmp)
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t0
+            launches = _build.launch_counts()
+            n_viz = len(list(Path(tmp, "viz_epoch_0").glob("*.png")))
+            fresh = train_dsec.build_train_state(cfg, DSEC_H, DSEC_W, "cuda",
+                                                 SCRIPT_STEPS)
+            restored, epoch = Checkpointer(Path(tmp)).restore_if_existing(
+                fresh)
+            logged = Path(tmp, "metrics.jsonl").read_text().splitlines()
+    finally:
+        train_dsec.make_train_step = make_train_step
+        stop()
+    n = SCRIPT_EPOCHS * SCRIPT_STEPS
+    require(len(steps) == n and state.step == n,
+            f"train CLI: {len(steps)} steps recorded, state.step "
+            f"{state.step}, of {n}")
+    require(n_viz == cfg.n_viz_images, f"train CLI: {n_viz} epoch-0 "
+            "overlays")
+    require(any("validation/metric/mAP" in ln for ln in logged),
+            "train CLI: the epoch-0 eval logged")
+    require(restored is not None and epoch == SCRIPT_EPOCHS,
+            f"train CLI: last_model restored (epoch {epoch})")
+    for what, a, b in (("model", restored.model.state_dict(),
+                        state.model.state_dict()),
+                       ("EMA", restored.ema.state_dict(),
+                        state.ema.state_dict())):
+        require(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a),
+                f"train CLI: last_model's {what} bit-equal to the trained "
+                "state")
+    oa, ob = restored.optimizer.state_dict(), state.optimizer.state_dict()
+    require(all(torch.equal(oa["state"][i][k], ob["state"][i][k])
+                for i in ob["state"] for k in ob["state"][i]),
+            "train CLI: last_model's Adam moments bit-equal")
+    require(restored.step == state.step
+            and restored.ema_updates == state.ema_updates,
+            "train CLI: last_model's counts")
+    captured = False
+    for i, (_, _, losses, d, r, _) in enumerate(steps):
+        require(all(bool(torch.isfinite(v)) for v in losses.values()),
+                f"train CLI step {i}: losses finite")
+        if all(d[k] > 0 for k in TRAIN_KERNELS):
+            require(d["spline_conv"] == SYNC_BLOCKS
+                    and d["spline_conv_backward"] == SYNC_BLOCKS
+                    and r in (0, 1), f"train CLI step {i}: {d}, {r} replays")
+            captured = captured or r == 1
+        else:
+            require(captured and r == 1 and all(v == 0 for v in d.values()),
+                    f"train CLI step {i}: neither every train kernel "
+                    f"({d}) nor one replay of the captured step ({r})")
+    replayed = [i for i, st in enumerate(steps) if st[3]["graph_search"] == 0]
+    require(captured and len(replayed) == n - 3,
+            f"train CLI: {len(replayed)} replayed steps of {n}")
+    # the same batches through the compiled step, from the same state
+    again = train_dsec.build_train_state(cfg, DSEC_H, DSEC_W, "cuda",
+                                         SCRIPT_STEPS)
+    step = make_train_step(again)
+    for i, (events, targets, losses, _, _, _) in enumerate(steps):
+        got = step(again, events, targets)
+        require(all(torch.equal(got[k], losses[k]) for k in losses),
+                f"train CLI step {i}: losses bit-equal to make_train_step's")
+    sd, sd_again = state.model.state_dict(), again.model.state_dict()
+    require(all(torch.equal(sd[k], sd_again[k]) for k in sd),
+            "train CLI: the trained weights bit-equal to make_train_step's")
+    ms = np.array([st[5] for st in steps])
+    loop_s = ms.sum() / 1e3
+    print(f"train CLI (scripts.train_dsec.train), DAGR-S at {DSEC_W}x"
+          f"{DSEC_H}, B={SCRIPT_B}, {SCRIPT_EPOCHS} epochs of {SCRIPT_STEPS} "
+          f"steps: losses of every step bit-equal to make_train_step's from "
+          f"the same state, last_model bit-equal; the {n} steps "
+          f"{loop_s:.3f} s = {n / loop_s:.3f} steps/s "
+          f"({n * SCRIPT_B / loop_s:.3f} windows/s; the 3 eager/captured steps "
+          f"{', '.join(f'{v:.1f}' for v in ms[:3])} ms, the {len(replayed)} "
+          f"replayed p50 {float(np.median(ms[replayed])):.3f} ms = "
+          f"{1e3 / float(np.median(ms[replayed])):.3f} steps/s); the whole "
+          f"train() (build, dry-run eval, epochs, epoch-0 eval, overlays, "
+          f"checkpoints) {whole_s:.3f} s [{card}]", flush=True)
+    last = steps[-1][2]
+    print("train CLI losses, last step: " + ", ".join(
+        f"{k} {float(v):.5f}" for k, v in last.items()), flush=True)
+    del state, restored, again, step
+
+    script_census(card)
+    script_entry(card)
+    dp_checks(cfg, card)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def script_census(card):
+    """``count_flops --synthetic 1`` on the card; one 2048-event window's
+    census on the card and on the CPU plain path, equal."""
+    import tempfile
+
+    from dagr_tpu_torch.config import DagrConfig
+    from dagr_tpu_torch.data.synthetic import random_events
+    from dagr_tpu_torch.models.dagr import DAGR, init_params
+    from dagr_tpu_torch.scripts import count_flops
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rep = count_flops.main(["--synthetic", "1", "--output_directory",
+                                tmp, "--markdown", f"{tmp}/flops.md"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    per, dense = rep["per_event"], rep["dense_window"]
+    require(per["total"] > 0 and dense["total"] > per["total"]
+            and all(float(v).is_integer() for v in (*per.values(),
+                                                    *dense.values())),
+            f"count_flops --synthetic 1 census {per['total']} / "
+            f"{dense['total']}")
+    cfg = DagrConfig().replace(n_nodes=CENSUS_EVENTS)
+    model = DAGR(cfg, H, W)
+    init_params(model, torch.Generator().manual_seed(SEED))
+    ev = random_events(np.random.default_rng(SEED + 17), 1, CENSUS_EVENTS,
+                       W, H, n_valid=CENSUS_EVENTS)
+    sample = [(ev.pos_px()[0].numpy(), ev.feat[0].numpy())]
+    on_card = count_flops.census(model.cuda().eval(), sample, "cuda")
+    on_cpu = count_flops.census(model.cpu(), sample, "cpu")
+    require(on_card == on_cpu, f"census of a {CENSUS_EVENTS}-event window: "
+            f"card {on_card} against CPU {on_cpu}")
+    print(f"count_flops --synthetic 1 (DAGR-S, {W}x{H}, 45000 events, the "
+          f"engine's compiled steps on the card): a one-event update "
+          f"{per['total']:.0f} FLOPs against the dense window's "
+          f"{dense['total']:.0f} ({dense['total'] / per['total']:.1f}x), "
+          f"{run_s:.3f} s; census of a {CENSUS_EVENTS}-event window "
+          f"({len(on_card[0])} layers, one-event total "
+          f"{on_card[0]['total']:.0f}, dense {on_card[1]['total']:.0f}) "
+          f"equal on the card and the CPU plain path [{card}]", flush=True)
+
+
+def script_entry(card):
+    """``entry()`` on the card: its compiled eval forward (two warm-ups,
+    the capture, a replay) == ``serve.Detector`` on the same window."""
+    from dagr_tpu_torch import entry
+    from dagr_tpu_torch.serve import Detector
+
+    fn, (state, events) = entry.entry()
+    raws = [fn(state, events) for _ in range(4)]
+    torch.cuda.synchronize()
+    require(fn.graphs.replays() == 2, f"entry: {fn.graphs.replays()} "
+            "replays of 4 calls")
+    cfg, hw = state.model.cfg, (state.model.height, state.model.width)
+    det = Detector(cfg, *hw, "cuda", state_dict=state.ema.state_dict())
+    want, _ = det(events)
+    err = max(max_err(r, want) for r in raws)
+    require(all(torch.allclose(r, want, atol=1e-4, rtol=1e-4) for r in raws),
+            f"entry raw vs Detector: max err {err}")
+    ms = [timed(lambda: fn(state, events)) for _ in range(10)]
+    print(f"entry(): DAGR-S {hw[1]}x{hw[0]}, {int(events.mask.sum())} "
+          f"events, raw {tuple(want.shape)} == Detector's (max abs err "
+          f"{err:.3g}); replayed p50 {float(np.median(ms)):.3f} ms [{card}]",
+          flush=True)
+
+
+def dp_state(cfg):
+    from dagr_tpu_torch.scripts.train_dsec import build_train_state
+
+    # 10 iterations an epoch: lr(0) = 0, lr(1) > 0, so the second step moves
+    return build_train_state(cfg, DSEC_H, DSEC_W, "cuda", 10)
+
+
+def dp_batches(cfg):
+    """DP_STEPS batches of SCRIPT_B seeded DSEC-geometry windows through
+    the testing transform (no random draw) and ``collate``."""
+    from dagr_tpu_torch.data.augment import Augmentations
+    from dagr_tpu_torch.data.loader import Loader
+
+    ds = MemoryDataset(dsec_samples(np.random.default_rng(SEED + 18),
+                                    SCRIPT_B * DP_STEPS),
+                       Augmentations.testing(), DSEC_H, DSEC_W)
+    return [(b[0], b[1]) for b in Loader(ds, SCRIPT_B, cfg.n_nodes)]
+
+
+def adam_moments(state):
+    """{parameter name: (first moment, second moment)} on the host."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return {names[id(p)]: (st["exp_avg"].cpu(), st["exp_avg_sq"].cpu())
+            for p, st in state.optimizer.state.items()}
+
+
+def dp_gloo_rank(mesh, cfg, batches, out):
+    """One of two gloo ranks sharing the card: the collectives the step
+    needs probed on CUDA tensors, then the DP steps on ``batches``."""
+    import torch.distributed as dist
+
+    from dagr_tpu_torch.parallel.mesh import broadcast_state, shard_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    probe = torch.ones(4, device=mesh.device)
+    for name, call in (("all_reduce", lambda: dist.all_reduce(probe)),
+                       ("broadcast", lambda: dist.broadcast(probe, 0))):
+        try:
+            call()
+        except RuntimeError as e:
+            raise RuntimeError(f"gloo has no {name} for CUDA tensors: {e}")
+    state = dp_state(cfg)
+    broadcast_state(state, mesh)
+    step = shard_train_step(state, mesh)
+    losses, ms = [], []
+    for events, targets in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append({k: v.cpu() for k, v in
+                       step(state, events, targets).items()})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.save({"losses": losses, "ms": ms, "moments": adam_moments(state),
+                "model": {k: v.cpu() for k, v in
+                          state.model.state_dict().items()},
+                "ema": {k: v.cpu() for k, v in
+                        state.ema.state_dict().items()}},
+               Path(out) / f"rank{mesh.rank}.pt")
+
+
+def dp_checks(cfg, card):
+    """``--dp 1`` over NCCL against the plain compiled step, bit for bit,
+    on ``dp_batches``; two gloo ranks on this card against the one-rank
+    step on the first two (see ``hold_gloo``)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from dagr_tpu_torch.parallel.mesh import (
+        free_address, init_group, launch, shard_train_step)
+    from dagr_tpu_torch.train.state import make_train_step, train_step
+
+    batches = dp_batches(cfg)
+    mesh = init_group(0, 1, free_address(), "cuda:0")
+    stop = count_replays()
+    try:
+        require(mesh.backend == "nccl", f"dp 1 on {mesh.backend}")
+        plain, dp = dp_state(cfg), dp_state(cfg)
+        plain_step, dp_step = make_train_step(plain), shard_train_step(dp,
+                                                                       mesh)
+        ms, plain_ms, replays = [], [], []
+        for i, (events, targets) in enumerate(batches):
+            want = plain_step(plain, events, targets)
+            torch.cuda.synchronize()
+            r0, t0 = REPLAYS[0], time.perf_counter()
+            losses = dp_step(dp, events, targets)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            replays.append(REPLAYS[0] - r0)
+            require(all(torch.equal(losses[k], want[k]) for k in want),
+                    f"dp 1 step {i}: losses bit-equal to the plain step")
+        require(replays == [0, 0] + [1] * (DP_STEPS - 2),
+                f"dp 1: CUDA-graph replays by step {replays}")
+        for a, b in ((dp.model, plain.model), (dp.ema, plain.ema)):
+            sa, sb = a.state_dict(), b.state_dict()
+            require(all(torch.equal(sa[k], sb[k]) for k in sa),
+                    "dp 1: weights and EMA bit-equal to the plain step's")
+        # the plain step again, timed alone
+        for events, targets in batches[3:]:
+            plain_ms.append(timed(lambda: plain_step(plain, events,
+                                                     targets)))
+    finally:
+        stop()
+        dist.destroy_process_group()
+    print(f"--dp 1 over NCCL (shard_train_step: make_train_step's CUDA graph "
+          f"with its all-reduces captured): {DP_STEPS} B={SCRIPT_B} steps, "
+          f"losses bit-equal to the plain compiled step's, weights and EMA "
+          f"bit-equal; steps 3-{DP_STEPS} replayed; the replayed steps "
+          f"p50 {float(np.median(ms[3:])):.3f} ms against the plain step's "
+          f"{float(np.median(plain_ms)):.3f} ms (the eager and captured "
+          f"steps {', '.join(f'{v:.1f}' for v in ms[:3])} ms) [{card}]",
+          flush=True)
+    del plain, dp, plain_step, dp_step
+    torch.cuda.empty_cache()
+
+    gloo = batches[:2]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        launch(dp_gloo_rank, 2, cfg, gloo, tmp, device="cuda:0",
+               backend="gloo")
+        launch_s = time.perf_counter() - t0
+        ranks = [torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    one = dp_state(cfg)
+    one_ms, want = [], []
+    for events, targets in gloo:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want.append(train_step(one, events, targets))
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    hold_gloo(ranks, one, want, one_ms, launch_s, card)
+    del one
+    torch.cuda.empty_cache()
+
+
+def hold_gloo(ranks, one, want, one_ms, launch_s, card):
+    """The two gloo ranks' results against the one-rank steps: the ranks
+    bit-equal; every loss (rtol 1e-4), batch-norm running statistic
+    (atol 1e-5) and Adam moment (1e-4 of its leaf's max, the repo's bar
+    for gradients: the moments are linear in the summed gradient) of the
+    one-rank step; every weight and EMA tensor within 1e-5, save entries
+    whose update is Adam's noise: an entry whose gradient the two sum
+    orders round differently near 0 moves by up to lr in either
+    direction (the update is m / sqrt(v)), so each entry further than
+    1e-5 off must lie within 2 lr of the one-rank step's and have a
+    first moment under 1e-3 of its leaf's max; they are counted."""
+    r0, r1 = ranks
+
+    def tensors(d):
+        return [t for v in d.values()
+                for t in (v if isinstance(v, tuple) else (v,))]
+
+    for part in ("model", "ema", "moments"):
+        require(all(torch.equal(a, b) for a, b in zip(tensors(r0[part]),
+                                                      tensors(r1[part]))),
+                f"gloo ranks: the two ranks' {part} bit-equal")
+    loss_err = 0.0
+    for i, (got, ref) in enumerate(zip(r0["losses"], want)):
+        for k, v in ref.items():
+            rel = abs(float(got[k]) - float(v)) / max(abs(float(v)), 1e-30)
+            require(rel <= 1e-4 or float(v) == float(got[k]),
+                    f"gloo step {i}: {k} {float(got[k])} against one rank's "
+                    f"{float(v)}")
+            loss_err = max(loss_err, rel)
+    moments, m_err = adam_moments(one), 0.0
+    for k, (m, v) in moments.items():
+        for what, a, b in (("first", r0["moments"][k][0], m),
+                           ("second", r0["moments"][k][1], v)):
+            e = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            require(e <= 1e-4, f"gloo {k}: Adam {what} moment {e} of its "
+                    "max from one rank's")
+            m_err = max(m_err, e)
+    lr = one.recipe.sched(one.step - 1)
+    names = dict(one.model.named_parameters())
+    w_err, noisy, noisy_err = 0.0, 0, 0.0
+    for part, module in (("model", one.model), ("ema", one.ema)):
+        for k, v in module.state_dict().items():
+            if not v.is_floating_point():
+                continue
+            d = (r0[part][k] - v.cpu()).abs()
+            off = d > 1e-5
+            if k not in names:
+                require(not bool(off.any()), f"gloo {part} {k}: "
+                        f"{float(d.max())} from one rank's")
+            elif bool(off.any()):
+                m = moments[k][0]
+                require(bool((d[off] <= 2 * lr).all()) and bool(
+                    (m[off].abs() <= 1e-3 * m.abs().max()).all()),
+                    f"gloo {part} {k}: {int(off.sum())} entries off by up "
+                    f"to {float(d.max())} (2 lr {2 * lr}) with first "
+                    f"moments up to {float(m[off].abs().max())} of "
+                    f"{float(m.abs().max())}")
+                noisy += int(off.sum())
+                noisy_err = max(noisy_err, float(d.max()))
+            w_err = max(w_err, float(d[~off].max()) if bool((~off).any())
+                        else 0.0)
+    sd0 = dp_state(one.model.cfg).model.state_dict()
+    moved = sum(not torch.equal(r0["model"][k], v.cpu())
+                for k, v in sd0.items())
+    require(moved > len(sd0) // 2, f"gloo: {moved} tensors moved")
+    n_w = sum(v.numel() for v in one.model.state_dict().values())
+    print(f"--dp 2 over gloo, CUDA tensors, both ranks on this card: B="
+          f"{SCRIPT_B} as 4 + 4 for {len(want)} steps against the one-rank "
+          f"B={SCRIPT_B} steps: losses max rel err {loss_err:.3g}, Adam "
+          f"moments max err {m_err:.3g} of their leaf's max, running "
+          f"statistics, weights and EMA within 1e-5 (max {w_err:.3g}) but "
+          f"{noisy} entries of weights and EMA ({n_w} weights) whose "
+          f"update is Adam's noise (first moment under 1e-3 of its leaf's "
+          f"max; off by up to {noisy_err:.3g}, 2 lr = {2 * lr:.3g}); "
+          f"{moved} tensors moved; rank 0's eager steps "
+          f"{', '.join(f'{v:.1f}' for v in r0['ms'])} ms, the one-rank eager "
+          f"steps {', '.join(f'{v:.1f}' for v in one_ms)} ms; the launch "
+          f"with 2 processes {launch_s:.1f} s [{card}]", flush=True)
+
+
 def busy_of(prof, n):
     """Device busy ms per step of a profile over ``n`` steps."""
     return sum(e.self_device_time_total for e in kernel_events(prof)) / 1e3 / n
@@ -4470,8 +4931,8 @@ def main() -> int:
     if mode in (["--timings"], ["--compare"]) and (
             len(rest) not in (1, 2) or (len(rest) == 2 and not train_only)):
         print("usage: chip_smoke.py [--train-only | --graphs-only | "
-              "--run-test-only | --compare DIR [train] | --timings DIR "
-              "[train]]",
+              "--run-test-only | --scripts-only | --compare DIR [train] | "
+              "--timings DIR [train]]",
               file=sys.stderr)
         return 2
     if mode == ["--timings"]:
@@ -4510,6 +4971,11 @@ def main() -> int:
         for name, rec in trained.items():
             print(json.dumps({"name": name, "launches": counts[name],
                               "train_steps": n_steps, **rec}))
+        return 0
+    if sys.argv[1:] == ["--scripts-only"]:
+        # the scripts phase alone (build, checks, timings), no result line
+        counts = scripts_phase(card)
+        print(json.dumps({"scripts_launches": counts}))
         return 0
     if sys.argv[1:] == ["--run-test-only"]:
         # the run_test phase alone (build, checks, timings), no result line
@@ -4630,6 +5096,10 @@ def main() -> int:
     for name in SYNC_KERNELS:
         require(dsec_launches[name] > 0,
                 f"kernel {name} launched on the run_test path")
+    scripts_launches = scripts_phase(card)
+    for name in TRAIN_KERNELS + SYNC_KERNELS:
+        require(scripts_launches[name] > 0,
+                f"kernel {name} launched on the train CLI's path")
     rows = []
     for name, rec in kernels.items():
         require(launches[name] > 0, f"kernel {name} launched on its path")
@@ -4651,6 +5121,7 @@ def main() -> int:
                      "fusion_launches": fusion_launches[name],
                      "fusion_train_launches_per_step": fusion_train[name],
                      "dsec_launches": dsec_launches[name],
+                     "scripts_launches": scripts_launches[name],
                      **rec})
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -8,7 +8,9 @@ search (K1), the spline-conv aggregation (K2), voxel pooling (K3) and
 greedy NMS (K4).  Each has a plain PyTorch twin in the same module,
 which runs when the tensors lie on the CPU.
 
-Entry point: ``dagr_tpu_torch.serve.Detector``.
+Entry points: ``dagr_tpu_torch.serve.Detector``; ``entry.entry()`` and
+``entry.dryrun_multichip(n)``; the CLIs, ``python -m
+dagr_tpu_torch.scripts.<name>``.
 """
 
 __version__ = "0.1.0"

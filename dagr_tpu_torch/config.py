@@ -4,10 +4,11 @@ flag system.
 Field names and defaults follow ``dagr_tpu.config.DagrConfig`` (and so
 the reference YAML schema, ``config/dagr-*.yaml``), so the same YAML
 files load unmodified.  ``stream_chunk`` is the streaming engine's
-default chunk (``streaming.engine.StreamingDetector``).  The JAX
-package's TPU formulation switches (``node_chunk``, ``graph_fast_path``,
-``dp``) have no counterpart here; YAML keys the dataclass does not know
-are ignored, and so are those switches given as flags
+default chunk (``streaming.engine.StreamingDetector``); ``dp`` is the
+number of data-parallel ranks of the train CLIs (``parallel.mesh``).
+The JAX package's TPU formulation switches (``node_chunk``,
+``graph_fast_path``) have no counterpart here; YAML keys the dataclass
+does not know are ignored, and so are those switches given as flags
 (``TPU_ONLY_FLAGS``), so that one command line runs the CLIs of both
 packages.
 
@@ -78,6 +79,8 @@ class DagrConfig:
     no_eval: bool = False
     num_interframe_steps: int = 10
     resume_checkpoint: str = ""
+    # data-parallel ranks (parallel.mesh); 1 = one process
+    dp: int = 1
 
     def replace(self, **kw) -> "DagrConfig":
         return dataclasses.replace(self, **kw)
@@ -145,8 +148,7 @@ class DagrConfig:
 
 # dagr_tpu's TPU formulation switches: accepted as flags, then ignored
 # (name, type, dagr_tpu's default)
-TPU_ONLY_FLAGS = (("dp", int, 1), ("node_chunk", int, 2048),
-                  ("graph_fast_path", str, "slab"))
+TPU_ONLY_FLAGS = (("node_chunk", int, 2048), ("graph_fast_path", str, "slab"))
 _PATH_FIELDS = ("dataset_directory", "output_directory", "checkpoint",
                 "img_net_checkpoint")
 

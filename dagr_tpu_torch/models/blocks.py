@@ -34,6 +34,7 @@ from dagr_tpu_torch.ops import spline as spline_ops
 from dagr_tpu_torch.ops.spline import (
     ACTIVATIONS, BatchNormStats, LevelEdges, batch_norm, fused_block_fits,
     level_edges, spline_conv)
+from dagr_tpu_torch.parallel.group import total
 
 
 def activation_name(name: str) -> str:
@@ -109,7 +110,9 @@ class MaskedBatchNorm(nn.Module):
     normalises with the valid rows' mean and biased variance (n = max(
     valid rows, 1)) and moves the running statistics by ``momentum``
     toward the mean and the unbiased variance ``var * n / max(n - 1, 1)``
-    (torch conventions, as dagr_tpu); eval mode uses the running ones."""
+    (torch conventions, as dagr_tpu); eval mode uses the running ones.
+    Under a data-parallel group (``parallel.group``) n and the sums are
+    the ranks' totals: the global batch's statistics."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -138,10 +141,10 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
             m = mask.reshape(-1, 1).to(x.dtype)
-            n = m.sum().clamp(min=1.0)
+            n = total(m.sum()).clamp(min=1.0)
             xf = x.reshape(-1, x.shape[-1])
-            mean = (xf * m).sum(0) / n
-            var = (((xf - mean) ** 2) * m).sum(0) / n
+            mean = total((xf * m).sum(0)) / n
+            var = total((((xf - mean) ** 2) * m).sum(0)) / n
             with torch.no_grad():
                 unbiased = var * n / (n - 1.0).clamp(min=1.0)
                 mom = self.momentum

@@ -26,6 +26,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from dagr_tpu_torch.parallel.group import total
+
 _BIG = 1e9
 
 
@@ -137,13 +139,17 @@ def yolox_losses(raw: torch.Tensor, grids: torch.Tensor,
                  strides: torch.Tensor, targets: torch.Tensor,
                  num_classes: int) -> Dict[str, torch.Tensor]:
     """Total YOLOX loss (5 * IoU loss + objectness + class), normalised by
-    the batch's foreground anchors, for raw [B, A, 5 + C] logits, anchor
-    grids [A, 2] and strides [A, 1], targets [B, G, 5] (class, cx, cy, w,
-    h) pixels.  The same six keys as dagr_tpu's."""
+    the batch's foreground anchors (the global batch's under a
+    data-parallel group, ``parallel.group``), for raw [B, A, 5 + C]
+    logits, anchor grids [A, 2] and strides [A, 1], targets [B, G, 5]
+    (class, cx, cy, w, h) pixels.  The same six keys as dagr_tpu's."""
     boxes, fg, reg_t, cls_t, n_gts = simota_targets(raw, grids, strides,
                                                     targets, num_classes)
     obj_logit, cls_logit = raw[..., 4], raw[..., 5:]
-    num_fg = fg.sum().clamp(min=1)
+    # under a data-parallel group the batch's counts are the ranks' totals:
+    # each rank's terms are then its shares of the global batch's
+    fg_total = total(fg.sum())
+    num_fg = fg_total.clamp(min=1)
 
     # IoU loss (YOLOX IOUloss, iou_type="iou": 1 - iou^2)
     iou = pairwise_iou_cxcywh(boxes[..., None, :], reg_t[..., None, :])[..., 0, 0]
@@ -157,5 +163,5 @@ def yolox_losses(raw: torch.Tensor, grids: torch.Tensor,
         "conf_loss": loss_obj,
         "cls_loss": loss_cls,
         "l1_loss": raw.new_zeros(()),
-        "num_fg": fg.sum() / n_gts.sum().clamp(min=1),
+        "num_fg": fg_total / total(n_gts.sum()).clamp(min=1),
     }

@@ -16,8 +16,9 @@ It runs on the card unless ``--device cpu`` is given, and stops where no
 card is found.  The config flags are dagr_tpu's (its TPU-only ones are
 accepted and ignored), so one command line runs both CLIs.  Reading the
 files needs ``h5py``, PyYAML and OpenCV (the frames), and ``libblosc``
-or ``hdf5plugin`` for blosc-compressed event files.  ``--visualize``
-needs the port's ``viz.py``, which is not written yet.
+or ``hdf5plugin`` for blosc-compressed event files.  With
+``--visualize`` the first 100 windows are drawn with their detections
+(``visualization.viz``) into ``<output_directory>/viz/<i:06d>.png``.
 
 ``evaluate(cfg, dataset, device)`` is the loop without the readers: any
 dataset of ``data.sample.EventSample`` with ``height``, ``width`` and
@@ -37,8 +38,10 @@ from dagr_tpu_torch.models.dagr import DAGR, init_fresh
 from dagr_tpu_torch.train.checkpoint import load_eval_checkpoint
 from dagr_tpu_torch.train.harness import run_test
 from dagr_tpu_torch.train.state import TrainState, init_state, make_optimizer
+from dagr_tpu_torch.visualization.viz import write_overlays
 
 SEED = 0     # the weights of a run without a checkpoint
+VIZ_WINDOWS = 100
 
 
 def build_state(cfg: DagrConfig, height: int, width: int, device="cuda"
@@ -80,23 +83,34 @@ def evaluate(cfg: DagrConfig, dataset, device="cuda",
     return buf.compute(), dets
 
 
+def cli_device(parser, args) -> torch.device:
+    """``--device`` of a CLI: the card by default; the parser stops where
+    no card is found."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        parser.error("no CUDA device found; pass --device cpu to run on "
+                     "the CPU")
+    return device
+
+
+def cli_parser(prog: str):
+    """A CLI's flags: the config's, ``--device``."""
+    parser = flags_parser(prog)
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the default) or cpu")
+    return parser
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     from dagr_tpu_torch.data.augment import Augmentations
     from dagr_tpu_torch.data.dsec import DSEC
 
-    parser = flags_parser("run_test")
-    parser.add_argument("--device", default="cuda",
-                        help="cuda (the default) or cpu")
+    parser = cli_parser("run_test")
     parser.add_argument("--visualize", action="store_true",
-                        help="not available yet: needs the port's viz.py")
+                        help="draw the first 100 windows' detections into "
+                             "<output_directory>/viz")
     args = parser.parse_args(argv)
-    if args.visualize:
-        parser.error("--visualize needs dagr_tpu_torch's viz.py, which is "
-                     "not written yet")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        parser.error("no CUDA device found; pass --device cpu to evaluate "
-                     "on the CPU")
+    device = cli_device(parser, args)
     cfg = config_from_args(args)
     ds = DSEC(Path(cfg.dataset_directory), "test",
               transform=Augmentations.testing(),
@@ -104,8 +118,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     state, loaded = build_state(cfg, ds.height, ds.width, device)
     if loaded:
         print(f"loaded checkpoint from {cfg.checkpoint}")
-    metrics, _ = evaluate(cfg, ds, device, state=state)
+    metrics, dets = evaluate(cfg, ds, device, state=state)
     print({k: round(v, 4) for k, v in metrics.items()})
+    if cfg.output_directory and args.visualize:
+        # reference: utils/testing.py:16-55, run_test_with_visualization
+        out = Path(cfg.output_directory) / "viz"
+        write_overlays(out, ds, dets, VIZ_WINDOWS, class_names=ds.classes)
+        print(f"wrote visualizations to {out}")
     return metrics
 
 

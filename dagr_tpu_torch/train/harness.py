@@ -2,18 +2,22 @@
 
 Counterpart of ``dagr_tpu.train.harness`` (the reference's script-level
 loops, scripts/train_dsec.py:42-100 and utils/testing.py:16-55):
-``train_epoch`` runs the compiled recipe step (``make_train_step``) over
-(events, targets) batches, or for a fusion model ``train_step_fusion``
-over (events, targets, images, targets0) batches, and logs the losses;
-``run_test`` runs the EMA (or trained) weights in eval mode, through the
-compiled eval forward (``make_eval_forward``) over (events, targets)
-batches or, for a fusion model, eagerly over (events, targets, images)
-batches, decodes the (hybrid) raw outputs with ``detect`` (K4 on the
-card) and fills a ``DetectionBuffer``.
+``train_epoch`` runs the compiled recipe step (``make_train_step``, or
+the step it is given, for instance ``parallel.mesh.shard_train_step``'s)
+over (events, targets) batches, or for a fusion model
+``train_step_fusion`` over (events, targets, images, targets0) batches,
+and logs the losses; ``run_test`` runs the EMA (or trained) weights in
+eval mode, through the compiled eval forward (``make_eval_forward``, or
+the forward it is given, for instance
+``parallel.mesh.shard_eval_forward``'s) over (events, targets) batches
+or, for a fusion model, eagerly over (events, targets, images) batches,
+decodes the (hybrid) raw outputs with ``detect`` (K4 on the card) and
+fills a ``DetectionBuffer``; with ``dry_run_steps`` it stops after that
+many batches and one more, as dagr_tpu's does.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 from dagr_tpu_torch.eval.buffers import (
     DetectionBuffer, detections_to_list, targets_to_list)
@@ -26,12 +30,17 @@ from dagr_tpu_torch.utils.logging import MetricLogger
 
 def run_test(loader, state: TrainState, height: int, width: int,
              classes: Sequence[str], dry_run_steps: int = -1,
-             use_ema: bool = True, compile_detections: bool = False):
-    """Sync evaluation pass; returns (buffer, detections list)."""
+             use_ema: bool = True, compile_detections: bool = False,
+             forward: Optional[Callable] = None):
+    """Sync evaluation pass; returns (buffer, detections list).
+    ``forward(state, events) -> raw`` replaces the compiled eval forward
+    of an events-only model."""
     cfg = state.model.cfg
     buf = DetectionBuffer(height=height, width=width, classes=classes)
     compiled = []
-    fwd = None if cfg.use_image else make_eval_forward(state, use_ema)
+    fwd = forward
+    if fwd is None and not cfg.use_image:
+        fwd = make_eval_forward(state, use_ema)
     for i, batch in enumerate(loader):
         events, targets = batch[0], batch[1]
         if cfg.use_image:
@@ -48,16 +57,22 @@ def run_test(loader, state: TrainState, height: int, width: int,
 
 
 def train_epoch(loader, state: TrainState,
-                logger: Optional[MetricLogger] = None, log_every: int = 10):
-    """One training epoch; returns (state, the last step's losses)."""
-    use_image = state.model.cfg.use_image
-    step = None if use_image else make_train_step(state)
+                logger: Optional[MetricLogger] = None, log_every: int = 10,
+                step: Optional[Callable] = None):
+    """One training epoch; returns (state, the last step's losses).
+    ``step(state, events, targets) -> losses`` replaces a new
+    ``make_train_step(state)`` for an events-only model: a caller that
+    keeps one across epochs keeps its CUDA graphs."""
+    cfg = state.model.cfg
+    if step is None and not cfg.use_image:
+        step = make_train_step(state)
     losses = None
     for i, batch in enumerate(loader):
-        if use_image:
+        if cfg.use_image:
             events, targets, images, targets0 = batch
             losses = train_step_fusion(state, events, images, targets,
-                                       targets0)
+                                       targets0,
+                                       pretrain_cnn=cfg.pretrain_cnn)
         else:
             losses = step(state, batch[0], batch[1])
         if logger is not None and i % log_every == 0:

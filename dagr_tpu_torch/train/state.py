@@ -52,6 +52,7 @@ from dagr_tpu_torch.config import DagrConfig
 from dagr_tpu_torch.core.types import EventBatch
 from dagr_tpu_torch.models.dagr import (
     DAGR, detection_loss, detection_loss_fusion)
+from dagr_tpu_torch.parallel import group as dp_group
 from dagr_tpu_torch.serve import window_forward
 from dagr_tpu_torch.train.lr_schedule import yolox_schedule
 from dagr_tpu_torch.utils.graphs import StepGraphs
@@ -227,16 +228,28 @@ def _update(state: TrainState, losses) -> Dict[str, torch.Tensor]:
     """Backward of the total loss into the optimizer's parameters, NaN
     scrub, clip, AdamW at the tensor ``lr``, then the EMA of every float
     tensor of the state dict (parameters and running statistics) at
-    ``ema_weights``: device work only, the counts are the caller's."""
+    ``ema_weights``: device work only, the counts are the caller's.
+    Under a data-parallel group (``parallel.group``) each rank's loss is
+    its share of the global batch's: the ranks' gradients are summed
+    before the scrub and the clip, and the losses returned are the
+    sums (``num_fg`` is the global batch's already)."""
     model = state.model
     params = [p for g in state.optimizer.param_groups for p in g["params"]]
     with record_function("train_step.backward"):
         grads = torch.autograd.grad(losses["total_loss"], params,
                                     allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    losses = {k: v.detach() for k, v in losses.items()}
+    group = dp_group.active()
+    if group is not None:
+        grads = dp_group.sum_tensors(grads, group)
+        shares = [k for k in losses if k != "num_fg"]
+        losses.update(zip(shares, dp_group.sum_tensors(
+            [losses[k] for k in shares], group)))
     clip = state.recipe.clip
     with torch.no_grad(), record_function("train_step.update"):
         for p, g in zip(params, grads):
-            g = torch.zeros_like(p) if g is None else g
             p.grad = torch.nan_to_num(g, nan=0.0).clamp_(-clip, clip)
         state.optimizer.step()
         new = model.state_dict()
@@ -246,7 +259,7 @@ def _update(state: TrainState, losses) -> Dict[str, torch.Tensor]:
         torch._foreach_mul_(ema, state.ema_weights[0])
         torch._foreach_add_(ema, torch._foreach_mul(new,
                                                     state.ema_weights[1]))
-    return {k: v.detach() for k, v in losses.items()}
+    return losses
 
 
 @torch.no_grad()

@@ -1,7 +1,7 @@
 """dagr_tpu_torch's flag system against dagr_tpu.config: ``parse_flags``
 and ``config_from_yaml`` give the same field values on every shipped
-YAML config, with and without overrides, and dagr_tpu's TPU-only flags
-are accepted and ignored."""
+YAML config, with and without overrides, ``--dp`` reaches the config,
+and dagr_tpu's TPU-only flags are accepted and ignored."""
 import dataclasses
 from pathlib import Path
 
@@ -52,7 +52,7 @@ def test_flags_without_a_config_and_yaml_overrides():
 
 def test_tpu_only_flags_are_documented_and_ignored(capsys):
     names = {name for name, _, _ in TPU_ONLY_FLAGS}
-    assert names == {"dp", "node_chunk", "graph_fast_path"}
+    assert names == {"node_chunk", "graph_fast_path"}
     assert not names & {f.name for f in dataclasses.fields(DagrConfig)}
     parser = flags_parser()
     with pytest.raises(SystemExit):
@@ -65,3 +65,17 @@ def test_tpu_only_flags_are_documented_and_ignored(capsys):
         assert "accepted and ignored here" in helps[name]
     with pytest.raises(SystemExit):
         parser.parse_args(["--not_a_flag", "1"])
+
+
+@pytest.mark.parametrize("argv,dp", [([], 1), (["--dp", "2"], 2),
+                                     (["--dp", "4", "--node_chunk", "8"], 4)],
+                         ids=["default", "dp2", "dp4-tpu_only"])
+def test_dp_reaches_the_config(argv, dp):
+    """``dp`` is a field of the port's config (the train CLIs' ranks),
+    parsed as dagr_tpu parses it; its help no longer says ignored."""
+    cfg = parse_flags(argv)
+    assert cfg.dp == dp and type(cfg.dp) is int
+    assert parse_flags(argv + ["--config", str(CONFIGS[0])]).dp == dp
+    assert jax_parse_flags(argv).dp == dp
+    helps = {a.dest: a.help for a in flags_parser()._actions}
+    assert "ignored" not in (helps["dp"] or "")

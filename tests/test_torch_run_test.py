@@ -156,13 +156,14 @@ def assert_same_detections(got, want, tol=1e-4):
 
 
 def test_cli_refuses_what_it_cannot_do(dsec_env, monkeypatch, capsys):
-    with pytest.raises(SystemExit):
-        cli.main(TINY_FLAGS + ["--visualize", "--device", "cpu"])
-    assert "viz.py" in capsys.readouterr().err
+    """Without a card the CLI stops before it reads anything, with or
+    without ``--visualize`` (which it takes: tests/test_torch_scripts.py)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit):
-        cli.main(TINY_FLAGS + ["--dataset_directory", str(dsec_env)])
-    assert "--device cpu" in capsys.readouterr().err
+    for extra in ([], ["--visualize"]):
+        with pytest.raises(SystemExit):
+            cli.main(TINY_FLAGS + ["--dataset_directory", str(dsec_env)]
+                     + extra)
+        assert "--device cpu" in capsys.readouterr().err
 
 
 PORT_MODULES = (
@@ -171,7 +172,14 @@ PORT_MODULES = (
     "dagr_tpu_torch.data.augment", "dagr_tpu_torch.data.downsample",
     "dagr_tpu_torch.data.dsec", "dagr_tpu_torch.data.ncaltech101",
     "dagr_tpu_torch.data.loader", "dagr_tpu_torch.models.torch_import",
-    "dagr_tpu_torch.train.checkpoint", "dagr_tpu_torch.scripts.run_test")
+    "dagr_tpu_torch.train.checkpoint", "dagr_tpu_torch.scripts.run_test",
+    "dagr_tpu_torch.visualization.viz", "dagr_tpu_torch.parallel.mesh",
+    "dagr_tpu_torch.entry", "dagr_tpu_torch.scripts.run_test_interframe",
+    "dagr_tpu_torch.scripts.count_flops",
+    "dagr_tpu_torch.scripts.downsample_events",
+    "dagr_tpu_torch.scripts.visualize_detections",
+    "dagr_tpu_torch.scripts.train_dsec",
+    "dagr_tpu_torch.scripts.train_ncaltech101")
 
 
 def test_port_imports_without_host_readers(monkeypatch, tmp_path):
