@@ -79,14 +79,25 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    tail_every 1 and 4 (``make_step``; at most two graphs, fresh and
    stale), the S=1 ring server of 256 past its wrap, the decoding chain
    (``make_chain(4, decode=True)``, S=8, tail_every 4: K4 inside the
-   fresh step's graph) and the B=8 recipe train step
-   (``make_train_step``); every call checked (raw to 1e-5 of its max,
-   detections as K4's checks, integer tables exact after the run; the
-   train step's losses to 1e-5 and, after 3 replays, every parameter,
-   EMA leaf and Adam moment to 1e-5 of its max); the replay and eager
+   fresh step's graph), the B=8 recipe train step
+   (``make_train_step``), the B=8 fusion train step of DAGR-S +
+   ResNet-50 with the trunk frozen (``make_train_step_fusion`` against
+   ``train_step_fusion``), DAGR-L DSEC's and NCaltech101's B=1 windows
+   (``Detector.make_forward``, their split convs in the graph; then
+   ``make_eval_forward``) and DAGR-L NCaltech101's B=8 recipe train
+   step; every call checked (raw to 1e-5 of its max, detections as K4's
+   checks, integer tables exact after the run; a train step's losses to
+   1e-5 and, after 3 replays, every parameter, EMA leaf, batch-norm
+   statistic and Adam moment to 1e-5 of its max; the fusion step, not
+   bit-stable, then gives its eager side the replayed state before each
+   later call); the replay and eager
    p50 (fresh and stale steps apart), and one profiled replay per path
    that must show the path's kernels by name (replays bypass the launch
-   counters), with its device busy and idle share;
+   counters), with its device busy and idle share; for the new rows the
+   launches of the capture (and of an eager train step: K1 1, the split
+   conv and its backward once a conv, K3 and K9b 4), one more call that
+   is one ``CUDAGraph.replay`` launching nothing from the host, and the
+   train rows' peak memory in an eager step and in the capture;
 8. serves through ``dagr_tpu_torch.streaming.serve.MultiStreamServer``
    on the same model: 8 windows as 8 lockstep streams in chunks of 1024
    (grow, ring 8192; each stream's final raw must equal its window's
@@ -195,13 +206,26 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    over NCCL bit-equal to the plain compiled step (the all-reduces
    captured in its graph), and two gloo ranks sharing this card (B=8 as
    4 + 4) equal to the one-rank step (losses rtol 1e-4, weights 1e-5);
+   the same loop with a fusion config (DAGR-S + ResNet-50, seeded
+   frames, the trunk loaded and frozen from an ``img_net_checkpoint``
+   the phase writes from seeded weights) through
+   ``make_train_step_fusion``: cuDNN's default backward of the CNN head
+   adds with atomics, so the step is not bit-stable and that step, taken
+   directly, starts each batch from the CLI's state before it (losses
+   bit-equal, the state after it within 1e-5 of each tensor's max); and
+   ``train_ncaltech101``'s loop
+   (``train_dsec.run``, no dry-run eval) at DAGR-L NCaltech101, B=8, 1
+   epoch of 3 steps, under the same checks;
 13. prints the kernel table (every kernel's error, time, twin time,
    bound and library-call time, and its launches on each path, the wide
    windows' as ``wide_launches``, a fusion request's as
    ``fusion_launches``, a fusion step's as
    ``fusion_train_launches_per_step``, the run_test loop's as
-   ``dsec_launches`` and the train CLI's run (its evals included) as
-   ``scripts_launches``; the fusion window's checks as
+   ``dsec_launches``, the train CLI's run (its evals included) as
+   ``scripts_launches``, the fusion and NCaltech101 CLI runs' as
+   ``fusion_cli_launches`` and ``ncaltech_cli_launches``, the graphs
+   phase's new rows' captures as ``graph_capture_launches``; the
+   fusion window's checks as
    ``fusion_checks``, the run_test batch's as ``dsec_checks``), the card
    line and, last, the result line.
 
@@ -1924,10 +1948,11 @@ def graph_paths(cfg, det, events, card):
     kernels: the Detector at B=1 and B=8, the engine's grow and ring
     steps of 256 on a warm (full) store, the S=8 server at tail_every 1
     and 4 (at most two graphs), the S=1 ring server of 256 past its wrap,
-    the decoding chain (S=8, tail_every=4, 4 steps a chain) and the B=8
+    the decoding chain (S=8, tail_every=4, 4 steps a chain), the B=8
     recipe train step (3 replays against 3 eager steps: losses to 1e-5,
-    every parameter, EMA leaf and Adam moment to 1e-5 of its max).
-    Returns the records."""
+    every parameter, EMA leaf and Adam moment to 1e-5 of its max), the
+    fusion train step (``fusion_train_graph``) and DAGR-L's rows
+    (``wide_graphs``).  Returns the records."""
     import copy
 
     from dagr_tpu_torch.data.synthetic import random_events, random_targets
@@ -2082,6 +2107,20 @@ def graph_paths(cfg, det, events, card):
     tstep = make_train_step(tst)
     what = f"train step B={TRAIN_B}"
 
+    recs.append(graph_path(
+        what, lambda i: tstep(tst, tev, targets),
+        lambda i: train_step(tref, tev, targets), n, train_loss_check(what),
+        TRAIN_KERNELS, card, tstep.graphs,
+        after=train_leaves_check(what, tst, tref), state=tst))
+    del tst, tref, tstep, tmodel
+    recs.append(fusion_train_graph(card))
+    recs += wide_graphs(card)
+    return recs
+
+
+def train_loss_check(what):
+    """A ``graph_path`` check of two train steps' losses: each to 1e-5 of
+    the eager step's."""
     def check_losses(got, want):
         err = 0.0
         for k in want:
@@ -2090,6 +2129,15 @@ def graph_paths(cfg, det, events, card):
                     f"graphs, {what}: loss {k}: {got[k]} vs {want[k]}")
             err = max(err, e)
         return err
+    return check_losses
+
+
+def train_leaves_check(what, tst, tref):
+    """A ``graph_path`` ``after``: once the replays of the capture call and
+    two more have run (call WARMUP + 2), every parameter, EMA leaf and
+    batch-norm statistic of ``tst`` within 1e-5 of its max of ``tref``'s,
+    and the Adam moments of every trained parameter."""
+    from dagr_tpu_torch.utils.graphs import WARMUP
 
     def leaves(i):
         if i != WARMUP + 2:          # the capture's replay and two more
@@ -2100,19 +2148,277 @@ def graph_paths(cfg, det, events, card):
                 e = rel_err(sa[k], sb[k])
                 require(e <= 1e-5, f"graphs, {what}: {k} after 3 replays: "
                         f"{e} of its max")
-        for p, q in zip(tst.model.parameters(), tref.model.parameters()):
+        for (_, p), (_, q) in zip(tst.recipe.trainable(tst.model),
+                                  tref.recipe.trainable(tref.model)):
             for k in ("exp_avg", "exp_avg_sq", "step"):
                 e = rel_err(tst.optimizer.state[p][k],
                             tref.optimizer.state[q][k])
                 require(e <= 1e-5, f"graphs, {what}: Adam {k}: {e}")
-        print(f"graphs, {what}: after 3 replays every parameter, EMA leaf "
-              "and Adam moment within 1e-5 of its max of the eager "
-              "steps'", flush=True)
+        print(f"graphs, {what}: after 3 replays every parameter, EMA leaf, "
+              "batch-norm statistic and Adam moment within 1e-5 of its max "
+              "of the eager steps'", flush=True)
+    return leaves
 
-    recs.append(graph_path(
-        what, lambda i: tstep(tst, tev, targets),
-        lambda i: train_step(tref, tev, targets), n, check_losses,
-        TRAIN_KERNELS, card, tstep.graphs, after=leaves, state=tst))
+
+def train_tensors(state):
+    """Every tensor of a train state in one order: the model's and the
+    EMA's state_dict values, then each trained parameter's Adam state."""
+    out = (list(state.model.state_dict().values())
+           + list(state.ema.state_dict().values()))
+    for _, p in state.recipe.trainable(state.model):
+        st = state.optimizer.state[p]
+        out += [st[k] for k in sorted(st)]
+    return out
+
+
+def put_train_state(dst, tensors, counts):
+    """Copies ``tensors`` (``train_tensors`` of a state of the same model)
+    and the host counts (step, ema_updates) into ``dst``, in place."""
+    mine = train_tensors(dst)
+    require(len(mine) == len(tensors), "train states of one layout")
+    with torch.no_grad():
+        for t, u in zip(mine, tensors):
+            t.copy_(u)
+    dst.step, dst.ema_updates = counts
+
+
+def launch_logged(fn, at):
+    """``fn(i)`` that keeps, for each call ``i`` in ``at``, its launches
+    by kernel (the host's counts, synchronised) in ``log[i]``: (wrapped,
+    log)."""
+    from dagr_tpu_torch.kernels import _build
+
+    log = {}
+
+    def wrapped(i):
+        if i not in at:
+            return fn(i)
+        torch.cuda.synchronize()
+        before = _build.launch_counts()
+        out = fn(i)
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        log[i] = {k: after[k] - before[k] for k in after}
+        return out
+    return wrapped, log
+
+
+def host_launch_free_replay(call, what):
+    """One more ``call()`` of a path whose graph is captured: exactly one
+    ``CUDAGraph.replay`` and no kernel launched from the host."""
+    from dagr_tpu_torch.kernels import _build
+
+    stop = count_replays()
+    try:
+        torch.cuda.synchronize()
+        before, r0 = _build.launch_counts(), REPLAYS[0]
+        call()
+        torch.cuda.synchronize()
+        after, replays = _build.launch_counts(), REPLAYS[0] - r0
+    finally:
+        stop()
+    launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    require(replays == 1 and not launched, f"graphs, {what}: a call after "
+            f"the capture: {replays} CUDA-graph replays, launches {launched}")
+
+
+def graph_train_row(what, tst, tref, compiled, eager, kernels, card, graphs,
+                    want_launches, resync=False):
+    """A train step's ``graph_path`` (losses each call, every leaf after 3
+    replays: ``train_loss_check``, ``train_leaves_check``) with the
+    launches of its first eager step and of its capture call, each equal
+    to ``want_launches`` (kernels not named launch 0 times), the peak
+    memory of an eager step and of the capture call, and one more call
+    that is one ``CUDAGraph.replay`` launching nothing from the host.
+    With ``resync`` (a step that is not bit-stable), once the leaves are
+    checked the eager side takes the compiled side's state before each
+    later call, so that the two start every timed step alike and their
+    losses stay comparable (two runs of such a step drift apart, and
+    SimOTA's assignment turns on small differences)."""
+    from dagr_tpu_torch.utils.graphs import WARMUP
+
+    n = WARMUP + 1 + GRAPH_TIMED + 1
+    peaks = {}
+
+    def peak_of(fn, key):
+        def call(i):
+            if i != (WARMUP if key == "capture" else 0):
+                return fn(i)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(i)
+            torch.cuda.synchronize()
+            peaks[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+            return out
+        return call
+
+    leaves = train_leaves_check(what, tst, tref)
+
+    def after(i):
+        leaves(i)
+        if resync and i >= WARMUP + 2:
+            put_train_state(tref, train_tensors(tst),
+                            (tst.step, tst.ema_updates))
+
+    c_fn, c_log = launch_logged(peak_of(compiled, "capture"), {WARMUP})
+    e_fn, e_log = launch_logged(peak_of(eager, "eager"), {0})
+    rec = graph_path(what, c_fn, e_fn, n, train_loss_check(what), kernels,
+                     card, graphs, after=after, state=tst)
+    for side, got in (("eager step", e_log[0]), ("capture", c_log[WARMUP])):
+        want = {k: want_launches.get(k, 0) for k in got}
+        require(got == want, f"graphs, {what}: launches of the {side}: "
+                f"{ {k: v for k, v in got.items() if v} }, not "
+                f"{want_launches}")
+    host_launch_free_replay(lambda: compiled(n), what)
+    rec.update(launches={k: v for k, v in c_log[WARMUP].items() if v},
+               replay_launches=0, eager_peak_gib=peaks["eager"],
+               capture_peak_gib=peaks["capture"])
+    print(f"graphs, {what}: launches of an eager step and of the capture "
+          + ", ".join(f"{k} {v}" for k, v in want_launches.items())
+          + f"; a replay: one CUDAGraph.replay, no launch from the host; "
+          f"peak memory {peaks['eager']:.3f} GiB in an eager step, "
+          f"{peaks['capture']:.3f} GiB in the capture (both states and the "
+          f"graph pool held) [{card}]", flush=True)
+    return rec
+
+
+def fusion_train_graph(card):
+    """The graphs phase's fusion row: ``make_train_step_fusion`` of DAGR-S
+    + ResNet-50 at 240x320, B=TRAIN_B windows of N_VALID events and
+    seeded frames, the trunk frozen (the recipe with a pretrained image
+    net), against ``train_step_fusion`` on a copy of the state
+    (``graph_train_row``): K1 once, the split conv and its backward 20
+    times, K3 and K9b 4 times a step."""
+    import copy
+
+    from dagr_tpu_torch.config import DagrConfig
+    from dagr_tpu_torch.data.synthetic import random_targets
+    from dagr_tpu_torch.models.dagr import DAGR, init_params
+    from dagr_tpu_torch.train.state import (
+        init_state, make_optimizer, make_train_step_fusion,
+        train_step_fusion)
+
+    cfg = DagrConfig(use_image=True, img_net="resnet50",
+                     batch_size=TRAIN_B)
+    rng = np.random.default_rng(SEED + 5)
+    events, images = fusion_batch(rng, TRAIN_B)
+    t1, t0 = (random_targets(rng, TRAIN_B, n_boxes=30) for _ in range(2))
+    model = DAGR(cfg, H, W)
+    init_params(model, torch.Generator().manual_seed(SEED))
+    recipe = make_optimizer(cfg, 10, frozen=("cnn",))[0]
+    tref = init_state(copy.deepcopy(model).cuda(), recipe)
+    tst = init_state(model.cuda(), recipe)
+    step = make_train_step_fusion(tst)
+    trunk = {k: v.clone() for k, v in tst.model.cnn.state_dict().items()}
+    what = (f"fusion train step B={TRAIN_B}, DAGR-S + ResNet-50, trunk "
+            "frozen")
+    rec = graph_train_row(
+        what, tst, tref, lambda i: step(tst, events, t1, images, t0),
+        lambda i: train_step_fusion(tref, events, images, t1, t0),
+        TRAIN_KERNELS, card, step.graphs,
+        dict(graph_search=1, spline_conv=SYNC_BLOCKS,
+             spline_conv_backward=SYNC_BLOCKS, voxel_pool=4,
+             voxel_pool_backward=4), resync=True)
+    now = tst.model.cnn.state_dict()
+    require(all(torch.equal(now[k], trunk[k])
+                for k, _ in tst.model.cnn.named_parameters()),
+            f"graphs, {what}: the frozen trunk and reductions bit-identical")
+    del tst, tref, step, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def wide_graphs(card):
+    """The graphs phase's DAGR-L rows: each of WIDE_MODELS' B=1 window
+    through ``Detector.make_forward`` against ``Detector.__call__`` (raw
+    1e-5 of its max, detections as K4's checks; the capture launching
+    ``eval_routes``' fused blocks and split convs, a later call one
+    replay and no host launch), ``train.state.make_eval_forward``
+    against ``eval_forward`` on the same windows (raw 1e-5), then
+    DAGR-L NCaltech101's recipe train step at B=TRAIN_B (the config's 64
+    cut as the DAGR-S row's) under the train row's checks."""
+    import copy
+
+    from dagr_tpu_torch.config import DagrConfig
+    from dagr_tpu_torch.data.synthetic import random_events, random_targets
+    from dagr_tpu_torch.models.dagr import DAGR, eval_routes, init_fresh
+    from dagr_tpu_torch.serve import Detector
+    from dagr_tpu_torch.train.state import (
+        eval_forward, init_state, make_eval_forward, make_optimizer,
+        make_train_step, train_step)
+    from dagr_tpu_torch.utils.graphs import WARMUP
+
+    n = WARMUP + 1 + GRAPH_TIMED + 1
+    recs = []
+    for name, fields, h, w in WIDE_MODELS:
+        cfg = DagrConfig(**fields)
+        rng = np.random.default_rng(SEED + 6)
+        windows = [random_events(rng, 1, N_NODES, w, h, n_valid=N_VALID,
+                                 device="cuda") for _ in range(4)]
+        det = Detector(cfg, h, w, "cuda", seed=SEED)
+        fused, split = eval_routes(det.model)
+        fwd = det.make_forward()
+        what = f"{name} Detector B=1"
+
+        def check(got, want, what=what):
+            return max(check_raw(got[0], want[0], what),
+                       check_detections(got[1], want[1], what))
+
+        c_fn, log = launch_logged(lambda i: fwd(windows[i % 4]), {WARMUP})
+        rec = graph_path(what, c_fn, lambda i: det(windows[i % 4]), n, check,
+                         SYNC_KERNELS + ("spline_conv",), card, fwd.graphs)
+        got = log[WARMUP]
+        require(got["spline_conv_block"] == fused
+                and got["spline_conv"] == split
+                and all(got[k] > 0 for k in SYNC_KERNELS),
+                f"graphs, {what}: the capture's launches {got}, not "
+                f"{fused} fused blocks and {split} split convs")
+        host_launch_free_replay(lambda: fwd(windows[0]), what)
+        # the trainer's compiled eval forward on the same model
+        state = init_state(det.model, make_optimizer(cfg, 10)[0])
+        efwd = make_eval_forward(state)
+        err = 0.0
+        for i in range(WARMUP + 2):
+            raw = efwd(state, windows[i])
+            if i >= WARMUP:
+                err = max(err, check_raw(raw, eval_forward(
+                    state, windows[i]), f"{name} make_eval_forward"))
+        require(efwd.graphs.replays() == 2,
+                f"{name} make_eval_forward: {efwd.graphs.replays()} replays")
+        rec.update(launches={k: v for k, v in got.items() if v},
+                   replay_launches=0, eval_forward_err=err)
+        print(f"graphs, {what}: the capture launched {fused} fused blocks "
+              f"and {split} split convs (eval_routes), a replay nothing "
+              f"from the host; make_eval_forward's replays vs eval_forward: "
+              f"{err:.3g} of the raw's max [{card}]", flush=True)
+        recs.append(rec)
+        del det, fwd, state, efwd
+
+    # DAGR-L NCaltech101's recipe train step
+    name, fields, h, w = WIDE_MODELS[1]
+    cfg = DagrConfig(**fields, l_r=0.001, batch_size=TRAIN_B)
+    rng = np.random.default_rng(SEED + 7)
+    tev = random_events(rng, TRAIN_B, N_NODES, w, h, n_valid=N_VALID,
+                        device="cuda")
+    targets = random_targets(rng, TRAIN_B, num_classes=cfg.num_classes,
+                             width=w, height=h, n_boxes=1)
+    model = DAGR(cfg, h, w)
+    init_fresh(model, torch.Generator().manual_seed(SEED))
+    fused, split = eval_routes(model)
+    recipe = make_optimizer(cfg, 10)[0]
+    tref = init_state(copy.deepcopy(model).cuda(), recipe)
+    tst = init_state(model.cuda(), recipe)
+    tstep = make_train_step(tst)
+    convs = fused + split
+    recs.append(graph_train_row(
+        f"{name} train step B={TRAIN_B}", tst, tref,
+        lambda i: tstep(tst, tev, targets),
+        lambda i: train_step(tref, tev, targets), TRAIN_KERNELS, card,
+        tstep.graphs, dict(graph_search=1, spline_conv=convs,
+                           spline_conv_backward=convs, voxel_pool=4,
+                           voxel_pool_backward=4)))
+    del tst, tref, tstep, model
+    torch.cuda.empty_cache()
     return recs
 
 
@@ -3564,8 +3870,10 @@ class MemoryDataset:
 
     classes = ("car", "pedestrian")
 
-    def __init__(self, samples, transform, height, width):
+    def __init__(self, samples, transform, height, width, classes=None):
         self.samples, self.transform = samples, transform
+        if classes is not None:
+            self.classes = classes
         self.height, self.width = height, width
         self.rng = np.random.default_rng(SEED)
         self.transform_ms, self.transform_spans = [], []
@@ -3582,11 +3890,12 @@ class MemoryDataset:
         return out
 
 
-def dsec_samples(rng, n):
+def dsec_samples(rng, n, images=False):
     """``n`` DSEC-geometry samples: about 45k events each around 6
     clusters over 50 ms, shifted so the last sits at the time window (as
     DSEC's reader does), polarity in {-1, 1}, and 3 to 5 boxes of both
-    classes."""
+    classes; with ``images`` a seeded uint8 frame each, drawn after the
+    rest of its sample."""
     from dagr_tpu_torch.data.sample import EventSample
 
     out = []
@@ -3607,7 +3916,9 @@ def dsec_samples(rng, n):
             t=(1_000_000 + t - t[-1]).astype(np.int32),
             p=(2 * rng.integers(0, 2, nv) - 1).astype(np.int8),
             width=DSEC_W, height=DSEC_H,
-            bbox=boxes.astype(np.float32), bbox0=boxes.astype(np.float32)))
+            bbox=boxes.astype(np.float32), bbox0=boxes.astype(np.float32),
+            image=rng.integers(0, 256, (DSEC_H, DSEC_W, 3), np.uint8)
+            if images else None))
     return out
 
 
@@ -4014,30 +4325,26 @@ def scripts_phase(card):
     (``MemoryDataset``: SCRIPT_TRAIN windows through
     ``Augmentations.training``, SCRIPT_VAL through ``testing``), B=8,
     SCRIPT_EPOCHS epochs of SCRIPT_STEPS steps, the dry-run eval and the
-    epoch-0 eval and overlays included; every step's inputs, losses,
-    launches and CUDA-graph replays recorded (K1, the split conv, its
-    backward, K3 and K9b on each step that ran eagerly or captured, one
-    replay and no launch on each later one); the same batches through
-    ``make_train_step`` from the same initial state give bit-equal losses;
-    ``last_model`` restores every tensor of the model, the EMA and the
-    optimizer bit-equal; the loop's steps/s.  (b) ``count_flops
-    --synthetic 1`` at flagship size on the card, and the census of one
-    2048-event window on the card equal to the CPU plain path's.  (c)
-    ``entry()``: its compiled forward's raw == ``serve.Detector``'s on
-    the same window (1e-4).  (d) ``--dp 1`` over NCCL: the sharded step
-    (a CUDA-graph replay with the collectives captured) bit-equal to the
-    plain compiled step over DP_STEPS steps; two gloo ranks with CUDA
-    tensors on this one card run B=8 as 4 + 4 and equal the one-rank B=8
-    step (losses rtol 1e-4, weights and EMA atol 1e-5).  Returns the
-    launches of the train CLI's run (its evals included)."""
-    import tempfile
-
+    epoch-0 eval and overlays included (``cli_loop``); the same batches
+    through ``make_train_step`` from the same initial state give
+    bit-equal losses; the loop's steps/s.  (a2) the same with a fusion
+    config (``fusion_cli``): DAGR-S + ResNet-50, seeded frames, the trunk
+    loaded and frozen from an ``img_net_checkpoint`` written from seeded
+    weights, through ``make_train_step_fusion``.  (a3)
+    ``train_ncaltech101``'s loop (``train_dsec.run`` with
+    ``dry_run_steps=0``) at DAGR-L NCaltech101 (``ncaltech_cli``).  (b)
+    ``count_flops --synthetic 1`` at flagship size on the card, and the
+    census of one 2048-event window on the card equal to the CPU plain
+    path's.  (c) ``entry()``: its compiled forward's raw ==
+    ``serve.Detector``'s on the same window (1e-4).  (d) ``--dp 1`` over
+    NCCL: the sharded step (a CUDA-graph replay with the collectives
+    captured) bit-equal to the plain compiled step over DP_STEPS steps;
+    two gloo ranks with CUDA tensors on this one card run B=8 as 4 + 4
+    and equal the one-rank B=8 step (losses rtol 1e-4, weights and EMA
+    atol 1e-5).  Returns the launches of each train CLI run (its evals
+    included): {"dsec", "fusion", "ncaltech"}."""
     from dagr_tpu_torch.config import DagrConfig
     from dagr_tpu_torch.data.augment import Augmentations
-    from dagr_tpu_torch.kernels import _build
-    from dagr_tpu_torch.scripts import train_dsec
-    from dagr_tpu_torch.train.checkpoint import Checkpointer
-    from dagr_tpu_torch.train.state import make_train_step
 
     cfg = DagrConfig(**DAGR_S_DSEC).replace(
         batch_size=SCRIPT_B, tot_num_epochs=SCRIPT_EPOCHS)
@@ -4048,119 +4355,322 @@ def scripts_phase(card):
         DSEC_H, DSEC_W)
     val_ds = MemoryDataset(dsec_samples(rng, SCRIPT_VAL),
                            Augmentations.testing(), DSEC_H, DSEC_W)
-    steps = []        # (events, targets, losses, launches, replays, ms)
-
-    def recording(state):
-        step = make_train_step(state)
-
-        def rec(st, events, targets):
-            torch.cuda.synchronize()
-            before, r0 = _build.launch_counts(), REPLAYS[0]
-            start = time.perf_counter()
-            losses = step(st, events, targets)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - start) * 1e3
-            after = _build.launch_counts()
-            steps.append((events, targets, losses,
-                          {k: after[k] - before[k] for k in after},
-                          REPLAYS[0] - r0, ms))
-            return losses
-        return rec
-
-    stop = count_replays()
-    train_dsec.make_train_step = recording
-    torch.cuda.synchronize()
-    _build.reset_launch_counts()
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            t0 = time.perf_counter()
-            state = train_dsec.train(cfg, train_ds, val_ds, "cuda", tmp)
-            torch.cuda.synchronize()
-            whole_s = time.perf_counter() - t0
-            launches = _build.launch_counts()
-            n_viz = len(list(Path(tmp, "viz_epoch_0").glob("*.png")))
-            fresh = train_dsec.build_train_state(cfg, DSEC_H, DSEC_W, "cuda",
-                                                 SCRIPT_STEPS)
-            restored, epoch = Checkpointer(Path(tmp)).restore_if_existing(
-                fresh)
-            logged = Path(tmp, "metrics.jsonl").read_text().splitlines()
-    finally:
-        train_dsec.make_train_step = make_train_step
-        stop()
-    n = SCRIPT_EPOCHS * SCRIPT_STEPS
-    require(len(steps) == n and state.step == n,
-            f"train CLI: {len(steps)} steps recorded, state.step "
-            f"{state.step}, of {n}")
-    require(n_viz == cfg.n_viz_images, f"train CLI: {n_viz} epoch-0 "
-            "overlays")
-    require(any("validation/metric/mAP" in ln for ln in logged),
-            "train CLI: the epoch-0 eval logged")
-    require(restored is not None and epoch == SCRIPT_EPOCHS,
-            f"train CLI: last_model restored (epoch {epoch})")
-    for what, a, b in (("model", restored.model.state_dict(),
-                        state.model.state_dict()),
-                       ("EMA", restored.ema.state_dict(),
-                        state.ema.state_dict())):
-        require(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a),
-                f"train CLI: last_model's {what} bit-equal to the trained "
-                "state")
-    oa, ob = restored.optimizer.state_dict(), state.optimizer.state_dict()
-    require(all(torch.equal(oa["state"][i][k], ob["state"][i][k])
-                for i in ob["state"] for k in ob["state"][i]),
-            "train CLI: last_model's Adam moments bit-equal")
-    require(restored.step == state.step
-            and restored.ema_updates == state.ema_updates,
-            "train CLI: last_model's counts")
-    captured = False
-    for i, (_, _, losses, d, r, _) in enumerate(steps):
-        require(all(bool(torch.isfinite(v)) for v in losses.values()),
-                f"train CLI step {i}: losses finite")
-        if all(d[k] > 0 for k in TRAIN_KERNELS):
-            require(d["spline_conv"] == SYNC_BLOCKS
-                    and d["spline_conv_backward"] == SYNC_BLOCKS
-                    and r in (0, 1), f"train CLI step {i}: {d}, {r} replays")
-            captured = captured or r == 1
-        else:
-            require(captured and r == 1 and all(v == 0 for v in d.values()),
-                    f"train CLI step {i}: neither every train kernel "
-                    f"({d}) nor one replay of the captured step ({r})")
-    replayed = [i for i, st in enumerate(steps) if st[3]["graph_search"] == 0]
-    require(captured and len(replayed) == n - 3,
-            f"train CLI: {len(replayed)} replayed steps of {n}")
-    # the same batches through the compiled step, from the same state
-    again = train_dsec.build_train_state(cfg, DSEC_H, DSEC_W, "cuda",
-                                         SCRIPT_STEPS)
-    step = make_train_step(again)
-    for i, (events, targets, losses, _, _, _) in enumerate(steps):
-        got = step(again, events, targets)
-        require(all(torch.equal(got[k], losses[k]) for k in losses),
-                f"train CLI step {i}: losses bit-equal to make_train_step's")
-    sd, sd_again = state.model.state_dict(), again.model.state_dict()
-    require(all(torch.equal(sd[k], sd_again[k]) for k in sd),
-            "train CLI: the trained weights bit-equal to make_train_step's")
-    ms = np.array([st[5] for st in steps])
-    loop_s = ms.sum() / 1e3
-    print(f"train CLI (scripts.train_dsec.train), DAGR-S at {DSEC_W}x"
-          f"{DSEC_H}, B={SCRIPT_B}, {SCRIPT_EPOCHS} epochs of {SCRIPT_STEPS} "
-          f"steps: losses of every step bit-equal to make_train_step's from "
-          f"the same state, last_model bit-equal; the {n} steps "
-          f"{loop_s:.3f} s = {n / loop_s:.3f} steps/s "
-          f"({n * SCRIPT_B / loop_s:.3f} windows/s; the 3 eager/captured steps "
-          f"{', '.join(f'{v:.1f}' for v in ms[:3])} ms, the {len(replayed)} "
-          f"replayed p50 {float(np.median(ms[replayed])):.3f} ms = "
-          f"{1e3 / float(np.median(ms[replayed])):.3f} steps/s); the whole "
-          f"train() (build, dry-run eval, epochs, epoch-0 eval, overlays, "
-          f"checkpoints) {whole_s:.3f} s [{card}]", flush=True)
-    last = steps[-1][2]
-    print("train CLI losses, last step: " + ", ".join(
-        f"{k} {float(v):.5f}" for k, v in last.items()), flush=True)
-    del state, restored, again, step
+    launches = {"dsec": cli_loop(
+        "train CLI (scripts.train_dsec.train)", "DAGR-S", cfg, train_ds,
+        val_ds, "make_train_step", SYNC_BLOCKS, card)}
+    launches["fusion"] = fusion_cli(card)
+    launches["ncaltech"] = ncaltech_cli(card)
 
     script_census(card)
     script_entry(card)
     dp_checks(cfg, card)
     torch.cuda.empty_cache()
     return launches
+
+
+def step_recorder(make, steps, snaps=None):
+    """A stand-in for ``make`` (``make_train_step`` or
+    ``make_train_step_fusion``) whose step records each call in
+    ``steps``: (inputs, losses, launches by kernel, CUDA-graph replays,
+    host ms synchronised); with ``snaps``, a copy of the state before
+    each call (``train_tensors``, the counts), outside the timed span."""
+    from dagr_tpu_torch.kernels import _build
+
+    def recording(state, *args):
+        step = make(state, *args)
+
+        def rec(st, *inputs):
+            if snaps is not None:
+                snaps.append(([t.clone() for t in train_tensors(st)],
+                              (st.step, st.ema_updates)))
+            torch.cuda.synchronize()
+            before, r0 = _build.launch_counts(), REPLAYS[0]
+            start = time.perf_counter()
+            losses = step(st, *inputs)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - start) * 1e3
+            after = _build.launch_counts()
+            steps.append((inputs, losses,
+                          {k: after[k] - before[k] for k in after},
+                          REPLAYS[0] - r0, ms))
+            return losses
+        return rec
+    return recording
+
+
+def cli_loop(what, model_name, cfg, train_ds, val_ds, make_name, convs, card,
+             dry_run_steps=2, same_bits=True, check_state=None):
+    """``scripts.train_dsec.run`` (``train`` in this process) on the card
+    over in-memory datasets, its ``make_name`` step
+    (``make_train_step`` or ``make_train_step_fusion``) recorded
+    (``step_recorder``): every step's losses finite; K1, the split conv
+    and its backward (``convs`` each), K3 and K9b launched on each step
+    that ran eagerly or captured, one CUDA-graph replay and no launch on
+    each later one; the epoch-0 eval logged and its overlays drawn;
+    ``last_model`` restores every tensor of the model, the EMA and the
+    optimizer bit-equal; then the same batches through ``make_name``'s
+    step taken directly from a state built as the CLI builds it give
+    the same losses and weights, bit for bit (``same_bits``); where the
+    step is not bit-stable (two runs drift apart), that step starts each
+    batch from the CLI's state before it (copied), its losses bit-equal
+    and the state after it within 1e-5 of each tensor's max of the
+    CLI's; ``check_state(state)``, where given, on the trained state.  Prints the loop's steps/s.  Returns the launches of
+    the whole run (its evals included)."""
+    import tempfile
+
+    from dagr_tpu_torch.kernels import _build
+    from dagr_tpu_torch.scripts import train_dsec
+    from dagr_tpu_torch.train.checkpoint import Checkpointer
+
+    make = getattr(train_dsec, make_name)
+    make_args = (cfg.pretrain_cnn,) if cfg.use_image else ()
+    H_, W_ = train_ds.height, train_ds.width
+    per_epoch = -(-len(train_ds) // cfg.batch_size)
+    steps, snaps = [], None if same_bits else []
+    stop = count_replays()
+    setattr(train_dsec, make_name, step_recorder(make, steps, snaps))
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            state = train_dsec.run(cfg, train_ds, val_ds, "cuda", tmp,
+                                   dry_run_steps=dry_run_steps)
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t0
+            launches = _build.launch_counts()
+            n_viz = len(list(Path(tmp, "viz_epoch_0").glob("*.png")))
+            fresh = train_dsec.build_train_state(cfg, H_, W_, "cuda",
+                                                 per_epoch)
+            restored, epoch = Checkpointer(Path(tmp)).restore_if_existing(
+                fresh)
+            logged = Path(tmp, "metrics.jsonl").read_text().splitlines()
+    finally:
+        setattr(train_dsec, make_name, make)
+        stop()
+    n = cfg.tot_num_epochs * per_epoch
+    require(len(steps) == n and state.step == n,
+            f"{what}: {len(steps)} steps recorded, state.step "
+            f"{state.step}, of {n}")
+    require(n_viz == cfg.n_viz_images, f"{what}: {n_viz} epoch-0 overlays")
+    require(any("validation/metric/mAP" in ln for ln in logged),
+            f"{what}: the epoch-0 eval logged")
+    require(restored is not None and epoch == cfg.tot_num_epochs,
+            f"{what}: last_model restored (epoch {epoch})")
+    for part, a, b in (("model", restored.model.state_dict(),
+                        state.model.state_dict()),
+                       ("EMA", restored.ema.state_dict(),
+                        state.ema.state_dict())):
+        require(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a),
+                f"{what}: last_model's {part} bit-equal to the trained "
+                "state")
+    oa, ob = restored.optimizer.state_dict(), state.optimizer.state_dict()
+    require(all(torch.equal(oa["state"][i][k], ob["state"][i][k])
+                for i in ob["state"] for k in ob["state"][i]),
+            f"{what}: last_model's Adam moments bit-equal")
+    require(restored.step == state.step
+            and restored.ema_updates == state.ema_updates,
+            f"{what}: last_model's counts")
+    if check_state is not None:
+        check_state(state)
+    captured = False
+    for i, (_, losses, d, r, _) in enumerate(steps):
+        require(all(bool(torch.isfinite(v)) for v in losses.values()),
+                f"{what} step {i}: losses finite")
+        if all(d[k] > 0 for k in TRAIN_KERNELS):
+            require(d["spline_conv"] == convs
+                    and d["spline_conv_backward"] == convs
+                    and r in (0, 1), f"{what} step {i}: {d}, {r} replays")
+            captured = captured or r == 1
+        else:
+            require(captured and r == 1 and all(v == 0 for v in d.values()),
+                    f"{what} step {i}: neither every train kernel "
+                    f"({d}) nor one replay of the captured step ({r})")
+    replayed = [i for i, st in enumerate(steps) if st[2]["graph_search"] == 0]
+    require(captured and len(replayed) == n - 3,
+            f"{what}: {len(replayed)} replayed steps of {n}")
+    # the same batches through the compiled step, from the same state
+    again = train_dsec.build_train_state(cfg, H_, W_, "cuda", per_epoch)
+    step = make(again, *make_args)
+    worst = 0.0
+    for i, (inputs, losses, _, _, _) in enumerate(steps):
+        if snaps is not None:
+            put_train_state(again, *snaps[i])
+        got = step(again, *inputs)
+        require(all(torch.equal(got[k], losses[k]) for k in losses),
+                f"{what} step {i}: losses bit-equal to {make_name}'s")
+        if snaps is not None:
+            want = (snaps[i + 1][0] if i + 1 < n else train_tensors(state))
+            for a, b in zip(train_tensors(again), want):
+                e = rel_err(a, b) if b.is_floating_point() else float(
+                    not torch.equal(a, b))
+                require(e <= 1e-5, f"{what} step {i}: a state tensor "
+                        f"{e} of its max off the CLI's")
+                worst = max(worst, e)
+    if same_bits:
+        sd, sd_again = state.model.state_dict(), again.model.state_dict()
+        require(all(torch.equal(sd[k], sd_again[k]) for k in sd),
+                f"{what}: the trained weights bit-equal to {make_name}'s")
+        how = "bit-equal"
+    else:
+        how = (f"bit-equal from the CLI's state before each step, the "
+               f"state after it within {worst:.3g} of each tensor's max "
+               "(the step is not bit-stable)")
+    ms = np.array([st[4] for st in steps])
+    loop_s = ms.sum() / 1e3
+    rep = (f"the {len(replayed)} replayed p50 "
+           f"{float(np.median(ms[replayed])):.3f} ms = "
+           f"{1e3 / float(np.median(ms[replayed])):.3f} steps/s"
+           if replayed else "none replayed: the third is the capture's")
+    print(f"{what}, {model_name} at {W_}x{H_}, B={cfg.batch_size}, "
+          f"{cfg.tot_num_epochs} epochs of {per_epoch} steps: losses of "
+          f"every step {how} to {make_name}'s from the same state, "
+          f"last_model bit-equal; the {n} steps {loop_s:.3f} s = "
+          f"{n / loop_s:.3f} steps/s ({n * cfg.batch_size / loop_s:.3f} "
+          f"windows/s; the 3 eager/captured steps "
+          f"{', '.join(f'{v:.1f}' for v in ms[:3])} ms, {rep}); launches "
+          f"of an eager or captured step: " + ", ".join(
+              f"{k} {v}" for k, v in steps[0][2].items() if v)
+          + f"; the whole run (build, evals, epochs, overlays, "
+          f"checkpoints) {whole_s:.3f} s [{card}]", flush=True)
+    last = steps[-1][1]
+    print(f"{what} losses, last step: " + ", ".join(
+        f"{k} {float(v):.5f}" for k, v in last.items()), flush=True)
+    del state, restored, again, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def write_img_net_checkpoint(cfg, path):
+    """An upstream-style ``{"ema": ..., "model": {}}`` ``.pth`` of a fusion
+    DAGR with seeded weights (``init_params``): the event branch under
+    the reference's keys (``to_reference``) and the image trunk and
+    reductions under ``backbone.net.module.*`` and
+    ``backbone.net.{feature,output}_dconv.*``, as
+    ``load_reference_checkpoint`` reads them.  Returns the image branch's
+    state_dict (``cnn.*``)."""
+    from dagr_tpu_torch.models.dagr import DAGR, init_params
+    from dagr_tpu_torch.models.torch_import import to_reference
+
+    model = DAGR(cfg, DSEC_H, DSEC_W)
+    init_params(model, torch.Generator().manual_seed(SEED + 17))
+    ref = to_reference(model.state_dict(), cfg.num_scales)
+    for k, v in model.cnn.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        key = (f"backbone.net.module.{k[len('trunk.'):]}"
+               if k.startswith("trunk.") else f"backbone.net.{k}")
+        ref[key] = v.clone()
+    torch.save({"ema": ref, "model": {}}, path)
+    return {f"cnn.{k}": v for k, v in model.cnn.state_dict().items()}
+
+
+def fusion_cli(card):
+    """(a2) ``train_dsec.train`` with a fusion config: DAGR-S + ResNet-50
+    (``use_image``) at DSEC-Det's geometry, SCRIPT_B windows a step with
+    seeded frames and the boxes at their time, SCRIPT_EPOCHS epochs of
+    SCRIPT_STEPS steps, the dry-run eval and the epoch-0 eval (the
+    fusion eval, eager); the trunk and reductions loaded from an
+    ``img_net_checkpoint`` written from seeded weights, frozen, and
+    bit-equal to it after training; ``cli_loop``'s checks through
+    ``make_train_step_fusion``.  Returns the run's launches."""
+    import tempfile
+
+    from dagr_tpu_torch.config import DagrConfig
+    from dagr_tpu_torch.data.augment import Augmentations
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp, "img_net.pth")
+        cfg = DagrConfig(**DAGR_S_DSEC).replace(
+            batch_size=SCRIPT_B, tot_num_epochs=SCRIPT_EPOCHS,
+            use_image=True, img_net="resnet50", img_net_checkpoint=str(path))
+        written = write_img_net_checkpoint(cfg, path)
+        rng = np.random.default_rng(SEED + 18)
+        train_ds = MemoryDataset(
+            dsec_samples(rng, SCRIPT_B * SCRIPT_STEPS, images=True),
+            Augmentations.training(cfg.aug_p_flip, cfg.aug_zoom,
+                                   cfg.aug_trans), DSEC_H, DSEC_W)
+        val_ds = MemoryDataset(dsec_samples(rng, SCRIPT_VAL, images=True),
+                               Augmentations.testing(), DSEC_H, DSEC_W)
+        what = "fusion train CLI (scripts.train_dsec.train, use_image)"
+
+        def trunk_kept(state):
+            sd = state.model.state_dict()
+            frozen = [n for n, _ in state.model.named_parameters()
+                      if n.startswith("cnn.")]
+            require(state.recipe.frozen == ("cnn",) and frozen and all(
+                torch.equal(sd[n].cpu(), written[n]) for n in frozen),
+                f"{what}: the trunk and reductions frozen, bit-equal to the "
+                "img_net_checkpoint's")
+
+        # the fusion step is not bit-stable on the card: cuDNN's default
+        # backward of the CNN head's 3x3 convs adds with atomics
+        # (wgrad_alg0_engine, dgrad_engine)
+        launches = cli_loop(what, "DAGR-S + ResNet-50", cfg, train_ds,
+                            val_ds, "make_train_step_fusion", SYNC_BLOCKS,
+                            card, same_bits=False, check_state=trunk_kept)
+    return launches
+
+
+def ncaltech_samples(rng, n, height, width, num_classes):
+    """``n`` NCaltech101-geometry samples: about N_VALID events around 3
+    clusters over 300 ms ending at the time window, polarity in {-1, 1},
+    one box of one of ``num_classes`` classes (the dataset's one object a
+    recording)."""
+    from dagr_tpu_torch.data.sample import EventSample
+
+    out = []
+    for _ in range(n):
+        nv = int(rng.integers(N_VALID - 1000, N_VALID + 1001))
+        centers = rng.random((3, 2)) * [width * 0.6, height * 0.6] + [
+            width * 0.2, height * 0.2]
+        xy = centers[rng.integers(0, 3, nv)] + rng.normal(
+            0, height * 0.08, (nv, 2))
+        t = np.sort(rng.integers(0, 300_000, nv))
+        wh = rng.uniform(60, 150, 2)
+        x0 = rng.uniform(0, 1, 2) * ([width, height] - wh)
+        box = np.concatenate([x0, wh, [rng.integers(0, num_classes)]])
+        out.append(EventSample(
+            x=np.clip(xy[:, 0], 0, width - 1).astype(np.int16),
+            y=np.clip(xy[:, 1], 0, height - 1).astype(np.int16),
+            t=(1_000_000 + t - t[-1]).astype(np.int32),
+            p=(2 * rng.integers(0, 2, nv) - 1).astype(np.int8),
+            width=width, height=height,
+            bbox=box[None].astype(np.float32)))
+    return out
+
+
+def ncaltech_cli(card):
+    """(a3) ``train_ncaltech101``'s loop: ``train_dsec.run`` with
+    ``dry_run_steps=0`` at DAGR-L NCaltech101
+    (config/dagr-l-ncaltech.yaml's fields; 240 x 180, one scale, 100
+    classes), B=SCRIPT_B (the config's 64 cut), 1 epoch of SCRIPT_STEPS
+    steps on in-memory windows through the config's augmentations, and
+    the epoch-0 eval (DAGR-L's compiled eval forward); ``cli_loop``'s
+    checks through ``make_train_step`` (15 split convs and backwards a
+    step).  Returns the run's launches."""
+    from dagr_tpu_torch.config import DagrConfig
+    from dagr_tpu_torch.data.augment import Augmentations
+    from dagr_tpu_torch.models.dagr import DAGR, eval_routes
+
+    name, fields, h, w = WIDE_MODELS[1]
+    cfg = DagrConfig(**fields).replace(
+        batch_size=SCRIPT_B, tot_num_epochs=1, l_r=0.001, aug_p_flip=0.0,
+        aug_zoom=1.0, aug_trans=0.1)
+    convs = sum(eval_routes(DAGR(cfg, h, w)))
+    classes = tuple(f"class_{i}" for i in range(cfg.num_classes))
+    rng = np.random.default_rng(SEED + 19)
+    train_ds = MemoryDataset(
+        ncaltech_samples(rng, SCRIPT_B * SCRIPT_STEPS, h, w,
+                         cfg.num_classes),
+        Augmentations.training(cfg.aug_p_flip, cfg.aug_zoom, cfg.aug_trans),
+        h, w, classes)
+    val_ds = MemoryDataset(ncaltech_samples(rng, SCRIPT_B, h, w,
+                                            cfg.num_classes),
+                           Augmentations.testing(), h, w, classes)
+    return cli_loop("NCaltech101 train CLI (train_dsec.run, dry_run_steps 0)",
+                    name, cfg, train_ds, val_ds, "make_train_step", convs,
+                    card, dry_run_steps=0)
 
 
 def script_census(card):
@@ -5097,9 +5607,14 @@ def main() -> int:
         require(dsec_launches[name] > 0,
                 f"kernel {name} launched on the run_test path")
     scripts_launches = scripts_phase(card)
-    for name in TRAIN_KERNELS + SYNC_KERNELS:
-        require(scripts_launches[name] > 0,
-                f"kernel {name} launched on the train CLI's path")
+    for run, counts in scripts_launches.items():
+        for name in TRAIN_KERNELS + SYNC_KERNELS:
+            require(counts[name] > 0,
+                    f"kernel {name} launched on the {run} train CLI's path")
+    # the launches of the captured steps of the graphs phase's new rows
+    # (a replay launches none from the host)
+    captured = {rec["path"]: rec["launches"] for rec in graph_recs
+                if "launches" in rec}
     rows = []
     for name, rec in kernels.items():
         require(launches[name] > 0, f"kernel {name} launched on its path")
@@ -5121,7 +5636,13 @@ def main() -> int:
                      "fusion_launches": fusion_launches[name],
                      "fusion_train_launches_per_step": fusion_train[name],
                      "dsec_launches": dsec_launches[name],
-                     "scripts_launches": scripts_launches[name],
+                     "scripts_launches": scripts_launches["dsec"][name],
+                     "fusion_cli_launches": scripts_launches["fusion"][name],
+                     "ncaltech_cli_launches":
+                         scripts_launches["ncaltech"][name],
+                     "graph_capture_launches": {
+                         path: c[name] for path, c in captured.items()
+                         if name in c},
                      **rec})
     print(json.dumps({"kernels": rows}))
     print(card)

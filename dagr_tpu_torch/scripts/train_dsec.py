@@ -51,7 +51,8 @@ from dagr_tpu_torch.scripts.run_test import cli_device, cli_parser
 from dagr_tpu_torch.train.checkpoint import Checkpointer
 from dagr_tpu_torch.train.harness import run_test, train_epoch
 from dagr_tpu_torch.train.state import (
-    TrainState, init_state, make_optimizer, make_train_step)
+    TrainState, init_state, make_optimizer, make_train_step,
+    make_train_step_fusion)
 from dagr_tpu_torch.utils.logging import (
     MetricLogger, log_hparams, set_up_logging_directory)
 from dagr_tpu_torch.visualization.viz import write_overlays
@@ -121,7 +122,8 @@ def train(cfg: DagrConfig, train_ds, val_ds, device="cuda", out_dir=".",
         forward = shard_eval_forward(state, mesh)
     else:
         # one compiled step for every epoch, so its graphs are kept
-        step = None if cfg.use_image else make_train_step(state)
+        step = (make_train_step_fusion(state, cfg.pretrain_cnn)
+                if cfg.use_image else make_train_step(state))
         forward = None
     logger = MetricLogger(out_dir) if rank0 else None
     classes = tuple(train_ds.classes)

@@ -4,10 +4,11 @@ Counterpart of ``dagr_tpu.train.harness`` (the reference's script-level
 loops, scripts/train_dsec.py:42-100 and utils/testing.py:16-55):
 ``train_epoch`` runs the compiled recipe step (``make_train_step``, or
 the step it is given, for instance ``parallel.mesh.shard_train_step``'s)
-over (events, targets) batches, or for a fusion model
-``train_step_fusion`` over (events, targets, images, targets0) batches,
-and logs the losses; ``run_test`` runs the EMA (or trained) weights in
-eval mode, through the compiled eval forward (``make_eval_forward``, or
+over (events, targets) batches, or for a fusion model the compiled
+fusion step (``make_train_step_fusion``, or the step it is given) over
+(events, targets, images, targets0) batches, and logs the losses;
+``run_test`` runs the EMA (or trained) weights in eval mode, through
+the compiled eval forward (``make_eval_forward``, or
 the forward it is given, for instance
 ``parallel.mesh.shard_eval_forward``'s) over (events, targets) batches
 or, for a fusion model, eagerly over (events, targets, images) batches,
@@ -24,7 +25,7 @@ from dagr_tpu_torch.eval.buffers import (
 from dagr_tpu_torch.models.dagr import detect
 from dagr_tpu_torch.train.state import (
     TrainState, eval_forward, make_eval_forward, make_train_step,
-    train_step_fusion)
+    make_train_step_fusion)
 from dagr_tpu_torch.utils.logging import MetricLogger
 
 
@@ -60,21 +61,19 @@ def train_epoch(loader, state: TrainState,
                 logger: Optional[MetricLogger] = None, log_every: int = 10,
                 step: Optional[Callable] = None):
     """One training epoch; returns (state, the last step's losses).
-    ``step(state, events, targets) -> losses`` replaces a new
-    ``make_train_step(state)`` for an events-only model: a caller that
-    keeps one across epochs keeps its CUDA graphs."""
+    ``step(state, *batch) -> losses`` replaces a new
+    ``make_train_step(state)`` for an events-only model (``step(state,
+    events, targets)``) or ``make_train_step_fusion(state,
+    cfg.pretrain_cnn)`` for a fusion one (``step(state, events, targets,
+    images, targets0)``): a caller that keeps one across epochs keeps its
+    CUDA graphs."""
     cfg = state.model.cfg
-    if step is None and not cfg.use_image:
-        step = make_train_step(state)
+    if step is None:
+        step = (make_train_step_fusion(state, cfg.pretrain_cnn)
+                if cfg.use_image else make_train_step(state))
     losses = None
     for i, batch in enumerate(loader):
-        if cfg.use_image:
-            events, targets, images, targets0 = batch
-            losses = train_step_fusion(state, events, images, targets,
-                                       targets0,
-                                       pretrain_cnn=cfg.pretrain_cnn)
-        else:
-            losses = step(state, batch[0], batch[1])
+        losses = step(state, *batch[:4 if cfg.use_image else 2])
         if logger is not None and i % log_every == 0:
             logger.log({f"training/loss/{k}": float(v)
                         for k, v in losses.items()}, step=state.step)

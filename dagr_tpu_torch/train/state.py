@@ -15,8 +15,9 @@ the image trunk and its reductions, as dagr_tpu's ``frozen_paths``)
 are left out of the optimizer: they take no update and no weight decay,
 as ``optax.set_to_zero`` gives, while their batch-norm running
 statistics still move in train mode.  ``train_step_fusion`` is the
-image-fusion step (dagr_tpu's ``make_train_step_fusion``): the dual
-loss of ``models.dagr.detection_loss_fusion``, then the same update.
+image-fusion step (the eager form of dagr_tpu's
+``make_train_step_fusion``): the dual loss of
+``models.dagr.detection_loss_fusion``, then the same update.
 
 A ``TrainState`` holds the model being trained, the EMA model (an eval
 copy whose parameters and running statistics are the averages),
@@ -28,10 +29,12 @@ in a CUDA graph reads them anew on every replay; the optimizer is
 ``capturable`` on the card for the same reason.
 
 ``make_train_step`` and ``make_eval_forward`` are the compiled forms of
-``train_step`` and ``eval_forward`` for events-only models (the JAX
+``train_step`` and ``eval_forward`` for events-only models, and
+``make_train_step_fusion`` that of ``train_step_fusion`` (the JAX
 package's jitted steps): on the card each call replays a CUDA graph,
 bound to one state, whose host counts its caller advances; on the CPU
-the same steps run eagerly (``utils.graphs.StepGraphs``).
+the same steps run eagerly (``utils.graphs.StepGraphs``).  The fusion
+eval stays eager, as dagr_tpu applies it without ``jit``.
 Float32 matrix products stay full float32 on the card (TF32 off, as
 ``serve.Detector`` sets it).  The step's stages are profiler ranges
 (``train_step.forward``, ``.loss``, ``.backward``, ``.update``), so a
@@ -163,8 +166,8 @@ def make_train_step(state: TrainState) -> Callable:
     the losses are copies."""
     model = state.model
     if model.cfg.use_image:
-        raise ValueError("make_train_step takes events-only models; the "
-                         "fusion step (train_step_fusion) runs eagerly")
+        raise ValueError("make_train_step takes events-only models; a "
+                         "fusion model's step is make_train_step_fusion")
     graphs = StepGraphs(next(model.parameters()).device,
                         "make_train_step")
 
@@ -193,20 +196,71 @@ def train_step_fusion(state: TrainState, events: EventBatch,
     at the window's end and ``targets0`` those at the image's time; the
     dual loss (``pretrain_cnn``: the image loss alone), then the update
     of ``train_step``.  Returns the detached losses."""
-    model = state.model.train()
-    device = next(model.parameters()).device
+    device = next(state.model.parameters()).device
     tgt = [torch.as_tensor(t, dtype=torch.float32, device=device)
            for t in (targets, targets0)]
     _set_step_scalars(state)
-    with record_function("train_step.forward"):
-        raw, raw_img = model(events.to(device),
-                             images.to(device, torch.float32))
-    with record_function("train_step.loss"):
-        losses = detection_loss_fusion(raw, raw_img, *tgt, model.cfg,
-                                       model.height, pretrain_cnn)
-    losses = _update(state, losses)
+    losses = _fusion_step(state, events.to(device),
+                          images.to(device, torch.float32), *tgt,
+                          pretrain_cnn)
     _count_update(state)
     return losses
+
+
+def _fusion_step(state: TrainState, events: EventBatch, images: torch.Tensor,
+                 targets: torch.Tensor, targets0: torch.Tensor,
+                 pretrain_cnn: bool) -> Dict[str, torch.Tensor]:
+    """The device work of ``train_step_fusion`` on device inputs."""
+    model = state.model.train()
+    with record_function("train_step.forward"):
+        raw, raw_img = model(events, images)
+    with record_function("train_step.loss"):
+        losses = detection_loss_fusion(raw, raw_img, targets, targets0,
+                                       model.cfg, model.height, pretrain_cnn)
+    return _update(state, losses)
+
+
+def make_train_step_fusion(state: TrainState,
+                           pretrain_cnn: bool = False) -> Callable:
+    """``train_step_fusion`` compiled (``dagr_tpu``'s
+    ``make_train_step_fusion``, jitted by its ``train_dsec``): ``step(state,
+    events, targets, images, targets0) -> losses``, the arguments in the
+    loader's batch order.  On the card the trunk (frozen or not), the
+    reductions, the node sampling, the CNN head, the events' forward, the
+    dual loss, the backward, scrub, clip, AdamW and EMA are one CUDA graph
+    per batch shape, bound to ``state``, as ``make_train_step``'s: the
+    events, images [B, 3, H, W] (float32), targets and targets0 [B, G, 5]
+    are copied into static buffers, the learning rate and the EMA decay
+    filled into their device scalars and the counts advanced on the host
+    around each replay; the losses are copies.  ``pretrain_cnn`` (the
+    image loss alone) is part of every graph's key."""
+    model = state.model
+    if not model.cfg.use_image:
+        raise ValueError("make_train_step_fusion takes fusion models "
+                         "(cfg.use_image); an events-only model's step is "
+                         "make_train_step")
+    graphs = StepGraphs(next(model.parameters()).device,
+                        "make_train_step_fusion")
+
+    def step(st: TrainState, events: EventBatch, targets, images, targets0):
+        tw = (events.width, events.height, events.time_window)
+
+        def body(pos, feat, mask, img, tgt, tgt0):
+            return _fusion_step(st, EventBatch(pos, feat, mask, *tw), img,
+                                tgt, tgt0, pretrain_cnn)
+
+        st.model.train()
+        _set_step_scalars(st)
+        losses = graphs((tw, pretrain_cnn), body, (
+            events.pos, events.feat, events.mask,
+            torch.as_tensor(images, dtype=torch.float32),
+            torch.as_tensor(targets, dtype=torch.float32),
+            torch.as_tensor(targets0, dtype=torch.float32)), state=st)
+        _count_update(st)
+        return losses
+
+    step.graphs = graphs
+    return step
 
 
 def _set_step_scalars(state: TrainState) -> None:

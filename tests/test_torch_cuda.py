@@ -38,7 +38,10 @@ without decode, ``Detector.make_forward`` at two batch shapes,
 graphs against the eager step on a second state: raw to 1e-5 of its
 max, the integer tables exact, train losses to 1e-5 and every
 parameter, EMA leaf and Adam moment to 1e-5 of its max; a call with
-another state raises.
+another state raises.  ``make_train_step_fusion`` (a DAGR-S + ResNet-18
+step, trunk frozen, ``pretrain_cnn`` both ways) under the same checks;
+DAGR-L's DSEC and NCaltech101 eval forwards (``make_eval_forward``,
+``Detector.make_forward``) with their split convs inside the graph.
 
 Tolerances as in chip_smoke.py: K1, K4, K6 and K8's search's discrete
 outputs and K3's masks, ids and positions exact, K2 (the aggregation
@@ -89,7 +92,7 @@ from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
 from dagr_tpu_torch.streaming.serve import MultiStreamServer, chunk_streams
 from dagr_tpu_torch.train.state import (
     eval_forward, init_state, make_eval_forward, make_optimizer,
-    make_train_step, train_step)
+    make_train_step, make_train_step_fusion, train_step, train_step_fusion)
 
 pytestmark = pytest.mark.cuda
 W, H = 320, 240
@@ -1944,3 +1947,112 @@ def test_compiled_train_step_and_eval_forward_match_eager(dev):
         raw = fwd(state, ev)
     assert_raw_close(raw, eval_forward(state, ev))
     assert fwd.graphs.replays() == 2
+
+
+@pytest.mark.parametrize("pretrain_cnn", [False, True],
+                         ids=["dual", "pretrain_cnn"])
+def test_compiled_fusion_train_step_matches_eager(dev, pretrain_cnn):
+    """Three make_train_step_fusion replays (after two warm-up steps) of a
+    DAGR-S + ResNet-18 fusion model with the trunk frozen (the
+    recipe's ``frozen=("cnn",)``) against eager train_step_fusion steps
+    on a deep copy of the state, ``pretrain_cnn`` both ways: losses to
+    1e-5 relative, every parameter, EMA leaf, batch-norm statistic and
+    Adam moment to 1e-5 of its max (the graphs phase's check); the
+    trunk's weights as they were; another state is refused.  cuDNN is
+    held to its deterministic algorithms here: by default its heuristics
+    pick, for the CNN head's 3x3 convs, backward kernels that add with
+    atomics (``wgrad_alg0_engine``, ``dgrad_engine``), so two eager
+    steps differ in the last bits, and Adam's first updates move an
+    entry of a near-zero gradient by up to lr either way on that
+    noise; with ``cudnn.deterministic`` the replays equal the eager
+    steps bit for bit on the card."""
+    det_before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _fusion_replays_match(dev, pretrain_cnn)
+    finally:
+        torch.backends.cudnn.deterministic = det_before
+
+
+def _fusion_replays_match(dev, pretrain_cnn):
+    cfg = DagrConfig(n_nodes=4000, batch_size=3, use_image=True,
+                     img_net="resnet18")
+    model = DAGR(cfg, H, W)
+    init_fresh(model, torch.Generator().manual_seed(18))
+    recipe = make_optimizer(cfg, 10, frozen=("cnn",))[0]
+    state = init_state(model.to(dev), recipe)
+    ref = init_state(copy.deepcopy(model), recipe)
+    start = copy.deepcopy(state.model.cnn.state_dict())
+    ev = ragged_windows(18, dev)
+    rng = np.random.default_rng(18)
+    img = torch.from_numpy(rng.random((3, 3, H, W), dtype=np.float32))
+    tgt, tgt0 = (random_targets(rng, 3, width=W, height=H, n_boxes=5)
+                 for _ in range(2))
+    step = make_train_step_fusion(state, pretrain_cnn)
+    for i in range(5):
+        got = step(state, ev, tgt, img, tgt0)
+        want = train_step_fusion(ref, ev, img, tgt, tgt0,
+                                 pretrain_cnn=pretrain_cnn)
+        torch.cuda.synchronize()
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
+    assert step.graphs.replays() == 3 and state.step == ref.step == 5
+    assert len(step.graphs.graphs) == 1
+
+    def close(a, b, what):
+        tol = 1e-5 * max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= tol, what
+
+    for a, b in ((state.model, ref.model), (state.ema, ref.ema)):
+        sa, sb = a.state_dict(), b.state_dict()
+        for k in sb:
+            close(sa[k], sb[k], k)
+    for (_, p), (_, q) in zip(recipe.trainable(state.model),
+                              recipe.trainable(ref.model)):
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            close(state.optimizer.state[p][k], ref.optimizer.state[q][k], k)
+    now = state.model.cnn.state_dict()
+    for name, _ in state.model.cnn.named_parameters():
+        assert torch.equal(now[name], start[name]), name
+    with pytest.raises(ValueError, match="another state"):
+        step(ref, ev, tgt, img, tgt0)
+
+
+@pytest.mark.parametrize("name", ["l", "l_ncaltech"])
+def test_dagr_l_compiled_eval_forwards_match_eager(dev, name):
+    """DAGR-L (DSEC at 320 x 240, NCaltech101 at 240 x 180 with 100
+    classes) through ``make_eval_forward`` and ``Detector.make_forward``,
+    replayed, against their eager forwards: raw 1e-5 of its max, keeps
+    and labels exact; the capture launches ``eval_routes``' fused blocks
+    and split convs (the split route's epilogue inside the graph)."""
+    cfg = DagrConfig(n_nodes=4000, **WIDTHS[name])
+    w, h = (240, 180) if cfg.dataset == "ncaltech101" else (W, H)
+    det = Detector(cfg, h, w, dev, seed=19)
+    fused, split = eval_routes(det.model)
+    assert split > 0
+    ev = ragged_windows(19, dev, width=w, height=h)
+    fwd = det.make_forward()
+    for i in range(4):
+        before = _build.launch_counts()
+        raw, dets = fwd(ev)
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        if i == 2:           # the capture
+            assert after["spline_conv_block"] - before[
+                "spline_conv_block"] == fused
+            assert after["spline_conv"] - before["spline_conv"] == split
+        if i == 3:           # a replay launches nothing from the host
+            assert after == before
+        want_raw, want = det(ev)
+        torch.cuda.synchronize()
+        assert_raw_close(raw, want_raw)
+        for k in ("valid", "labels"):
+            assert torch.equal(dets[k], want[k]), k
+    assert fwd.graphs.replays() == 2
+    recipe = make_optimizer(cfg, 10)[0]
+    state = init_state(det.model, recipe)
+    efwd = make_eval_forward(state)
+    for _ in range(4):
+        raw = efwd(state, ev)
+    assert_raw_close(raw, eval_forward(state, ev))
+    assert efwd.graphs.replays() == 2

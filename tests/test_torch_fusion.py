@@ -8,7 +8,10 @@ resnet50 in eval mode, resnet50 in train mode), the trunk's torchvision
 names, the node sampling and the nearest resize, the whole fusion DAGR
 in eval and in train mode (the dual loss, every gradient, the batch
 statistics, the detaching, ``pretrain_cnn``) and two fusion steps with
-the image trunk frozen, against ``make_train_step_fusion``.
+the image trunk frozen, eager (``train_step_fusion``) and compiled
+(``make_train_step_fusion``, eager on the CPU), with ``pretrain_cnn``
+both ways, against dagr_tpu's ``make_train_step_fusion``; the harness
+with the fusion step it makes and with one it is given.
 
 Tolerances: taps, reductions and node samples to 1e-5 of each tensor's
 max (1e-6 absolute for the samples: one lerp of four values); raw
@@ -57,7 +60,10 @@ from dagr_tpu_torch.ops import spline as spline_ops
 from dagr_tpu_torch.serve import Detector
 from dagr_tpu_torch.train.harness import run_test, train_epoch
 from dagr_tpu_torch.train.state import (
-    eval_forward, init_state, make_optimizer, train_step_fusion)
+    eval_forward, init_state, make_optimizer, make_train_step,
+    train_step_fusion)
+from dagr_tpu_torch.train.state import (
+    make_train_step_fusion as make_train_step_fusion_port)
 from dagr_tpu_torch.utils.logging import MetricLogger
 
 W, H, B = 64, 48, 2
@@ -581,34 +587,76 @@ def assert_state_matches(state, jstate, atol=1e-5, image_stats_rtol=1e-4):
                                                int(jstate.ema_updates))
 
 
-def test_frozen_fusion_steps_match(fusion):
-    """Two steps of ``train_step_fusion`` with ``frozen=("cnn",)`` from a
-    state carried across by ``train_state_from_flax`` against dagr_tpu's
-    ``make_train_step_fusion`` with ``frozen_paths=("cnn",)``: losses to
-    1e-5, then params, EMA and batch statistics after each step
+@pytest.fixture(scope="module")
+def jax_frozen_steps(fusion):
+    """``run(pretrain_cnn)``: dagr_tpu's optimizer with
+    ``frozen_paths=("cnn",)``, its initial state and two steps of its
+    jitted ``make_train_step_fusion``: (tx, [state0, state1, state2],
+    [losses1, losses2]), made once per ``pretrain_cnn``."""
+    f = fusion
+    runs = {}
+
+    def run(pretrain_cnn):
+        if pretrain_cnn not in runs:
+            tx, _ = jax_make_optimizer(f.jcfg, NI, frozen_paths=("cnn",))
+            states = [jax_state(f, tx)]
+            step = jax.jit(make_train_step_fusion(
+                f.model, f.jcfg, tx, H, pretrain_cnn=pretrain_cnn))
+            losses = []
+            for _ in range(2):
+                jstate, want = step(states[-1], f.ev, jnp.asarray(f.img),
+                                    jnp.asarray(f.t1), jnp.asarray(f.t0))
+                states.append(jstate)
+                losses.append({k: float(v) for k, v in want.items()})
+            runs[pretrain_cnn] = (tx, states, losses)
+        return runs[pretrain_cnn]
+    return run
+
+
+@pytest.mark.parametrize("pretrain_cnn", [False, True],
+                         ids=["dual", "pretrain_cnn"])
+@pytest.mark.parametrize("compiled", [False, True],
+                         ids=["train_step_fusion", "make_train_step_fusion"])
+def test_frozen_fusion_steps_match(fusion, jax_frozen_steps, compiled,
+                                   pretrain_cnn):
+    """Two steps of the port's eager ``train_step_fusion`` or of its
+    compiled ``make_train_step_fusion`` (eager on the CPU) with
+    ``frozen=("cnn",)`` from a state carried across by
+    ``train_state_from_flax`` against dagr_tpu's ``make_train_step_fusion``
+    with ``frozen_paths=("cnn",)``, with ``pretrain_cnn`` both ways:
+    losses to 1e-5, then params, EMA and batch statistics after each step
     (``assert_state_matches``)
     (the first runs at lr(0) = 0, so after it only the running
     statistics and the EMA's copy of them moved); the trunk and its
     reductions bit-identical to their start, their running statistics
     moved; the JAX state's Adam moments (in ``multi_transform``'s
     ``"train"`` partition, none for the trunk) carried into the port
-    exactly, and within 1e-5 of the port's own."""
+    exactly, and within 1e-5 of the port's own; with ``pretrain_cnn`` the
+    event side's moments zero and its parameters unmoved (the image loss
+    alone reaches only the CNN head)."""
     f = fusion
-    tx, _ = jax_make_optimizer(f.jcfg, NI, frozen_paths=("cnn",))
-    jstate = jax_state(f, tx)
-    step = jax.jit(make_train_step_fusion(f.model, f.jcfg, tx, H))
-    state = train_state_from_flax(jstate, f.cfg, H, W, NI, device="cpu",
+    _, jstates, jlosses = jax_frozen_steps(pretrain_cnn)
+    state = train_state_from_flax(jstates[0], f.cfg, H, W, NI, device="cpu",
                                   frozen=("cnn",))
-    assert_state_matches(state, jstate, atol=0, image_stats_rtol=0)
+    assert_state_matches(state, jstates[0], atol=0, image_stats_rtol=0)
     start = copy.deepcopy(state.model.state_dict())
-    for _ in range(2):
-        jstate, want = step(jstate, f.ev, jnp.asarray(f.img),
-                            jnp.asarray(f.t1), jnp.asarray(f.t0))
-        got = train_step_fusion(state, f.pev, f.pimg, f.t1, f.t0)
+    if compiled:
+        cstep = make_train_step_fusion_port(state, pretrain_cnn)
+
+        def step(st):
+            return cstep(st, f.pev, f.t1, f.pimg, f.t0)
+    else:
+        def step(st):
+            return train_step_fusion(st, f.pev, f.pimg, f.t1, f.t0,
+                                     pretrain_cnn=pretrain_cnn)
+    for jstate, want in zip(jstates[1:], jlosses):
+        got = step(state)
+        assert set(got) == set(want)
         for k, v in want.items():
-            np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-5,
+            np.testing.assert_allclose(float(got[k]), v, rtol=1e-5,
                                        atol=1e-7, err_msg=k)
         assert_state_matches(state, jstate)
+    jstate = jstates[-1]
     sd = state.model.state_dict()
     frozen = [n for n, _ in state.model.named_parameters()
               if n.startswith("cnn.")]
@@ -618,7 +666,8 @@ def test_frozen_fusion_steps_match(fusion):
     moved = [n for n, _ in state.model.named_parameters()
              if not n.startswith("cnn.") and not torch.equal(sd[n], start[n])]
     assert any(n.startswith("cnn_head.") for n in moved)
-    assert any(n.startswith("backbone.") for n in moved)
+    # the image loss alone leaves the event side's parameters as they were
+    assert any(n.startswith("backbone.") for n in moved) != pretrain_cnn
     back = train_state_from_flax(jstate, f.cfg, H, W, NI, device="cpu",
                                  frozen=("cnn",))
     adam = jax_adam(jstate.opt_state)
@@ -632,6 +681,24 @@ def test_frozen_fusion_steps_match(fusion):
         assert torch.equal(a["exp_avg"], mu[name]), name
         np.testing.assert_allclose(b["exp_avg"].numpy(), a["exp_avg"].numpy(),
                                    atol=1e-5, rtol=0, err_msg=name)
+        if pretrain_cnn and not name.startswith("cnn_head."):
+            assert not b["exp_avg"].any(), name
+    if compiled:
+        assert cstep.graphs.replays() == 0      # the CPU runs it eagerly
+
+
+def test_compiled_steps_refuse_the_other_kind(fusion):
+    """``make_train_step`` refuses a fusion model and names
+    ``make_train_step_fusion``; ``make_train_step_fusion`` refuses an
+    events-only model and names ``make_train_step``."""
+    f = fusion
+    fused = init_state(port_model(f), make_optimizer(f.cfg, NI)[0])
+    with pytest.raises(ValueError, match="make_train_step_fusion"):
+        make_train_step(fused)
+    ecfg = f.cfg.replace(use_image=False)
+    events_only = init_state(DAGR(ecfg, H, W), make_optimizer(ecfg, NI)[0])
+    with pytest.raises(ValueError, match="is make_train_step$"):
+        make_train_step_fusion_port(events_only)
 
 
 def test_unfrozen_fusion_state_carries_its_moments(fusion, jax_grads):
@@ -660,19 +727,41 @@ def jax_adam(opt_state):
         opt_state, is_leaf=lambda s: hasattr(s, "mu")) if hasattr(s, "mu"))
 
 
-def test_fusion_harness(fusion, tmp_path):
+@pytest.mark.parametrize("given", [False, True],
+                         ids=["its_own_step", "a_given_step"])
+def test_fusion_harness(fusion, tmp_path, given):
     """``train_epoch`` of a fusion state over (events, targets, images,
-    targets0) batches and ``run_test`` over (events, targets, images)
+    targets0) batches, with the step it makes
+    (``make_train_step_fusion``) or one it is given, whose losses and
+    weights equal ``train_step_fusion``'s from a copy of the state, bit
+    for bit on the CPU; and ``run_test`` over (events, targets, images)
     ones: the detections are ``detect`` of the EMA's hybrid raw."""
     f = fusion
     model = DAGR(f.cfg, H, W)
     init_fresh(model, torch.Generator().manual_seed(1))
     state = init_state(model, make_optimizer(f.cfg, NI)[0])
+    twin = copy.deepcopy(state)
+    calls = []
+    step = None
+    if given:
+        inner = make_train_step_fusion_port(state, f.cfg.pretrain_cnn)
+
+        def step(*args):
+            calls.append(args[1:])
+            return inner(*args)
     logger = MetricLogger(tmp_path)
     state, losses = train_epoch([(f.pev, f.t1, f.pimg, f.t0)] * 2, state,
-                                logger, log_every=1)
+                                logger, log_every=1, step=step)
     logger.close()
     assert state.step == 2 and np.isfinite(float(losses["total_loss"]))
+    assert len(calls) == (2 if given else 0)
+    assert all(c[1] is f.t1 and c[2] is f.pimg and c[3] is f.t0
+               for c in calls)
+    for _ in range(2):
+        want = train_step_fusion(twin, f.pev, f.pimg, f.t1, f.t0)
+    assert all(torch.equal(losses[k], want[k]) for k in want)
+    sd, sd_twin = state.model.state_dict(), twin.model.state_dict()
+    assert all(torch.equal(sd[k], sd_twin[k]) for k in sd)
     assert len((tmp_path / "metrics.jsonl").read_text().splitlines()) == 2
     _, dets = run_test([(f.pev, f.t1, f.pimg)], state, H, W, ("a", "b"),
                        compile_detections=True)

@@ -2,6 +2,11 @@
 against dagr_tpu's ``scripts/<name>.py`` on the same fabricated inputs:
 
 * ``downsample_events``: the output file bit for bit;
+* ``downsample_all_events.sh`` over a fabricated DSEC root of two
+  sequences with full-size ``events.h5`` files, one of which already has
+  its ``events_2x.h5``: the new file equal to the reference script's and
+  the old one kept by both, a second run skipping both, no root stopping
+  with its usage;
 * ``visualize_detections``: every frame pixel-equal;
 * ``run_test --visualize``: the same overlays (a tamed ``.pth``, so both
   packages draw the same boxes);
@@ -18,6 +23,9 @@ against dagr_tpu's ``scripts/<name>.py`` on the same fabricated inputs:
 """
 import importlib
 import json
+import os
+import shutil
+import subprocess
 import sys
 from pathlib import Path
 
@@ -40,7 +48,8 @@ from dagr_tpu_torch.scripts import run_test as cli_run_test
 from dagr_tpu_torch.scripts import run_test_interframe as cli_interframe
 from dagr_tpu_torch.scripts import visualize_detections as cli_visualize
 
-SCRIPTS = str(Path(__file__).resolve().parent.parent / "scripts")
+REPO = Path(__file__).resolve().parent.parent
+SCRIPTS = str(REPO / "scripts")
 
 
 def run_jax_script(monkeypatch, name, argv, **patches):
@@ -76,18 +85,75 @@ def test_downsample_events(tmp_path, monkeypatch):
     run_jax_script(monkeypatch, "downsample_events",
                    argv + [str(tmp_path / "jax_2x.h5")])
     cli_downsample.main(argv + [str(tmp_path / "port_2x.h5")])
-    with h5py.File(tmp_path / "jax_2x.h5") as f, \
-            h5py.File(tmp_path / "port_2x.h5") as g:
-        keys = []
+    same_h5(tmp_path / "jax_2x.h5", tmp_path / "port_2x.h5")
+
+
+def same_h5(a: Path, b: Path):
+    """Both files hold the same groups and datasets, bit for bit."""
+    with h5py.File(a) as f, h5py.File(b) as g:
+        keys, got = [], []
         f.visit(keys.append)
-        got = []
         g.visit(got.append)
         assert keys == got
         for k in keys:
             if isinstance(f[k], h5py.Dataset):
-                a, b = f[k][()], g[k][()]
-                assert a.dtype == b.dtype and np.array_equal(a, b), k
+                x, y = f[k][()], g[k][()]
+                assert x.dtype == y.dtype and np.array_equal(x, y), k
         assert len(f["events/x"]) > 0
+
+
+def run_bash(script: Path, *args):
+    """``bash script args`` on the CPU, with this interpreter first on
+    PATH (both scripts call ``python``)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PATH=os.pathsep.join([str(Path(sys.executable).parent),
+                                     os.environ.get("PATH", "")]))
+    return subprocess.run(["bash", str(script), *map(str, args)],
+                          capture_output=True, text=True, env=env,
+                          timeout=300)
+
+
+def test_downsample_all_events(tmp_path):
+    """The port's ``downsample_all_events.sh`` against dagr_tpu's
+    ``scripts/downsample_all_events.sh`` on copies of one fabricated DSEC
+    root (``make_dsec_sequence``'s split, two sequences, each given a
+    full-size ``events.h5``; the second keeps the ``events_2x.h5`` it was
+    made with)."""
+    src = tmp_path / "src"
+    rng = np.random.default_rng(0)
+    n = 20_000           # over a 128 x 96 corner: pixels fire after 2x
+    for i, name in enumerate(("zurich_city_98_x", "zurich_city_99_x")):
+        make_dsec_sequence(src, name, seed=i)
+        left = src / "train" / name / "events" / "left"
+        write_event_h5(left / "events.h5", dict(
+            x=rng.integers(0, 128, n).astype(np.uint16),
+            y=rng.integers(0, 96, n).astype(np.uint16),
+            t=np.sort(rng.integers(1_000_000, 1_250_000, n)).astype(np.int64),
+            p=rng.integers(0, 2, n).astype(np.uint8)), t_offset=1_000_000)
+        if i == 0:
+            (left / "events_2x.h5").unlink()
+    new = Path("train/zurich_city_98_x/events/left/events_2x.h5")
+    kept = Path("train/zurich_city_99_x/events/left/events_2x.h5")
+    roots = {k: shutil.copytree(src, tmp_path / k) for k in ("ref", "port")}
+    port = REPO / "dagr_tpu_torch" / "scripts" / "downsample_all_events.sh"
+    for k, script in (("ref", Path(SCRIPTS, "downsample_all_events.sh")),
+                      ("port", port)):
+        res = run_bash(script, roots[k])
+        assert res.returncode == 0, res.stderr
+        assert res.stdout.count("downsampling ") == 1, res.stdout
+        assert f"skip {roots[k] / kept} (exists)" in res.stdout
+        same_h5(src / kept, roots[k] / kept)
+    same_h5(roots["ref"] / new, roots["port"] / new)
+    outs = (new, kept)
+    stamps = [(roots["port"] / rel).stat().st_mtime_ns for rel in outs]
+    res = run_bash(port, roots["port"])
+    assert res.returncode == 0 and "downsampling" not in res.stdout
+    assert res.stdout.count("(exists)") == 2, res.stdout
+    assert stamps == [(roots["port"] / rel).stat().st_mtime_ns
+                      for rel in outs]
+    res = run_bash(port)
+    assert res.returncode != 0
+    assert "usage: downsample_all_events.sh <dsec_root>" in res.stderr
 
 
 def interframe_dets(rng, seq):

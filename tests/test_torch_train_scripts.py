@@ -7,7 +7,9 @@ generators are drawn in the batch order): the files of
 tests/test_scripts.py (``hparams.json``, ``metrics.jsonl``,
 ``last_model``, the epoch-0 overlays), every logged step's losses (rtol
 1e-4) and the weights, running statistics and EMA after the epoch
-(1e-5).  Then ``--dp 2 --device cpu`` (two gloo ranks) against one
+(1e-5); the same for ``train_dsec --use_image`` through
+``make_train_step_fusion`` against dagr_tpu's jitted
+``make_train_step_fusion`` (the image trunk's weights apart).  Then ``--dp 2 --device cpu`` (two gloo ranks) against one
 process on the same deterministic split: the logged losses (rtol 1e-4),
 the ``last_model`` tensors (1e-5) and the validation metrics (1e-4); and
 the CLI's refusals: more ranks than cards, no card, ``--dp`` with image
@@ -39,6 +41,8 @@ from dagr_tpu.train.harness import train_epoch as jax_train_epoch
 from dagr_tpu.train.state import init_state as jax_init_state
 from dagr_tpu.train.state import make_optimizer as jax_make_optimizer
 from dagr_tpu.train.state import make_train_step as jax_make_train_step
+from dagr_tpu.train.state import (
+    make_train_step_fusion as jax_make_train_step_fusion)
 from dagr_tpu.utils.logging import MetricLogger as JaxMetricLogger
 from dagr_tpu_torch.config import parse_flags
 from dagr_tpu_torch.data.augment import Augmentations
@@ -48,6 +52,7 @@ from dagr_tpu_torch.models import torch_import
 from dagr_tpu_torch.models.bridge import from_flax
 from dagr_tpu_torch.scripts import train_dsec as cli_dsec
 from dagr_tpu_torch.scripts import train_ncaltech101 as cli_ncaltech
+from dagr_tpu_torch.train.state import make_train_step_fusion
 
 
 
@@ -60,18 +65,23 @@ def jax_epoch(argv, make_ds, log_dir):
                                            cfg.aug_trans))
     H, W = ds.height, ds.width
     loader = JaxLoader(ds, cfg.batch_size, cfg.n_nodes, shuffle=True,
-                       num_workers=1)
+                       num_workers=1, with_images=cfg.use_image,
+                       with_bbox0=cfg.use_image)
     model = JaxDAGR(cfg, height=H, width=W)
     tx, _ = jax_make_optimizer(cfg, num_iters_per_epoch=max(len(loader), 1))
     ev = jax_random_events(np.random.default_rng(0), 1, cfg.n_nodes,
                            width=W, height=H)
-    state = jax.jit(lambda k, e: jax_init_state(model, cfg, tx, k, e))(
-        jax.random.key(0), ev)
+    img = np.zeros((1, H, W, 3), np.float32) if cfg.use_image else None
+    state = jax.jit(lambda k, e, i: jax_init_state(
+        model, cfg, tx, k, e, sample_image=i))(jax.random.key(0), ev, img)
     init = {"params": state.params, "batch_stats": state.batch_stats}
-    step = jax.jit(jax_make_train_step(model, cfg, tx, H))
+    step = jax.jit(jax_make_train_step_fusion(model, cfg, tx, H)
+                   if cfg.use_image else jax_make_train_step(model, cfg, tx,
+                                                             H))
     log_dir.mkdir()
     state, _ = jax_train_epoch(loader, state, step,
-                               JaxMetricLogger(log_dir))
+                               JaxMetricLogger(log_dir),
+                               use_image=cfg.use_image)
     return init, state
 
 
@@ -90,9 +100,10 @@ def logged(path):
     return [json.loads(line) for line in path.read_text().splitlines()]
 
 
-def check_run(run_dir, jax_log, state, jax_state, init):
+def check_run(run_dir, jax_log, state, jax_state, init, unheld=()):
     """The CLI's files, its logged losses against dagr_tpu's and its final
-    weights, running statistics and EMA (which moved from ``init``)."""
+    weights, running statistics and EMA (which moved from ``init``), but
+    for the weights whose names start with one of ``unheld``."""
     assert (run_dir / "hparams.json").exists()
     assert (run_dir / "last_model" / "state.pt").exists()
     assert sorted((run_dir / "viz_epoch_0").glob("*.png"))
@@ -115,6 +126,8 @@ def check_run(run_dir, jax_log, state, jax_state, init):
         got = module.state_dict()
         assert set(want) <= set(got)
         for k, v in want.items():
+            if k.startswith(unheld) and ".running_" not in k:
+                continue
             np.testing.assert_allclose(got[k].numpy(), v.numpy(), atol=1e-5,
                                        err_msg=k)
     start = from_flax(init)
@@ -135,6 +148,44 @@ def test_train_dsec_one_epoch(dsec_env, tmp_path, monkeypatch):
     check_run(out / "low_latency-dsec-detection" / "default",
               tmp_path / "jax_log", state, jax_state, init)
     assert state.step == 2
+
+
+def test_train_dsec_fusion_one_epoch(dsec_env, tmp_path, monkeypatch):
+    """``--use_image`` (ResNet-18 image branch, trained with the rest): the
+    CLI's loop through ``make_train_step_fusion`` (one step made for the
+    run and called once a batch) against dagr_tpu's jitted
+    ``make_train_step_fusion``; the images and the boxes at their time
+    come from both loaders.  The logged losses and every weight but the
+    image trunk's and reductions' (``cnn.``) are held as the events-only
+    run's; those are trained here in float32 under train-mode batch norm,
+    whose gradients at random weights are chaotic (up to 5.3e-05 off
+    dagr_tpu's after the epoch, where Adam's first steps move an entry by
+    up to lr either way); tests/test_torch_fusion.py holds the image
+    branch in float64, and the recipe freezes it."""
+    argv = TINY_FLAGS + ["--dataset_directory", str(dsec_env),
+                         "--use_image", "--img_net", "resnet18"]
+    init, jax_state = jax_epoch(
+        argv, lambda aug: JaxDSEC(dsec_env, "train", transform=aug,
+                                  min_bbox_diag=15, min_bbox_height=10),
+        tmp_path / "jax_log")
+    made, calls = [], []
+
+    def spy(state, pretrain_cnn=False):
+        step = make_train_step_fusion(state, pretrain_cnn)
+        made.append(pretrain_cnn)
+
+        def counted(*args):
+            calls.append(len(args))
+            return step(*args)
+        return counted
+
+    monkeypatch.setattr(cli_dsec, "make_train_step_fusion", spy)
+    out = tmp_path / "logs"
+    state = run_port(monkeypatch, cli_dsec,
+                     argv + ["--output_directory", str(out)], init)
+    check_run(out / "low_latency-dsec-detection" / "default",
+              tmp_path / "jax_log", state, jax_state, init, unheld=("cnn.",))
+    assert state.step == 2 and made == [False] and calls == [5, 5]
 
 
 def test_train_ncaltech101_one_epoch(tmp_path, monkeypatch):
