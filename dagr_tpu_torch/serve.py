@@ -15,6 +15,7 @@ import torch
 from dagr_tpu_torch.config import DagrConfig
 from dagr_tpu_torch.core.types import EventBatch
 from dagr_tpu_torch.models.dagr import DAGR, detect, init_params
+from dagr_tpu_torch.utils import trace
 from dagr_tpu_torch.utils.graphs import StepGraphs
 
 
@@ -90,8 +91,9 @@ def window_forward(model: DAGR, name: str, decode: bool) -> Callable:
             raw = model(EventBatch(pos, feat, mask, width, height, tw))
             return (raw, detect(raw, cfg, height, width)) if decode else raw
 
-        return graphs(tw, body, (events.pos, events.feat, events.mask),
-                      state=state)
+        with trace.span("forward"):
+            return graphs(tw, body, (events.pos, events.feat, events.mask),
+                          state=state)
 
     forward.graphs = graphs
     return forward

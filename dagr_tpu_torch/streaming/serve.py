@@ -67,6 +67,7 @@ from dagr_tpu_torch.ops.spline import LevelEdges, spline_conv
 # streams into the lockstep chunks that ``step`` takes with it
 from dagr_tpu_torch.streaming.engine import (
     DeviceConsts, chunk_streams, level1_from_aggregates)
+from dagr_tpu_torch.utils import trace
 from dagr_tpu_torch.utils.graphs import StepGraphs
 
 T_EMPTY = -(2 ** 30)   # time of an empty ring slot: fails every dt test
@@ -201,13 +202,36 @@ class MultiStreamServer:
               debug: bool):
         """The step's device work: (raw, info without ``raw_fresh``); the
         host step count is the caller's."""
+        S, C, K = self.S, self.chunk, self.cfg.max_neighbors
+        if tuple(pos_px.shape) != (S, C, 3) or tuple(valid.shape) != (S, C):
+            raise ValueError(f"a step takes [S={S}, C={C}] chunks")
+        with trace.stage("serve.event_level"):
+            cover, vids, nbr_rest, nbr_mask = self._event_level(
+                state, pos_px, feat, valid)
+
+        # ---- dense tail on every tail_every-th step ----------------------
+        raw = (self.dense_tail(state) if fresh else torch.zeros(
+            (S, self.n_anchors, 5 + self.cfg.num_classes),
+            device=state.x1.device))
+        info = {"coverage_ok": state.coverage_ok.clone(),
+                "cover_parts": cover}
+        if debug:
+            info["nbr_vid"] = torch.cat([vids.repeat(S)[:, None],
+                                         state.vid[nbr_rest.long()]],
+                                        1).view(S, C, K)
+            info["nbr_mask"] = nbr_mask.view(S, C, K)
+        return raw, info
+
+    def _event_level(self, state: ServeState, pos_px, feat, valid):
+        """The chunk into the rings, its edges, the event-level convs and
+        the level-1 update, in place: (the eviction certificate's parts,
+        the chunk's vids, its picks' ring slots [E, K - 1], its edge mask
+        [E, K])."""
         cfg = self.cfg
         S, C, NR = self.S, self.chunk, self.NR
         W, H = self.width, self.height
         E, K = S * C, cfg.max_neighbors
         G1, nx1 = self.ny1 * self.nx1, self.nx1
-        if tuple(pos_px.shape) != (S, C, 3) or tuple(valid.shape) != (S, C):
-            raise ValueError(f"a step takes [S={S}, C={C}] chunks")
         dev = state.x1.device
         ring_win = self.window_mode == "ring"
         cv, t = valid, pos_px[..., 2]
@@ -298,18 +322,7 @@ class MultiStreamServer:
                 cnt, state.cell_max.view(S * G1, -1), psum, tmax,
                 state.adj.view(-1, 9), rows[0], x2, rows[1], nbr_rest, hit,
                 state.cells, grid_nx=nx1)
-
-        # ---- dense tail on every tail_every-th step ----------------------
-        raw = (self.dense_tail(state) if fresh else torch.zeros(
-            (S, self.n_anchors, 5 + cfg.num_classes), device=dev))
-        info = {"coverage_ok": state.coverage_ok.clone(),
-                "cover_parts": cover}
-        if debug:
-            info["nbr_vid"] = torch.cat([vids.repeat(S)[:, None],
-                                         state.vid[nbr_rest.long()]],
-                                        1).view(S, C, K)
-            info["nbr_mask"] = nbr_mask.view(S, C, K)
-        return raw, info
+        return cover, vids, nbr_rest, nbr_mask
 
     @staticmethod
     def _conv(table, edges: LevelEdges, conv, x_dst):
@@ -425,11 +438,13 @@ class MultiStreamServer:
             if not len(pos_px) == len(feat) == len(valid) == n_steps:
                 raise ValueError(f"the chain takes {n_steps} stacked chunks")
             out, cover = None, None
-            for chunk in zip(pos_px, feat, valid):
-                fresh = self._fresh(state)
-                out, ok = graphs(fresh, body(state, fresh), chunk, state=state)
-                state.steps += 1
-                cover = ok if cover is None else cover & ok
+            with trace.span("serve.chain"):
+                for chunk in zip(pos_px, feat, valid):
+                    fresh = self._fresh(state)
+                    out, ok = graphs(fresh, body(state, fresh), chunk,
+                                     state=state)
+                    state.steps += 1
+                    cover = ok if cover is None else cover & ok
             return state, out, cover
 
         chain.graphs = graphs

@@ -36,9 +36,11 @@ bound to one state, whose host counts its caller advances; on the CPU
 the same steps run eagerly (``utils.graphs.StepGraphs``).  The fusion
 eval stays eager, as dagr_tpu applies it without ``jit``.
 Float32 matrix products stay full float32 on the card (TF32 off, as
-``serve.Detector`` sets it).  The step's stages are profiler ranges
-(``train_step.forward``, ``.loss``, ``.backward``, ``.update``), so a
-``torch.profiler`` trace splits its host time.
+``serve.Detector`` sets it).  The step's stages are ``utils.trace``
+stages (``train.forward``, ``.loss``, ``.backward`` with the gradients'
+sum over a data-parallel group, ``.update``: scrub, clip, AdamW and the
+EMA), timed on the device inside every replay of a graph captured with
+the recording on; a compiled step is a ``train.step`` span.
 """
 from __future__ import annotations
 
@@ -49,7 +51,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from dagr_tpu_torch.config import DagrConfig
 from dagr_tpu_torch.core.types import EventBatch
@@ -58,6 +59,7 @@ from dagr_tpu_torch.models.dagr import (
 from dagr_tpu_torch.parallel import group as dp_group
 from dagr_tpu_torch.serve import window_forward
 from dagr_tpu_torch.train.lr_schedule import yolox_schedule
+from dagr_tpu_torch.utils import trace
 from dagr_tpu_torch.utils.graphs import StepGraphs
 
 
@@ -147,9 +149,9 @@ def _recipe_step(state: TrainState, events: EventBatch,
                  targets: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The device work of ``train_step`` on device inputs."""
     model = state.model.train()
-    with record_function("train_step.forward"):
+    with trace.stage("train.forward"):
         raw = model(events)
-    with record_function("train_step.loss"):
+    with trace.stage("train.loss"):
         losses = detection_loss(raw, targets, model.cfg, model.height)
     return _update(state, losses)
 
@@ -177,12 +179,13 @@ def make_train_step(state: TrainState) -> Callable:
         def body(pos, feat, mask, tgt):
             return _recipe_step(st, EventBatch(pos, feat, mask, *tw), tgt)
 
-        st.model.train()
-        _set_step_scalars(st)
-        losses = graphs(tw, body, (
-            events.pos, events.feat, events.mask,
-            torch.as_tensor(targets, dtype=torch.float32)), state=st)
-        _count_update(st)
+        with trace.span("train.step"):
+            st.model.train()
+            _set_step_scalars(st)
+            losses = graphs(tw, body, (
+                events.pos, events.feat, events.mask,
+                torch.as_tensor(targets, dtype=torch.float32)), state=st)
+            _count_update(st)
         return losses
 
     step.graphs = graphs
@@ -212,9 +215,9 @@ def _fusion_step(state: TrainState, events: EventBatch, images: torch.Tensor,
                  pretrain_cnn: bool) -> Dict[str, torch.Tensor]:
     """The device work of ``train_step_fusion`` on device inputs."""
     model = state.model.train()
-    with record_function("train_step.forward"):
+    with trace.stage("train.forward"):
         raw, raw_img = model(events, images)
-    with record_function("train_step.loss"):
+    with trace.stage("train.loss"):
         losses = detection_loss_fusion(raw, raw_img, targets, targets0,
                                        model.cfg, model.height, pretrain_cnn)
     return _update(state, losses)
@@ -249,14 +252,15 @@ def make_train_step_fusion(state: TrainState,
             return _fusion_step(st, EventBatch(pos, feat, mask, *tw), img,
                                 tgt, tgt0, pretrain_cnn)
 
-        st.model.train()
-        _set_step_scalars(st)
-        losses = graphs((tw, pretrain_cnn), body, (
-            events.pos, events.feat, events.mask,
-            torch.as_tensor(images, dtype=torch.float32),
-            torch.as_tensor(targets, dtype=torch.float32),
-            torch.as_tensor(targets0, dtype=torch.float32)), state=st)
-        _count_update(st)
+        with trace.span("train.step"):
+            st.model.train()
+            _set_step_scalars(st)
+            losses = graphs((tw, pretrain_cnn), body, (
+                events.pos, events.feat, events.mask,
+                torch.as_tensor(images, dtype=torch.float32),
+                torch.as_tensor(targets, dtype=torch.float32),
+                torch.as_tensor(targets0, dtype=torch.float32)), state=st)
+            _count_update(st)
         return losses
 
     step.graphs = graphs
@@ -289,20 +293,20 @@ def _update(state: TrainState, losses) -> Dict[str, torch.Tensor]:
     sums (``num_fg`` is the global batch's already)."""
     model = state.model
     params = [p for g in state.optimizer.param_groups for p in g["params"]]
-    with record_function("train_step.backward"):
+    with trace.stage("train.backward"):
         grads = torch.autograd.grad(losses["total_loss"], params,
                                     allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, grads)]
-    losses = {k: v.detach() for k, v in losses.items()}
-    group = dp_group.active()
-    if group is not None:
-        grads = dp_group.sum_tensors(grads, group)
-        shares = [k for k in losses if k != "num_fg"]
-        losses.update(zip(shares, dp_group.sum_tensors(
-            [losses[k] for k in shares], group)))
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        losses = {k: v.detach() for k, v in losses.items()}
+        group = dp_group.active()
+        if group is not None:
+            grads = dp_group.sum_tensors(grads, group)
+            shares = [k for k in losses if k != "num_fg"]
+            losses.update(zip(shares, dp_group.sum_tensors(
+                [losses[k] for k in shares], group)))
     clip = state.recipe.clip
-    with torch.no_grad(), record_function("train_step.update"):
+    with torch.no_grad(), trace.stage("train.update"):
         for p, g in zip(params, grads):
             p.grad = torch.nan_to_num(g, nan=0.0).clamp_(-clip, clip)
         state.optimizer.step()

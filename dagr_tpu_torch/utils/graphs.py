@@ -26,6 +26,11 @@ forwards, the recipe train step):
 * The body's Python side effects run once, at capture: a host counter
   (``ServeState.steps``, ``TrainState.step``) is advanced by the caller
   of ``StepGraphs`` on every call, never by the body.
+* With ``utils.trace`` on, a call is a ``step`` span with its copy-in,
+  warm-up, capture, launch and copy-out inside; a graph captured then
+  times its body's stages, read before the next replay without waiting
+  (``trace.replaying``); the warm-ups, captures and replays per key
+  (``counts``) and ``recaptures`` are this module's own counts.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ from typing import Any, Callable, Dict, Hashable, Optional, Sequence
 
 import torch
 from torch.utils._pytree import tree_map
+
+from dagr_tpu_torch.utils import trace
 
 WARMUP = 2     # eager calls per graph key before its capture
 # one side stream per device for every warm-up and capture: cuBLAS keeps
@@ -58,13 +65,16 @@ def _clone(x):
 
 
 class _Graph:
-    __slots__ = ("calls", "graph", "inputs", "outputs")
+    __slots__ = ("calls", "graph", "inputs", "outputs", "stages")
 
     def __init__(self):
         self.calls = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.inputs: Sequence[torch.Tensor] = ()
         self.outputs: Any = None
+        # (name, begin event, end event) of each stage, in the graph when
+        # the recording was on at its capture (utils.trace)
+        self.stages: Sequence = ()
 
 
 class StepGraphs:
@@ -77,8 +87,10 @@ class StepGraphs:
         self.cuda = self.device.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
         self.graphs: Dict[Hashable, _Graph] = {}
+        self.recaptures = 0      # captures after the first replay
         self._state = None
         self._bound = False
+        trace.register(self)
 
     def __call__(self, key: Hashable, body: Callable, inputs: Sequence,
                  state=None):
@@ -89,33 +101,52 @@ class StepGraphs:
             raise ValueError(f"{self.name}: its graphs are bound to another "
                              "state; make a new step for this one")
         self._state, self._bound = state, True
-        if not self.cuda:
-            return body(*inputs)
-        inputs = [x.to(self.device) for x in inputs]
-        g = self.graphs.setdefault(
-            (key,) + tuple((tuple(x.shape), x.dtype) for x in inputs),
-            _Graph())
-        side = _side_stream(self.device)
-        if g.calls < WARMUP:
+        with trace.span("step", self) as sp:
+            if not self.cuda:
+                return body(*inputs)
+            with trace.span("step.copy_in"):
+                inputs = [x.to(self.device) for x in inputs]
+                key = (key,) + tuple((tuple(x.shape), x.dtype)
+                                     for x in inputs)
+                g = self.graphs.setdefault(key, _Graph())
+                if g.graph is not None:
+                    for static, x in zip(g.inputs, inputs):
+                        static.copy_(x)
+            if sp is not None:
+                sp.key = key
+            side = _side_stream(self.device)
+            if g.calls < WARMUP:
+                g.calls += 1
+                with trace.span("step.warmup"):
+                    side.wait_stream(torch.cuda.current_stream(self.device))
+                    with torch.cuda.stream(side):
+                        out = body(*inputs)
+                    torch.cuda.current_stream(self.device).wait_stream(side)
+                return out
+            if g.graph is None:
+                with trace.span("step.capture"):
+                    if self.replays():
+                        self.recaptures += 1
+                    g.inputs = [x.clone() for x in inputs]
+                    graph = torch.cuda.CUDAGraph()
+                    with trace.capture(g), torch.cuda.graph(
+                            graph, pool=self.pool, stream=side):
+                        g.outputs = body(*g.inputs)
+                    g.graph = graph
             g.calls += 1
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                out = body(*inputs)
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            return out
-        if g.graph is None:
-            g.inputs = [x.clone() for x in inputs]
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self.pool, stream=side):
-                g.outputs = body(*g.inputs)
-            g.graph = graph
-        else:
-            for static, x in zip(g.inputs, inputs):
-                static.copy_(x)
-        g.calls += 1
-        g.graph.replay()
-        return tree_map(_clone, g.outputs)
+            trace.replaying(self, key, g)
+            with trace.span("step.launch"):
+                g.graph.replay()
+            with trace.span("step.copy_out"):
+                return tree_map(_clone, g.outputs)
 
     def replays(self) -> int:
         """Calls served by a replay so far, over every graph."""
         return sum(max(g.calls - WARMUP, 0) for g in self.graphs.values())
+
+    def counts(self) -> Dict[Hashable, Dict[str, int]]:
+        """Per graph key: the eager warm-ups, captures and replays."""
+        return {k: {"warmups": min(g.calls, WARMUP),
+                    "captures": int(g.graph is not None),
+                    "replays": max(g.calls - WARMUP, 0)}
+                for k, g in self.graphs.items()}

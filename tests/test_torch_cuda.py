@@ -43,6 +43,13 @@ step, trunk frozen, ``pretrain_cnn`` both ways) under the same checks;
 DAGR-L's DSEC and NCaltech101 eval forwards (``make_eval_forward``,
 ``Detector.make_forward``) with their split convs inside the graph.
 
+Tracing (``utils/trace.py``): a replay with the recording off launches
+what the parent's ``StepGraphs`` launched and synchronises as often;
+with it on, reading the train step's stages adds no synchronise, and at
+a batch of 64 DSEC windows their sum is within 5% of the replay's
+device busy time; a shape captured after a replay counts as a
+recapture.
+
 Tolerances as in chip_smoke.py: K1, K4, K6 and K8's search's discrete
 outputs and K3's masks, ids and positions exact, K2 (the aggregation
 and the fused eval block) and K7's gathered block to 1e-5 of the
@@ -57,10 +64,12 @@ capacity.
 import copy
 import dataclasses
 import itertools
+from collections import Counter
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._pytree import tree_map
 
 from dagr_tpu_torch.config import DagrConfig
 from dagr_tpu_torch.core.types import EventBatch, EventGraph, NodeSet
@@ -93,6 +102,8 @@ from dagr_tpu_torch.streaming.serve import MultiStreamServer, chunk_streams
 from dagr_tpu_torch.train.state import (
     eval_forward, init_state, make_eval_forward, make_optimizer,
     make_train_step, make_train_step_fusion, train_step, train_step_fusion)
+from dagr_tpu_torch.utils import graphs as ug
+from dagr_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 W, H = 320, 240
@@ -2056,3 +2067,226 @@ def test_dagr_l_compiled_eval_forwards_match_eager(dev, name):
         raw = efwd(state, ev)
     assert_raw_close(raw, eval_forward(state, ev))
     assert efwd.graphs.replays() == 2
+
+
+# ---- utils/trace.py on the card ------------------------------------------
+SYNCS = ("cudaStreamSynchronize", "cudaEventSynchronize",
+         "cudaDeviceSynchronize")
+
+
+class ParentStepGraphs:
+    """``utils/graphs.py::StepGraphs.__call__`` as it was before the
+    tracing module (without the state check): the reference of the off
+    path's device work and synchronises."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = {}
+
+    def __call__(self, key, body, inputs):
+        inputs = [x.to(self.device) for x in inputs]
+        g = self.graphs.setdefault(
+            (key,) + tuple((tuple(x.shape), x.dtype) for x in inputs),
+            ug._Graph())
+        side = ug._side_stream(self.device)
+        if g.calls < ug.WARMUP:
+            g.calls += 1
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                out = body(*inputs)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            return out
+        if g.graph is None:
+            g.inputs = [x.clone() for x in inputs]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool, stream=side):
+                g.outputs = body(*g.inputs)
+            g.graph = graph
+        else:
+            for static, x in zip(g.inputs, inputs):
+                static.copy_(x)
+        g.calls += 1
+        g.graph.replay()
+        return tree_map(ug._clone, g.outputs)
+
+
+def profiled_call(call, expect, cpu=True):
+    """(device op names sorted, {sync runtime call: count}, device ops as
+    (start, end) us) of one ``call()`` and the synchronise after it,
+    profiled again (up to 3 tries) while no device op's name holds
+    ``expect``: the profiler at times lists none of a replay's kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        ev = prof.events()
+        host = {e.name for e in ev if e.device_type == DeviceType.CPU}
+        dev_ev = [e for e in ev
+                  if e.device_type == DeviceType.CUDA and e.name not in host]
+        if any(expect in e.name for e in dev_ev):
+            break
+    return (sorted(e.name for e in dev_ev),
+            {n: sum(e.name == n for e in ev) for n in SYNCS},
+            [(e.time_range.start, e.time_range.end) for e in dev_ev])
+
+
+def test_tracing_off_replays_as_before(dev):
+    """A DAGR window's replay through ``StepGraphs`` with the recording
+    off launches the same device operations and makes as many
+    synchronising runtime calls as the parent's ``StepGraphs``; with it
+    on, the stage-free forward's replay does too."""
+    cfg = DagrConfig(n_nodes=4000)
+    model = DAGR(cfg, H, W)
+    init_fresh(model, torch.Generator().manual_seed(19))
+    model = model.to(dev).eval()
+    ev = ragged_windows(19, dev)
+    inputs = [x.cpu().pin_memory() for x in (ev.pos, ev.feat, ev.mask)]
+
+    @torch.no_grad()
+    def body(pos, feat, mask):
+        raw = model(EventBatch(pos, feat, mask, W, H, ev.time_window))
+        return raw, detect(raw, cfg, H, W)
+
+    def same(a, b):
+        """Three profiles of a replay through each of ``a`` and ``b``,
+        taken in turns, which side first alternating: a profile can
+        drop a replay's operation but never adds one, so a side's count
+        of an operation is its most over its three profiles.  Equal
+        device operations, and equal synchronises in every profile."""
+        ops = {a: Counter(), b: Counter()}
+        for i in range(3):
+            syncs = {}
+            for side in ((a, b) if i % 2 == 0 else (b, a)):
+                names, syncs[side], _ = profiled_call(
+                    lambda: side("k", body, inputs), "spline_conv_block")
+                ops[side] |= Counter(names)
+            assert syncs[a] == syncs[b]
+        print("device ops, a less b:", ops[a] - ops[b], "b less a:",
+              ops[b] - ops[a])
+        assert ops[a] == ops[b]
+        assert any("spline_conv_block" in n for n in ops[a])
+
+    trace.disable()
+    new, old = ug.StepGraphs(dev, "new"), ParentStepGraphs(dev)
+    for _ in range(ug.WARMUP + 2):
+        new("k", body, inputs)
+        old("k", body, inputs)
+    same(new, old)
+    trace.enable()
+    try:
+        on = ug.StepGraphs(dev, "on")
+        for _ in range(ug.WARMUP + 2):
+            on("k", body, inputs)
+        same(on, old)
+        assert not on.graphs[next(iter(on.graphs))].stages
+    finally:
+        trace.disable()
+
+
+def dsec_batch(B, seed):
+    """B DSEC-sized windows (44-46k events of 50,000 slots at 320 x 215)
+    and their targets."""
+    rng = np.random.default_rng(seed)
+    pos, feat, mask = random_event_arrays(rng, B, 50_000, 320, 215,
+                                          n_valid=45_000)
+    ev = EventBatch(torch.from_numpy(pos), torch.from_numpy(feat),
+                    torch.from_numpy(mask), 320, 215)
+    return ev, random_targets(rng, B, width=320, height=215, n_boxes=5)
+
+
+@pytest.mark.parametrize("batch", [3, 64])
+def test_train_stages_inside_replays(dev, batch):
+    """``make_train_step`` captured with the recording on: a replay's
+    four stages are read (the events completed: each call ends in a
+    synchronise), and a call that reads the previous replay's makes as
+    many synchronising runtime calls as the same step with the
+    recording off.  The stages are disjoint stretches of a replay, so
+    their sum is at most its device time from the first operation to
+    the last; at the recipe's batch of 64 DSEC windows it is within 5%
+    of a replay's device busy time (at a batch of 3 the gaps between
+    the graph's kernels are a fifth of that stretch).  The stages are
+    read from a replay that is not profiled: the profiler stretches the
+    gaps between a replay's kernels, which the stages hold and the busy
+    time does not."""
+    steps = {}
+    for on in (False, True):
+        (trace.enable if on else trace.disable)()
+        model = DAGR(DagrConfig(batch_size=batch), 215, 320)
+        init_fresh(model, torch.Generator().manual_seed(20))
+        state = init_state(model.to(dev), make_optimizer(model.cfg, 10)[0])
+        steps[on] = (make_train_step(state), state)
+    trace.disable()
+    ev, tgt = dsec_batch(batch, 20)
+    ev = ev.to(dev)
+    for on in (False, True):
+        step, state = steps[on]
+        (trace.enable if on else trace.disable)()
+        try:
+            for _ in range(ug.WARMUP + 2):
+                step(state, ev, tgt)
+                torch.cuda.synchronize()
+            before = trace.snapshot()
+            step(state, ev, tgt)           # a replay not profiled
+            torch.cuda.synchronize()
+            mid = trace.snapshot()         # reads its stages
+            step(state, ev, tgt)
+            torch.cuda.synchronize()
+            # reads the replay before it inside the profile
+            got = profiled_call(lambda: step(state, ev, tgt),
+                                "split_conv_kernel")
+            after = trace.snapshot()
+        finally:
+            trace.disable()
+        steps[on] = (got, before, mid, after)
+    (off, *_), (on, before, mid, after) = steps[False], steps[True]
+    assert on[1] == off[1]
+    stages = {k: mid["stages"][k]["ms"] - before["stages"][k]["ms"]
+              for k in mid["stages"]}
+    assert sorted(stages) == sorted(["train.forward", "train.loss",
+                                     "train.backward", "train.update"])
+    assert all(mid["stages"][k]["n"] - before["stages"][k]["n"] == 1
+               for k in stages)
+    assert all(after["stages"][k]["n"] - mid["stages"][k]["n"] >= 2
+               for k in stages)
+    row, = after["counters"]["make_train_step"]["keys"].values()
+    assert row["stage_unread"] == 0 and row["stage_reads"] >= 2
+    from benchmark.harness.trace import DeviceOp, busy_us
+    busy_ms = 1e-3 * busy_us([DeviceOp("", s, e - s) for s, e in on[2]])
+    total = sum(stages.values())
+    span_ms = 1e-3 * (max(e for _, e in on[2]) - min(s for s, _ in on[2]))
+    print(f"B={batch}: stages {stages}, sum {total:.4f} ms, device busy "
+          f"{busy_ms:.4f} ms, first to last op {span_ms:.4f} ms")
+    assert total <= 1.01 * span_ms
+    if batch == 64:
+        assert abs(total - busy_ms) <= 0.05 * busy_ms
+
+
+def test_recaptures_count_a_new_shape_after_a_replay(dev):
+    """The first capture is no recapture (its call is the first replay);
+    a shape captured after it is one, a replay of a shape already
+    captured is none, and ``snapshot`` reads them with the warm-ups,
+    captures and replays of each key."""
+    sg = ug.StepGraphs(dev, "shapes")
+    x = {n: torch.ones(n, device=dev) for n in (4, 5)}
+    trace.enable()
+    try:
+        for _ in range(ug.WARMUP + 1):
+            sg("k", lambda a: a * 2, (x[4],))
+        assert sg.recaptures == 0 and sg.replays() == 1
+        for _ in range(ug.WARMUP + 2):
+            sg("k", lambda a: a * 2, (x[5],))
+        sg("k", lambda a: a * 2, (x[4],))
+        torch.cuda.synchronize()
+        got = trace.snapshot()["counters"]["shapes"]
+    finally:
+        trace.disable()
+    assert sg.recaptures == got["recaptures"] == 1
+    rows = sorted(got["keys"].values(), key=lambda r: r["replays"])
+    assert [(r["warmups"], r["captures"], r["replays"]) for r in rows] == [
+        (2, 1, 2), (2, 1, 2)]
