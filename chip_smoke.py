@@ -5420,13 +5420,18 @@ def compare(parent: str, card, train_only=False):
         print(f"sync window: the {runs[0][1]['sync_pool']['calls']} "
               "poolings' outputs bit-identical in every turn (sha256 "
               f"{pooled.pop()[:16]})", flush=True)
-    fused = {t["sync_fused"]["sha256"] for _, t in runs if "sync_fused" in t}
-    if fused:
-        require(len(fused) == 1, "the sync window's fused-block outputs are "
-                "bit-identical in every turn")
-        print(f"sync window: the {runs[0][1]['sync_fused']['calls']} fused-"
-              "block outputs bit-identical in every turn (sha256 "
-              f"{fused.pop()[:16]})", flush=True)
+    # a side's fused blocks are bit-identical from turn to turn; the two
+    # sides may sum in another order (a 16-row tile split over a cluster)
+    for side in ("parent", "change"):
+        fused = {t["sync_fused"]["sha256"] for label, t in runs
+                 if label == side and "sync_fused" in t}
+        if fused:
+            require(len(fused) == 1, f"the {side}'s sync-window fused-block "
+                    "outputs are bit-identical in each of its turns")
+            print(f"sync window: the {side}'s "
+                  f"{runs[0][1]['sync_fused']['calls']} fused-block outputs "
+                  "bit-identical in each of its turns (sha256 "
+                  f"{fused.pop()[:16]})", flush=True)
     print(json.dumps({"compare": [{"run": label, **t} for label, t in runs]}),
           flush=True)
 

@@ -49,6 +49,34 @@
 // shared memory; dagr_spline_conv_init sets that limit once, when the
 // library is loaded, so a launch inside a CUDA-graph capture sets nothing.
 //
+// The 16-row tile over a thread-block cluster.  At DAGR-S's pooled
+// levels and heads (Cin 64 and 66; 2240, 560, 140 and 35 rows a window)
+// the 16-row tile has few blocks for its depth: each builds its A,
+// streams all 13-14 of B's slabs through two stages and runs the whole
+// 1716-deep product with ~180 KB of shared memory (one block an SM), so
+// a launch of 3 or 9 tiles leaves most of the 132 SMs idle and one of
+// 140 runs in two waves, each block bound by the latency of its slabs,
+// not by the card's bytes or operations.  So that depth is split over
+// the s blocks (s = 2, 4 or 8) of one cluster a tile: rank r builds the
+// tap and root columns of its chunk of cc = ceil(Cin / s) input
+// channels only (the split route's A_chunk layout), streams the
+// matching rows of B (ChunkB), runs block_gemm over that ~26 cc-deep
+// slice and the skip product over its chunk of Cs, and leaves both
+// [16, coutp] partials in its shared memory; after a cluster barrier,
+// rank r adds the s partials of its 16 / s rows, read through
+// distributed shared memory in rank order, runs the epilogue and
+// writes them; a second barrier keeps every block's shared memory
+// until the others have read it.  No atomics and no second kernel, and
+// every sum in a fixed order, so two calls are bit-identical.  s comes
+// from the shapes and the card's SM count alone (block_split): the
+// least waves(s) x (the slice's depth in slabs + a block's fixed cost),
+// with one or two blocks an SM as shared memory allows, and no slice
+// shallower than a slab; at s = 1 the launch is the plain one above.
+// On an H100 at DAGR-S's widths that is 8 for 3-18 tiles, 4 for 35 and
+// 1 from 70 tiles on (the prediction convs, Cout 2 and 5: 2 at 70); a
+// split block costs ~8 us however thin its slice, which pays only while
+// the tiles leave SMs idle.
+//
 // K7, the gathered block (dagr_spline_conv_gather_block): the same
 // kernel over a streaming chunk.  Replaces dagr_tpu/models/functional.py:
 // 109 spline_conv_gather and the bn_eval, activation and mask around it
@@ -70,9 +98,12 @@
 // Cs) Cout, are 14 MFLOP at Cin = 16.  It replaces a split form that
 // wrote g [C, 25 Cin] to HBM and ran ~15 PyTorch ops and cuBLAS around
 // each aggregation launch.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "spline_taps.cuh"
 
@@ -83,6 +114,7 @@ constexpr int kSlab = 128;             // rows of B per cp.async stage
 constexpr int kStages = 2;             // B slabs in flight
 constexpr int kSmemMax = 232448;       // H100: 227 KB a block, opt-in
 constexpr int kMaxK = 16;              // neighbour slots a destination
+constexpr int kMaxSplit = 8;           // blocks a cluster (portable size)
 
 enum Act { kNone = 0, kRelu = 1, kElu = 2, kSilu = 3, kGelu = 4 };
 
@@ -185,11 +217,12 @@ struct MainB {
   }
 };
 
+// lin's columns 0 .. cs of each row (row stride ld).
 struct SkipB {
   const float* lin;
-  int cs, cout;
+  int cs, cout, ld;
   __device__ __forceinline__ const float* at(int k, int n) const {
-    return (n < cout && k < cs) ? lin + (size_t)n * cs + k : nullptr;
+    return (n < cout && k < cs) ? lin + (size_t)n * ld + k : nullptr;
   }
 };
 
@@ -237,8 +270,30 @@ __device__ __forceinline__ void load_slab(float* sB, int ldb, int coutp,
   }
 }
 
-// the split route's B and its slab loader (defined with it, below)
-struct ChunkB;
+// B of a chunk: rows (p, j) = tap p of the chunk's channel c0 + j
+// (j < cc), then cc root rows (with root); column n0 + n.  W is [P,
+// Crows, ncols] and root [Crows, ncols], rows contiguous: the forward's
+// W [P, Cin, Cout] and root, grad_x's W^T [P, Cout, Cin] and root^T
+// (transposed into scratch by the backward entry).  ``vec``: ncols a
+// multiple of 4 and both 16-byte aligned, so four columns are one
+// 16-byte copy.
+struct ChunkB {
+  const float* W;
+  const float* root;
+  int P, Crows, cc, c0, n0, ncols;
+  bool vec;
+  // the first element of row k, or null past the chunk's rows
+  __device__ __forceinline__ const float* row(int k) const {
+    if (k < P * cc) {
+      const int p = k / cc;
+      return W + ((size_t)p * Crows + c0 + k - p * cc) * ncols;
+    }
+    k -= P * cc;
+    return root && k < cc ? root + (size_t)(c0 + k) * ncols : nullptr;
+  }
+};
+
+// its slab loader (defined with the split route, below)
 template <int SLAB>
 __device__ __forceinline__ void load_chunk_slab(float* sB, int ldb,
                                                 int coutp, const ChunkB& b,
@@ -251,7 +306,8 @@ __device__ __forceinline__ void load_chunk_slab(float* sB, int ldb,
 // w / MT + j * (8 / MT) over every k-step; with KSPLIT (MT = 1) it takes
 // every n-tile but only every 8th k-step (w, w + 8, ...), so no two warps
 // split the same A values, and its acc is a partial sum over its
-// k-steps.  Ends with every copy landed and a __syncthreads, after
+// k-steps.  B: MainB or SkipB in kSlab-row slabs, or a ChunkB.  Ends
+// with every copy landed and a __syncthreads, after
 // which A and sB may be reused.  With FLUSH each k-step's three products
 // go into a zeroed fragment that is then added to acc in float32: the
 // tensor core's accumulator adds without rounding to nearest, which over
@@ -271,10 +327,10 @@ __device__ __forceinline__ void block_gemm(const float* sA, int lda, int kdim,
   const int g = lane >> 2, t = lane & 3;
   const int nslab = (kdim + SLAB - 1) / SLAB;
   auto load = [&](int s) {
-    if constexpr (SLAB == kSlab)
-      load_slab(sB, ldb, coutp, b, s, any);
-    else
+    if constexpr (std::is_same<BSrc, ChunkB>::value)
       load_chunk_slab<SLAB>(sB, ldb, coutp, b, s, any);
+    else
+      load_slab(sB, ldb, coutp, b, s, any);
   };
   for (int s = issued ? 1 : 0; s < kStages - 1; ++s) {
     if (s < nslab) load(s);
@@ -397,30 +453,21 @@ struct Elems {
   }
 };
 
-template <int MT, int NTW, bool KSPLIT>
-__global__ void __launch_bounds__(kThreads) spline_conv_block_kernel(
-    ConvArgs a, int ka, int lda, int csp, int lds, int coutp, int ldb) {
-  constexpr int TM = 16 * MT;
-  extern __shared__ __align__(16) float smem[];
-  float* sA = smem;                                   // [TM, max(lda, lds)]
-  float* sB = smem + TM * (lda > lds ? lda : lds);    // [kStages, kSlab, ldb]
-  const int m0 = blockIdx.x * TM;
-  const int nd = min(TM, a.M - m0);
-  const int Cin = a.Cin, pc = a.ks * a.ks * Cin;
-  const bool vec = a.Cout % 4 == 0
-                   && (((uintptr_t)a.W | (uintptr_t)a.root) & 15) == 0;
-  const MainB mb{a.W, a.root, pc, Cin, a.Cout, vec};
-  // the first weight slab flies while the tile is built
-  load_slab(sB, ldb, coutp, mb, 0, a.W);
-  cp_async_commit();
-
+// Rows m0 .. m0 + nd of the fused block's A into sA (zeroed first, TM
+// rows of lda): row d's tap sums of channels c0 .. c0 + cc of x over its
+// K slots, in slot order, at columns p * cc + j, then its own channels at
+// P * cc + j; every destination of the tile in one pass, TM groups of
+// min(cc, kThreads / TM) threads, each over its channels.
+template <int TM>
+__device__ __forceinline__ void build_tile(float* sA, int lda,
+                                           const ConvArgs& a, int m0, int nd,
+                                           int c0, int cc) {
   for (int i = threadIdx.x; i < TM * lda / 4; i += kThreads)
     reinterpret_cast<float4*>(sA)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
-  {
-    // every destination of the tile in one pass: TM groups of
-    // min(Cin, kThreads / TM) threads, each over its channels
-    const int tpd = Cin < kThreads / TM ? Cin : kThreads / TM;
+  const int pc = a.ks * a.ks * cc;
+  const int tpd = cc < kThreads / TM ? cc : kThreads / TM;
+  if (tpd > 0) {
     const int dpp = kThreads / tpd;
     const int d0 = threadIdx.x / tpd, lane = threadIdx.x - d0 * tpd;
     if (d0 < dpp) {
@@ -460,16 +507,134 @@ __global__ void __launch_bounds__(kThreads) spline_conv_block_kernel(
 #pragma unroll
         for (int k = 0; k < kMaxK; ++k) {
           if (src[k] >= 0)
-            add_edge(row, a.x + (size_t)src[k] * Cin, ax[k], ay[k], a.ks, Cin,
-                     lane, tpd);
+            add_edge(row, a.x + (size_t)src[k] * a.Cin + c0, ax[k], ay[k],
+                     a.ks, cc, lane, tpd);
         }
         const float* xr = a.x_root ? a.x_root : a.x;
-        for (int c = lane; c < Cin; c += tpd)
-          row[pc + c] = xr[(size_t)m * Cin + c];
+        for (int c = lane; c < cc; c += tpd)
+          row[pc + c] = xr[(size_t)m * a.Cin + c0 + c];
       }
     }
   }
   __syncthreads();
+}
+
+// The 16-row tile's cluster form (see the note at the top; launched
+// with s blocks a cluster): this block is rank r of the s blocks of tile
+// blockIdx.x / s.  It builds the A and runs the products of its chunk
+// of the input channels and of Cs, keeps the two [16, coutp] partials in
+// its shared memory (after sA and sB), then, past a cluster barrier,
+// sums rows 16 / s * r .. of every rank's partials in rank order and
+// runs the epilogue on them.  lda, lds: the widest chunk's strides.  An
+// overload of the plain kernel's name, so that device traces find both
+// under it; at most 128 registers a thread, so that two blocks fit an SM
+// where their shared memory does (block_split counts on it).
+template <int NTW>
+__global__ void __launch_bounds__(kThreads, 2) spline_conv_block_kernel(
+    ConvArgs a, int lda, int lds, int coutp, int ldb) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int s = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int m0 = (int)(blockIdx.x / s) * 16;
+  const int nd = min(16, a.M - m0);
+  const int P = a.ks * a.ks;
+  const int cc = (a.Cin + s - 1) / s, c0 = rank * cc;
+  const int ccr = max(0, min(cc, a.Cin - c0));
+  float* sA = smem;                                   // [16, max(lda, lds)]
+  float* sB = smem + 16 * (lda > lds ? lda : lds);    // [kStages, kSlab, ldb]
+  float* part = sB + kStages * kSlab * ldb;           // [2, 16, coutp]
+  const bool vec = a.Cout % 4 == 0
+                   && (((uintptr_t)a.W | (uintptr_t)a.root) & 15) == 0;
+  const ChunkB b{a.W, a.root, P, a.Cin, ccr, c0, 0, a.Cout, vec};
+  // the first weight slab flies while the tile is built
+  load_chunk_slab<kSlab>(sB, ldb, coutp, b, 0, a.W);
+  cp_async_commit();
+  build_tile<16>(sA, lda, a, m0, nd, c0, ccr);
+
+  float acc[NTW][4];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  block_gemm<1, NTW, true>(sA, lda, (P * ccr + ccr + 7) / 8 * 8, sB, ldb,
+                           coutp, b, true, a.W, acc);
+  Elems<1, NTW, true> y;
+  y.take(acc, sB, coutp);
+#pragma unroll
+  for (int e = 0; e < y.kN; ++e) {
+    int r, n;
+    y.coord(e, coutp, r, n);
+    if (r < 16) part[r * coutp + n] = y.v[e];
+  }
+  if (a.skip) {
+    const int csc = (a.Cs + s - 1) / s, cs0 = rank * csc;
+    const int csr = max(0, min(csc, a.Cs - cs0));
+    for (int i = threadIdx.x; i < 16 * lds; i += kThreads) {
+      const int d = i / lds, c = i - d * lds;
+      sA[i] = (d < nd && c < csr)
+                  ? a.skip[(size_t)(m0 + d) * a.Cs + cs0 + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    const SkipB sb{a.lin + cs0, csr, a.Cout, a.Cs};
+    block_gemm<1, NTW, true>(sA, lds, (csr + 7) / 8 * 8, sB, ldb, coutp, sb,
+                             false, a.W, acc);
+    Elems<1, NTW, true> sk;
+    sk.take(acc, sB, coutp);
+#pragma unroll
+    for (int e = 0; e < sk.kN; ++e) {
+      int r, n;
+      sk.coord(e, coutp, r, n);
+      if (r < 16) part[(16 + r) * coutp + n] = sk.v[e];
+    }
+  }
+
+  // every rank's partials written (and visible across the cluster)
+  cluster.sync();
+  const int rows = 16 / s, r0 = rank * rows;
+  for (int i = threadIdx.x; i < rows * coutp; i += kThreads) {
+    const int r = r0 + i / coutp, n = i % coutp;
+    if (n >= a.Cout || r >= nd) continue;
+    const int o = r * coutp + n;
+    float v = 0.f;
+    for (int q = 0; q < s; ++q) v += cluster.map_shared_rank(part, q)[o];
+    if (a.bias) v = v + a.bias[n];
+    if (a.bn.mean) v = a.bn(v, n);
+    if (a.skip) {
+      float sv = 0.f;
+      for (int q = 0; q < s; ++q)
+        sv += cluster.map_shared_rank(part, q)[16 * coutp + o];
+      if (a.bn_skip.mean) sv = a.bn_skip(sv, n);
+      v = v + sv;
+    }
+    const int m = m0 + r;
+    float out = activation(v, a.act);
+    if (a.mask && !a.mask[m]) out = 0.f;
+    a.out[(size_t)m * a.Cout + n] = out;
+  }
+  // no block leaves (and frees its shared memory) while another reads it
+  cluster.sync();
+}
+
+template <int MT, int NTW, bool KSPLIT>
+__global__ void __launch_bounds__(kThreads) spline_conv_block_kernel(
+    ConvArgs a, int ka, int lda, int csp, int lds, int coutp, int ldb) {
+  constexpr int TM = 16 * MT;
+  extern __shared__ __align__(16) float smem[];
+  float* sA = smem;                                   // [TM, max(lda, lds)]
+  float* sB = smem + TM * (lda > lds ? lda : lds);    // [kStages, kSlab, ldb]
+  const int m0 = blockIdx.x * TM;
+  const int nd = min(TM, a.M - m0);
+  const int Cin = a.Cin, pc = a.ks * a.ks * Cin;
+  const bool vec = a.Cout % 4 == 0
+                   && (((uintptr_t)a.W | (uintptr_t)a.root) & 15) == 0;
+  const MainB mb{a.W, a.root, pc, Cin, a.Cout, vec};
+  // the first weight slab flies while the tile is built
+  load_slab(sB, ldb, coutp, mb, 0, a.W);
+  cp_async_commit();
+  build_tile<TM>(sA, lda, a, m0, nd, 0, Cin);
 
   float acc[NTW][4];
 #pragma unroll
@@ -498,7 +663,7 @@ __global__ void __launch_bounds__(kThreads) spline_conv_block_kernel(
 #pragma unroll
     for (int j = 0; j < NTW; ++j)
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    const SkipB sb{a.lin, a.Cs, a.Cout};
+    const SkipB sb{a.lin, a.Cs, a.Cout, a.Cs};
     block_gemm<MT, NTW, KSPLIT>(sA, lds, csp, sB, ldb, coutp, sb, false, a.W,
                                 acc);
     Elems<MT, NTW, KSPLIT> sk;
@@ -612,29 +777,6 @@ bool conv_tile(int cin, int cout, int cs, int ks, int K, Tile* t,
 constexpr int kTM = 64;                // rows of a split-route tile
 constexpr int kSplitSlab = 64;         // rows of B a split-route stage
 constexpr int kMaxChunk = 16;          // input channels of a chunk
-
-// B of a chunk: rows (p, j) = tap p of the chunk's channel c0 + j
-// (j < cc), then cc root rows (with root); column n0 + n.  W is [P,
-// Crows, ncols] and root [Crows, ncols], rows contiguous: the forward's
-// W [P, Cin, Cout] and root, grad_x's W^T [P, Cout, Cin] and root^T
-// (transposed into scratch by the backward entry).  ``vec``: ncols a
-// multiple of 4 and both 16-byte aligned, so four columns are one
-// 16-byte copy.
-struct ChunkB {
-  const float* W;
-  const float* root;
-  int P, Crows, cc, c0, n0, ncols;
-  bool vec;
-  // the first element of row k, or null past the chunk's rows
-  __device__ __forceinline__ const float* row(int k) const {
-    if (k < P * cc) {
-      const int p = k / cc;
-      return W + ((size_t)p * Crows + c0 + k - p * cc) * ncols;
-    }
-    k -= P * cc;
-    return root && k < cc ? root + (size_t)(c0 + k) * ncols : nullptr;
-  }
-};
 
 ChunkB chunk_b(const float* W, const float* root, int P, int Crows,
                int ncols) {
@@ -1381,6 +1523,78 @@ long long split_scratch(const Edges& edges, int rows, int C, int ncols,
              ? p.scratch : -1;
 }
 
+// The cluster form's kernel at NTW (the overload of one template
+// parameter).
+template <int NTW>
+auto cluster_kernel() -> void (*)(ConvArgs, int, int, int, int) {
+  return spline_conv_block_kernel<NTW>;
+}
+
+// SMs of the card, read by dagr_spline_conv_init.
+int g_sms = 132;
+
+// A fused block's fixed cost (its tile build, its epilogue, its share of
+// the launch) and what a cluster adds to it (the partials through shared
+// memory, two cluster barriers), in 128-row slabs of B streamed: fitted
+// to the per-launch device times of DAGR-S's 16-row-tile calls at a
+// batch of 1 and of 8 with s forced to 1, 2, 4 and 8 (H100 SXM).
+constexpr double kBlockCost = 8.0;
+constexpr double kClusterCost = 3.0;
+
+// The cluster form of the 16-row tile t at s blocks a tile: each rank's
+// chunk of ceil(Cin / s) input channels and ceil(Cs / s) skip columns
+// (ka, lda, csp, lds of the widest chunk) and its shared memory, with the
+// two partials; false where a rank would get no channel or a slice
+// shallower than one slab of B.
+bool cluster_tile(const Tile& t, int cin, int cs, int ks, int s, Tile* c) {
+  const int cc = (cin + s - 1) / s;
+  if ((s - 1) * cc >= cin) return false;
+  *c = t;
+  c->ka = (ks * ks * cc + cc + 7) / 8 * 8;
+  if (c->ka < kSlab) return false;
+  c->lda = c->ka + 4;
+  c->csp = ((cs + s - 1) / s + 7) / 8 * 8;
+  c->lds = c->csp + 4;
+  const int la = c->lda > c->lds ? c->lda : c->lds;
+  c->smem = ((size_t)16 * la + kStages * kSlab * t.ldb
+             + (size_t)(cs ? 2 : 1) * 16 * t.coutp) * sizeof(float);
+  return c->smem <= (size_t)kSmemMax;
+}
+
+// The estimated time of `blocks` blocks of tile t, each over t's depth,
+// split over clusters or not: waves of the card's SMs at one or two
+// blocks an SM (by shared memory), each as long as a block's slabs of B
+// and its fixed cost.
+double tile_cost(const Tile& t, long long blocks, bool cluster) {
+  const long long resident = (long long)g_sms * (t.smem <= kTwoBlocks ? 2 : 1);
+  const long long waves = (blocks + resident - 1) / resident;
+  return (double)waves * ((double)(t.ka + t.csp) / kSlab + kBlockCost
+                          + (cluster ? kClusterCost : 0.0));
+}
+
+// How many blocks (a cluster) split the depth of each 16-row tile of t
+// over M rows, and the tile they run (``run``): the s in {1, 2, 4, 8}
+// with the least tile_cost; 1 for the 64-row tile.  Shapes and the SM
+// count alone decide, so the answer is the same on every call.
+int block_split(const Tile& t, int cin, int cs, int ks, int M, Tile* run) {
+  *run = t;
+  if (t.mt != 1 || M <= 0) return 1;
+  const long long tiles = (M + 15) / 16;
+  int best = 1;
+  double cost = tile_cost(t, tiles, false);
+  for (int s = 2; s <= kMaxSplit; s *= 2) {
+    Tile c;
+    if (!cluster_tile(t, cin, cs, ks, s, &c)) continue;
+    const double k = tile_cost(c, tiles * s, true);
+    if (k < cost) {
+      cost = k;
+      best = s;
+      *run = c;
+    }
+  }
+  return best;
+}
+
 template <class Edges>
 cudaError_t split_smem_limits() {
   const void* kernels[] = {(const void*)split_conv_kernel<1, Edges>,
@@ -1398,8 +1612,15 @@ cudaError_t split_smem_limits() {
 }  // namespace
 
 // Sets the dynamic shared-memory limit of every fused-block and
-// split-route kernel, once, when the library is loaded.
+// split-route kernel, once, when the library is loaded, and reads the
+// card's SM count for block_split.
 extern "C" int dagr_spline_conv_init(void) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount,
+                                 dev);
+  if (err != cudaSuccess) return (int)err;
   const void* kernels[] = {
       (const void*)spline_conv_block_kernel<4, 1, false>,
       (const void*)spline_conv_block_kernel<4, 2, false>,
@@ -1407,13 +1628,15 @@ extern "C" int dagr_spline_conv_init(void) {
       (const void*)spline_conv_block_kernel<1, 1, true>,
       (const void*)spline_conv_block_kernel<1, 2, true>,
       (const void*)spline_conv_block_kernel<1, 4, true>,
-      (const void*)spline_conv_block_kernel<1, 8, true>};
+      (const void*)spline_conv_block_kernel<1, 8, true>,
+      (const void*)cluster_kernel<1>(), (const void*)cluster_kernel<2>(),
+      (const void*)cluster_kernel<4>(), (const void*)cluster_kernel<8>()};
   for (const void* k : kernels) {
-    const cudaError_t err = cudaFuncSetAttribute(
+    err = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (err != cudaSuccess) return (int)err;
   }
-  cudaError_t err = split_smem_limits<SlotEdges>();
+  err = split_smem_limits<SlotEdges>();
   if (err == cudaSuccess) err = split_smem_limits<RunEdges>();
   if (err == cudaSuccess) err = split_smem_limits<StencilEdges>();
   const void* wgrad[] = {(const void*)split_conv_wgrad_kernel<1>,
@@ -1437,9 +1660,39 @@ extern "C" long long dagr_spline_conv_block_smem(int cin, int cout, int cs,
   return conv_tile(cin, cout, cs, ks, K, &t) ? (long long)t.smem : 0;
 }
 
+// The blocks a 16-row tile of dagr_spline_conv_block at (Cin, Cout, Cs,
+// ks, K) over M rows is split over (1: no cluster), or 0 if the kernel
+// does not take these shapes.
+extern "C" int dagr_spline_conv_block_split(int cin, int cout, int cs,
+                                            int ks, int K, int M) {
+  Tile t, run;
+  if (!conv_tile(cin, cout, cs, ks, K, &t)) return 0;
+  return block_split(t, cin, cs, ks, M, &run);
+}
+
 namespace {
 
-// One launch of the fused block's kernel for the tile of a's widths.
+template <int NTW>
+cudaError_t launch_cluster(const ConvArgs& a, const Tile& t, int tiles,
+                           int split, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * split));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = t.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, cluster_kernel<NTW>(), a, t.lda, t.lds,
+                            t.coutp, t.ldb);
+}
+
+// One launch of the fused block's kernel for the tile of a's widths:
+// split over a cluster where block_split says so.
 int launch_block(const ConvArgs& a, bool rows16, void* stream) {
   Tile t;
   if (!conv_tile(a.Cin, a.Cout, a.Cs, a.ks, a.K, &t, rows16))
@@ -1448,6 +1701,18 @@ int launch_block(const ConvArgs& a, bool rows16, void* stream) {
   const int blocks = (a.M + tm - 1) / tm;
   if (blocks == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  Tile run;
+  const int split = block_split(t, a.Cin, a.Cs, a.ks, a.M, &run);
+  if (split > 1) {
+    cudaError_t err;
+    switch (t.ntw) {
+      case 1: err = launch_cluster<1>(a, run, blocks, split, s); break;
+      case 2: err = launch_cluster<2>(a, run, blocks, split, s); break;
+      case 4: err = launch_cluster<4>(a, run, blocks, split, s); break;
+      default: err = launch_cluster<8>(a, run, blocks, split, s); break;
+    }
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  }
 #define DAGR_CONV_LAUNCH(MT, NTW, KSPLIT)                                  \
   spline_conv_block_kernel<MT, NTW, KSPLIT><<<blocks, kThreads, t.smem,    \
                                               s>>>(                        \

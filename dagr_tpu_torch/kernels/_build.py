@@ -19,7 +19,9 @@ sets an attribute (a launch may be inside a CUDA-graph capture).
 
 ``LAUNCHES`` counts the launches per kernel name.  It is process-wide on
 purpose: a run resets it, drives the main path, and reads it to show
-which kernels the path went through.
+which kernels the path went through.  ``spline_conv_block_cluster``
+counts the ``spline_conv_block`` calls (already counted there) whose
+16-row tiles were split over a thread-block cluster.
 """
 from __future__ import annotations
 
@@ -46,7 +48,8 @@ NVCC_FLAGS = ARCH_FLAGS + (
 )
 
 LAUNCHES = {"graph_search": 0, "spline_conv": 0,
-            "spline_conv_block": 0, "voxel_pool": 0,
+            "spline_conv_block": 0, "spline_conv_block_cluster": 0,
+            "voxel_pool": 0,
             "nms": 0, "graph_search_store": 0, "spline_gather_block": 0,
             "stream_accumulate": 0, "serve_search": 0,
             "serve_ring_update": 0, "cell_max": 0,

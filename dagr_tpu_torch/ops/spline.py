@@ -467,7 +467,10 @@ def spline_conv_block(
     ``dagr_spline_conv_block`` on CUDA tensors, which supports
     Cout <= 64, K <= 16 and the widths whose shared-memory tile fits
     (raises otherwise); ``spline_conv_block_plain`` on CPU tensors.  Not
-    differentiable: the modules call it in eval mode under no_grad."""
+    differentiable: the modules call it in eval mode under no_grad.  A
+    call whose 16-row tiles the kernel splits over a thread-block cluster
+    (``block_split`` > 1) also counts a ``spline_conv_block_cluster``
+    launch."""
     M, K = edges.nbr.shape
     _check_block_args(x, edges, weight, root, bias, bn, skip, lin, bn_skip,
                       act, mask, kernel_size)
@@ -496,6 +499,8 @@ def spline_conv_block(
             weight, root, bias, bn, skip, lin, bn_skip, mask),
         i(M), i(K), i(cin), i(cout), i(cs), i(kernel_size),
         i(ACT_CODES[act]), _build.ptr(out))
+    if block_split(cin, cout, cs, kernel_size, K, M) > 1:
+        _build.LAUNCHES["spline_conv_block_cluster"] += 1
     return out
 
 
@@ -551,6 +556,20 @@ def block_shared_memory(cin: int, cout: int, cs: int, kernel_size: int,
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_longlong
     return int(fn(cin, cout, cs, kernel_size, K))
+
+
+@functools.lru_cache(maxsize=None)
+def block_split(cin: int, cout: int, cs: int, kernel_size: int, K: int,
+                M: int) -> int:
+    """How many blocks, one thread-block cluster, ``spline_conv_block``'s
+    kernel splits each 16-row tile's depth over at these widths and M
+    rows (1: one block a tile, the 64-row tile always), or 0 if the
+    kernel does not take the widths: ``dagr_spline_conv_block_split``,
+    chosen from the shapes and the card's SM count alone."""
+    fn = _build.library().dagr_spline_conv_block_split
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    return int(fn(cin, cout, cs, kernel_size, K, M))
 
 
 def _check_block_args(x, edges, weight, root, bias, bn, skip, lin, bn_skip,

@@ -8,7 +8,10 @@ CUDA device.  On a GPU machine:
 
 The eval route by width: ``fused_block_fits`` against the kernel's own
 tile, and the Detector at DAGR-N, -M, -L and 100 classes against the
-CPU with its fused and split convs counted.
+CPU with its fused and split convs counted.  The fused block's 16-row
+tile split over a thread-block cluster: at DAGR-S's pooled and head
+widths over 35-17920 rows, ``block_split`` against the rule, and a sync
+window's compiled forward with its cluster launches counted.
 
 K6 and K8's search on rings wrapped three times, not yet full or all
 dead, at the paths' widths (the engine's 50k ring, S=8 rings of 8192
@@ -92,7 +95,8 @@ from dagr_tpu_torch.ops.pool import (
     pool_features_backward_plain, pool_graph, pool_graph_plain,
     ring_update_cells, ring_update_cells_plain)
 from dagr_tpu_torch.ops.spline import (
-    BatchNormStats, LevelEdges, block_shared_memory, fused_block_fits,
+    BatchNormStats, LevelEdges, block_shared_memory, block_split,
+    fused_block_fits,
     level_edges, source_runs_plain, spline_conv, spline_conv_backward,
     spline_conv_backward_plain, spline_conv_block, spline_conv_block_plain,
     spline_conv_forward, spline_conv_plain)
@@ -1347,11 +1351,12 @@ def test_train_step_matches_cpu_and_eval_launches_no_backward(dev):
     assert after["spline_conv_block"] - before["spline_conv_block"] == 20
 
 
-def block_case(seed, M, K, cin, cout, mode, act, dev):
+def block_case(seed, M, K, cin, cout, mode, act, dev, cs=None):
     """Arguments of one fused block on ``dev``: destinations 100-149 have
     every slot masked, a seventh of the edges sit at attr x = 0 and an
     eleventh at y = 1; ``mode`` block (batch norm, activation), skip (and
-    a skip branch of Cs = cin + 2) or pred (bias only)."""
+    a skip branch of Cs = ``cs``, by default cin + 2) or pred (bias
+    only)."""
     g = torch.Generator().manual_seed(seed)
     mask = torch.rand((M, K), generator=g) < 0.7
     mask[100:150] = False
@@ -1372,7 +1377,7 @@ def block_case(seed, M, K, cin, cout, mode, act, dev):
     else:
         kw.update(bn=bn(), act=act)
     if mode == "skip":
-        cs = cin + 2
+        cs = cin + 2 if cs is None else cs
         kw.update(skip=torch.randn((M, cs), generator=g),
                   lin=torch.randn((cout, cs), generator=g) * cs ** -0.5,
                   bn_skip=bn())
@@ -1424,6 +1429,148 @@ def test_spline_conv_block_refuses_what_it_does_not_take(dev):
         spline_conv_block(*args, **dict(kw, mask=kw["mask"].cpu()))
     with pytest.raises(ValueError):                         # not contiguous
         spline_conv_block(*args, **dict(kw, skip=kw["skip"].t().contiguous().t()))
+
+
+def split_rule(cin, cout, cs, K, M, sms):
+    """What ``block_split`` should answer (``csrc/spline_conv.cu``'s
+    ``block_split``, worked out here): 0 where the fused block does not
+    take the widths, 1 on the 64-row tile; on the 16-row tile the s in
+    1, 2, 4, 8 with the least waves x (the slice's depth in 128-row
+    slabs of B + 8, and 3 more for a cluster), waves of ``sms`` SMs at
+    two blocks an SM where a block takes at most 113 KB of shared
+    memory, else one; s > 1 only where each of the s ranks gets
+    ceil(Cin / s) channels or the rest, at least one, and that chunk's
+    slice (26 rows a channel, padded to 8) is a slab deep or more."""
+    if not fused_block_fits(cin, cout, cs, 5, K):
+        return 0
+    ka, csp = (26 * cin + 7) // 8 * 8, (cs + 7) // 8 * 8
+    if 64 * (ka + 4) * 4 <= 128 * 1024:
+        return 1
+    ntw = 1
+    while ntw * 8 < cout:
+        ntw *= 2
+    coutp = 8 * ntw
+    ldb = coutp + (8 if coutp % 32 in (0, 16) else 0)
+
+    def cost(ka, csp, smem, blocks, cluster):
+        resident = sms * (2 if smem <= 113 * 1024 else 1)
+        return -(-blocks // resident) * ((ka + csp) / 128 + 8.0
+                                         + (3.0 if cluster else 0.0))
+
+    tiles = -(-M // 16)
+    best = cost(ka, csp, (16 * (max(ka, csp) + 4) + 256 * ldb) * 4, tiles,
+                False)
+    pick = 1
+    for s in (2, 4, 8):
+        cc = -(-cin // s)
+        kac, cspc = (26 * cc + 7) // 8 * 8, (-(-cs // s) + 7) // 8 * 8
+        smem = (16 * (max(kac, cspc) + 4) + 256 * ldb
+                + (2 if cs else 1) * 16 * coutp) * 4
+        if (s - 1) * cc >= cin or kac < 128 or smem > 232_448:
+            continue
+        c = cost(kac, cspc, smem, tiles * s, True)
+        if c < best:
+            best, pick = c, s
+    return pick
+
+
+# DAGR-S's 16-row-tile convs: level 1's second (skip 18), levels 2-4's
+# first (66) and second (skip 66), the heads' 64-wide convs, the
+# predictions (classes 2; 5 = box + objectness)
+CLUSTER_WIDTHS = [(64, 64, 18), (66, 64, 0), (64, 64, 66), (64, 64, 0),
+                  (64, 2, 0), (64, 5, 0)]
+
+
+@pytest.mark.parametrize("K", [9, 16])
+@pytest.mark.parametrize("cin,cout,cs", CLUSTER_WIDTHS)
+@pytest.mark.parametrize("M", [35, 140, 560, 2240, 17920])
+def test_spline_conv_block_cluster_split(dev, M, cin, cout, cs, K):
+    """The fused block's 16-row tile at DAGR-S's pooled and head widths
+    and the rows of a window's grids (35-2240) and of a batch of 8's
+    level 1 (17920), whatever split over a thread-block cluster the
+    kernel takes there: within 1e-5 of the twin's output max, two calls
+    bit-identical, masked rows exactly 0, one launch a call, counted as
+    a cluster launch where it split; ``block_split`` as the rule gives
+    it, and 1 at the event level's widths (the 64-row tile)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = block_split(cin, cout, cs, 5, K, M)
+    assert split == split_rule(cin, cout, cs, K, M, sms)
+    for ev_cin, ev_cout, ev_cs in ((3, 16, 0), (16, 16, 3), (18, 64, 0)):
+        assert block_split(ev_cin, ev_cout, ev_cs, 5, 16, 50_000) == 1
+    mode = "pred" if cout < 64 else "skip" if cs else "block"
+    args, kw = block_case(M + cin + cs + K, M, K, cin, cout, mode,
+                          "relu" if mode != "pred" else None, dev,
+                          cs=cs or None)
+    before = _build.launch_counts()
+    a = spline_conv_block(*args, **kw)
+    after = _build.launch_counts()
+    a2 = spline_conv_block(*args, **kw)
+    b = spline_conv_block_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert after["spline_conv_block"] == before["spline_conv_block"] + 1
+    assert (after["spline_conv_block_cluster"]
+            == before["spline_conv_block_cluster"] + (split > 1))
+    assert a.shape == (M, cout)
+    err = float((a - b).abs().max())
+    assert err <= 1e-5 * max(1.0, float(b.abs().max())), (split, err)
+    assert torch.equal(a, a2)
+    assert not a[~kw["mask"]].any()
+
+
+def test_sync_window_compiled_forward_splits_its_tiles(dev):
+    """A DAGR-S window (pooled grids 40x56 to 5x7) through
+    ``Detector.make_forward``: the capture's 20 fused blocks count a
+    cluster launch for each call whose shapes ``split_rule`` splits (16
+    of 20 on a 132-SM H100: the event level's two and level 1's first
+    run the 64-row tile, and level 1's second, 140 tiles, one block a
+    tile), and every replay equals the eager forward bit for bit."""
+    from dagr_tpu_torch.ops import spline as spline_ops
+
+    cfg = DagrConfig(n_nodes=4000)
+    det = Detector(cfg, H, W, dev, seed=21)
+    fwd = det.make_forward()
+    rng = np.random.default_rng(21)
+    windows = []
+    for _ in range(5):
+        pos, feat, mask = random_event_arrays(rng, 1, 4000, W, H,
+                                              n_valid=3500)
+        windows.append(EventBatch(
+            pos=torch.from_numpy(pos), feat=torch.from_numpy(feat),
+            mask=torch.from_numpy(mask), width=W, height=H).to(dev))
+    for ev in windows[:2]:
+        fwd(ev)                                      # the eager warm-ups
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes, fn = [], spline_ops.spline_conv_block
+
+    def counted(x, edges, weight, *args, **kw):
+        skip = kw.get("skip")
+        shapes.append((x.shape[1], weight.shape[2],
+                       0 if skip is None else skip.shape[1],
+                       edges.nbr.shape[1], x.shape[0]))
+        return fn(x, edges, weight, *args, **kw)
+
+    spline_ops.spline_conv_block = counted
+    try:
+        before = _build.launch_counts()
+        fwd(windows[2])                              # the capture
+        after = _build.launch_counts()
+    finally:
+        spline_ops.spline_conv_block = fn
+    want = sum(split_rule(*sh, sms) > 1 for sh in shapes)
+    assert len(shapes) == 20
+    assert after["spline_conv_block"] - before["spline_conv_block"] == 20
+    assert (after["spline_conv_block_cluster"]
+            - before["spline_conv_block_cluster"]) == want
+    if sms == 132:
+        assert want == 16
+    for ev in windows[2:] * 2:
+        raw, dets = fwd(ev)
+        want_raw, want_dets = det(ev)
+        torch.cuda.synchronize()
+        assert torch.equal(raw, want_raw)
+        for k in ("valid", "labels", "boxes", "scores"):
+            assert torch.equal(dets[k], want_dets[k]), k
+    assert fwd.graphs.replays() == 7          # the capture's call and 6
 
 
 def pool_runs_case(case, dev):
