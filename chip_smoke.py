@@ -32,11 +32,11 @@ Drives DAGR-S events-only sync detection (DagrConfig defaults, 240x320,
    host ops;
 4b. serves a DAGR-L DSEC window (240x320) and a DAGR-L NCaltech101
    window (180x240, one scale, 100 classes): the convs the fused tile
-   takes run fused and the others split (``eval_routes``), every sync
-   kernel launches, raw equals the CPU plain path (1e-4), the split
-   conv (``dagr_spline_conv``) held against its twin on the inputs of
-   the window's own 12 (10) split calls (1e-5 of each output's max,
-   timed); timed and
+   takes run fused and the others as wide blocks (``eval_routes``),
+   every sync kernel launches, raw equals the CPU plain path (1e-4), the
+   wide block (``dagr_spline_conv_wide_block``) held against its twin on
+   the inputs of the window's own 12 (10) wide calls (1e-5 of each
+   output's max, timed); timed and
    profiled;
 4c. sizes no published config reaches (P2): DAGR-S at
    pooling_dim_at_output 12x16 (960 anchors, a 96 x 128 first grid) and
@@ -459,14 +459,15 @@ class Capture:
                 f"{self.name} reached calls {sorted(self.at)}")
 
 
-def require_blocks(before, after, blocks, split, what):
-    """A run's K2 launches: ``blocks`` fused blocks and ``split`` split
-    convs between two launch counts."""
+def require_blocks(before, after, blocks, split, what, wide=0):
+    """A run's K2 launches: ``blocks`` fused blocks, ``wide`` wide blocks
+    and ``split`` split convs between two launch counts."""
     got = (after["spline_conv_block"] - before["spline_conv_block"],
+           after["spline_conv_block_wide"] - before["spline_conv_block_wide"],
            after["spline_conv"] - before["spline_conv"])
-    require(got == (blocks, split),
-            f"{what} launches {got[0]} fused blocks and {got[1]} split "
-            f"convs, not {blocks} and {split}")
+    require(got == (blocks, wide, split),
+            f"{what} launches {got[0]} fused blocks, {got[1]} wide blocks "
+            f"and {got[2]} split convs, not {blocks}, {wide} and {split}")
 
 
 def require_gather_blocks(before, after, what):
@@ -521,8 +522,9 @@ def recount_ties(feat, pooled, seg):
                        device=feat.device).index_add_(0, s, eq.int())[:G]
 
 
-def check_fused_blocks(cap, what, card):
-    """K2's fused eval block against its twin on the card, on the inputs
+def check_fused_blocks(cap, what, card, wide=False):
+    """K2's fused eval block (with ``wide``, the wide block) against its
+    twin on the card, on the inputs
     of the main path's own calls (``cap``, a Capture of every call): one
     check per distinct (rows, K, Cin, Cout, Cs, bias, act), its error
     within 1e-5 of the twin output's max, timed once and counted as often
@@ -531,7 +533,13 @@ def check_fused_blocks(cap, what, card):
     2*M*(26*Cin + Cs)*Cout operations at the 3xTF32 rate.  Returns the
     checks."""
     from dagr_tpu_torch.ops.spline import (
-        block_shared_memory, spline_conv_block, spline_conv_block_plain)
+        block_shared_memory, spline_conv_block, spline_conv_block_plain,
+        spline_conv_wide_block, wide_block_shared_memory)
+
+    if wide:
+        spline_conv_block, block_shared_memory = (spline_conv_wide_block,
+                                                  wide_block_shared_memory)
+    label = "wide block" if wide else "fused block"
 
     groups = {}
     for args, kw in cap.calls:
@@ -548,7 +556,7 @@ def check_fused_blocks(cap, what, card):
         err, top = max_err(a, b), float(b.abs().max())
         at = (f"{what}: M={M} K={K} Cin={cin} Cout={cout} Cs={cs} "
               f"bias={has_bias} act={act} x{n}")
-        require(err <= 1e-5 * top, f"fused block {at}: max |out - twin| = "
+        require(err <= 1e-5 * top, f"{label} {at}: max |out - twin| = "
                 f"{err} against an output max of {top}")
         stats = [t for k in ("bn", "bn_skip") if kw.get(k) is not None
                  for t in kw[k][:4]]
@@ -563,7 +571,7 @@ def check_fused_blocks(cap, what, card):
         smem = block_shared_memory(cin, cout, cs, 5, K)
         rec.update(at=at, rel_err=err / max(top, 1e-30), shared_bytes=smem)
         checks.append(rec)
-        print(f"K2 spline_conv_block, {at}: err {err:.3g} ({rec['rel_err']:.3g}"
+        print(f"K2 {label}, {at}: err {err:.3g} ({rec['rel_err']:.3g}"
               f" of the output max); kernel {rec['ms']:.4f} ms, twin "
               f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}); {smem} bytes of shared memory a block "
@@ -999,12 +1007,15 @@ def serve(cfg, events, det):
 def wide_windows(card):
     """Phase 4b: the wide models of WIDE_MODELS, one B=1 window of N_VALID
     events each (seeded random weights): 5 timed requests after a
-    warm-up, each launching every sync kernel, the fused blocks and split
-    convs ``eval_routes`` gives (every conv the tile takes runs fused),
-    and the raw outputs against the same model on the CPU (1e-4); the
-    split convs held against their twin on one request's own calls
-    (``check_split_convs``).  Returns the launches of the timed requests,
-    summed over the models, and the split convs' checks."""
+    warm-up, each launching every sync kernel, the fused blocks, wide
+    blocks and split convs ``eval_routes`` gives (every conv the fused
+    tile takes runs fused, every other the wide tile takes wide), and
+    the raw outputs against the same model on the CPU (1e-4); the wide
+    blocks held against their twin on one request's own calls
+    (``check_fused_blocks``), as are split convs where there are any
+    (``check_split_convs``).  Returns the launches of the timed
+    requests, summed over the models, the split convs' checks and the
+    wide blocks'."""
     from dagr_tpu_torch.config import DagrConfig
     from dagr_tpu_torch.data.synthetic import random_events
     from dagr_tpu_torch.kernels import _build
@@ -1013,14 +1024,14 @@ def wide_windows(card):
     from dagr_tpu_torch.serve import Detector
 
     total = dict.fromkeys(_build.LAUNCHES, 0)
-    checks = []
+    checks, wide_checks = [], []
     for name, fields, h, w in WIDE_MODELS:
         cfg = DagrConfig(**fields)
         rng = np.random.default_rng(SEED + 2)
         windows = [random_events(rng, 1, N_NODES, w, h, n_valid=N_VALID,
                                  device="cuda") for _ in range(6)]
         det = Detector(cfg, h, w, "cuda", seed=SEED)
-        fused, split = eval_routes(det.model)
+        fused, wide, split = eval_routes(det.model)
         det(windows[0])
         torch.cuda.synchronize()
         _build.reset_launch_counts()
@@ -1031,14 +1042,19 @@ def wide_windows(card):
             after = _build.launch_counts()
             for k in SYNC_KERNELS:
                 require(after[k] > before[k], f"{name}: kernel {k} launched")
-            require_blocks(before, after, fused, split, f"a {name} request")
+            require_blocks(before, after, fused, split, f"a {name} request",
+                           wide)
         for k, v in _build.launch_counts().items():
             total[k] += v
         cap = Capture(spline_mod, "spline_conv_forward", *range(split))
+        wcap = Capture(spline_mod, "spline_conv_wide_block", *range(wide))
         det(windows[1])
         cap.close()
+        wcap.close()
         checks += check_split_convs(cap, name, card)
-        del cap
+        wide_checks += check_fused_blocks(wcap, f"{name} window", card,
+                                          wide=True)
+        del cap, wcap
         cpu = Detector(cfg, h, w, "cpu", state_dict=det.model.state_dict())
         raw, _ = det(windows[1])
         raw_cpu, _ = cpu(windows[1].to("cpu"))
@@ -1053,14 +1069,14 @@ def wide_windows(card):
         busy, top = profile_windows(det, windows)
         print(f"{name} window ({h}x{w}, {N_VALID} events, channels "
               f"{cfg.channels()}, {cfg.num_classes} classes): {fused} convs "
-              f"fused, {split} split (dagr_spline_conv), as "
+              f"fused, {wide} wide, {split} split (dagr_spline_conv), as "
               f"eval_routes gives; raw vs CPU plain path max abs err "
               f"{err:.3g}; p50 {p50:.3f} ms (min {min(ms):.3f}, max "
               f"{max(ms):.3f}), device busy {busy:.3f} ms a window "
               f"[{card}]", flush=True)
         for kname, kms, n in top[:10]:
             print(f"  {kms:8.4f} ms  x{n:<4d} {kname}", flush=True)
-    return total, checks
+    return total, checks, wide_checks
 
 
 def p2_sizes(cfg, events, card):
@@ -1091,7 +1107,7 @@ def p2_sizes(cfg, events, card):
     for pooling, A in P2_POOLINGS:
         pcfg = cfg.replace(pooling_dim_at_output=pooling)
         det = Detector(pcfg, H, W, "cuda", seed=SEED)
-        fused, split = eval_routes(det.model)
+        fused, wide, split = eval_routes(det.model)
         det(events[0])
         torch.cuda.synchronize()
         _build.reset_launch_counts()
@@ -1100,9 +1116,10 @@ def p2_sizes(cfg, events, card):
         counts = _build.launch_counts()
         for k in SYNC_KERNELS:
             require(counts[k] > 0, f"{pooling}: kernel {k} launched")
-        require((counts["spline_conv_block"], counts["spline_conv"])
-                == (fused, split), f"{pooling}: {fused} fused blocks and "
-                f"{split} split convs")
+        require((counts["spline_conv_block"],
+                 counts["spline_conv_block_wide"], counts["spline_conv"])
+                == (fused, wide, split), f"{pooling}: {fused} fused blocks, "
+                f"{wide} wide blocks and {split} split convs")
         cpu = Detector(pcfg, H, W, "cpu", state_dict=det.model.state_dict())
         raw_cpu, out_cpu = cpu(window.to("cpu"))
         require(tuple(raw.shape) == (1, A, 5 + pcfg.num_classes)
@@ -1741,6 +1758,7 @@ PROFILE_TRIES = 3
 DEVICE_KERNEL = {
     "graph_search": "graph_search_kernel",
     "spline_conv_block": "spline_conv_block_kernel",
+    "spline_conv_block_wide": "spline_conv_wide_kernel",
     "spline_gather_block": "spline_conv_block_kernel",
     "voxel_pool": "pool_nodes_kernel", "nms": "detect_kernel",
     "graph_search_store": "store_search_kernel",
@@ -2356,7 +2374,7 @@ def wide_graphs(card):
         windows = [random_events(rng, 1, N_NODES, w, h, n_valid=N_VALID,
                                  device="cuda") for _ in range(4)]
         det = Detector(cfg, h, w, "cuda", seed=SEED)
-        fused, split = eval_routes(det.model)
+        fused, wide, split = eval_routes(det.model)
         fwd = det.make_forward()
         what = f"{name} Detector B=1"
 
@@ -2366,13 +2384,16 @@ def wide_graphs(card):
 
         c_fn, log = launch_logged(lambda i: fwd(windows[i % 4]), {WARMUP})
         rec = graph_path(what, c_fn, lambda i: det(windows[i % 4]), n, check,
-                         SYNC_KERNELS + ("spline_conv",), card, fwd.graphs)
+                         SYNC_KERNELS + ("spline_conv_block_wide",), card,
+                         fwd.graphs)
         got = log[WARMUP]
         require(got["spline_conv_block"] == fused
+                and got["spline_conv_block_wide"] == wide
                 and got["spline_conv"] == split
                 and all(got[k] > 0 for k in SYNC_KERNELS),
                 f"graphs, {what}: the capture's launches {got}, not "
-                f"{fused} fused blocks and {split} split convs")
+                f"{fused} fused blocks, {wide} wide blocks and {split} "
+                "split convs")
         host_launch_free_replay(lambda: fwd(windows[0]), what)
         # the trainer's compiled eval forward on the same model
         state = init_state(det.model, make_optimizer(cfg, 10)[0])
@@ -2387,8 +2408,9 @@ def wide_graphs(card):
                 f"{name} make_eval_forward: {efwd.graphs.replays()} replays")
         rec.update(launches={k: v for k, v in got.items() if v},
                    replay_launches=0, eval_forward_err=err)
-        print(f"graphs, {what}: the capture launched {fused} fused blocks "
-              f"and {split} split convs (eval_routes), a replay nothing "
+        print(f"graphs, {what}: the capture launched {fused} fused blocks, "
+              f"{wide} wide blocks and {split} split convs (eval_routes), "
+              f"a replay nothing "
               f"from the host; make_eval_forward's replays vs eval_forward: "
               f"{err:.3g} of the raw's max [{card}]", flush=True)
         recs.append(rec)
@@ -2404,12 +2426,11 @@ def wide_graphs(card):
                              width=w, height=h, n_boxes=1)
     model = DAGR(cfg, h, w)
     init_fresh(model, torch.Generator().manual_seed(SEED))
-    fused, split = eval_routes(model)
+    convs = sum(eval_routes(model))
     recipe = make_optimizer(cfg, 10)[0]
     tref = init_state(copy.deepcopy(model).cuda(), recipe)
     tst = init_state(model.cuda(), recipe)
     tstep = make_train_step(tst)
-    convs = fused + split
     recs.append(graph_train_row(
         f"{name} train step B={TRAIN_B}", tst, tref,
         lambda i: tstep(tst, tev, targets),
@@ -3641,8 +3662,9 @@ def fusion(card):
     rng = np.random.default_rng(SEED + 3)
     windows = [fusion_batch(rng, 1) for _ in range(FUSION_WINDOWS + 1)]
     det = Detector(cfg, H, W, "cuda", seed=SEED)
-    fused, split = eval_routes(det.model)
-    require((fused, split) == (17, 3), f"fusion routes {(fused, split)}")
+    fused, wide, split = eval_routes(det.model)
+    require((fused, wide, split) == (17, 0, 3),
+            f"fusion routes {(fused, wide, split)}")
     A = sum(ny * nx for ny, nx in cfg.output_sizes())
     det(*windows[0])
     torch.cuda.synchronize()
@@ -5551,7 +5573,7 @@ def main() -> int:
     else:
         print("profile: the profiler saw no device kernels; device busy "
               "time not measured", flush=True)
-    wide_launches, wide_checks = wide_windows(card)
+    wide_launches, wide_checks, wide_blocks = wide_windows(card)
     p2_checks = p2_sizes(cfg, events, card)
     grow_launches, ring_launches, store_checks = stream(cfg, det, events,
                                                         card)
@@ -5595,6 +5617,11 @@ def main() -> int:
     rec.update(wide_checks=wide_checks, serve_checks=serve_split)
     rec["max_abs_err"] = max([rec["max_abs_err"]] + [
         c["max_abs_err"] for c in wide_checks + serve_split])
+    # the fused block's row: the wide windows' wide blocks beside it
+    rec = kernels["spline_conv_block"]
+    rec["wide_checks"] = wide_blocks
+    rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+        c["max_abs_err"] for c in wide_blocks])
     launches.update({k: train_launches[k] for k in BACKWARD_KERNELS})
     checked, fusion_launches, fusion_train = fusion(card)
     for name, cs in checked.items():

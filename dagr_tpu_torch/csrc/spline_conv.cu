@@ -77,6 +77,11 @@
 // split block costs ~8 us however thin its slice, which pays only while
 // the tiles leave SMs idle.
 //
+// Cout 65-128 (DAGR-M's and -L's pooled levels and heads) is the wide
+// block's, dagr_spline_conv_wide_block (its note is with the split
+// route, whose chunked tile build it shares): the same computation,
+// split over the depth in partial sums that a second kernel adds up.
+//
 // K7, the gathered block (dagr_spline_conv_gather_block): the same
 // kernel over a streaming chunk.  Replaces dagr_tpu/models/functional.py:
 // 109 spline_conv_gather and the bn_eval, activation and mask around it
@@ -299,6 +304,19 @@ __device__ __forceinline__ void load_chunk_slab(float* sB, int ldb,
                                                 int coutp, const ChunkB& b,
                                                 int s, const float* any);
 
+// The skip's B = lin^T of the wide block (lin [Cout, Cs], row stride
+// cs): as SkipB, but streamed in SLAB-row slabs by load_lin_slab
+// (defined with the wide block, below).
+struct LinB {
+  const float* lin;
+  int cs, cout;
+};
+
+template <int SLAB>
+__device__ __forceinline__ void load_lin_slab(float* sB, int ldb, int coutp,
+                                              const LinB& b, int s,
+                                              const float* any);
+
 // acc += A [TM, kdim] (shared, row stride lda) @ B [kdim, coutp] in
 // 3xTF32, B streamed slab by slab through kStages stages, one commit
 // group a slab (empty past the last); slab 0 already issued and
@@ -329,6 +347,8 @@ __device__ __forceinline__ void block_gemm(const float* sA, int lda, int kdim,
   auto load = [&](int s) {
     if constexpr (std::is_same<BSrc, ChunkB>::value)
       load_chunk_slab<SLAB>(sB, ldb, coutp, b, s, any);
+    else if constexpr (std::is_same<BSrc, LinB>::value)
+      load_lin_slab<SLAB>(sB, ldb, coutp, b, s, any);
     else
       load_slab(sB, ldb, coutp, b, s, any);
   };
@@ -1595,6 +1615,256 @@ int block_split(const Tile& t, int cin, int cs, int ks, int M, Tile* run) {
   return best;
 }
 
+// ---- the wide eval block: Cout 65-128 -----------------------------------
+//
+// dagr_spline_conv_wide_block: the fused block's computation (the note at
+// the top: y = g @ W + x @ root (+ bias), bn(y), + bn_skip(skip @ lin^T),
+// mask ? act(y) : 0) for the eval convs whose Cout the fused block's
+// tile refuses: 65-128 (DAGR-M's 96, DAGR-L's 128, the NCaltech101
+// head's 100 classes), any Cin, a skip branch of up to ~550 channels,
+// K <= 16.  The same TPU ops as the fused block (dagr_tpu/models/
+// blocks.py:133 ConvBlock, :156 ConvBlockWithSkip over dagr_tpu/ops/
+// spline.py:145 stencil_spline_conv, and the head's prediction convs);
+// it replaces, on those convs, the split route plus its epilogue's
+// PyTorch ops (the batch norm, the skip Linear and its batch norm, the
+// activation, torch.where: 5-8 more kernels a conv).
+//
+// What bounds it on an H100: at DAGR-L's pooled levels and heads (Cin
+// 66-130, Cout 128, 35-560 rows a window) the weights (1.7 MB a conv at
+// Cin 130) and the products, 2 M (26 Cin + Cs) Cout (0.5 GFLOP at 560
+// rows, x3 in 3xTF32), are a few us of the card's bytes or operations.
+// What a conv costs is latency: few rows and a 3380-deep product, which
+// one block a row tile would walk slab after slab with most SMs idle.
+//
+// Design: split-K, as the split route does it.  A block owns 64 rows
+// and all 128 (padded) output columns, so A is built once for every
+// column.  Block (tile, z < zc) builds A_chunk (build_chunk: the tap
+// sums and root inputs of cc input channels; the tile's edges staged
+// once) for each of its cpz chunks and multiplies it by the chunk's rows
+// of B = [W ; root] streamed in 64-row cp.async slabs (block_gemm,
+// 3xTF32 mma.sync, FLUSH: each k-step's products added to float32
+// accumulators in registers).  With a skip branch one more block a tile
+// (z = zc) multiplies the tile's skip rows by lin^T.  Every block writes
+// its [64, Cout] partial to scratch, and spline_conv_wide_reduce_kernel
+// adds them in z order and runs the epilogue.  No atomics: every sum in
+// a fixed order, so two calls are bit-identical; g never reaches HBM.
+// (cc, cpz) come from the shapes and the SM count alone (wide_plan: the
+// least waves x a block's time in 64-row slabs of B, plus the
+// reduction).  At DAGR-L's shapes, a batch of 1 and of 8, every plan
+// the rule picks splits the channels (zc = 16-65 and 3-33 blocks a
+// tile), so a tile is never one block that could run the epilogue
+// itself.  Split-K rather than a thread-block
+// cluster over the depth: a cluster holds at most 8 blocks a tile
+// (portably), so at 35-140 rows (1-3 tiles) it would leave most SMs
+// idle with a 440-deep slice a block, where split-K spreads a tile
+// over as many blocks as fill the card, at the cost of one small
+// reduction launch and partials that stay in L2.
+
+constexpr int kWideCols = 128;              // output columns a block
+constexpr int kWideLdb = kWideCols + 8;     // sB row stride (8 mod 32)
+
+// wide_plan's constants, in 64-row slabs of B streamed (4.6 us a slab
+// a block): a chunk's own cost (its A build and the waits around it),
+// the reduction launch, its read of the partials a MB and a split
+// block's share of it; fitted to the device times of DAGR-L's 12 wide
+// convs at a batch of 1 and of 8 with every plan pinned (H100 SXM),
+// where a block's cost beyond its chunks fitted to nothing.
+constexpr double kWideChunkCost = 1.13;
+constexpr double kWideReduceCost = 1.12;
+constexpr double kWideReducePerMB = 0.28;
+constexpr double kWideReducePerBlock = 0.01;
+
+// Slab s of lin^T (SLAB rows) into stage s % kStages of sB, in 4-byte
+// copies, k fastest so that a warp reads consecutive floats of one row
+// of lin; zeros past Cs and Cout.
+template <int SLAB>
+__device__ __forceinline__ void load_lin_slab(float* sB, int ldb, int coutp,
+                                              const LinB& b, int s,
+                                              const float* any) {
+  float* dst = sB + (s % kStages) * SLAB * ldb;
+  const int k0 = s * SLAB;
+  for (int i = threadIdx.x; i < SLAB * coutp; i += kThreads) {
+    const int n = i / SLAB, kk = i - n * SLAB;
+    const bool ok = n < b.cout && k0 + kk < b.cs;
+    cp_async4(dst + kk * ldb + n,
+              ok ? b.lin + (size_t)n * b.cs + k0 + kk : any, ok);
+  }
+}
+
+// Rows blockIdx.x * 64 .. of the wide block's partial sums part [z, M,
+// Cout].  z = blockIdx.y < zc takes the input channels z * cpz * cc_max
+// .. (cpz chunks of cc_max, the last may be shorter), z == zc the skip
+// product.  lda: A's row stride at cc_max channels; lds: the skip rows'
+// (Cs padded to 8, + 4).
+__global__ void __launch_bounds__(kThreads) spline_conv_wide_kernel(
+    ConvArgs a, ChunkB b, int cc_max, int cpz, int zc, int lda, int lds,
+    float* __restrict__ part) {
+  extern __shared__ __align__(16) float smem[];
+  const int la = lda > lds ? lda : lds;
+  float* sA = smem;                                   // [kTM, la]
+  float* sB = smem + kTM * la;                        // [kStages, 64, ldb]
+  const EdgeStage st = edge_stage(
+      smem, kTM * la + kStages * kSplitSlab * kWideLdb, kTM * a.K);
+  const int m0 = blockIdx.x * kTM, nd = min(kTM, a.M - m0);
+  const int z = blockIdx.y;
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  if (z < zc) {
+    const SlotEdges edges{a.nbr, a.emask, a.attr, a.K};
+    const bool staged = stage_tile(edges, st, m0, nd, a.ks);
+    const int c_begin = z * cpz * cc_max;
+    const int c_end = min(a.Cin, c_begin + cpz * cc_max);
+    for (int c0 = c_begin; c0 < c_end; c0 += cc_max) {
+      b.c0 = c0;
+      b.cc = min(cc_max, a.Cin - c0);
+      const int ka = (b.P * b.cc + b.cc + 7) / 8 * 8;
+      // the chunk's first B slab flies while A is built
+      load_chunk_slab<kSplitSlab>(sB, kWideLdb, kWideCols, b, 0, b.W);
+      cp_async_commit();
+      build_chunk(sA, lda, edges, st, staged, a.x, a.x, m0, nd, a.Cin, c0,
+                  b.cc, a.ks);
+      block_gemm<4, 8, false, ChunkB, true, kSplitSlab>(
+          sA, lda, ka, sB, kWideLdb, kWideCols, b, true, b.W, acc);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTM * lds; i += kThreads) {
+      const int d = i / lds, c = i - d * lds;
+      sA[i] = (d < nd && c < a.Cs) ? a.skip[(size_t)(m0 + d) * a.Cs + c]
+                                   : 0.f;
+    }
+    __syncthreads();
+    const LinB lb{a.lin, a.Cs, a.Cout};
+    block_gemm<4, 8, false, LinB, true, kSplitSlab>(
+        sA, lds, lds - 4, sB, kWideLdb, kWideCols, lb, false, a.W, acc);
+  }
+  // this block's partial: the main product's or (z == zc) the skip's
+  float* dst = part + (size_t)z * a.M * a.Cout;
+  Elems<4, 8, false> y;
+#pragma unroll
+  for (int e = 0; e < y.kN; ++e) {
+    int r, n;
+    y.coord(e, kWideCols, r, n);
+    if (r < nd && n < a.Cout)
+      dst[(size_t)(m0 + r) * a.Cout + n] = acc[e >> 2][e & 3];
+  }
+}
+
+// The wide block's epilogue: out[m, n] = the zc partials summed in z
+// order (+ bias), batch norm, + bn_skip(partial zc), activation, mask.
+__global__ void spline_conv_wide_reduce_kernel(ConvArgs a,
+                                               const float* __restrict__ part,
+                                               int zc) {
+  const long long n_out = (long long)a.M * a.Cout;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  const int m = (int)(i / a.Cout), n = (int)(i - (long long)m * a.Cout);
+  float v = 0.f;
+  for (int q = 0; q < zc; ++q) v += part[q * n_out + i];
+  if (a.bias) v = v + a.bias[n];
+  if (a.bn.mean) v = a.bn(v, n);
+  if (a.skip) {
+    const float s = part[zc * n_out + i];
+    v = v + (a.bn_skip.mean ? a.bn_skip(s, n) : s);
+  }
+  float out = activation(v, a.act);
+  if (a.mask && !a.mask[m]) out = 0.f;
+  a.out[i] = out;
+}
+
+// The wide block's plan: chunks of cc input channels, cpz chunks a
+// block, zc blocks a tile over the channels (z with the skip's), the
+// strides and shared memory, the scratch floats of the partials.
+struct WidePlan {
+  int cc, cpz, zc, z, lda, lds;
+  size_t smem;
+  long long scratch;
+};
+
+// The tile at chunks of cc channels; false where the widths are not the
+// wide block's or its shared memory passes 227 KB.
+bool wide_tile(int cin, int cout, int cs, int ks, int K, int cc,
+               WidePlan* p) {
+  if (cin < 1 || cout <= 64 || cout > kWideCols || cs < 0 || K < 0
+      || K > kMaxK || cc < 1 || cc > kMaxChunk)
+    return false;
+  p->cc = cc;
+  p->lda = (ks * ks * cc + cc + 7) / 8 * 8 + 4;
+  p->lds = (cs + 7) / 8 * 8 + 4;
+  const int la = p->lda > p->lds ? p->lda : p->lds;
+  p->smem = ((size_t)kTM * la + (size_t)kStages * kSplitSlab * kWideLdb)
+                * sizeof(float) + stage_bytes(kTM * K);
+  return p->smem <= (size_t)kSmemMax;
+}
+
+// The plan with the least estimated time over M rows: for chunks of
+// cc = 16, 8, 4, 2 or 1 channels and each split zc of the channels (cpz
+// chunks a block), waves of the SMs (two blocks an SM where shared
+// memory allows) x the longest block's time, in 64-row slabs of B (a
+// chunk's own cost and slabs for each of its chunks; the skip block's
+// one chunk of Cs), plus the reduction.  force_cc,
+// force_cpz (0: free) pin a plan, for the card tests and sweeps.
+bool wide_plan(int M, int cin, int cout, int cs, int ks, int K,
+               int force_cc, int force_cpz, WidePlan* best) {
+  const long long tiles = (M + kTM - 1) / kTM;
+  bool found = false;
+  double best_cost = 0.0;
+  for (int c = kMaxChunk; c >= 1; c /= 2) {
+    if (c > cin && c / 2 >= cin) continue;        // the same cc = cin
+    const int cc = c < cin ? c : cin;
+    if (force_cc && cc != force_cc) continue;
+    WidePlan p;
+    if (!wide_tile(cin, cout, cs, ks, K, cc, &p)) continue;
+    const int nch = (cin + cc - 1) / cc;
+    const double slabs = (double)(p.lda - 4) / kSplitSlab;
+    const long long slots = (long long)g_sms
+                            * (p.smem <= kTwoBlocks ? 2 : 1);
+    for (int cpz = 1; cpz <= nch; ++cpz) {
+      const int zc = (nch + cpz - 1) / cpz;
+      if (force_cpz ? cpz != force_cpz
+                    : cpz > 1 && (nch + cpz - 2) / (cpz - 1) == zc)
+        continue;                    // forced away, or zc at fewer chunks
+      const int z = zc + (cs > 0 ? 1 : 0);
+      const long long waves = (tiles * z + slots - 1) / slots;
+      const double skip_block =
+          cs > 0 ? kWideChunkCost + (double)(p.lds - 4) / kSplitSlab : 0.0;
+      const double block = fmax(cpz * (kWideChunkCost + slabs), skip_block);
+      const double cost = (double)waves * block + kWideReduceCost
+                          + kWideReducePerBlock * z
+                          + kWideReducePerMB * 4e-6 * (double)z * M * cout;
+      if (!found || cost < best_cost) {
+        found = true;
+        best_cost = cost;
+        p.cpz = cpz;
+        p.zc = zc;
+        p.z = z;
+        p.scratch = (long long)z * M * cout;
+        *best = p;
+      }
+    }
+  }
+  return found;
+}
+
+int launch_wide(const ConvArgs& a, int force_cc, int force_cpz,
+                float* scratch, cudaStream_t st) {
+  WidePlan p;
+  if (!wide_plan(a.M, a.Cin, a.Cout, a.Cs, a.ks, a.K, force_cc, force_cpz,
+                 &p))
+    return (int)cudaErrorInvalidValue;
+  if (a.M == 0) return (int)cudaGetLastError();
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const ChunkB b = chunk_b(a.W, a.root, a.ks * a.ks, a.Cin, a.Cout);
+  const dim3 grid((unsigned)((a.M + kTM - 1) / kTM), (unsigned)p.z);
+  spline_conv_wide_kernel<<<grid, kThreads, p.smem, st>>>(
+      a, b, p.cc, p.cpz, p.zc, p.lda, p.lds, scratch);
+  const long long n = (long long)a.M * a.Cout;
+  spline_conv_wide_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      a, scratch, p.zc);
+  return (int)cudaGetLastError();
+}
+
 template <class Edges>
 cudaError_t split_smem_limits() {
   const void* kernels[] = {(const void*)split_conv_kernel<1, Edges>,
@@ -1630,7 +1900,8 @@ extern "C" int dagr_spline_conv_init(void) {
       (const void*)spline_conv_block_kernel<1, 4, true>,
       (const void*)spline_conv_block_kernel<1, 8, true>,
       (const void*)cluster_kernel<1>(), (const void*)cluster_kernel<2>(),
-      (const void*)cluster_kernel<4>(), (const void*)cluster_kernel<8>()};
+      (const void*)cluster_kernel<4>(), (const void*)cluster_kernel<8>(),
+      (const void*)spline_conv_wide_kernel};
   for (const void* k : kernels) {
     err = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
@@ -1842,6 +2113,57 @@ extern "C" long long dagr_spline_conv_scratch(int M, int K, int Cin,
                                               int Cout, int ks, int root) {
   return split_scratch(SlotEdges{nullptr, nullptr, nullptr, K}, M, Cin, Cout,
                        ks, root != 0);
+}
+
+// Bytes of dynamic shared memory a block of the wide block's kernel
+// takes at (Cin, Cout, Cs, ks, K) with its widest chunk (every plan takes
+// at most that), or 0 if the kernel does not take these shapes.
+extern "C" long long dagr_spline_conv_wide_block_smem(int cin, int cout,
+                                                      int cs, int ks,
+                                                      int K) {
+  WidePlan p;
+  return wide_tile(cin, cout, cs, ks, K, cin < kMaxChunk ? cin : kMaxChunk,
+                   &p) ? (long long)p.smem : 0;
+}
+
+// The wide block's plan over M rows (force_cc, force_cpz: 0 for the
+// rule's): info = {cc, cpz, zc, z, scratch floats}; returns 0 if the
+// kernel does not take these shapes (or the forced plan), else 1.
+extern "C" int dagr_spline_conv_wide_block_plan(int cin, int cout, int cs,
+                                                int ks, int K, int M,
+                                                int force_cc, int force_cpz,
+                                                long long* info) {
+  WidePlan p;
+  if (!wide_plan(M, cin, cout, cs, ks, K, force_cc, force_cpz, &p))
+    return 0;
+  info[0] = p.cc;
+  info[1] = p.cpz;
+  info[2] = p.zc;
+  info[3] = p.z;
+  info[4] = p.scratch;
+  return 1;
+}
+
+// The wide eval block (see its note above): the fused block's arguments,
+// then the plan's chunk cc and chunks a block cpz (the answer of
+// dagr_spline_conv_wide_block_plan) and scratch of its floats.
+extern "C" int dagr_spline_conv_wide_block(
+    const void* x, const void* nbr, const void* emask, const void* attr,
+    const void* W, const void* root, const void* bias, const void* bn_mean,
+    const void* bn_var, const void* bn_gamma, const void* bn_beta,
+    float bn_eps, const void* skip, const void* lin, const void* sk_mean,
+    const void* sk_var, const void* sk_gamma, const void* sk_beta,
+    float sk_eps, const void* mask, int M, int K, int Cin, int Cout, int Cs,
+    int ks, int act, int cc, int cpz, void* scratch, void* out,
+    void* stream) {
+  ConvArgs a = block_args(nbr, emask, W, root, bias, bn_mean, bn_var,
+                          bn_gamma, bn_beta, bn_eps, skip, lin, sk_mean,
+                          sk_var, sk_gamma, sk_beta, sk_eps, mask, M, K, Cin,
+                          Cout, Cs, ks, act, out);
+  a.x = (const float*)x;
+  a.attr = (const float*)attr;
+  if (cc < 1 || cpz < 1) return (int)cudaErrorInvalidValue;
+  return launch_wide(a, cc, cpz, (float*)scratch, (cudaStream_t)stream);
 }
 
 extern "C" long long dagr_source_runs_scratch(int n_edges, int n_src);

@@ -21,7 +21,11 @@ sets an attribute (a launch may be inside a CUDA-graph capture).
 purpose: a run resets it, drives the main path, and reads it to show
 which kernels the path went through.  ``spline_conv_block_cluster``
 counts the ``spline_conv_block`` calls (already counted there) whose
-16-row tiles were split over a thread-block cluster.
+16-row tiles were split over a thread-block cluster;
+``spline_conv_block_wide`` the wide eval block's calls
+(``spline_conv_wide_block``) and ``spline_conv_block_wide_split`` those
+of them whose tiles were split over the depth (more than one block over
+a tile's input channels).
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ NVCC_FLAGS = ARCH_FLAGS + (
 
 LAUNCHES = {"graph_search": 0, "spline_conv": 0,
             "spline_conv_block": 0, "spline_conv_block_cluster": 0,
+            "spline_conv_block_wide": 0, "spline_conv_block_wide_split": 0,
             "voxel_pool": 0,
             "nms": 0, "graph_search_store": 0, "spline_gather_block": 0,
             "stream_accumulate": 0, "serve_search": 0,

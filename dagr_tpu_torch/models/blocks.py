@@ -15,12 +15,16 @@ the EMA's evaluation) a ConvBlock or ConvBlockWithSkip is one call of
 aggregation, products, batch norms, skip, activation and mask fused)
 where the kernel's tile takes its widths (``ops.spline.fused_block_fits``:
 every conv of DAGR-N and -S; the event level and the head's prediction
-convs of DAGR-M and -L); otherwise (wider convs, training, or grad
-enabled) it runs the split route below (``ops.spline.spline_conv``, one
-``dagr_spline_conv`` launch of any width, then the batch norm, activation
-and mask), whose backward is one ``dagr_spline_conv_backward`` launch a
-conv.  The choice depends on the mode and
-the shapes alone, the same on every device, never on a kernel failing.
+convs of DAGR-M and -L), else one call of
+``ops.spline.spline_conv_wide_block`` (the same block at Cout 65-128:
+DAGR-M's and -L's pooled levels and head towers;
+``ops.spline.wide_block_fits``); otherwise (training, grad enabled, or
+widths neither takes) it runs the split route below
+(``ops.spline.spline_conv``, one ``dagr_spline_conv`` launch of any
+width, then the batch norm, activation and mask), whose backward is one
+``dagr_spline_conv_backward`` launch a conv.  The choice depends on the
+mode and the shapes alone (``ops.spline.block_route``), the same on
+every device, never on a kernel failing.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from torch import nn
 from dagr_tpu_torch.core.types import NodeSet
 from dagr_tpu_torch.ops import spline as spline_ops
 from dagr_tpu_torch.ops.spline import (
-    ACTIVATIONS, BatchNormStats, LevelEdges, batch_norm, fused_block_fits,
+    ACTIVATIONS, BatchNormStats, LevelEdges, batch_norm, block_route,
     level_edges, spline_conv)
 from dagr_tpu_torch.parallel.group import total
 
@@ -79,29 +83,34 @@ class SplineConvLayer(nn.Module):
         return spline_conv(x, edges, self.weight, self.root, self.bias,
                            kernel_size=self.kernel_size)
 
-    def fits(self, K: int, cs: int = 0) -> bool:
-        """Whether the fused block takes this conv at K neighbour slots
-        and a skip branch of Cs channels."""
+    def route(self, K: int, cs: int = 0) -> str:
+        """This conv's eval route at K neighbour slots and a skip branch
+        of Cs channels: "fused", "wide" or "split"
+        (``ops.spline.block_route``)."""
         _, cin, cout = self.weight.shape
-        return fused_block_fits(cin, cout, cs, self.kernel_size, K)
+        return block_route(cin, cout, cs, self.kernel_size, K)
 
     def block(self, x: torch.Tensor, edges: LevelEdges, mask: torch.Tensor,
-              skip=None, **kw) -> torch.Tensor:
-        """This conv as one fused eval block (``spline_conv_block``) on
-        x [B, N, Cin], node mask [B, N] and, given, skip [B, N, Cs];
+              skip=None, *, route: str = "fused", **kw) -> torch.Tensor:
+        """This conv as one eval block on x [B, N, Cin], node mask [B, N]
+        and, given, skip [B, N, Cs], on ``route`` ("fused" or "wide");
         ``kw``: its lin, bn, bn_skip and act.  Returns [B, N, Cout]."""
         return fused_block(x, edges, self.weight, self.root, self.bias,
-                           mask, skip, kernel_size=self.kernel_size, **kw)
+                           mask, skip, kernel_size=self.kernel_size,
+                           route=route, **kw)
 
 
-def fused_block(x, edges, weight, root, bias, mask, skip=None, **kw):
-    """``spline_conv_block`` on [B, N, C] node tables."""
+def fused_block(x, edges, weight, root, bias, mask, skip=None, *,
+                route="fused", **kw):
+    """``spline_conv_block`` (``route`` "fused") or
+    ``spline_conv_wide_block`` ("wide") on [B, N, C] node tables."""
     B, N, cin = x.shape
     if skip is not None:
         skip = skip.reshape(B * N, skip.shape[-1])
-    y = spline_ops.spline_conv_block(
-        x.reshape(B * N, cin), edges, weight, root, bias, skip=skip,
-        mask=mask.reshape(B * N), **kw)
+    fn = spline_ops.spline_conv_wide_block if route == "wide" \
+        else spline_ops.spline_conv_block
+    y = fn(x.reshape(B * N, cin), edges, weight, root, bias, skip=skip,
+           mask=mask.reshape(B * N), **kw)
     return y.reshape(B, N, -1)
 
 
@@ -171,9 +180,11 @@ class ConvBlock(nn.Module):
         self.act = activation_fn(activation)
 
     def forward(self, ns: NodeSet, edges: LevelEdges) -> NodeSet:
-        if eval_route(self) and self.conv.fits(edges.nbr.shape[1]):
+        route = self.conv.route(edges.nbr.shape[1]) if eval_route(self) \
+            else "split"
+        if route != "split":
             return ns.replace(feat=self.conv.block(
-                ns.feat, edges, ns.mask, bn=self.norm.stats(),
+                ns.feat, edges, ns.mask, route=route, bn=self.norm.stats(),
                 act=self.activation))
         x = self.norm(self.conv(ns.feat, edges), ns.mask)
         x = self.act(x)
@@ -196,10 +207,12 @@ class ConvBlockWithSkip(nn.Module):
 
     def forward(self, ns: NodeSet, skip_feat: torch.Tensor,
                 edges: LevelEdges) -> NodeSet:
-        if eval_route(self) and self.conv.fits(edges.nbr.shape[1],
-                                               self.lin.in_features):
+        route = self.conv.route(edges.nbr.shape[1], self.lin.in_features) \
+            if eval_route(self) else "split"
+        if route != "split":
             return ns.replace(feat=self.conv.block(
-                ns.feat, edges, ns.mask, skip_feat, lin=self.lin.weight,
+                ns.feat, edges, ns.mask, skip_feat, route=route,
+                lin=self.lin.weight,
                 bn=self.norm.stats(), bn_skip=self.norm_skip.stats(),
                 act=self.activation))
         x = self.norm(self.conv(ns.feat, edges), ns.mask)

@@ -12,7 +12,7 @@ detached, so that the image loss trains the image branch.
 targets, ``detection_loss_fusion`` the dual loss; ``detect`` decodes raw
 outputs and runs the confidence filter and class-aware NMS (kernel K4,
 one launch on the card).  ``eval_routes`` counts a window's eval convs
-by route (fused block or split).
+by route (fused block, wide block or split).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from dagr_tpu_torch.models.head import GNNHead, flat_raw, make_grids_strides
 from dagr_tpu_torch.models.net import Net
 from dagr_tpu_torch.models.yolox_loss import yolox_losses
 from dagr_tpu_torch.ops.nms import decode_postprocess
-from dagr_tpu_torch.ops.spline import fused_block_fits
+from dagr_tpu_torch.ops.spline import block_route
 
 CONF_THRESHOLD = 0.001
 NMS_THRESHOLD = 0.65
@@ -85,30 +85,31 @@ class DAGR(nn.Module):
                        for triple in self.cnn_head(resized)]
 
 
-def eval_routes(model: DAGR) -> Tuple[int, int]:
-    """(fused, split): how many of one window's eval convs take the fused
-    block and how many the split route, by the test the modules make
-    (the event level at K = max_neighbors, the pooled levels at the 9
-    stencil slots).  A split conv is one ``spline_conv`` launch."""
+def eval_routes(model: DAGR) -> Tuple[int, int, int]:
+    """(fused, wide, split): how many of one window's eval convs take the
+    fused block, the wide block and the split route, by the test the
+    modules make (``ops.spline.block_route``; the event level at K =
+    max_neighbors, the pooled levels at the 9 stencil slots).  A split
+    conv is one ``spline_conv`` launch."""
     K_event, K_stencil = model.cfg.max_neighbors, len(GRID_OFFSETS)
     net = model.backbone
-    fits = []
+    routes = []
     for layer, K in ((net.conv_block1, K_event), (net.layer2, K_stencil),
                      (net.layer3, K_stencil), (net.layer4, K_stencil),
                      (net.layer5, K_stencil)):
         b2 = layer.conv_block2
-        fits += [layer.conv_block1.conv.fits(K),
-                 b2.conv.fits(K, b2.lin.in_features)]
+        routes += [layer.conv_block1.conv.route(K),
+                   b2.conv.route(K, b2.lin.in_features)]
     for k in range(model.cfg.num_scales):
         s = getattr(model.head, f"scale{k + 1}")
         _, cin, n_reg = s.reg_pred.weight.shape
-        fits += [b.conv.fits(K_stencil)
-                 for b in (s.stem, s.cls_conv, s.reg_conv)]
+        routes += [b.conv.route(K_stencil)
+                   for b in (s.stem, s.cls_conv, s.reg_conv)]
         # reg and obj run as one conv (models.head.fused_pred)
-        fits += [s.cls_pred.fits(K_stencil),
-                 fused_block_fits(cin, n_reg + s.obj_pred.weight.shape[2],
-                                  0, s.reg_pred.kernel_size, K_stencil)]
-    return sum(fits), len(fits) - sum(fits)
+        routes += [s.cls_pred.route(K_stencil),
+                   block_route(cin, n_reg + s.obj_pred.weight.shape[2], 0,
+                               s.reg_pred.kernel_size, K_stencil)]
+    return tuple(routes.count(r) for r in ("fused", "wide", "split"))
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:

@@ -8,8 +8,9 @@ anchors row-major per scale, scales concatenated (``flat_raw``).  With
 image fusion, the CNN head's (cls, reg, obj) maps of each scale are
 added to its canvases first.  In eval mode under ``torch.no_grad`` every
 conv of a scale, the prediction convs included, is one fused block where
-the kernel's tile takes its widths (``models.blocks.eval_route`` and
-``ops.spline.fused_block_fits``), else the split route.
+the kernel's tile takes its widths, else one wide block where that
+kernel's does (``models.blocks.eval_route`` and
+``ops.spline.block_route``), else the split route.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from dagr_tpu_torch.core.types import NodeSet
 from dagr_tpu_torch.models.blocks import (
     ConvBlock, SplineConvLayer, eval_route, fused_block)
 from dagr_tpu_torch.ops.spline import (
-    LevelEdges, fused_block_fits, level_edges, spline_conv)
+    LevelEdges, block_route, level_edges, spline_conv)
 
 
 def fused_pred(layers: Sequence[SplineConvLayer], x: torch.Tensor,
@@ -32,7 +33,8 @@ def fused_pred(layers: Sequence[SplineConvLayer], x: torch.Tensor,
     """Several SplineConvLayers on the same input as ONE conv over their
     concatenated output channels (parameters stay separate); with the
     node ``mask``, masked rows 0: one fused eval block where its tile
-    takes the widths, else the split route and ``torch.where``."""
+    takes the widths, else one wide block where its tile does, else the
+    split route and ``torch.where``."""
     if len(layers) == 1:
         w, r, b = layers[0].weight, layers[0].root, layers[0].bias
     else:
@@ -42,9 +44,11 @@ def fused_pred(layers: Sequence[SplineConvLayer], x: torch.Tensor,
             if layers[0].bias is not None else None
     ks = layers[0].kernel_size
     _, cin, cout = w.shape
-    if mask is not None and fused_block_fits(cin, cout, 0, ks,
-                                             edges.nbr.shape[1]):
-        return fused_block(x, edges, w, r, b, mask, kernel_size=ks)
+    route = block_route(cin, cout, 0, ks, edges.nbr.shape[1]) \
+        if mask is not None else "split"
+    if route != "split":
+        return fused_block(x, edges, w, r, b, mask, kernel_size=ks,
+                           route=route)
     out = spline_conv(x, edges, w, r, b, kernel_size=ks)
     return out if mask is None else torch.where(mask[..., None], out, 0.0)
 

@@ -13,7 +13,7 @@ ids, the edge mask and the normalised, clipped edge attributes once per
 level, and every conv of the level shares them (``dagr_tpu``'s
 ``level_basis``).
 
-Two routes, chosen by mode and shape alone:
+Three routes, chosen by mode and shape alone (``block_route``):
 
 * the fused eval block, ``spline_conv_block``: one whole eval-mode block
   (``models.blocks``' ConvBlock, ConvBlockWithSkip and the head's
@@ -23,10 +23,17 @@ Two routes, chosen by mode and shape alone:
   and as ``spline_conv_block_plain`` on CPU tensors; taken in eval mode
   under ``torch.no_grad`` where its tile takes the widths
   (``fused_block_fits``: Cout <= 64, K <= 16, the tile in shared memory);
+* the wide eval block, ``spline_conv_wide_block``: the same block where
+  the fused block's tile refuses it and Cout is 65-128 (DAGR-M's and
+  -L's pooled levels and heads, a 100-class prediction;
+  ``wide_block_fits``), one call of ``dagr_spline_conv_wide_block`` on
+  CUDA tensors (its 64-row tiles split over the depth as far as fills
+  the card, then one reduction kernel that runs the epilogue), the same
+  plain twin on CPU tensors;
 * the split route, ``spline_conv``: the conv alone, at any width
-  (training, the wider convs of DAGR-M and -L, a 100-class prediction,
-  the server's event convs, whose sources are ring rows and whose root
-  rows are the chunk's: ``x_root``).  On CUDA tensors it is one launch of
+  (training, an eval conv neither block takes, the server's event
+  convs, whose sources are ring rows and whose root rows are the
+  chunk's: ``x_root``).  On CUDA tensors it is one launch of
   ``dagr_spline_conv`` (g is built in shared memory chunk by chunk and
   multiplied on the tensor cores in 3xTF32; it never reaches HBM); on CPU
   tensors ``spline_conv_plain`` (``spline_aggregate_plain @ W + x @ root
@@ -570,6 +577,145 @@ def block_split(cin: int, cout: int, cs: int, kernel_size: int, K: int,
     fn.argtypes = [ctypes.c_int] * 6
     fn.restype = ctypes.c_int
     return int(fn(cin, cout, cs, kernel_size, K, M))
+
+
+@functools.lru_cache(maxsize=None)
+def wide_block_fits(cin: int, cout: int, cs: int, kernel_size: int,
+                    K: int) -> bool:
+    """Whether ``spline_conv_wide_block``'s kernel takes these widths (Cs
+    = 0 without a skip branch): ``wide_tile`` of ``csrc/spline_conv.cu``
+    at its widest chunk worked out in Python, so that the modules choose
+    their route from the shapes alone, the same on every device.
+    64 < Cout <= 128, K <= 16, and 64 rows of A (a chunk of min(Cin, 16)
+    channels, ``ka`` columns + 4, or the skip rows, Cs padded to 8 + 4),
+    two 64-row slabs of 128 weight columns (row stride 136) and the
+    tile's staged edges (4 words an edge, K a row, and 65 row bounds)
+    within the 227 KB a block can have.  ``wide_block_shared_memory`` is
+    the kernel's own answer, and a card test holds the two equal."""
+    if cin < 1 or cout <= 64 or cout > 128 or cs < 0 or K < 0 or K > 16:
+        return False
+    cc = min(cin, 16)
+    lda = (kernel_size * kernel_size * cc + cc + 7) // 8 * 8 + 4
+    lds = (cs + 7) // 8 * 8 + 4
+    smem = (64 * max(lda, lds) + 2 * 64 * 136) * 4 + (4 * 64 * K + 65) * 4
+    return smem <= 232_448
+
+
+def block_route(cin: int, cout: int, cs: int, kernel_size: int,
+                K: int) -> str:
+    """An eval conv's route at these widths (Cs = 0 without a skip
+    branch): ``"fused"`` where the fused block's tile takes them, else
+    ``"wide"`` where the wide block's does, else ``"split"``."""
+    if fused_block_fits(cin, cout, cs, kernel_size, K):
+        return "fused"
+    if wide_block_fits(cin, cout, cs, kernel_size, K):
+        return "wide"
+    return "split"
+
+
+@functools.lru_cache(maxsize=None)
+def wide_block_shared_memory(cin: int, cout: int, cs: int, kernel_size: int,
+                             K: int) -> int:
+    """Bytes of dynamic shared memory a block of ``spline_conv_wide_block``'s
+    kernel takes at these widths with its widest chunk (Cs = 0 without a
+    skip branch), or 0 if the kernel does not take them."""
+    fn = _build.library().dagr_spline_conv_wide_block_smem
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return int(fn(cin, cout, cs, kernel_size, K))
+
+
+class WidePlan(NamedTuple):
+    """How ``spline_conv_wide_block``'s kernel runs M rows: chunks of
+    ``cc`` input channels, ``cpz`` chunks a block, ``zc`` blocks a 64-row
+    tile over the channels, ``z`` with the skip's block, ``scratch``
+    floats of their partial sums."""
+    cc: int
+    cpz: int
+    zc: int
+    z: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=4096)
+def wide_block_plan(cin: int, cout: int, cs: int, kernel_size: int, K: int,
+                    M: int, cc: int = 0, cpz: int = 0) -> Optional[WidePlan]:
+    """``dagr_spline_conv_wide_block_plan``: the kernel's plan at these
+    shapes, chosen from them and the card's SM count alone, or the plan
+    pinned by ``cc`` and ``cpz`` (0: free); None if the kernel does not
+    take them."""
+    fn = _build.library().dagr_spline_conv_wide_block_plan
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_longlong * 5)()
+    if not fn(cin, cout, cs, kernel_size, K, M, cc, cpz, info):
+        return None
+    return WidePlan(*(int(v) for v in info))
+
+
+def spline_conv_wide_block(
+    x: torch.Tensor,                 # f32 [M, Cin] (row m: destination m)
+    edges: LevelEdges,               # [M, K] over the rows of x
+    weight: torch.Tensor,            # f32 [P, Cin, Cout]
+    root: torch.Tensor,              # f32 [Cin, Cout]
+    bias: Optional[torch.Tensor] = None,        # f32 [Cout]
+    *,
+    bn: Optional[BatchNormStats] = None,
+    skip: Optional[torch.Tensor] = None,        # f32 [M, Cs]
+    lin: Optional[torch.Tensor] = None,         # f32 [Cout, Cs]
+    bn_skip: Optional[BatchNormStats] = None,
+    act: Optional[str] = None,                  # a key of ACTIVATIONS
+    mask: Optional[torch.Tensor] = None,        # bool [M]
+    kernel_size: int = 5,
+    plan: Optional[tuple] = None,
+) -> torch.Tensor:
+    """``spline_conv_block``'s eval block, [M, Cout], for the widths the
+    wide block takes (``wide_block_fits``: 64 < Cout <= 128; raises
+    otherwise): one call of ``dagr_spline_conv_wide_block`` on CUDA
+    tensors, ``spline_conv_block_plain`` on CPU tensors.  ``plan``:
+    (cc, cpz) to pin the kernel's plan (tests and sweeps), else the
+    kernel's own (``wide_block_plan``).  Not differentiable: the modules
+    call it in eval mode under no_grad.  A call whose tiles the kernel
+    splits over the depth (``zc`` > 1 blocks a tile's channels) also
+    counts a ``spline_conv_block_wide_split`` launch."""
+    M, K = edges.nbr.shape
+    _check_block_args(x, edges, weight, root, bias, bn, skip, lin, bn_skip,
+                      act, mask, kernel_size)
+    if not x.is_cuda:
+        return spline_conv_block_plain(
+            x, edges, weight, root, bias, bn=bn, skip=skip, lin=lin,
+            bn_skip=bn_skip, act=act, mask=mask, kernel_size=kernel_size)
+    P, cin, cout = weight.shape
+    cs = skip.shape[1] if skip is not None else 0
+    if not wide_block_shared_memory(cin, cout, cs, kernel_size, K):
+        raise ValueError(f"spline_conv_wide_block: Cin={cin}, Cout={cout}, "
+                         f"Cs={cs}, K={K} do not fit the kernel's tile "
+                         "(64 < Cout <= 128, K <= 16, shared memory <= "
+                         "227 KB)")
+    p = wide_block_plan(cin, cout, cs, kernel_size, K, M, *(plan or (0, 0)))
+    if p is None:
+        raise ValueError(f"spline_conv_wide_block: no plan {plan} at these "
+                         "widths")
+    x = x.contiguous()
+    given = [t for t in (x, weight, root, bias, skip, lin, mask) if t is not None]
+    for stats in (bn, bn_skip):
+        if stats is not None:
+            given += stats[:4]
+    _build.check_cuda("spline_conv_wide_block", *given, *edges)
+    out = torch.empty((M, cout), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(p.scratch, dtype=torch.float32, device=x.device)
+    i = ctypes.c_int
+    _build.launch(
+        "spline_conv_block_wide", "dagr_spline_conv_wide_block",
+        _build.ptr(x), _build.ptr(edges.nbr), _build.ptr(edges.mask),
+        _build.ptr(edges.attr), *block_weight_args(
+            weight, root, bias, bn, skip, lin, bn_skip, mask),
+        i(M), i(K), i(cin), i(cout), i(cs), i(kernel_size),
+        i(ACT_CODES[act]), i(p.cc), i(p.cpz), _build.ptr(scratch),
+        _build.ptr(out))
+    if p.zc > 1:
+        _build.LAUNCHES["spline_conv_block_wide_split"] += 1
+    return out
 
 
 def _check_block_args(x, edges, weight, root, bias, bn, skip, lin, bn_skip,

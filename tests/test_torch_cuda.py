@@ -6,9 +6,14 @@ CUDA device.  On a GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-The eval route by width: ``fused_block_fits`` against the kernel's own
-tile, and the Detector at DAGR-N, -M, -L and 100 classes against the
-CPU with its fused and split convs counted.  The fused block's 16-row
+The eval route by width: ``fused_block_fits`` and ``wide_block_fits``
+against the kernels' own tiles, and the Detector at DAGR-N, -M, -L and
+100 classes against the CPU with its fused, wide and split convs
+counted.  The wide block (Cout 65-128) at every wide shape of DAGR-M,
+DAGR-L and the NCaltech101 head, at a window's and a batch of 8's rows,
+with and without a skip branch, on its own plan and on pinned ones,
+against its twin (and TF32 products failing the same tolerance); a
+DAGR-L DSEC window's capture counting its 12 wide blocks.  The fused block's 16-row
 tile split over a thread-block cluster: at DAGR-S's pooled and head
 widths over 35-17920 rows, ``block_split`` against the rule, and a sync
 window's compiled forward with its cluster launches counted.
@@ -99,7 +104,8 @@ from dagr_tpu_torch.ops.spline import (
     fused_block_fits,
     level_edges, source_runs_plain, spline_conv, spline_conv_backward,
     spline_conv_backward_plain, spline_conv_block, spline_conv_block_plain,
-    spline_conv_forward, spline_conv_plain)
+    spline_conv_forward, spline_conv_plain, spline_conv_wide_block,
+    wide_block_fits, wide_block_plan, wide_block_shared_memory)
 from dagr_tpu_torch.serve import Detector
 from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
 from dagr_tpu_torch.streaming.serve import MultiStreamServer, chunk_streams
@@ -315,20 +321,22 @@ WIDTHS = {
 def test_detector_at_every_width_matches_cpu(dev, name):
     """DAGR-N, -M and -L on the card (NCaltech101's 100 classes at
     240 x 180) against the same model on the CPU, raw to 1e-4; each conv
-    on the route its widths give: ``eval_routes`` fused blocks and split
-    convs launched, and every sync kernel."""
+    on the route its widths give: ``eval_routes`` fused blocks, wide
+    blocks and split convs launched, and every sync kernel."""
     cfg = DagrConfig(n_nodes=4000, **WIDTHS[name])
     w, h = (240, 180) if cfg.dataset == "ncaltech101" else (W, H)
     det = Detector(cfg, h, w, dev, seed=12)
     cpu = Detector(cfg, h, w, "cpu", state_dict=det.model.state_dict())
     ev = ragged_windows(13, dev, width=w, height=h)
-    fused, split = eval_routes(det.model)
+    fused, wide, split = eval_routes(det.model)
     before = _build.launch_counts()
     raw, dets = det(ev)
     torch.cuda.synchronize()
     after = _build.launch_counts()
     assert all(after[k] > before[k] for k in SYNC_KERNELS)
     assert after["spline_conv_block"] - before["spline_conv_block"] == fused
+    assert (after["spline_conv_block_wide"]
+            - before["spline_conv_block_wide"]) == wide
     assert after["spline_conv"] - before["spline_conv"] == split
     raw_cpu, _ = cpu(ev.to("cpu"))
     assert raw.shape == raw_cpu.shape == (3, raw.shape[1],
@@ -1517,6 +1525,145 @@ def test_spline_conv_block_cluster_split(dev, M, cin, cout, cs, K):
     assert not a[~kw["mask"]].any()
 
 
+def test_wide_block_fits_is_the_kernels_answer(dev):
+    """The modules' wide-route test (Python) equals the wide kernel's own
+    tile (``wide_tile`` at its widest chunk, through
+    ``wide_block_shared_memory``) over Cin 1-160, Cout 60-132, no skip, a
+    skip as wide as x and one past the tile's shared memory, and K 9, 16
+    and 17."""
+    for K, cin, cout in itertools.product((9, 16, 17), range(1, 161),
+                                          range(60, 133)):
+        for cs in (0, cin, 600):
+            assert wide_block_fits(cin, cout, cs, 5, K) == (
+                wide_block_shared_memory(cin, cout, cs, 5, K) != 0), (
+                    cin, cout, cs, K)
+
+
+# (Cin, Cout, Cs, level) of every wide eval conv: DAGR-M's (96) and
+# DAGR-L's (128) pooled levels 2-4 and head towers (levels 3-4 on DSEC,
+# 4 on NCaltech101) and the NCaltech101 head's 100-class prediction;
+# a level's rows at a batch of 1 (its grid: 20 x 28, 10 x 14, 5 x 7)
+WIDE_CONVS = [(66, 96, 0, 2), (96, 96, 66, 2), (98, 96, 0, 3),
+              (96, 96, 98, 3), (96, 96, 0, 3), (98, 96, 0, 4),
+              (96, 96, 98, 4), (96, 96, 0, 4),
+              (66, 128, 0, 2), (128, 128, 66, 2), (130, 128, 0, 3),
+              (128, 128, 130, 3), (128, 128, 0, 3), (130, 128, 0, 4),
+              (128, 128, 130, 4), (128, 128, 0, 4), (128, 100, 0, 4)]
+LEVEL_ROWS = {2: 560, 3: 140, 4: 35}
+
+
+def wide_case(cin, cout, cs, M, dev):
+    mode = "pred" if cout == 100 else "skip" if cs else "block"
+    return block_case(M + cin + cout + cs, M, 9, cin, cout, mode,
+                      None if mode == "pred" else "relu", dev,
+                      cs=cs or None)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("cin,cout,cs,level", WIDE_CONVS)
+def test_spline_conv_wide_block_shapes(dev, cin, cout, cs, level, batch):
+    """The wide block against its twin on the card at a window's rows and
+    at a batch of 8's, on the plan the kernel picks and on pinned plans
+    (one block a tile; chunks of 1 and 4 channels, one block each):
+    within 1e-5 of the twin's output max (3xTF32 products summed over up
+    to 3,510 rows of depth in another order; one TF32 pass keeps ~3
+    digits, and the twin itself with TF32 products reads past the same
+    tolerance, checked here), masked rows exactly 0, two calls
+    bit-identical; one wide call counted a call, and a split one where
+    the plan splits the tiles' depth."""
+    M = LEVEL_ROWS[level] * batch
+    args, kw = wide_case(cin, cout, cs, M, dev)
+    b = spline_conv_block_plain(*args, **kw)
+    tol = 1e-5 * max(1.0, float(b.abs().max()))
+    nch16 = -(-cin // 16)
+    plans = [None, (min(cin, 16), nch16), (1, 1), (4, 1)]
+    for plan in plans:
+        p = wide_block_plan(cin, cout, cs, 5, 9, M, *(plan or (0, 0)))
+        assert p is not None and p.cc * p.cpz * (p.zc - 1) < cin, plan
+        before = _build.launch_counts()
+        a = spline_conv_wide_block(*args, **kw, plan=plan)
+        after = _build.launch_counts()
+        a2 = spline_conv_wide_block(*args, **kw, plan=plan)
+        torch.cuda.synchronize()
+        assert after["spline_conv_block_wide"] == (
+            before["spline_conv_block_wide"] + 1)
+        assert after["spline_conv_block_wide_split"] == (
+            before["spline_conv_block_wide_split"] + (p.zc > 1))
+        assert a.shape == (M, cout)
+        err = float((a - b).abs().max())
+        assert err <= tol, (plan, p, err, tol)
+        assert torch.equal(a, a2), plan
+        assert not a[~kw["mask"]].any()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = spline_conv_block_plain(*args, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert float((tf32 - b).abs().max()) > tol
+
+
+def test_spline_conv_wide_block_refuses_what_it_does_not_take(dev):
+    args, kw = wide_case(128, 128, 130, 140, dev)
+    with pytest.raises(ValueError):                         # Cout <= 64
+        spline_conv_wide_block(args[0], args[1],
+                               torch.zeros((25, 128, 64), device=dev),
+                               torch.zeros((128, 64), device=dev))
+    with pytest.raises(ValueError):                         # Cout > 128
+        spline_conv_wide_block(args[0], args[1],
+                               torch.zeros((25, 128, 129), device=dev),
+                               torch.zeros((128, 129), device=dev))
+    with pytest.raises(ValueError):                         # a plan not its
+        spline_conv_wide_block(*args, **kw, plan=(3, 1))
+    with pytest.raises(ValueError):                         # mixed devices
+        spline_conv_wide_block(*args, **dict(kw, mask=kw["mask"].cpu()))
+
+
+def test_dagr_l_dsec_window_captures_its_wide_blocks(dev):
+    """A DAGR-L window at DSEC-Det's 320 x 215 through
+    ``Detector.make_forward``: the capture counts 8 fused blocks, 12 wide
+    blocks (a split launch for each whose plan splits its tiles' depth)
+    and no split conv; a DAGR-S window's capture counts 20 fused blocks
+    and no wide block; every replay equals the eager forward to 1e-5."""
+    from dagr_tpu_torch.ops import spline as spline_ops
+
+    want = {"l": (8, 12), "s": (20, 0)}
+    for name in ("l", "s"):
+        cfg = DagrConfig(n_nodes=4000, **WIDTHS.get(name, {}))
+        det = Detector(cfg, 215, 320, dev, seed=23)
+        fwd = det.make_forward()
+        ev = ragged_windows(23, dev, width=320, height=215)
+        fwd(ev)
+        fwd(ev)                                      # the eager warm-ups
+        plans, fn = [], spline_ops.spline_conv_wide_block
+
+        def counted(x, edges, weight, *args, **kw):
+            skip = kw.get("skip")
+            plans.append(wide_block_plan(
+                x.shape[1], weight.shape[2],
+                0 if skip is None else skip.shape[1], 5,
+                edges.nbr.shape[1], x.shape[0]))
+            return fn(x, edges, weight, *args, **kw)
+
+        spline_ops.spline_conv_wide_block = counted
+        try:
+            before = _build.launch_counts()
+            raw, _ = fwd(ev)                         # the capture
+            after = _build.launch_counts()
+        finally:
+            spline_ops.spline_conv_wide_block = fn
+        got = {k: after[k] - before[k] for k in after}
+        assert (got["spline_conv_block"], got["spline_conv_block_wide"]) \
+            == want[name], name
+        assert got["spline_conv"] == 0
+        assert got["spline_conv_block_wide_split"] == sum(
+            p.zc > 1 for p in plans)
+        for _ in range(2):
+            raw, _ = fwd(ev)
+            want_raw, _ = det(ev)
+            torch.cuda.synchronize()
+            assert_raw_close(raw, want_raw)
+
+
 def test_sync_window_compiled_forward_splits_its_tiles(dev):
     """A DAGR-S window (pooled grids 40x56 to 5x7) through
     ``Detector.make_forward``: the capture's 20 fused blocks count a
@@ -1826,13 +1973,15 @@ def test_detector_at_fine_poolings_matches_cpu(dev, pooling):
     det = Detector(cfg, H, W, dev, seed=14)
     cpu = Detector(cfg, H, W, "cpu", state_dict=det.model.state_dict())
     ev = ragged_windows(14, dev)
-    fused, split = eval_routes(det.model)
+    fused, wide, split = eval_routes(det.model)
     before = _build.launch_counts()
     raw, dets = det(ev)
     torch.cuda.synchronize()
     after = _build.launch_counts()
     assert all(after[k] > before[k] for k in SYNC_KERNELS)
     assert after["spline_conv_block"] - before["spline_conv_block"] == fused
+    assert (after["spline_conv_block_wide"]
+            - before["spline_conv_block_wide"]) == wide
     assert after["spline_conv"] - before["spline_conv"] == split
     raw_cpu, dets_cpu = cpu(ev.to("cpu"))
     A = sum(ny * nx for ny, nx in cfg.output_sizes())
@@ -1852,7 +2001,7 @@ def test_fusion_detector_matches_cpu(dev):
     cpu = Detector(cfg, H, W, "cpu", state_dict=det.model.state_dict())
     ev = ragged_windows(15, dev)
     img = torch.rand((3, 3, H, W), generator=torch.Generator().manual_seed(15))
-    assert eval_routes(det.model) == (17, 3)
+    assert eval_routes(det.model) == (17, 0, 3)
     before = _build.launch_counts()
     raw, dets = det(ev, img.to(dev))
     torch.cuda.synchronize()
@@ -2176,18 +2325,19 @@ def _fusion_replays_match(dev, pretrain_cnn):
         step(ref, ev, tgt, img, tgt0)
 
 
-@pytest.mark.parametrize("name", ["l", "l_ncaltech"])
-def test_dagr_l_compiled_eval_forwards_match_eager(dev, name):
-    """DAGR-L (DSEC at 320 x 240, NCaltech101 at 240 x 180 with 100
-    classes) through ``make_eval_forward`` and ``Detector.make_forward``,
-    replayed, against their eager forwards: raw 1e-5 of its max, keeps
-    and labels exact; the capture launches ``eval_routes``' fused blocks
-    and split convs (the split route's epilogue inside the graph)."""
+@pytest.mark.parametrize("name,w,h", [("l", W, H), ("l", 320, 215),
+                                      ("l_ncaltech", 240, 180)])
+def test_dagr_l_compiled_eval_forwards_match_eager(dev, name, w, h):
+    """DAGR-L (DSEC at 320 x 240 and at DSEC-Det's 320 x 215,
+    NCaltech101 at 240 x 180 with 100 classes) through
+    ``make_eval_forward`` and ``Detector.make_forward``, replayed, against
+    their eager forwards: raw 1e-5 of its max, keeps and labels exact;
+    the capture launches ``eval_routes``' fused blocks and wide blocks
+    (and no split conv: the wide block's reductions inside the graph)."""
     cfg = DagrConfig(n_nodes=4000, **WIDTHS[name])
-    w, h = (240, 180) if cfg.dataset == "ncaltech101" else (W, H)
     det = Detector(cfg, h, w, dev, seed=19)
-    fused, split = eval_routes(det.model)
-    assert split > 0
+    fused, wide, split = eval_routes(det.model)
+    assert wide > 0 and split == 0
     ev = ragged_windows(19, dev, width=w, height=h)
     fwd = det.make_forward()
     for i in range(4):
@@ -2198,6 +2348,8 @@ def test_dagr_l_compiled_eval_forwards_match_eager(dev, name):
         if i == 2:           # the capture
             assert after["spline_conv_block"] - before[
                 "spline_conv_block"] == fused
+            assert after["spline_conv_block_wide"] - before[
+                "spline_conv_block_wide"] == wide
             assert after["spline_conv"] - before["spline_conv"] == split
         if i == 3:           # a replay launches nothing from the host
             assert after == before

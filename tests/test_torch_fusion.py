@@ -410,14 +410,15 @@ def test_fusion_eval_matches(fusion, monkeypatch):
     """(hybrid_raw, image_raw) in eval mode to 1e-4, through the model and
     through ``serve.Detector`` (which requires the image); the window's
     convs on the routes ``eval_routes`` gives, counted by a spy: 17 fused
-    blocks and the 3 conv_block1s at 130 -> 64 split, as at DAGR-S +
-    ResNet-50 at 240 x 320."""
+    blocks, no wide block and the 3 conv_block1s at 130 -> 64 split (Cout
+    64 is not the wide block's), as at DAGR-S + ResNet-50 at 240 x 320."""
     f = fusion
     want_h, want_i = jax.jit(lambda v: f.model.apply(
         v, f.ev, image=jnp.asarray(f.img), train=False))(f.variables)
     model = port_model(f).eval()
-    counts = {"fused": 0, "split": 0}
+    counts = {"fused": 0, "wide": 0, "split": 0}
     for name, key in (("spline_conv_block", "fused"),
+                      ("spline_conv_wide_block", "wide"),
                       ("spline_conv_forward", "split")):
         def spy(*a, _fn=getattr(spline_ops, name), _key=key, **kw):
             counts[_key] += 1
@@ -425,7 +426,8 @@ def test_fusion_eval_matches(fusion, monkeypatch):
         monkeypatch.setattr(spline_ops, name, spy)
     with torch.no_grad():
         hybrid, image_raw = model(f.pev, f.pimg)
-    assert (counts["fused"], counts["split"]) == eval_routes(model) == (17, 3)
+    assert (counts["fused"], counts["wide"], counts["split"]) \
+        == eval_routes(model) == (17, 0, 3)
     np.testing.assert_allclose(hybrid.numpy(), np.asarray(want_h), atol=1e-4,
                                rtol=1e-4)
     np.testing.assert_allclose(image_raw.numpy(), np.asarray(want_i),
@@ -441,7 +443,7 @@ def test_fusion_eval_matches(fusion, monkeypatch):
     with pytest.raises(ValueError):
         det(f.pev, f.pimg[:1])
     full = DAGR(DagrConfig(use_image=True, img_net="resnet50"), 240, 320)
-    assert eval_routes(full) == (17, 3)
+    assert eval_routes(full) == (17, 0, 3)
 
 
 def test_events_only_detector_takes_no_image(fusion):

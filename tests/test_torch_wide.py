@@ -1,9 +1,11 @@
 """The eval route at every published width: which convs take the fused
 block (``ops.spline.fused_block_fits``, the kernel's tile worked out in
-Python) and which the split route, and the port's eval modules and
+Python), which the wide block (``ops.spline.wide_block_fits``, Cout
+65-128) and which the split route, and the port's eval modules and
 whole models at DAGR-N, -M and -L widths and with a 100-class
 NCaltech101 head against dagr_tpu's on the same numpy inputs and
-bridged weights.
+bridged weights.  DAGR-L at DSEC-Det's published widths and 320 x 215
+against the benchmark's plain reference (``benchmark/reference``).
 
 Tolerances: a block, Layer or head scale to 1e-5 (the sums over
 neighbours, taps and channels run in another order than XLA's); a tiny
@@ -76,6 +78,37 @@ def test_fused_block_fits_at_the_edges_of_the_tile():
     assert not fused_block_fits(16, 16, -1, 5, 9)
 
 
+# (Cin, Cout, Cs) of every wide eval conv: DAGR-M's and DAGR-L's pooled
+# levels (the first conv of each at Cin + 2, the second with its skip)
+# and head towers, and the NCaltech101 head's 100-class prediction
+WIDE = [(66, 96, 0), (96, 96, 66), (98, 96, 0), (96, 96, 98), (96, 96, 0),
+        (66, 128, 0), (128, 128, 66), (130, 128, 0), (128, 128, 130),
+        (128, 128, 0), (128, 100, 0)]
+
+
+@pytest.mark.parametrize("cin,cout,cs", WIDE)
+def test_wide_block_takes_what_the_fused_block_refuses(cin, cout, cs):
+    assert not fused_block_fits(cin, cout, cs, 5, 9)
+    assert spline_ops.wide_block_fits(cin, cout, cs, 5, 9)
+    assert spline_ops.block_route(cin, cout, cs, 5, 9) == "wide"
+
+
+def test_wide_block_fits_at_the_edges_of_its_tile():
+    """Cout 65 and 128 are the wide block's, 64 the fused block's and
+    129 neither's (the split route); K past 16, Cin 0 and a negative Cs
+    never fit; a skip branch whose 64 rows pass the shared memory (Cs
+    600) does not, one of 500 does."""
+    wide = spline_ops.wide_block_fits
+    assert wide(64, 65, 0, 5, 9) and wide(130, 128, 130, 5, 16)
+    assert not wide(64, 64, 0, 5, 9)
+    assert spline_ops.block_route(64, 64, 0, 5, 9) == "fused"
+    assert not wide(128, 129, 0, 5, 9)
+    assert spline_ops.block_route(128, 129, 0, 5, 9) == "split"
+    assert not wide(128, 128, 0, 5, 17)
+    assert not wide(0, 128, 0, 5, 9) and not wide(16, 128, -1, 5, 9)
+    assert wide(128, 128, 500, 5, 16) and not wide(128, 128, 600, 5, 16)
+
+
 # the published width ladder (config/dagr-*.yaml) and NCaltech101
 MODELS = {
     "n": dict(net_stem_width=0.25, yolo_stem_width=0.25),
@@ -84,10 +117,12 @@ MODELS = {
     "l_ncaltech": dict(net_stem_width=1.0, yolo_stem_width=1.0,
                        dataset="ncaltech101", num_scales=1),
 }
-# (fused, split) convs of a window: DAGR-N takes the tile everywhere;
-# DAGR-M and -L only at the event level and in the head's predictions,
-# and the 100-class prediction not
-ROUTES = {"n": (20, 0), "m": (8, 12), "l": (8, 12), "l_ncaltech": (5, 10)}
+# (fused, wide, split) convs of a window: DAGR-N takes the tile
+# everywhere; DAGR-M and -L only at the event level and in the head's
+# predictions, and the wide block takes the rest (the pooled levels and
+# the head towers at Cout 96 or 128, and the 100-class prediction)
+ROUTES = {"n": (20, 0, 0), "m": (8, 12, 0), "l": (8, 12, 0),
+          "l_ncaltech": (5, 10, 0)}
 
 
 def randomized(variables, seed):
@@ -109,25 +144,24 @@ def randomized(variables, seed):
 
 
 class Spy:
-    """Counts the fused blocks and the split-route convs
+    """Counts the fused blocks, the wide blocks and the split-route convs
     (``spline_conv_forward``, one ``dagr_spline_conv`` launch each on the
     card) that the port's modules call through ``ops.spline``."""
 
     def __init__(self, monkeypatch):
-        self.fused = self.split = 0
-        block, split = (spline_ops.spline_conv_block,
-                        spline_ops.spline_conv_forward)
+        self.fused = self.wide = self.split = 0
+        for name, attr in (("spline_conv_block", "fused"),
+                           ("spline_conv_wide_block", "wide"),
+                           ("spline_conv_forward", "split")):
+            def spy(*args, _fn=getattr(spline_ops, name), _attr=attr,
+                    **kwargs):
+                setattr(self, _attr, getattr(self, _attr) + 1)
+                return _fn(*args, **kwargs)
 
-        def spy_block(*args, **kwargs):
-            self.fused += 1
-            return block(*args, **kwargs)
+            monkeypatch.setattr(spline_ops, name, spy)
 
-        def spy_split(*args, **kwargs):
-            self.split += 1
-            return split(*args, **kwargs)
-
-        monkeypatch.setattr(spline_ops, "spline_conv_block", spy_block)
-        monkeypatch.setattr(spline_ops, "spline_conv_forward", spy_split)
+    def counts(self):
+        return self.fused, self.wide, self.split
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))
@@ -149,7 +183,7 @@ def test_model_eval_matches_jax_and_routes_by_width(monkeypatch, name):
     spy = Spy(monkeypatch)
     raw, _ = det(random_events(np.random.default_rng(11), 1, 128, width=W,
                                height=H, n_valid=110))
-    assert (spy.fused, spy.split) == ROUTES[name]
+    assert spy.counts() == ROUTES[name]
     assert raw.shape == want.shape
     np.testing.assert_allclose(raw.numpy(), want, atol=1e-4, rtol=1e-4)
 
@@ -180,21 +214,22 @@ def stencil_level(seed, C):
     return jax_pool_nodeset(jns, **GRID), pool_nodeset(tns, **GRID)
 
 
-# (module, Cin, Cout, skip Cin or head classes, activation, fused, split):
-# DAGR-M's first stencil conv, DAGR-L's skip block and Layer, and an
-# NCaltech101 head scale of DAGR-L (its reg + obj prediction fits)
-MODULES = [("ConvBlock", 66, 96, 0, "relu", 0, 1),
-           ("ConvBlockWithSkip", 128, 128, 130, "elu", 0, 1),
-           ("Layer", 130, 128, 0, "gelu", 0, 2),
-           ("ScaleHead", 128, 128, 100, "relu", 1, 4)]
+# (module, Cin, Cout, skip Cin or head classes, activation, (fused, wide,
+# split)): DAGR-M's first stencil conv, DAGR-L's skip block and Layer,
+# and an NCaltech101 head scale of DAGR-L (its reg + obj prediction
+# fits the fused block, its 100-class prediction the wide one)
+MODULES = [("ConvBlock", 66, 96, 0, "relu", (0, 1, 0)),
+           ("ConvBlockWithSkip", 128, 128, 130, "elu", (0, 1, 0)),
+           ("Layer", 130, 128, 0, "gelu", (0, 2, 0)),
+           ("ScaleHead", 128, 128, 100, "relu", (1, 4, 0))]
 
 
-@pytest.mark.parametrize("module,cin,cout,extra,act,fused,split", MODULES)
+@pytest.mark.parametrize("module,cin,cout,extra,act,routes", MODULES)
 def test_wide_eval_module_matches_jax(monkeypatch, module, cin, cout, extra,
-                                      act, fused, split):
+                                      act, routes):
     """A wide eval module against dagr_tpu's on one pooled level, bridged
-    and randomised weights, 1e-5; the convs the tile refuses take the
-    split route (counted), the rest the fused block."""
+    and randomised weights, 1e-5; the convs the fused block's tile
+    refuses take the wide block (counted), the rest the fused block."""
     seed = cin + cout + extra
     jns, tns = stencil_level(seed, cin)
     if module == "ConvBlock":
@@ -235,7 +270,7 @@ def test_wide_eval_module_matches_jax(monkeypatch, module, cin, cout, extra,
             got = torch.cat(tm(tns), dim=-1)
     want = jnp.concatenate(want, axis=-1) if module == "ScaleHead" \
         else want.feat
-    assert (spy.fused, spy.split) == (fused, split)
+    assert spy.counts() == routes
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
 
@@ -246,5 +281,65 @@ def test_eval_routes_follow_the_widths():
     DAGR-S's 20 convs all fit at K = 16 and at K = 8."""
     cfg = DagrConfig(**MODELS["l"])
     assert eval_routes(DAGR(cfg, 240, 320)) == ROUTES["l"]
-    assert eval_routes(DAGR(DagrConfig(), 240, 320)) == (20, 0)
-    assert eval_routes(DAGR(DagrConfig(max_neighbors=8), 240, 320)) == (20, 0)
+    assert eval_routes(DAGR(DagrConfig(), 240, 320)) == (20, 0, 0)
+    assert eval_routes(DAGR(DagrConfig(max_neighbors=8), 240, 320)) \
+        == (20, 0, 0)
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_eval_routes_at_every_configuration(name):
+    """``eval_routes`` as (fused, wide, split) at each configuration's
+    own frame (DSEC-Det's 320 x 215, NCaltech101's 240 x 180): the
+    widths decide, not the frame; the routes add up to the window's 20
+    convs (15 with NCaltech101's one head scale)."""
+    w, h = (240, 180) if name == "l_ncaltech" else (320, 215)
+    routes = eval_routes(DAGR(DagrConfig(**MODELS[name]), h, w))
+    assert routes == ROUTES[name]
+    assert sum(routes) == (15 if name == "l_ncaltech" else 20)
+
+
+def test_dagr_l_dsec_matches_the_benchmark_reference(monkeypatch):
+    """DAGR-L at DSEC-Det's published widths (config/dagr-l-dsec.yaml:
+    stem widths 1, channels 1/16/64/128/128/128, the heads' n_reg 128,
+    K = 16 at the event level, output pooling 5 x 7, two classes) at
+    320 x 215, on one seeded window of the benchmark's traffic (1,500
+    events around 6 clusters in 4,096 node slots, the published 50,000
+    cut for the CPU's time), with the benchmark's seeded weights: the
+    port's Detector (8 fused and 12 wide eval convs on the CPU's plain
+    twins, counted) against ``benchmark/reference/model.py``'s forward,
+    raw to 1e-4 of its largest value (the sync bar: sums over taps,
+    slots and channels in another order); the port's decode and NMS (K4's
+    twin) of its own raw equal to the reference's decode and NMS of that
+    raw, row for row."""
+    from benchmark.harness import traffic as tf
+    from benchmark.harness.weights import seeded_state_dict
+    from benchmark.reference.config import ModelConfig
+    from benchmark.reference.model import DAGR as RefDAGR
+    from dagr_tpu_torch.core.types import EventBatch
+
+    fields = dict(MODELS["l"], n_nodes=4096)
+    h, w = 215, 320
+    gen = tf.generator(2 ** 31 + 21, "cpu")
+    ref_cfg = ModelConfig.from_mapping(fields)
+    with torch.device("meta"):
+        plan = RefDAGR(ref_cfg, h, w)
+    sd = seeded_state_dict(plan, gen)
+    win = tf.windows(gen, 1, n_nodes=4096, width=w, height=h,
+                     n_valid=(1500, 1500))
+    ref = RefDAGR(ref_cfg, h, w)
+    ref.load_state_dict(sd)
+    ref.eval()
+    det = Detector(DagrConfig(**fields), h, w, "cpu", state_dict=sd)
+    assert eval_routes(det.model) == (8, 12, 0)
+    spy = Spy(monkeypatch)
+    raw, dets = det(EventBatch(win["pos"], win["feat"], win["mask"], w, h,
+                               1_000_000))
+    assert spy.counts() == (8, 12, 0)
+    with torch.no_grad():
+        want = ref(win["pos"], win["feat"], win["mask"])
+        own = ref.detect(raw)
+    assert raw.shape == want.shape == (1, 140 + 35, 7)
+    err = float((raw - want).abs().max() / want.abs().max())
+    assert err <= 1e-4, err
+    for k in ("valid", "labels", "boxes", "scores"):
+        assert torch.equal(dets[k], own[k].to(dets[k].dtype)), k
