@@ -11,8 +11,8 @@
 //
 // What bounds it on an H100: latency, not bandwidth.  The fine level
 // is at most 50k nodes x 16 floats (3.2 MB) a window, read once; the
-// long poles are the host ops around the launches and the most crowded
-// cell, whose position sums must run in node order.
+// long poles are the launches and the most crowded cell (400-640 of a
+// DSEC window's 45k events), whose position sums must run in node order.
 //
 // Design: the floor in the pooled position flips if the position sum
 // rounds differently, so no float atomics are used.  One C entry,
@@ -34,17 +34,27 @@
 //      window's 4 poolings against this route's 0.3775-0.3778, and
 //      0.2207 ms against 0.1424 at 96 x 128 cells (an H100 80GB HBM3 at
 //      700 W, chip_smoke.py --compare and its P2 phase);
-//   3. a warp per cell: the feature max spread over the lanes (32 /
-//      min(32, pow2 >= C) of the cell's rows per pass, lanes over
-//      channels, then a fixed shuffle tree; max is exact in any order).
-//      For training (a ties pointer given) each lane keeps an exact
-//      (max, members equal to it) pair, merged in the same tree, and the
-//      count of each (cell, channel) is written for K9b; the eval
-//      instantiation counts nothing;
-//      the mean, the position sums, tmax and the edge bits walk the rows
-//      in node index order, reading the order entries 32 at a time and
-//      broadcasting them with shuffles, so every float sum runs in the
-//      order of the plain PyTorch version's index_add_ on the CPU;
+//   3. the cell pass: a block per group of consecutive cells, whose rows
+//      are one range of the sorted order, shared by the block's threads
+//      whatever the cells' sizes, so a crowded cell is read by a block and
+//      not walked by one warp an L2 round trip a row.  The range is staged
+//      in shared memory a tile at a time (each thread loads its rows'
+//      nodes, then copies their features, positions and edge bits with
+//      cp.async, every copy in flight at once).  Then one walker a (cell,
+//      channel), a (cell, coordinate) and a cell (max time, OR of the edge
+//      bits) adds its cell's rows of the tile in node order, its value
+//      carried over tiles, so every float sum (positions; the mean's
+//      features) runs from zero in the order of the plain PyTorch
+//      version's index_add_ on the CPU.  Max, OR and, for training (a ties
+//      pointer given), the exact (max, members equal to it) pair written
+//      for K9b are order-free and walk the same way; a crowded block's
+//      length is its node-order position walk, a few cycles a row, which
+//      splitting them over rows would not shorten.  The shape
+//      (cell_pass_plan) was fitted on an H100 over 1-16 cells a block,
+//      64-512 threads and 32-1024 rows a tile at the benchmark's
+//      poolings.  A DSEC window's first pooling (runs of up to 400-640
+//      rows) takes 13-16 us, against 163-236 us with a warp a cell (an
+//      H100 80GB HBM3 at 700 W);
 //   4. per (cell, stencil slot) (one thread each): the coarse neighbour
 //      id and mask adj & in-frame & source non-empty & destination
 //      non-empty (& t_max(dst) > t_max(src) when asked).
@@ -141,6 +151,7 @@
 // no cell get 0 from the kernel: grad_feat is written whole, one launch
 // a call.  Exact arithmetic, so it is bit-equal to its twin.
 #include <cooperative_groups.h>
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <limits.h>
@@ -202,8 +213,12 @@ __global__ void pool_nodes_kernel(
   bits[i] = out;
 }
 
-// K3 step 3: one warp per cell; see the file's note.  With TIES, ties
-// [n_cells_total, C] gets the members equal to each channel's max.
+// K3 step 3: a block per `cells` consecutive cells, its threads over
+// their rows; see the file's note.  With TIES, ties [n_cells_total, C]
+// gets the members equal to each channel's max.  Dynamic shared memory:
+// cell_pass_smem(cells, tile, C) bytes; tile <= kCellRows * blockDim.x.
+constexpr int kCellRows = 4;   // rows a thread stages a tile
+
 template <bool TIES>
 __global__ void pool_cells_kernel(
     const int* __restrict__ order,        // [M] nodes sorted by cell
@@ -211,87 +226,156 @@ __global__ void pool_cells_kernel(
     const float* __restrict__ feat,       // [M, C]
     const float* __restrict__ pos,        // [M, 3]
     const int* __restrict__ bits,         // [M]
-    int n_cells_total, int C, int mean, int W, int H, float inv_w,
-    float inv_h, float* __restrict__ pooled, float* __restrict__ pos_out,
-    uint8_t* __restrict__ cmask, float* __restrict__ tmax,
-    int* __restrict__ adj, int* __restrict__ ties) {
-  const int cell = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (cell >= n_cells_total) return;
-  const unsigned full = 0xffffffffu;
-  const int st = cell_start[cell], en = cell_start[cell + 1];
-  const int count = en - st;
-  const float denom = (float)max(count, 1);
-  float* prow = pooled + (size_t)cell * C;
-  if (mean) {
-    // lanes over channels, the rows in node order
-    for (int c = lane; c - lane < C; c += 32) {
-      float acc = 0.f;
-      for (int j0 = st; j0 < en; j0 += 32) {
-        const int n = min(32, en - j0);
-        const int o = lane < n ? order[j0 + lane] : 0;
-        for (int q = 0; q < n; ++q) {
-          const int oq = __shfl_sync(full, o, q);
-          if (c < C) acc += feat[(size_t)oq * C + c];
-        }
-      }
-      if (c < C) prow[c] = acc / denom;
-    }
-  } else {
-    // gl lanes per row, 32 / gl rows per pass
-    int gl = 1;
-    while (gl < C && gl < 32) gl <<= 1;
-    const int r = lane / gl, c0 = lane - r * gl, rows = 32 / gl;
-    for (int cb = 0; cb < C; cb += gl) {
-      const int c = cb + c0;
-      float acc = -FLT_MAX;
-      int n = 0;                          // members equal to acc (TIES)
-      if (c < C) {
-        for (int j = st + r; j < en; j += rows) {
-          const float v = feat[(size_t)order[j] * C + c];
-          if (TIES) n = v > acc ? 1 : n + (v == acc);
-          acc = v > acc ? v : acc;
-        }
-      }
-      for (int off = 16; off >= gl; off >>= 1) {
-        const float v = __shfl_xor_sync(full, acc, off);
-        if (TIES) {
-          const int nv = __shfl_xor_sync(full, n, off);
-          n = v > acc ? nv : n + (v == acc ? nv : 0);
-        }
-        acc = v > acc ? v : acc;
-      }
-      if (r == 0 && c < C) {
-        prow[c] = count > 0 ? acc : 0.f;
-        if (TIES) ties[(size_t)cell * C + c] = n;
-      }
-    }
+    int n_cells_total, int C, int mean, int vec, int cells, int tile,
+    int W, int H, float inv_w, float inv_h, float* __restrict__ pooled,
+    float* __restrict__ pos_out, uint8_t* __restrict__ cmask,
+    float* __restrict__ tmax, int* __restrict__ adj, int* __restrict__ ties) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_feat = smem;                             // [tile, C]
+  float* s_pos = s_feat + tile * C;                 // [tile, 3]
+  int* s_bits = (int*)(s_pos + 3 * tile);           // [tile]
+  int* s_start = s_bits + tile;                     // [cells + 1]
+  float* s_acc = (float*)(s_start + cells + 1);     // [cells, C]
+  int* s_cnt = (int*)(s_acc + cells * C);           // [cells, C]
+  float* s_sum = (float*)(s_cnt + cells * C);       // [cells, 3]
+  float* s_tmax = s_sum + 3 * cells;                // [cells]
+  int* s_or = (int*)(s_tmax + cells);               // [cells]
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int g0 = blockIdx.x * cells;
+  const int nc = min(cells, n_cells_total - g0);
+  // the block's rows, r0 to r1, read by every thread: no barrier before
+  // the first tile's loads
+  const int r0 = cell_start[g0], r1 = cell_start[g0 + nc];
+  for (int k = tid; k <= nc; k += nt) s_start[k] = cell_start[g0 + k];
+  for (int e = tid; e < nc * C; e += nt) {
+    s_acc[e] = mean ? 0.f : -FLT_MAX;
+    s_cnt[e] = 0;
   }
-  // node-order walk: lanes 0-2 the position sums, lane 3 the max time,
-  // lane 4 the OR of the edge bits
-  float r = lane == 3 ? -INFINITY : 0.f;
-  int ob = 0;
-  for (int j0 = st; j0 < en; j0 += 32) {
-    const int n = min(32, en - j0);
-    const int o = lane < n ? order[j0 + lane] : 0;
-    for (int q = 0; q < n; ++q) {
-      const int oq = __shfl_sync(full, o, q);
-      if (lane < 3) r += pos[3 * oq + lane];
-      else if (lane == 3) r = fmaxf(r, pos[3 * oq + 2]);
-      else if (lane == 4) ob |= bits[oq];
+  for (int e = tid; e < 3 * nc; e += nt) s_sum[e] = 0.f;
+  for (int k = tid; k < nc; k += nt) {
+    s_tmax[k] = -INFINITY;
+    s_or[k] = 0;
+  }
+  if (r0 == r1) __syncthreads();       // no tile: the outputs' barrier
+  // a cell's walkers: its C channels, its 3 coordinates, and one for the
+  // max time and the OR of the edge bits
+  const int per = C + 4;
+  for (int j0 = r0; j0 < r1; j0 += tile) {
+    const int n = min(tile, r1 - j0);
+    // a thread's rows of the tile: their nodes, then every copy of their
+    // features, positions and edge bits in flight at once
+    int node[kCellRows];
+#pragma unroll
+    for (int q = 0; q < kCellRows; ++q) {
+      const int i = tid + q * nt;
+      node[q] = i < n ? order[j0 + i] : 0;
     }
+#pragma unroll
+    for (int q = 0; q < kCellRows; ++q) {
+      const int i = tid + q * nt;
+      if (i >= n) break;
+      const size_t o = (size_t)node[q];
+      if (vec) {
+        for (int c = 0; c < C; c += 4)
+          __pipeline_memcpy_async(s_feat + i * C + c, feat + o * C + c, 16);
+      } else {
+        for (int c = 0; c < C; ++c)
+          __pipeline_memcpy_async(s_feat + i * C + c, feat + o * C + c, 4);
+      }
+      for (int d = 0; d < 3; ++d)
+        __pipeline_memcpy_async(s_pos + 3 * i + d, pos + 3 * o + d, 4);
+      __pipeline_memcpy_async(s_bits + i, bits + o, 4);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    // each walker adds the tile's rows of its cell in node order
+    for (int w = tid; w < nc * per; w += nt) {
+      const int k = w / per, m = w - k * per;
+      const int a = max(s_start[k], j0) - j0;
+      const int b = min(s_start[k + 1], j0 + n) - j0;
+      if (a >= b) continue;
+      if (m < C) {
+        const float* f = s_feat + m;
+        float acc = s_acc[k * C + m];
+        if (mean) {
+          for (int i = a; i < b; ++i) acc += f[i * C];
+        } else if (TIES) {
+          int cnt = s_cnt[k * C + m];
+          for (int i = a; i < b; ++i) {
+            const float v = f[i * C];
+            cnt = v > acc ? 1 : cnt + (v == acc);
+            acc = fmaxf(acc, v);
+          }
+          s_cnt[k * C + m] = cnt;
+        } else {
+          for (int i = a; i < b; ++i) acc = fmaxf(acc, f[i * C]);
+        }
+        s_acc[k * C + m] = acc;
+      } else if (m < C + 3) {
+        const int d = m - C;
+        float acc = s_sum[3 * k + d];
+        for (int i = a; i < b; ++i) acc += s_pos[3 * i + d];
+        s_sum[3 * k + d] = acc;
+      } else {
+        float t = s_tmax[k];
+        int ob = s_or[k];
+        for (int i = a; i < b; ++i) {
+          t = fmaxf(t, s_pos[3 * i + 2]);
+          ob |= s_bits[i];
+        }
+        s_tmax[k] = t;
+        s_or[k] = ob;
+      }
+    }
+    __syncthreads();
   }
-  if (lane < 3) {
-    float m = r / denom;
-    if (lane == 0) m = floorf((m + 1e-5f) * (float)W) * inv_w;
-    if (lane == 1) m = floorf((m + 1e-5f) * (float)H) * inv_h;
-    pos_out[3 * cell + lane] = count > 0 ? m : 0.f;
-  } else if (lane == 3) {
-    tmax[cell] = r;
-    cmask[cell] = count > 0;
-  } else if (lane == 4) {
-    adj[cell] = ob;
+  for (int e = tid; e < nc * C; e += nt) {
+    const int count = s_start[e / C + 1] - s_start[e / C];
+    const size_t o = (size_t)g0 * C + e;
+    pooled[o] = mean ? s_acc[e] / (float)max(count, 1)
+                     : count > 0 ? s_acc[e] : 0.f;
+    if (TIES) ties[o] = s_cnt[e];
   }
+  for (int e = tid; e < 3 * nc; e += nt) {
+    const int k = e / 3, d = e - 3 * k;
+    const int count = s_start[k + 1] - s_start[k];
+    float m = s_sum[e] / (float)max(count, 1);
+    if (d == 0) m = floorf((m + 1e-5f) * (float)W) * inv_w;
+    if (d == 1) m = floorf((m + 1e-5f) * (float)H) * inv_h;
+    pos_out[3 * (size_t)g0 + e] = count > 0 ? m : 0.f;
+  }
+  for (int k = tid; k < nc; k += nt) {
+    tmax[g0 + k] = s_tmax[k];
+    cmask[g0 + k] = s_start[k + 1] > s_start[k];
+    adj[g0 + k] = s_or[k];
+  }
+}
+
+// K3 step 3's shape: `cells` a block, `threads` a block and `tile` rows
+// staged at a time, in `smem` bytes of dynamic shared memory.
+struct CellPass {
+  int cells, threads, tile;
+  size_t smem;
+};
+
+size_t cell_pass_smem(int cells, int tile, int C) {
+  return 4 * ((size_t)tile * (C + 4) + cells + 1 + (size_t)cells * (2 * C + 5));
+}
+
+// The cell pass's shape at C channels, G cells and M nodes (the file's
+// note): an event level, more than 8 nodes a cell, stages 256 rows a
+// tile, a pooled level 32; a cell a block up to 16,384 and 2,048 cells,
+// 8 beyond.  A tile shrinks to keep a block within 48 KB of shared
+// memory; tile 0: C too wide for it.
+CellPass cell_pass_plan(int C, int G, long long M) {
+  const bool runs = M > 8ll * G;
+  CellPass p{G > (runs ? 16384 : 2048) ? 8 : 1, 128, runs ? 256 : 32, 0};
+  while (p.tile > 1 && cell_pass_smem(p.cells, p.tile, C) > 48 * 1024)
+    p.tile >>= 1;
+  if (cell_pass_smem(p.cells, p.tile, C) > 48 * 1024) p.tile = 0;
+  p.smem = cell_pass_smem(p.cells, p.tile, C);
+  return p;
 }
 
 // K8's ring update and K10: a level-1 update by one chunk; see the
@@ -674,10 +758,12 @@ extern "C" int dagr_voxel_pool(
     float inv_h, void* order, void* cell_start, void* seg_out, void* ties,
     void* scratch, void* pooled, void* pos_out, void* cmask, void* tmax,
     void* nbr_out, void* mask_out, void* stream) {
-  // ids of nodes, cells and a cell's lanes (pool_cells_kernel) are ints
-  if ((long long)B * N > INT_MAX || 32ll * B * ny * nx > INT_MAX)
+  // ids of nodes and of (cell, stencil slot) pairs are ints
+  if ((long long)B * N > INT_MAX || 9ll * B * ny * nx > INT_MAX)
     return (int)cudaErrorInvalidValue;
   const int G = B * ny * nx, M = B * N;
+  const CellPass plan = cell_pass_plan(C, G, M);
+  if (plan.tile < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int* seg = (int*)seg_out;
   int* bits = (int*)scratch;
@@ -694,14 +780,15 @@ extern "C" int dagr_voxel_pool(
   if (err == 0) err = dagr_run_starts(keys_s, M, G + 1, cell_start, s);
   if (err != 0) return err;
   if (G > 0) {
-    const int threads = 256;   // 8 warps, one cell each
     auto cells = mean || !ties ? pool_cells_kernel<false>
                                : pool_cells_kernel<true>;
-    cells<<<(G + 7) / 8, threads, 0, s>>>(
+    const int vec = C % 4 == 0 && (uintptr_t)feat % 16 == 0;
+    cells<<<(G + plan.cells - 1) / plan.cells, plan.threads, plan.smem, s>>>(
         (const int*)order, (const int*)cell_start, (const float*)feat,
-        (const float*)pos, bits, G, C, mean, W, H, inv_w, inv_h,
-        (float*)pooled, (float*)pos_out, (uint8_t*)cmask, (float*)tmax, adj,
-        (int*)ties);
+        (const float*)pos, bits, G, C, mean, vec, plan.cells, plan.tile, W,
+        H, inv_w, inv_h, (float*)pooled, (float*)pos_out, (uint8_t*)cmask,
+        (float*)tmax, adj, (int*)ties);
+    const int threads = 256;
     pool_stencil_kernel<<<(G * 9 + threads - 1) / threads, threads, 0, s>>>(
         (const uint8_t*)cmask, (const float*)tmax, adj, G, ny, nx, temporal,
         (int*)nbr_out, (uint8_t*)mask_out);

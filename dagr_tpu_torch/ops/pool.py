@@ -265,9 +265,9 @@ def _pool_graph_cuda(feat, pos, mask, nbr, nbr_mask, nbr_dpos, *, grid_ny,
     if nbr_dpos is not None and (nbr_dpos.shape != (B, N, K, 2)
                                  or nbr_dpos.dtype != torch.float32):
         raise ValueError("pool_graph: nbr_dpos must be f32 [B, N, K, 2]")
-    if M > 2**31 - 1 or 32 * G > 2**31 - 1:
-        raise ValueError(f"pool_graph: {M} nodes and {G} cells (a warp "
-                         "each) must have int32 ids")
+    if M > 2**31 - 1 or 9 * G > 2**31 - 1:
+        raise ValueError(f"pool_graph: {M} nodes and {G} cells (9 stencil "
+                         "slots each) must have int32 ids")
     feat, pos = feat.contiguous(), pos.contiguous()
     mask, nbr_mask = mask.contiguous(), nbr_mask.contiguous()
     src = nbr_dpos.contiguous() if nbr_dpos is not None else nbr.contiguous()

@@ -31,6 +31,12 @@ its routes counted (17 fused blocks, 3 split convs), K3 at the fusion
 widths 80 and 128 bit-equal to its twin, features included, and the
 split conv and its backward at 130 -> 64, K = 9.
 
+K3's cell pass on windows drawn like the benchmark's sync mix (runs of
+hundreds of rows) at DAGR-S's and DAGR-L's four grids, every output
+equal to its twin's, max features included; one cell of 2,400 rows
+planted so that the reverse summation order floors its pooled x to
+another pixel; the tie counts at C = 16 and 80 on such a window.
+
 Sizes the published configs never reach: K4's one launch (decode, top K
 and NMS) at 175, 400, 960 and 4032 anchors and max_out 50, 300 and 2000
 (boxes and scores bit-equal to the twin on the card, one launch and one
@@ -1741,6 +1747,37 @@ def pool_runs_case(case, dev):
     return NodeSet(feat=x, pos=ev.pos, mask=ev.mask, graph=graph)
 
 
+def pool_against_twin(ns, dev, with_ties=False, **kw):
+    """K3 on ``ns`` (with the tie counts: the training instantiation)
+    against sorted_runs (order, cell_start), the cell ids (seg) and the
+    twin on the CPU (every output torch.equal, features included);
+    returns the entry's (outputs, order, cell_start, seg, ties)."""
+    B = ns.feat.shape[0]
+    gy, gx = kw["grid_ny"], kw["grid_nx"]
+    args = (ns.feat, ns.pos, ns.mask, ns.graph.nbr, ns.graph.nbr_mask,
+            ns.graph.nbr_dpos)
+    res = _pool_graph_cuda(*args, **kw, with_ties=with_ties)
+    got, order, start, seg, _ = res
+    cell = _cell(ns.pos[..., 0], gx) + gx * _cell(ns.pos[..., 1], gy)
+    base = torch.arange(B, device=dev)[:, None] * (gy * gx)
+    key = torch.where(ns.mask, base + cell, B * gy * gx).reshape(-1)
+    _, want_order, want_start = sorted_runs(key, B * gy * gx)
+    torch.cuda.synchronize()
+    assert torch.equal(order, want_order) and torch.equal(start, want_start)
+    assert torch.equal(seg, key.int())
+    want = pool_graph_plain(*[a.cpu() if a is not None else None
+                              for a in args], **kw)
+    for name, a, b in zip(("feat", "pos", "mask", "nbr", "nbr_mask",
+                           "tmax"), got, want):
+        assert torch.equal(a.cpu(), b), name
+    return res
+
+
+def longest_run(start):
+    return int((start[1:] - start[:-1]).max())
+
+
+
 @pytest.mark.parametrize("case", ["all_invalid", "one_cell",
                                   "batch8_full_grid", "ragged_tile"])
 def test_voxel_pool_runs_and_outputs(dev, case):
@@ -1751,28 +1788,10 @@ def test_voxel_pool_runs_and_outputs(dev, case):
     sources' positions); N not a multiple of the sort's 2048-key tile."""
     ns = pool_runs_case(case, dev)
     for gy, gx in ((40, 56), (20, 28)):
-        B, N, _ = ns.feat.shape
-        args = (ns.feat, ns.pos, ns.mask, ns.graph.nbr, ns.graph.nbr_mask,
-                ns.graph.nbr_dpos)
         kw = dict(grid_ny=gy, grid_nx=gx, width=W, height=H, aggr="max",
                   keep_temporal_ordering=False)
-        got, order, start, seg, _ = _pool_graph_cuda(*args, **kw)
-        cell = _cell(ns.pos[..., 0], gx) + gx * _cell(ns.pos[..., 1], gy)
-        base = torch.arange(B, device=dev)[:, None] * (gy * gx)
-        key = torch.where(ns.mask, base + cell, B * gy * gx).reshape(-1)
-        _, want_order, want_start = sorted_runs(key, B * gy * gx)
-        torch.cuda.synchronize()
-        assert torch.equal(order, want_order) and torch.equal(start, want_start)
-        assert torch.equal(seg, key.int())
-        want = pool_graph_plain(*[a.cpu() if a is not None else None
-                                  for a in args], **kw)
-        for name, a, b in zip(("feat", "pos", "mask", "nbr", "nbr_mask",
-                               "tmax"), got, want):
-            if name == "feat":
-                assert float((a.cpu() - b).abs().max()) <= 1e-5
-            else:
-                assert torch.equal(a.cpu(), b), name
-        feat, pos, mask, nbr, nbr_mask, tmax = got
+        feat, pos, mask, nbr, nbr_mask, tmax = pool_against_twin(
+            ns, dev, **kw)[0]
         ns = NodeSet(feat=feat, pos=pos, mask=mask,
                      graph=EventGraph(nbr=nbr, nbr_mask=nbr_mask),
                      tmax=tmax, grid_hw=(gy, gx))
@@ -1923,29 +1942,10 @@ def test_voxel_pool_at_large_grids(dev, grid, aggr):
     ns = pool_runs_case("batch8_full_grid", dev)
     gy, gx = grid
     for ny, nx in ((gy, gx), (gy // 2, gx // 2)):
-        B = ns.feat.shape[0]
-        args = (ns.feat, ns.pos, ns.mask, ns.graph.nbr, ns.graph.nbr_mask,
-                ns.graph.nbr_dpos)
         kw = dict(grid_ny=ny, grid_nx=nx, width=W, height=H, aggr=aggr,
                   keep_temporal_ordering=True)
-        got, order, start, seg, ties = _pool_graph_cuda(
-            *args, **kw, with_ties=aggr == "max")
-        cell = _cell(ns.pos[..., 0], nx) + nx * _cell(ns.pos[..., 1], ny)
-        base = torch.arange(B, device=dev)[:, None] * (ny * nx)
-        key = torch.where(ns.mask, base + cell, B * ny * nx).reshape(-1)
-        _, want_order, want_start = sorted_runs(key, B * ny * nx)
-        torch.cuda.synchronize()
-        assert torch.equal(order, want_order)
-        assert torch.equal(start, want_start)
-        assert torch.equal(seg, key.int())
-        want = pool_graph_plain(*[a.cpu() if a is not None else None
-                                  for a in args], **kw)
-        for name, a, b in zip(("feat", "pos", "mask", "nbr", "nbr_mask",
-                               "tmax"), got, want):
-            if name == "feat":
-                assert float((a.cpu() - b).abs().max()) <= 1e-5
-            else:
-                assert torch.equal(a.cpu(), b), name
+        got, _, start, seg, ties = pool_against_twin(
+            ns, dev, with_ties=aggr == "max", **kw)
         _, _, want_ties = pool_backward_tables(ns.feat, ns.pos, ns.mask,
                                                got[0], **kw)
         assert (ties is None) == (want_ties is None)
@@ -2037,6 +2037,140 @@ def test_voxel_pool_at_fusion_widths(dev, C, level, aggr):
     for name, a, b in zip(("feat", "pos", "mask", "nbr", "nbr_mask", "tmax"),
                           got, want):
         assert torch.equal(a.cpu(), b), name
+
+
+SYNC_H = 215           # DSEC-Det's frame: 320 x 215
+
+
+def sync_like_window(seed, dev, N=50_000):
+    """One window drawn like the benchmark's sync mix: 44-46k events
+    around 6 clusters of sigma 0.05 x H at 320 x 215, so the first
+    grid's most crowded cells hold hundreds of rows."""
+    rng = np.random.default_rng(seed)
+    nv = int(rng.integers(44_000, 46_001))
+    pos, feat, mask = random_event_arrays(rng, 1, N, W, SYNC_H, n_valid=nv)
+    ev = EventBatch(pos=torch.from_numpy(pos), feat=torch.from_numpy(feat),
+                    mask=torch.from_numpy(mask), width=W, height=SYNC_H)
+    return ev.to(dev)
+
+
+@pytest.mark.parametrize("seed,width", [(0, 64), (4, 128)])
+def test_voxel_pool_crowded_sync_window(dev, seed, width):
+    """K3's cell pass on windows drawn like the sync mix (longest runs
+    near 600 rows at 40 x 56) at the four grids as DAGR-S (width 64) and
+    DAGR-L (128) pool them (max, max, max, mean; 16 channels, then the
+    width): order and cell_start bit-equal to sorted_runs, every output
+    torch.equal to the twin on the CPU, max features included."""
+    ev = sync_like_window(seed, dev)
+    graph = build_graph(ev.pos_px(), ev.mask, **dict(GRAPH_KW, height=SYNC_H))
+    g = torch.Generator().manual_seed(seed)
+    ns = NodeSet(feat=torch.randn((1, ev.num_nodes, 16), generator=g).to(dev),
+                 pos=ev.pos, mask=ev.mask, graph=graph)
+    runs = []
+    for level, (gy, gx) in enumerate(DagrConfig().grid_shapes()):
+        kw = dict(grid_ny=gy, grid_nx=gx, width=W, height=SYNC_H,
+                  aggr="mean" if level == 3 else "max",
+                  keep_temporal_ordering=False)
+        got, _, start, _, _ = pool_against_twin(ns, dev, **kw)
+        runs.append(longest_run(start))
+        _, pos, mask, nbr, nbr_mask, tmax = got
+        feat = torch.randn((1, gy * gx, width), generator=g).to(dev)
+        ns = NodeSet(feat=feat, pos=pos, mask=mask,
+                     graph=EventGraph(nbr=nbr, nbr_mask=nbr_mask),
+                     tmax=tmax, grid_hw=(gy, gx))
+    assert runs[0] >= 300 and max(runs[1:]) <= 4, runs
+
+
+def planted_cell_x(rng, n, W):
+    """n pixel columns of one 40 x 56 cell (x 229-234 of 320) whose mean,
+    summed in node order in float32, floors to another pixel than the same
+    values summed in reverse: (the float32 values, the node-order and the
+    reversed pooled x)."""
+    def pooled(v):
+        s = np.cumsum(v, dtype=np.float32)[-1]      # in order, in float32
+        m = np.float32(s / np.float32(len(v)))
+        return np.float32(np.floor(np.float32((m + np.float32(1e-5))
+                                              * np.float32(W)))
+                          * np.float32(1 / W))
+
+    for _ in range(100):
+        px = rng.integers(229, 235, n)
+        k = int(round(px.mean()))
+        # exact means a few 1e-3 px around a floor's step, where the sum's
+        # rounding decides the pixel
+        for d in range(-12, 4):
+            q, excess = px.copy(), int(px.sum()) - (n * k + d)
+            while excess:
+                i = rng.integers(n)
+                step = 1 if excess > 0 else -1
+                if 229 <= q[i] - step <= 234:
+                    q[i] -= step
+                    excess -= step
+            v = (q / W).astype(np.float32)
+            fwd, rev = pooled(v), pooled(v[::-1])
+            if fwd != rev:
+                return v, fwd, rev
+    raise AssertionError("no planted sequence found")
+
+
+def test_voxel_pool_position_sums_run_in_node_order(dev):
+    """One cell of 2,400 rows (several of the cell pass's tiles) whose x
+    positions are planted so that the mean floors to another pixel when
+    the rows are summed in reverse (asserted, so the test has teeth):
+    K3's pooled x is the node-order float32 sum's, its y and t too, and
+    every output equals the twin's on the CPU."""
+    rng = np.random.default_rng(22)
+    n, N = 2400, 3000
+    v, fwd, rev = planted_cell_x(rng, n, W)
+    assert fwd != rev
+    pos = np.zeros((1, N, 3), np.float32)
+    pos[0, :n, 0] = v
+    pos[0, :n, 1] = (rng.integers(108, 113, n) / SYNC_H).astype(np.float32)
+    pos[0, n:, 0] = (rng.integers(0, 160, N - n) / W).astype(np.float32)
+    pos[0, n:, 1] = (rng.integers(0, SYNC_H, N - n) / SYNC_H).astype(
+        np.float32)
+    pos[0, :, 2] = np.sort(rng.random(N)).astype(np.float32)
+    mask = np.ones((1, N), bool)
+    feat = rng.standard_normal((1, N, 16)).astype(np.float32)
+    feat, pos, mask = (torch.from_numpy(a).to(dev) for a in (feat, pos, mask))
+    nbr = torch.zeros((1, N, 1), dtype=torch.int32, device=dev)
+    ns = NodeSet(feat=feat, pos=pos, mask=mask,
+                 graph=EventGraph(nbr=nbr, nbr_mask=mask[..., None]))
+    kw = dict(grid_ny=40, grid_nx=56, width=W, height=SYNC_H, aggr="max",
+              keep_temporal_ordering=False)
+    got, _, start, _, _ = pool_against_twin(ns, dev, **kw)
+    assert longest_run(start) == n
+    cell = 40 + 56 * 20
+    p = pos[0, :n].cpu().numpy()
+    s = np.zeros(3, np.float32)
+    for row in p:
+        s = (s + row).astype(np.float32)
+    m = (s / np.float32(n)).astype(np.float32)
+    y = np.float32(np.floor(np.float32((m[1] + np.float32(1e-5))
+                                       * np.float32(SYNC_H)))
+                   * np.float32(1 / SYNC_H))
+    out = got[1][0, cell].cpu().numpy()
+    assert out[0] == fwd and out[0] != rev
+    assert out[1] == y and out[2] == m[2]
+
+
+@pytest.mark.parametrize("C", [16, 80])
+def test_voxel_pool_ties_on_a_crowded_window(dev, C):
+    """The training instantiation of K3's cell pass (tie counts) at C = 16
+    (the event level) and 80 (the fusion model's first pooling) on a
+    sync-like window with features of three values: the tie counts equal
+    a recount of feat == pooled, the outputs the twin's."""
+    ev = sync_like_window(4, dev)
+    graph = build_graph(ev.pos_px(), ev.mask, **dict(GRAPH_KW, height=SYNC_H))
+    g = torch.Generator().manual_seed(C)
+    feat = torch.randn((1, ev.num_nodes, C), generator=g).round().clamp(-1, 1)
+    ns = NodeSet(feat=feat.to(dev), pos=ev.pos, mask=ev.mask, graph=graph)
+    kw = dict(grid_ny=40, grid_nx=56, width=W, height=SYNC_H, aggr="max",
+              keep_temporal_ordering=False)
+    got, _, start, _, ties = pool_against_twin(ns, dev, with_ties=True, **kw)
+    _, _, want = pool_backward_tables(ns.feat, ns.pos, ns.mask, got[0], **kw)
+    assert torch.equal(ties, want)
+    assert longest_run(start) >= 300 and int(ties.max()) >= 100
 
 
 def test_split_conv_at_the_fusion_width(dev):
