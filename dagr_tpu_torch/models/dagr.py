@@ -49,27 +49,30 @@ class DAGR(nn.Module):
         self.cfg, self.height, self.width = cfg, height, width
         img_ch = cfg.channels()[1:] if cfg.use_image else None
         self.backbone = Net(cfg, height, width, image_channels=img_ch)
-        self.head = GNNHead(cfg, self.backbone.out_channels[-cfg.num_scales:],
-                            width)
+        self.head = GNNHead(cfg, self.backbone.out_channels, width)
         if cfg.use_image:
             self.cnn = CNNFeatures(cfg.img_net, img_ch, OUTPUT_CHANNELS)
             self.cnn_head = CNNHead(cfg.num_classes, OUTPUT_CHANNELS,
                                     cfg.yolo_stem_width, cfg.num_scales)
 
     def forward(self, events: EventBatch,
-                image: Optional[torch.Tensor] = None):
+                image: Optional[torch.Tensor] = None,
+                collect: Optional[dict] = None):
         """Raw head outputs [B, A, 5 + num_classes] (logits); with image
-        fusion ``(hybrid_raw, image_raw)``, both of that shape."""
+        fusion ``(hybrid_raw, image_raw)``, both of that shape.
+        ``collect``, when given, receives every stage of the event side
+        (conv_block1, pool1..4, layer2..5, head_scale*, raw)."""
         if not self.cfg.use_image:
             if image is not None:
                 raise ValueError("an events-only DAGR takes no image")
-            return self.head(self.backbone(events))
+            return self.head(self.backbone(events, collect=collect),
+                             collect=collect)
         if image is None:
             raise ValueError("a fusion DAGR (cfg.use_image) needs an image")
         feats, cnn_outs = self.image_branch(image)
-        nodes = self.backbone(events, [f.detach() for f in feats])
+        nodes = self.backbone(events, [f.detach() for f in feats], collect)
         hybrid = self.head(nodes, [tuple(t.detach() for t in triple)
-                                   for triple in cnn_outs])
+                                   for triple in cnn_outs], collect)
         return hybrid, flat_raw(cnn_outs)
 
     def image_branch(self, image: torch.Tensor):

@@ -105,31 +105,49 @@ class ScaleHead(nn.Module):
 
 
 class GNNHead(nn.Module):
-    """Multi-scale head; returns raw per-anchor outputs [B, A, 5 + C]."""
+    """Multi-scale head over the last ``cfg.num_scales`` levels of the
+    backbone, whose widths are ``in_channels``; returns raw per-anchor
+    outputs [B, A, 5 + C]."""
 
     def __init__(self, cfg: DagrConfig, in_channels: Tuple[int, ...],
                  width: int):
         super().__init__()
+        self.num_scales = cfg.num_scales
+        in_channels = self.inputs(in_channels)
         n_reg = max(in_channels)
-        mvs = cfg.cartesian_max_values(width)[-len(in_channels):]
+        mvs = self.inputs(cfg.cartesian_max_values(width))
         for k, cin in enumerate(in_channels):
             self.add_module(f"scale{k + 1}", ScaleHead(
                 cin, n_reg, cfg.num_classes, mvs[k], cfg.activation,
                 cfg.kernel_size))
 
-    def forward(self, xin: List[NodeSet],
-                cnn_outs: Optional[Sequence[Tuple[torch.Tensor, ...]]] = None
-                ) -> torch.Tensor:
-        """``cnn_outs``: per scale the (cls, reg, obj) canvases
+    def inputs(self, levels: Sequence) -> list:
+        """The entries of ``levels`` (one a backbone level, coarsest
+        last: NodeSets, widths or any per-level value) that the head's
+        scales read: the last ``num_scales``."""
+        return list(levels[-self.num_scales:])
+
+    def forward(self, levels: List[NodeSet],
+                cnn_outs: Optional[Sequence[Tuple[torch.Tensor, ...]]] = None,
+                collect: Optional[dict] = None) -> torch.Tensor:
+        """``levels``: the backbone's levels (``Net.pyramid``).
+        ``cnn_outs``: per scale the (cls, reg, obj) canvases
         [B, ny, nx, C] of the image branch, added as they are (the caller
-        detaches them)."""
+        detaches them).  ``collect``, when given, receives each scale's
+        raw outputs [B, ny * nx, 5 + C] as head_scale{k} and the whole as
+        raw."""
         outs = []
-        for k, ns in enumerate(xin):
+        for k, ns in enumerate(self.inputs(levels)):
             out = getattr(self, f"scale{k + 1}")(ns)
             if cnn_outs is not None:
                 out = tuple(o + c for o, c in zip(out, cnn_outs[k]))
+            if collect is not None:
+                collect[f"head_scale{k + 1}"] = flat_raw([out])
             outs.append(out)
-        return flat_raw(outs)
+        raw = flat_raw(outs)
+        if collect is not None:
+            collect["raw"] = raw
+        return raw
 
 
 def flat_raw(outs) -> torch.Tensor:

@@ -11,52 +11,11 @@ from typing import Dict, Tuple
 
 import torch
 
-from dagr_tpu_torch.core.types import EventBatch, NodeSet
-from dagr_tpu_torch.graph.build import build_graph
+from dagr_tpu_torch.core.types import EventBatch
 from dagr_tpu_torch.models.dagr import DAGR
-from dagr_tpu_torch.models.net import with_rel_delta
-from dagr_tpu_torch.ops.pool import pool_nodeset
 
 
 @torch.no_grad()
-def sync_activations(model: DAGR, events: EventBatch
-                     ) -> Dict[str, torch.Tensor]:
-    """The eval forward of ``model`` on ``events``, every stage kept:
-    conv_block1, pool1..4, layer2..5, head_scale*, raw."""
-    cfg, W, H = model.cfg, model.width, model.height
-    net = model.backbone
-    acts: Dict[str, torch.Tensor] = {}
-    graph = build_graph(
-        events.pos_px(), events.mask, width=W, height=H,
-        radius=cfg.radius_px(W), delta_t_us=cfg.delta_t_us(),
-        max_neighbors=cfg.max_neighbors, queue_size=cfg.max_queue_size)
-    ns = NodeSet(feat=events.feat, pos=events.pos, mask=events.mask,
-                 graph=graph)
-    ns = net.conv_block1(with_rel_delta(ns))
-    acts["conv_block1"] = ns.feat
-    outs = []
-    for li, name in enumerate(("layer2", "layer3", "layer4", "layer5")):
-        ny, nx = cfg.grid_shapes()[li]
-        ns = pool_nodeset(
-            ns, grid_ny=ny, grid_nx=nx, width=W, height=H,
-            aggr="mean" if li == 3 else cfg.pooling_aggr,
-            keep_temporal_ordering=cfg.keep_temporal_ordering)
-        acts[f"pool{li + 1}"] = ns.feat
-        ns = getattr(net, name)(with_rel_delta(ns))
-        acts[name] = ns.feat
-        if name == "layer4":
-            outs.append(ns)
-    outs.append(ns)
-    raws = []
-    for k, o in enumerate(outs[-cfg.num_scales:]):
-        cls_o, reg_o, obj_o = getattr(model.head, f"scale{k + 1}")(o)
-        out = torch.cat([reg_o, obj_o, cls_o], dim=-1)
-        acts[f"head_scale{k + 1}"] = out
-        raws.append(out.reshape(out.shape[0], -1, out.shape[-1]))
-    acts["raw"] = torch.cat(raws, dim=1)
-    return acts
-
-
 def check_consistency(model: DAGR, events: EventBatch, chunk: int = 1024,
                       tol: float = 1e-3) -> Tuple[bool, Dict[str, float]]:
     """Stream sample 0's valid events through a grow-mode
@@ -65,7 +24,10 @@ def check_consistency(model: DAGR, events: EventBatch, chunk: int = 1024,
     diff)."""
     from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
 
-    sync = sync_activations(model, events)
+    # the sync forward, every stage kept: conv_block1, pool1..4,
+    # layer2..5, head_scale*, raw
+    sync: Dict[str, torch.Tensor] = {}
+    model(events, collect=sync)
     eng = StreamingDetector(model, model.height, model.width, chunk=chunk,
                             count_flops=False)
     dev = events.pos.device
@@ -78,7 +40,10 @@ def check_consistency(model: DAGR, events: EventBatch, chunk: int = 1024,
     n = min(nv, eng.capacity)
     diffs = {"conv_block1": float(
         (state.x2[:n] - sync["conv_block1"][0, :n]).abs().max())}
-    for name, a in eng.tail_activations(state).items():
-        ref = sync[name]
-        diffs[name] = float((a.reshape(ref.shape) - ref).abs().max())
+    # the engine's dense tail on its final state, every stage kept
+    acts: Dict[str, torch.Tensor] = {}
+    model.head(model.backbone.pyramid(eng.level1_nodeset(state),
+                                      collect=acts), collect=acts)
+    for name, a in acts.items():
+        diffs[name] = float((a - sync[name]).abs().max())
     return all(v <= tol for v in diffs.values()), diffs

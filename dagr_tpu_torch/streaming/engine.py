@@ -39,6 +39,7 @@ step run eagerly (``utils.graphs.StepGraphs``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -49,13 +50,9 @@ from dagr_tpu_torch.core.types import EventGraph, NodeSet
 from dagr_tpu_torch.graph.build import search_edges_into_store
 from dagr_tpu_torch.models.dagr import DAGR
 from dagr_tpu_torch.models.functional import event_block
-from dagr_tpu_torch.models.net import with_rel_delta
 from dagr_tpu_torch.ops.pool import (
-    _cell, _inv, accumulate_cells, pool_graph, pool_nodeset, stencil_srcs,
-    stencil_table)
+    _cell, _inv, accumulate_cells, pool_graph, stencil_srcs, stencil_table)
 from dagr_tpu_torch.utils.graphs import StepGraphs
-
-_LAYERS = ("layer2", "layer3", "layer4", "layer5")
 
 
 class DeviceConsts:
@@ -108,6 +105,82 @@ def level1_from_aggregates(cell_cnt, pos_sum, feat_max, adj, tmax, wh, *,
                    tmax=tmax, grid_hw=(ny, nx))
 
 
+@functools.lru_cache(maxsize=None)
+def _parent_cells(fine: Tuple[int, int], coarse_nx: int,
+                  device: torch.device) -> torch.Tensor:
+    """Parent cell on the next, halved grid (``coarse_nx`` columns) of
+    every cell of the grid ``fine`` (ny, nx), on ``device``."""
+    ny0, nx0 = fine
+    c0 = torch.arange(ny0 * nx0)
+    return ((c0 % nx0) // 2 + coarse_nx * ((c0 // nx0) // 2)).to(device)
+
+
+def flop_census(model: DAGR, levels: List[NodeSet], chunk_nbr_mask, cv,
+                cell_c) -> Dict[str, torch.Tensor]:
+    """Sparse-equivalent FLOPs of one streaming step (the reference's
+    asynchronous/flops/conv.py formulas, as dagr_tpu counts them): the
+    event level's convs over the chunk's edges ``chunk_nbr_mask`` [C, K]
+    and valid rows ``cv`` [C], then every conv of levels 2-5 and the
+    head over the cells that the chunk's level-1 cells ``cell_c`` [C]
+    (G1: none) reach through each conv's stencil edges, pooled to their
+    parents between levels.  ``levels`` are ``Net.pyramid``'s outputs
+    at batch 1; only their graphs and widths are read.  Keys are the
+    convs' module paths, and ``total``."""
+    cfg, ch = model.cfg, model.cfg.channels()
+    grids = cfg.grid_shapes()
+    dev = cv.device
+    flops: Dict[str, torch.Tensor] = {}
+    e0, n0 = chunk_nbr_mask.sum(), cv.sum()
+    cin0 = ch[0] + 2
+    flops["conv_block1.conv_block1"] = (
+        e0 * (2 * cin0 - 1) * ch[1] + n0 * ch[1] * (2 * cin0 - 1))
+    flops["conv_block1.conv_block2"] = (
+        e0 * (2 * ch[1] - 1) * ch[1]
+        + n0 * (ch[1] * (2 * ch[1] - 1) + ch[1] * (2 * cin0 - 1)))
+
+    def convs(aff, ns, prefix, plan):
+        """Counts ``plan``'s convs (name, cin, cout, whether the changed
+        set first spreads over the stencil edges) over level ``ns``,
+        starting from its changed cells ``aff``; returns the last set."""
+        nbrm, nbrs = ns.graph.nbr_mask[0], ns.graph.nbr[0].long()
+        for name, cin, cout, spreads in plan:
+            if spreads:
+                aff = aff | (aff[nbrs] & nbrm).any(-1)
+            e = (nbrm & aff[:, None]).sum()
+            flops[f"{prefix}.{name}"] = (
+                e * (2 * cin - 1) * cout + aff.sum() * cout * (2 * cin - 1))
+        return aff
+
+    G1 = grids[0][0] * grids[0][1]
+    changed = torch.zeros(G1 + 1, dtype=torch.bool, device=dev)
+    changed = changed.index_fill_(0, cell_c.long(), True)[:G1]
+    level_changed = []
+    for li, ns in enumerate(levels):
+        if li:
+            # pooled changed set: the parents of changed cells
+            g = grids[li]
+            parent = _parent_cells(grids[li - 1], g[1], dev)
+            changed = torch.zeros(g[0] * g[1], dtype=torch.int32,
+                                  device=dev).scatter_reduce_(
+                0, parent, changed.to(torch.int32), "amax") > 0
+        cout = ch[li + 2]
+        changed = convs(changed, ns, f"layer{li + 2}", [
+            ("conv_block1", ch[li + 1] + 2, cout, True),
+            ("conv_block2", cout, cout, True)])
+        level_changed.append(changed)
+
+    # the head's convs (the reference logs every async conv)
+    pairs = model.head.inputs(list(zip(level_changed, levels)))
+    n_reg = max(ns.feat.shape[-1] for _, ns in pairs)
+    for k, (aff, ns) in enumerate(pairs):
+        convs(aff, ns, f"head.scale{k + 1}", [
+            ("stem", ns.feat.shape[-1], n_reg, True),
+            ("cls_conv", n_reg, n_reg, True), ("reg_conv", n_reg, n_reg, True),
+            ("preds", n_reg, cfg.num_classes + 5, False)])
+    flops["total"] = sum(flops.values())
+    return flops
+
+
 @dataclass
 class StreamState:
     num: torch.Tensor          # i32 [] events ingested (= next virtual id)
@@ -156,8 +229,7 @@ class StreamingDetector:
         self.count_flops = count_flops
         self.window_mode = window_mode
         self.channels = cfg.channels()
-        self.grids = cfg.grid_shapes()
-        self.ny1, self.nx1 = self.grids[0]
+        self.ny1, self.nx1 = cfg.grid_shapes()[0]
         self.mv = cfg.cartesian_max_values(width)
         self._const = DeviceConsts()
 
@@ -286,8 +358,14 @@ class StreamingDetector:
                 state.adj, cell_c, x2, pos_norm, nbr, nbr_mask, state.cells,
                 grid_nx=nx1)
 
-        raw, flops = self._dense_tail(state, nbr_mask, cv, cell_c,
-                                      self.count_flops)
+        # ---- levels 2-5 and the head, recomputed densely --------------
+        model = self.model
+        levels = model.backbone.pyramid(self.level1_nodeset(state))
+        raw = model.head(levels)
+        if self.count_flops:
+            flops = flop_census(model, levels, nbr_mask, cv, cell_c)
+        else:
+            flops = {"total": torch.zeros((), dtype=torch.int64, device=dev)}
         return state, raw, flops
 
     def make_step(self):
@@ -331,121 +409,6 @@ class StreamingDetector:
             state.cell_cnt[None], state.pos_sum[None], state.cell_max[None],
             state.adj[None], state.tmax[None], wh, grid_ny=ny, grid_nx=nx,
             keep_temporal_ordering=cfg.keep_temporal_ordering)
-
-    def _dense_tail(self, state: StreamState, chunk_nbr_mask, cv, cell_c,
-                    count: bool, collect: Optional[dict] = None):
-        """Levels 2-5 and the head, recomputed densely, with the FLOP
-        census of the chunk when ``count``.  ``collect``, when given,
-        receives every stage under ``consistency.sync_activations``' names
-        (pool1..4, layer2..5, head_scale*, raw)."""
-        cfg, ch, grids = self.cfg, self.channels, self.grids
-        model = self.model
-        dev = state.pos.device
-        ns = self.level1_nodeset(state)
-        if collect is not None:
-            collect["pool1"] = ns.feat
-        flops: Dict[str, torch.Tensor] = {}
-
-        if count:
-            # sparse-equivalent FLOPs of the event level (the reference's
-            # asynchronous/flops/conv.py formulas, as dagr_tpu counts them)
-            e0, n0 = chunk_nbr_mask.sum(), cv.sum()
-            cin0 = ch[0] + 2
-            flops["conv_block1.conv_block1"] = (
-                e0 * (2 * cin0 - 1) * ch[1] + n0 * ch[1] * (2 * cin0 - 1))
-            flops["conv_block1.conv_block2"] = (
-                e0 * (2 * ch[1] - 1) * ch[1]
-                + n0 * (ch[1] * (2 * ch[1] - 1) + ch[1] * (2 * cin0 - 1)))
-            G1 = self.ny1 * self.nx1
-            changed = torch.zeros(G1 + 1, dtype=torch.bool, device=dev)
-            changed = changed.index_fill_(0, cell_c.long(), True)[:G1]
-
-        outs, snaps = [], []
-        for li, name in enumerate(_LAYERS):
-            ns = with_rel_delta(ns)
-            if count:
-                nbrm, nbrs = ns.graph.nbr_mask[0], ns.graph.nbr[0].long()
-                for conv_i in range(2):
-                    aff = changed | (changed[nbrs] & nbrm).any(-1)
-                    e = (nbrm & aff[:, None]).sum()
-                    cin = ns.feat.shape[-1] if conv_i == 0 else ch[li + 2]
-                    cout = ch[li + 2]
-                    flops[f"{name}.conv_block{conv_i + 1}"] = (
-                        e * (2 * cin - 1) * cout
-                        + aff.sum() * cout * (2 * cin - 1))
-                    changed = aff
-            ns = getattr(model.backbone, name)(ns)
-            if collect is not None:
-                collect[name] = ns.feat
-            if name == "layer4":
-                outs.append(ns)
-                if count:
-                    snaps.append((changed, ns))
-            if li < 3:
-                g = grids[li + 1]
-                ns = pool_nodeset(
-                    ns, grid_ny=g[0], grid_nx=g[1], width=self.width,
-                    height=self.height,
-                    aggr="mean" if li == 2 else cfg.pooling_aggr,
-                    keep_temporal_ordering=cfg.keep_temporal_ordering)
-                if collect is not None:
-                    collect[f"pool{li + 2}"] = ns.feat
-                if count:
-                    # pooled changed set: the parents of changed cells
-                    parent = self._const(f"parent{li}", dev, lambda: (
-                        self._parent_cells(li)))
-                    changed = torch.zeros(g[0] * g[1], dtype=torch.int32,
-                                          device=dev).scatter_reduce_(
-                        0, parent, changed.to(torch.int32), "amax") > 0
-        outs.append(ns)
-        if count:
-            snaps.append((changed, ns))
-            snaps = snaps[-cfg.num_scales:]
-        outs = outs[-cfg.num_scales:]
-
-        raws = []
-        n_reg = max(ch[-cfg.num_scales:])
-        for k, o in enumerate(outs):
-            if count:
-                # the head's convs (the reference logs every async conv)
-                aff, ns_k = snaps[k]
-                nbrm, nbrs = ns_k.graph.nbr_mask[0], ns_k.graph.nbr[0].long()
-                plan = [("stem", ns_k.feat.shape[-1], n_reg),
-                        ("cls_conv", n_reg, n_reg), ("reg_conv", n_reg, n_reg),
-                        ("preds", n_reg, cfg.num_classes + 5)]
-                for pname, ci, co in plan:
-                    if pname != "preds":
-                        aff = aff | (aff[nbrs] & nbrm).any(-1)
-                    e = (nbrm & aff[:, None]).sum()
-                    flops[f"head.scale{k + 1}.{pname}"] = (
-                        e * (2 * ci - 1) * co + aff.sum() * co * (2 * ci - 1))
-            cls_o, reg_o, obj_o = getattr(model.head, f"scale{k + 1}")(o)
-            out = torch.cat([reg_o, obj_o, cls_o], dim=-1)
-            if collect is not None:
-                collect[f"head_scale{k + 1}"] = out
-            raws.append(out.reshape(1, -1, out.shape[-1]))
-        raw = torch.cat(raws, dim=1)
-        if collect is not None:
-            collect["raw"] = raw
-        flops["total"] = (sum(flops.values()) if flops else
-                          torch.zeros((), dtype=torch.int64, device=dev))
-        return raw, flops
-
-    def _parent_cells(self, li: int) -> torch.Tensor:
-        """Parent cell on grid li + 1 of every cell of grid li."""
-        ny0, nx0 = self.grids[li]
-        c0 = torch.arange(ny0 * nx0)
-        return (c0 % nx0) // 2 + self.grids[li + 1][1] * ((c0 // nx0) // 2)
-
-    # ------------------------------------------------------------------
-    @torch.no_grad()
-    def tail_activations(self, state: StreamState) -> Dict[str, torch.Tensor]:
-        """The dense tail on the current state, every stage collected
-        (pool1..4, layer2..5, head_scale*, raw) for the consistency
-        harness.  Not part of the step."""
-        acts: Dict[str, torch.Tensor] = {}
-        self._dense_tail(state, None, None, None, False, collect=acts)
-        return acts
 
     # ------------------------------------------------------------------
     def init_states(self, n_streams: int, device=None) -> List[StreamState]:

@@ -58,10 +58,9 @@ from dagr_tpu_torch.graph.build import _spiral_tables, search_edges_streams
 from dagr_tpu_torch.models.blocks import activation_fn
 from dagr_tpu_torch.models.dagr import DAGR, detect
 from dagr_tpu_torch.models.functional import bn_eval
-from dagr_tpu_torch.models.net import with_rel_delta
 from dagr_tpu_torch.ops.nms import MAX_DETECTIONS
 from dagr_tpu_torch.ops.pool import (
-    _cell, _inv, accumulate_cells, cell_max, pool_nodeset, ring_update_cells)
+    _cell, _inv, accumulate_cells, cell_max, ring_update_cells)
 from dagr_tpu_torch.ops.spline import LevelEdges, spline_conv
 # chunk_streams is part of this module's interface: callers cut their
 # streams into the lockstep chunks that ``step`` takes with it
@@ -71,7 +70,6 @@ from dagr_tpu_torch.utils import trace
 from dagr_tpu_torch.utils.graphs import StepGraphs
 
 T_EMPTY = -(2 ** 30)   # time of an empty ring slot: fails every dt test
-_LAYERS = ("layer2", "layer3", "layer4", "layer5")
 
 
 @dataclass
@@ -135,8 +133,7 @@ class MultiStreamServer:
         if self.NR < 2 * chunk:
             raise ValueError("the ring must hold at least two chunks")
         self.c1 = cfg.channels()[1]
-        self.grids = cfg.grid_shapes()
-        self.ny1, self.nx1 = self.grids[0]
+        self.ny1, self.nx1 = cfg.grid_shapes()[0]
         self.mv = cfg.cartesian_max_values(width)
         self.radius = cfg.radius_px(width)
         self.delta_t = cfg.delta_t_us()
@@ -352,22 +349,8 @@ class MultiStreamServer:
 
     def dense_tail(self, state: ServeState) -> torch.Tensor:
         """Levels 2-5 and the head at batch S: raw [S, A, 5 + ncls]."""
-        cfg, backbone = self.cfg, self.model.backbone
-        ns = self.level1_nodeset(state)
-        outs = []
-        for li, name in enumerate(_LAYERS):
-            ns = getattr(backbone, name)(with_rel_delta(ns))
-            if name == "layer4":
-                outs.append(ns)
-            if li < 3:
-                gy, gx = self.grids[li + 1]
-                ns = pool_nodeset(
-                    ns, grid_ny=gy, grid_nx=gx, width=self.width,
-                    height=self.height,
-                    aggr="mean" if li == 2 else cfg.pooling_aggr,
-                    keep_temporal_ordering=cfg.keep_temporal_ordering)
-        outs.append(ns)
-        return self.model.head(outs[-cfg.num_scales:])
+        model = self.model
+        return model.head(model.backbone.pyramid(self.level1_nodeset(state)))
 
     # ------------------------------------------------------------------
     def run_chain(self, state: ServeState, chunks: Iterable, decode=False):

@@ -30,6 +30,7 @@ from dagr_tpu_torch.streaming.engine import StreamingDetector, chunk_events
 
 W, H = 64, 48
 KW = dict(max_neighbors=8, radius=0.05)
+TEMPORAL = (("num_scales", 1), ("keep_temporal_ordering", True))
 
 
 
@@ -43,10 +44,10 @@ def one_thread():
     yield
     torch.set_num_threads(n)
 
-@pytest.fixture(scope="module")
-def weights():
-    """(flax variables, the port's state_dict) of one seeded DAGR."""
-    cfg = JaxDagrConfig(n_nodes=512, node_chunk=512, **KW)
+def seeded_weights(cfg_kw=()):
+    """(flax variables, the port's state_dict) of one seeded DAGR with
+    the config overrides ``cfg_kw``."""
+    cfg = JaxDagrConfig(n_nodes=512, node_chunk=512, **KW, **dict(cfg_kw))
     ev = jax_random_events(np.random.default_rng(0), 1, 512, width=W,
                            height=H, n_valid=400)
     variables = jax.jit(lambda k, e: JaxDAGR(cfg, height=H, width=W).init(
@@ -54,8 +55,19 @@ def weights():
     return variables, from_flax(variables)
 
 
-def port_model(state_dict, n_nodes):
-    model = DAGR(DagrConfig(n_nodes=n_nodes, **KW), H, W)
+@pytest.fixture(scope="module")
+def weights():
+    return seeded_weights()
+
+
+@pytest.fixture(scope="module")
+def temporal_weights():
+    """One head scale and the temporal filter on the stencil edges."""
+    return seeded_weights(TEMPORAL)
+
+
+def port_model(state_dict, n_nodes, cfg_kw=()):
+    model = DAGR(DagrConfig(n_nodes=n_nodes, **KW, **dict(cfg_kw)), H, W)
     model.load_state_dict(state_dict)
     return model.eval()
 
@@ -69,18 +81,18 @@ def window(seed, n_nodes, n_valid):
 
 
 def run_both(weights, n_nodes, pos_px, feat, chunk, mode, check_step=None,
-             compiled=False):
+             compiled=False, cfg_kw=()):
     """Feed the same chunks to both engines, comparing raw (1e-4) and the
     FLOP census at every step; the port's step is ``make_step``'s with
-    ``compiled``.  Returns (jax engine, jax state, port engine, port
-    state, last raws)."""
+    ``compiled``; ``cfg_kw``: the weights' config overrides.  Returns
+    (jax engine, jax state, port engine, port state, last raws)."""
     variables, sd = weights
-    jeng = JaxStreaming(JaxDagrConfig(n_nodes=n_nodes, **KW), H, W,
-                        chunk=chunk, window_mode=mode)
+    jeng = JaxStreaming(JaxDagrConfig(n_nodes=n_nodes, **KW, **dict(cfg_kw)),
+                        H, W, chunk=chunk, window_mode=mode)
     jstep = jeng.make_step(variables["params"], variables["batch_stats"])
     jst = jeng.init_state()
-    eng = StreamingDetector(port_model(sd, n_nodes), H, W, chunk=chunk,
-                            window_mode=mode)
+    eng = StreamingDetector(port_model(sd, n_nodes, cfg_kw), H, W,
+                            chunk=chunk, window_mode=mode)
     st = eng.init_state()
     step = eng.make_step() if compiled else eng.step
     for c in chunk_events(pos_px, feat, chunk):
@@ -206,17 +218,43 @@ def test_grow_keeps_the_first_n_events():
     assert np.isfinite(raw.numpy()).all()
 
 
-def test_consistency_harness_matches_dagr_tpu(weights):
+def consistency_both(weights, cfg_kw=()):
+    """check_consistency of both packages on one window, chunks of 128:
+    both pass, with the same stages, each within 1e-4."""
     variables, sd = weights
     ev, _, _ = window(0, 512, 400)
     ok_j, diffs_j = jax_check_consistency(
-        variables, ev, JaxDagrConfig(n_nodes=512, node_chunk=512, **KW), H,
+        variables, ev,
+        JaxDagrConfig(n_nodes=512, node_chunk=512, **KW, **dict(cfg_kw)), H,
         W, chunk=128)
     events = EventBatch(pos=torch.tensor(np.asarray(ev.pos)),
                         feat=torch.tensor(np.asarray(ev.feat)),
                         mask=torch.tensor(np.asarray(ev.mask)),
                         width=W, height=H)
-    ok, diffs = check_consistency(port_model(sd, 512), events, chunk=128)
+    ok, diffs = check_consistency(port_model(sd, 512, cfg_kw), events,
+                                  chunk=128)
     assert ok and ok_j
     assert set(diffs) == set(diffs_j)
     assert max(diffs.values()) <= 1e-4, diffs
+    return diffs
+
+
+def test_consistency_harness_matches_dagr_tpu(weights):
+    consistency_both(weights)
+
+
+def test_grow_one_scale_temporal_matches_dagr_tpu(temporal_weights):
+    """One head scale and keep_temporal_ordering: raw 1e-4 and the FLOP
+    census (the head's convs over the last level only) every step."""
+    _, pos_px, feat = window(3, 512, 400)
+    jeng, jst, eng, st, _, raw = run_both(
+        temporal_weights, 512, pos_px, feat, 128, "grow", cfg_kw=TEMPORAL,
+        check_step=lambda j, p: assert_grow_aggregates_equal(j, p))
+    assert_store_equal(jst, st)
+    assert_level1_equal(eng.level1_nodeset(st), jeng._level1_nodeset(jst))
+    assert raw.shape[1] == np.prod(eng.cfg.output_sizes()[-1])
+
+
+def test_consistency_harness_one_scale_temporal(temporal_weights):
+    diffs = consistency_both(temporal_weights, TEMPORAL)
+    assert "head_scale1" in diffs and "head_scale2" not in diffs
