@@ -533,8 +533,9 @@ def check_fused_blocks(cap, what, card, wide=False):
     2*M*(26*Cin + Cs)*Cout operations at the 3xTF32 rate.  Returns the
     checks."""
     from dagr_tpu_torch.ops.spline import (
-        block_shared_memory, spline_conv_block, spline_conv_block_plain,
-        spline_conv_wide_block, wide_block_shared_memory)
+        block_form, block_shared_memory, spline_conv_block,
+        spline_conv_block_plain, spline_conv_wide_block,
+        wide_block_shared_memory)
 
     if wide:
         spline_conv_block, block_shared_memory = (spline_conv_wide_block,
@@ -554,8 +555,13 @@ def check_fused_blocks(cap, what, card, wide=False):
         a = spline_conv_block(*args, **kw)
         b = spline_conv_block_plain(*args, **kw)
         err, top = max_err(a, b), float(b.abs().max())
+        form = ""
+        if not wide:
+            s = block_form(cin, cout, cs, 5, K, M)
+            form = (" form=rows64" if s == -1 else f" form=cluster{s}"
+                    if s > 1 else " form=plain")
         at = (f"{what}: M={M} K={K} Cin={cin} Cout={cout} Cs={cs} "
-              f"bias={has_bias} act={act} x{n}")
+              f"bias={has_bias} act={act} x{n}{form}")
         require(err <= 1e-5 * top, f"{label} {at}: max |out - twin| = "
                 f"{err} against an output max of {top}")
         stats = [t for k in ("bn", "bn_skip") if kw.get(k) is not None
@@ -5268,6 +5274,8 @@ def eval_timings(cfg, out):
     busy = profiled(lambda: det(events[1]), 4)
     out["sync"] = summary(ms, busy)
     out["sync_fused"] = fused_outputs_hash(det, events[1])
+    # a batch of 8: its level 1 and 2 convs take the 64-row form
+    out["b8_fused"] = fused_outputs_hash(det, events_batch(events[1:9]))
     out["sync_pool"] = pool_outputs(det, events[1])
     # K4: detect's whole path (any checkout's) on one window's raw outputs
     raw1, _ = det(events[1])
@@ -5443,17 +5451,20 @@ def compare(parent: str, card, train_only=False):
               "poolings' outputs bit-identical in every turn (sha256 "
               f"{pooled.pop()[:16]})", flush=True)
     # a side's fused blocks are bit-identical from turn to turn; the two
-    # sides may sum in another order (a 16-row tile split over a cluster)
-    for side in ("parent", "change"):
-        fused = {t["sync_fused"]["sha256"] for label, t in runs
-                 if label == side and "sync_fused" in t}
-        if fused:
-            require(len(fused) == 1, f"the {side}'s sync-window fused-block "
-                    "outputs are bit-identical in each of its turns")
-            print(f"sync window: the {side}'s "
-                  f"{runs[0][1]['sync_fused']['calls']} fused-block outputs "
-                  "bit-identical in each of its turns (sha256 "
-                  f"{fused.pop()[:16]})", flush=True)
+    # sides may sum in another order (a 16-row tile split over a cluster,
+    # or the 64-row form's chunks)
+    for key, what in (("sync_fused", "sync window"),
+                      ("b8_fused", "batch of 8")):
+        for side in ("parent", "change"):
+            fused = {t[key]["sha256"] for label, t in runs
+                     if label == side and key in t}
+            calls = [t[key]["calls"] for _, t in runs if key in t]
+            if fused:
+                require(len(fused) == 1, f"the {side}'s {what} fused-block "
+                        "outputs are bit-identical in each of its turns")
+                print(f"{what}: the {side}'s {calls[0]} fused-block outputs "
+                      "bit-identical in each of its turns (sha256 "
+                      f"{fused.pop()[:16]})", flush=True)
     print(json.dumps({"compare": [{"run": label, **t} for label, t in runs]}),
           flush=True)
 

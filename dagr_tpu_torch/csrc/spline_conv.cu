@@ -77,6 +77,50 @@
 // split block costs ~8 us however thin its slice, which pays only while
 // the tiles leave SMs idle.
 //
+// The 16-row tile's 64-row form, for launches whose 16-row tiles fill
+// the card many times over (a batch of 8's 17,920- and 4,480-row convs:
+// 1,120 and 280 tiles, 8.5 and 2.1 waves).  There every 16-row block
+// reads all of B = [W ; root] (Cin 66: 1,716 x 64 floats, 440 KB) from
+// L2 again, so a launch reads the weights M / 16 times (490 MB at
+// 17,920 rows) and each block waits on its slabs one after another: what
+// bounds it is the weights' L2 reads and their latency, not the card's
+// bytes or operations (3.9 GFLOP, x3 in 3xTF32).  A block of the 64-row
+// form owns 64 rows and all of Cout and reads B once per 64 rows.  Its A
+// (64 x 1,720 floats) does not fit in shared memory, so it walks Cin in
+// chunks of 4 channels, as the split route does: A_chunk [64, 104] in
+// (channel, tap) column order, B_chunk the matching 104 rows.  16 warps:
+// 8 builder warps (4 threads a row) sum each chunk's tap products into
+// A_chunk (build_chunk's sums, entry by entry in slot order) from a
+// window of x's rows that the block copies into shared memory once (at a
+// pooled level the 3x3 stencil's 64 + 2 nx + 2 rows; x itself where the
+// tile's sources spread wider), with each entry's taps and weights
+// worked out once a tile; 8 product warps (an m-tile of 16 rows and half
+// the n-tiles each) multiply each chunk as it is built (3xTF32 mma.sync,
+// each chunk's products summed in the fragments, then added to float32
+// sums in registers).  B reaches shared memory through the bulk-copy
+// unit: a chunk's rows of one tap are contiguous in W, so a chunk is 26
+// copies of 1 KB (a tap's 4 rows, then root's), three chunks deep, an
+// mbarrier a stage, issued by a 17th warp of their own as each stage
+// frees (1,664 16-byte cp.async copies a chunk held a block to a few
+// GB/s, 104 bulk copies of a row each were slower still, and a product
+// warp issuing them held the others at its barriers).
+// A is double buffered, handed over by named barriers (built /
+// multiplied).  The skip product and the epilogue run in the block.
+// Not split-K: Cout <= 64 fits one block's registers, and a split would
+// add partial sums, atomics or a second kernel for the one place it could
+// pay, 4,480 rows (70 blocks on 132 SMs; 17,920 rows are 280); every sum
+// is in a fixed order, so two calls are bit-identical.  block_form
+// chooses among the plain tile, its cluster form and the 64-row form by
+// the same wave model, the 64-row form at waves of its blocks (one an
+// SM) x (1.55 units a chunk + 18.3), fitted on an H100 to the forced
+// forms' per-launch times at DAGR-S's B=1 and B=8 shapes (the fixed cost
+// raised from the fit's 16.8, as kRows64Cost's note says): a
+// block takes 66-76 us, against 31-34 us for a 16-row block, so the form
+// pays from about 3 waves of 16-row tiles on (serve's 17,920- and
+// 4,480-row convs; not the 2,240-row convs of a window, nor the
+// 1,120-row calls).  It takes Cout 16, 32 and 64 (a tap's
+// rows are copied dense) at ks = 5, with W and root 16-byte aligned.
+//
 // Cout 65-128 (DAGR-M's and -L's pooled levels and heads) is the wide
 // block's, dagr_spline_conv_wide_block (its note is with the split
 // route, whose chunked tile build it shares): the same computation,
@@ -1593,26 +1637,544 @@ double tile_cost(const Tile& t, long long blocks, bool cluster) {
 }
 
 // How many blocks (a cluster) split the depth of each 16-row tile of t
-// over M rows, and the tile they run (``run``): the s in {1, 2, 4, 8}
-// with the least tile_cost; 1 for the 64-row tile.  Shapes and the SM
-// count alone decide, so the answer is the same on every call.
-int block_split(const Tile& t, int cin, int cs, int ks, int M, Tile* run) {
+// over M rows, the tile they run (``run``) and its tile_cost (``cost``):
+// the s in {1, 2, 4, 8} with the least tile_cost; 1 for the 64-row tile.
+int block_split(const Tile& t, int cin, int cs, int ks, int M, Tile* run,
+                double* cost) {
   *run = t;
+  *cost = 0.0;
   if (t.mt != 1 || M <= 0) return 1;
   const long long tiles = (M + 15) / 16;
   int best = 1;
-  double cost = tile_cost(t, tiles, false);
+  *cost = tile_cost(t, tiles, false);
   for (int s = 2; s <= kMaxSplit; s *= 2) {
     Tile c;
     if (!cluster_tile(t, cin, cs, ks, s, &c)) continue;
     const double k = tile_cost(c, tiles * s, true);
-    if (k < cost) {
-      cost = k;
+    if (k < *cost) {
+      *cost = k;
       best = s;
       *run = c;
     }
   }
   return best;
+}
+
+// ---- the 16-row tile's 64-row form ---------------------------------------
+//
+// (See the note at the top.)  A block owns 64 rows and all of Cout and
+// walks Cin in chunks of kRows64Chunk channels.  It first copies the
+// window of x's rows that the tile's entries and its own rows read (at a
+// pooled level the 3x3 stencil's: 64 + 2 nx + 2 rows) into shared memory
+// with one bulk copy, where the window fits (else the build reads x).
+// Eight builder warps build each chunk's A from the window (build_chunk's
+// tap sums and root inputs); eight product warps, an m-tile of 16 rows
+// and half the n-tiles each, multiply each A chunk as it is built, with
+// B's rows of the chunk streamed by the bulk-copy unit kRows64Stages chunks
+// deep (an mbarrier a stage), issued by a warp of their own.  A is double
+// buffered; named barriers hand it over (FULL s: built; EMPTY s:
+// multiplied), and one a B stage tells the B warp it is free.
+
+constexpr int kRows64Chunk = 4;       // input channels of an A chunk
+constexpr int kRows64Ks = 5;          // the spline's taps a row (ks)
+constexpr int kRows64Stages = 3;      // B chunks in flight
+constexpr int kRows64ABufs = 2;       // A chunks: one built, one multiplied
+constexpr int kRows64Warps = 8;       // product warps: 2 an m-tile
+constexpr int kBuilders = 256;        // builder threads: 4 a row
+// and one warp that issues B's bulk copies
+constexpr int kRows64Threads = 32 * kRows64Warps + kBuilders + 32;
+// its dynamic shared memory: 227 KB less its static mbarriers and bounds
+constexpr int kRows64Smem = kSmemMax - 256;
+// named barriers (0 is __syncthreads)
+constexpr int kBarFull = 1, kBarEmpty = 1 + kRows64ABufs;
+// B stage s used (a barrier a stage: the product warps arrive at stage
+// s again only for a chunk whose B the B warp issued after its wait)
+constexpr int kBarBFree = 1 + 2 * kRows64ABufs;
+constexpr int kBarBuild = kBarBFree + kRows64Stages;
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// An mbarrier in shared memory: one arrival a phase, with the bytes of
+// the bulk copies it waits for (expect_tx).
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// bytes (a multiple of 16, both ends 16-byte aligned) global -> shared by
+// the bulk-copy unit, completing on bar.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Warp 0's bulk copies of a chunk's B into dst: block q of 26 (tap q of
+// W, then root) is the chunk's cc channel rows, contiguous in W [P, Cin,
+// Cout] and in root (cc Cout floats), at dst + q * bs; completing on bar.
+__device__ __forceinline__ void load_chunk_bulk(float* dst, int bs,
+                                                const ChunkB& b,
+                                                uint64_t* bar) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t bytes = (uint32_t)(b.cc * b.ncols * 4);
+  if (lane == 0) mbar_expect(bar, (uint32_t)(b.P + 1) * bytes);
+  __syncwarp();
+  for (int q = lane; q <= b.P; q += 32)
+    bulk_copy(dst + q * bs,
+              q < b.P ? b.W + ((size_t)q * b.Crows + b.c0) * b.ncols
+                      : b.root + (size_t)b.c0 * b.ncols,
+              bytes, bar);
+}
+
+// Where the build reads: row r of x [*, C] at base + (r - lo) C (the
+// window of rows lo .. in shared memory, or x itself, lo 0), and the
+// tile's entries, worked out once a tile: entry e's source row (-1:
+// masked), its base tap (by ks + bx) and its 4 tap weights.
+struct Rows64Src {
+  const float* base;
+  int lo, C;
+  const int* src;
+  const int* tap;
+  const float4* w;
+  __device__ __forceinline__ const float* row(int r) const {
+    return base + (size_t)(r - lo) * C;
+  }
+};
+
+// A chunk of the 64-row form's A (cc <= CC channels from c0) into sA
+// (zeroed first), its columns in (channel, tap) order: channel j's tap
+// p at j * (P + 1) + p and its own value at j * (P + 1) + P, so that B's
+// rows of a tap are one contiguous copy.  Each row's entries in slot
+// order, each adding its 4 bilinear taps' products into the row's tap
+// sums (add_entries' sums), then the row's own channels.  A whole chunk
+// (cc == CC): four builder threads a row, CC / 4 channels each; the
+// entry's four taps lie at fixed offsets from its first (KS known here),
+// so their loads issue together.  A shorter last chunk: a thread a
+// (row, channel).
+template <int KS, int CC>
+__device__ __forceinline__ void build_rows64(float* sA, int lda,
+                                             const Rows64Src& x, int m0,
+                                             int nd, int K, int c0, int cc,
+                                             int p) {
+  constexpr int T = kBuilders / kTM, H = CC / T, P = KS * KS, Q = P + 1;
+  for (int i = p; i < kTM * lda / 4; i += kBuilders)
+    reinterpret_cast<float4*>(sA)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  bar_sync(kBarBuild, kBuilders);
+  if (cc == CC) {
+    const int d = p / T, h = (p % T) * H;
+    if (d < nd) {
+      float* row = sA + d * lda + h * Q;
+      const float* xb = x.base + c0 + h;
+      for (int q = 0; q < K; ++q) {
+        const int e = d * K + q;
+        const int r = x.src[e];
+        if (r < 0) continue;
+        const float4 w = x.w[e];
+        const float* xs = xb + (size_t)(r - x.lo) * x.C;
+        float v[H], x00[H], x01[H], x10[H], x11[H];
+        float* a = row + x.tap[e];
+#pragma unroll
+        for (int c = 0; c < H; ++c) {
+          v[c] = xs[c];
+          x00[c] = a[c * Q];
+          x01[c] = a[c * Q + 1];
+          x10[c] = a[c * Q + KS];
+          x11[c] = a[c * Q + KS + 1];
+        }
+#pragma unroll
+        for (int c = 0; c < H; ++c) {
+          a[c * Q] = x00[c] + w.x * v[c];
+          a[c * Q + 1] = x01[c] + w.y * v[c];
+          a[c * Q + KS] = x10[c] + w.z * v[c];
+          a[c * Q + KS + 1] = x11[c] + w.w * v[c];
+        }
+      }
+      const float* own = x.row(m0 + d) + c0 + h;
+#pragma unroll
+      for (int c = 0; c < H; ++c) row[c * Q + P] = own[c];
+    }
+  } else {
+    for (int i = p; i < nd * cc; i += kBuilders) {
+      const int d = i / cc, c = i - d * cc;
+      float* row = sA + d * lda + c * Q;
+      for (int q = 0; q < K; ++q) {
+        const int e = d * K + q;
+        const int r = x.src[e];
+        if (r < 0) continue;
+        const float4 w = x.w[e];
+        const float v = x.row(r)[c0 + c];
+        float* a = row + x.tap[e];
+        a[0] += w.x * v;
+        a[1] += w.y * v;
+        a[KS] += w.z * v;
+        a[KS + 1] += w.w * v;
+      }
+      row[P] = x.row(m0 + d)[c0 + c];
+    }
+  }
+}
+
+// Where B's row k lies in shared memory: a chunk's, in Q blocks of rows
+// (the taps and root): row k = j Q + q at q bs + j ncols; lin^T's, at k
+// ld.
+template <int Q>
+struct TapRows {
+  int bs, ncols;
+  __device__ __forceinline__ int at(int k) const {
+    return (k % Q) * bs + (k / Q) * ncols;
+  }
+};
+
+struct DenseRows {
+  int ld;
+  __device__ __forceinline__ int at(int k) const { return k * ld; }
+};
+
+// acc = rows 16 mt .. of A [64, kdim] @ columns 8 nt0 .. of B [kdim, *]
+// (NTW n-tiles; shared memory), 3xTF32 mma.sync summed in the fragments'
+// accumulators (as block_gemm without FLUSH; the caller adds acc to its
+// float32 sums).
+template <int NTW, class BR>
+__device__ __forceinline__ void rows64_gemm(const float* sA, int lda,
+                                            int kdim, const float* sB,
+                                            const BR& br, int mt, int nt0,
+                                            float acc[NTW][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  sB += nt0 * 8;
+  for (int kk = 0; kk < kdim; kk += 8) {
+    const float* ar = sA + (mt * 16 + g) * lda + kk + t;
+    uint32_t ahi[4], alo[4];
+    split_tf32(ar[0], ahi[0], alo[0]);
+    split_tf32(ar[8 * lda], ahi[1], alo[1]);
+    split_tf32(ar[4], ahi[2], alo[2]);
+    split_tf32(ar[8 * lda + 4], ahi[3], alo[3]);
+    const float* b0 = sB + br.at(kk + t) + g;
+    const float* b1 = sB + br.at(kk + t + 4) + g;
+    uint32_t bhi[NTW][2], blo[NTW][2];
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      split_tf32(b0[j * 8], bhi[j][0], blo[j][0]);
+      split_tf32(b1[j * 8], bhi[j][1], blo[j][1]);
+    }
+    // pass by pass over the n-tiles, so that no product waits on the one
+    // before it (each accumulator still takes its three in that order)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) mma_tf32(acc[j], alo, bhi[j]);
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) mma_tf32(acc[j], ahi, blo[j]);
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) mma_tf32(acc[j], ahi, bhi[j]);
+  }
+}
+
+// The 64-row form: rows blockIdx.x * 64 .. of out.  b: B = [W ; root]
+// by chunks (ChunkB; c0 and cc set a chunk); lda: A's row stride at
+// kRows64Chunk channels; lds: the skip rows' (Cs padded to 8, + 4);
+// ldb: lin^T's; bs: a tap block's stride in a B stage (CC Cout + 8, so
+// that the fragments' 4 rows of 4 blocks hit distinct banks); cap: the
+// tile's edge entries (64 K); wcap: the window's floats.  Shared memory:
+// A [kRows64ABufs, 64, lda] (or the skip rows), B [kRows64Stages, P + 1,
+// bs] (or lin^T), the entries' weights, sources and taps, the window.
+// Product warp w takes m-tile w % 4 and n-tiles NTW / 2 (w / 4) .. of
+// the NTW.  An overload of the fused kernel's name, so that device
+// traces find it under it; CC, the chunk's channels, tells it apart from
+// the cluster form.
+template <int NTW, int CC>
+__global__ void __launch_bounds__(kRows64Threads, 1) spline_conv_block_kernel(
+    ConvArgs a, ChunkB b, int lda, int lds, int ldb, int bs, int cap,
+    int wcap) {
+  constexpr int SA = kRows64ABufs, SB = kRows64Stages, NT = kRows64Threads;
+  constexpr int kAB = 32 * kRows64Warps + kBuilders;  // A's handover
+  constexpr int NH = NTW / 2;                         // n-tiles a warp
+  constexpr int kCoutp = 8 * NTW;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t full[SB + 1];       // B stage s landed; the window
+  __shared__ int bounds[2 * NT / 32];
+  const int P = a.ks * a.ks, C = a.Cin;
+  const int wbs = (P + 1) * bs;                       // a B stage's floats
+  const int csp = lds - 4;
+  const int wa = max(SA * kTM * lda, kTM * lds);
+  const int wb = max(SB * wbs, csp * ldb);
+  const TapRows<kRows64Ks * kRows64Ks + 1> br{bs, a.Cout};
+  float* sA = smem;
+  float* sB = smem + wa;
+  float4* sEw = reinterpret_cast<float4*>(sB + wb);   // [cap] weights
+  int* sEsrc = reinterpret_cast<int*>(sEw + cap);     // [cap] source rows
+  int* sEtap = sEsrc + cap;                           // [cap] base taps
+  float* sW = reinterpret_cast<float*>(sEtap + cap);  // the window
+  const int m0 = blockIdx.x * kTM, nd = min(kTM, a.M - m0);
+  const int nch = (C + CC - 1) / CC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto set_chunk = [&](int i) {
+    b.c0 = i * CC;
+    b.cc = min(CC, C - b.c0);
+  };
+  // B's stages zeroed (the rows and columns past a chunk's stay finite),
+  // ordered before the bulk copies' writes
+  for (int i = threadIdx.x; i < SB * wbs / 4; i += NT)
+    reinterpret_cast<float4*>(sB)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= SB; ++i) mbar_init(&full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  // the B warp: the first chunks' B fly while the entries are read
+  const int bwarp = kRows64Warps + kBuilders / 32;
+  if (warp == bwarp)
+    for (int i = 0; i < SB && i < nch; ++i) {
+      set_chunk(i);
+      load_chunk_bulk(sB + i * wbs, bs, b, &full[i]);
+    }
+
+  // each entry's source row (-1: masked), base tap and tap weights
+  // (edge_taps, as the staged builds make them), and the window: x's rows
+  // lo .. hi that the tile reads
+  int lo = m0, hi = m0 + nd - 1;
+  for (int e = threadIdx.x; e < nd * a.K; e += NT) {
+    const size_t mk = (size_t)m0 * a.K + e;
+    const int r = a.emask[mk] ? a.nbr[mk] : -1;
+    const float2 at = reinterpret_cast<const float2*>(a.attr)[mk];
+    const Taps t = edge_taps(at.x, at.y, a.ks, 1);
+    sEsrc[e] = r;
+    sEtap[e] = t.t00;
+    sEw[e] = make_float4(t.w00, t.w01, t.w10, t.w11);
+    if (r >= 0) {
+      lo = min(lo, r);
+      hi = max(hi, r);
+    }
+  }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (lane == 0) {
+    bounds[warp] = lo;
+    bounds[NT / 32 + warp] = hi;
+  }
+  __syncthreads();
+  for (int w = 0; w < NT / 32; ++w) {
+    lo = min(lo, bounds[w]);
+    hi = max(hi, bounds[NT / 32 + w]);
+  }
+  // lo moved down so that the window's first byte is 16-byte aligned
+  lo -= lo % (C % 4 == 0 ? 1 : C % 2 == 0 ? 2 : 4);
+  const long long nw = (long long)(hi - lo + 1) * C;
+  const bool win = nw <= wcap && (((uintptr_t)a.x) & 15) == 0;
+  const long long nbulk = win ? nw / 4 * 4 : 0;
+  if (win) {
+    if (threadIdx.x == 0 && nbulk > 0) {
+      mbar_expect(&full[SB], (uint32_t)(nbulk * 4));
+      bulk_copy(sW, a.x + (size_t)lo * C, (uint32_t)(nbulk * 4), &full[SB]);
+    }
+    for (long long i = nbulk + threadIdx.x; i < nw; i += NT)
+      sW[i] = a.x[(size_t)lo * C + i];
+  }
+  __syncthreads();
+  const Rows64Src src{win ? sW : a.x, win ? lo : 0, C, sEsrc, sEtap, sEw};
+
+  const int mt = warp % 4, nt0 = (warp / 4) * NH;
+  float acc[NH][4];
+#pragma unroll
+  for (int j = 0; j < NH; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  if (warp == bwarp) {
+    // chunk i's B into the stage that chunk i - SB left
+    for (int i = SB; i < nch; ++i) {
+      bar_sync(kBarBFree + i % SB, 32 * kRows64Warps + 32);
+      set_chunk(i);
+      load_chunk_bulk(sB + (i % SB) * wbs, bs, b, &full[i % SB]);
+    }
+  } else if (warp >= kRows64Warps) {
+    const int p = threadIdx.x - 32 * kRows64Warps;
+    if (nbulk > 0) mbar_wait(&full[SB], 0);
+    for (int i = 0; i < nch; ++i) {
+      const int s = i % SA, c0 = i * CC;
+      if (i >= SA) bar_sync(kBarEmpty + s, kAB);
+      build_rows64<kRows64Ks, CC>(sA + s * kTM * lda, lda, src, m0, nd, a.K,
+                                  c0, min(CC, C - c0), p);
+      bar_arrive(kBarFull + s, kAB);
+    }
+  } else {
+    for (int i = 0; i < nch; ++i) {
+      const int s = i % SA, cc = min(CC, C - i * CC);
+      mbar_wait(&full[i % SB], (uint32_t)((i / SB) & 1));
+      float part[NH][4];
+      bar_sync(kBarFull + s, kAB);
+      rows64_gemm<NH>(sA + s * kTM * lda, lda, (P * cc + cc + 7) / 8 * 8,
+                      sB + (i % SB) * wbs, br, mt, nt0, part);
+      if (i + SA < nch) bar_arrive(kBarEmpty + s, kAB);
+      if (i + SB < nch)
+        bar_arrive(kBarBFree + i % SB, 32 * kRows64Warps + 32);
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) acc[j][f] += part[j][f];
+    }
+  }
+  __syncthreads();
+
+  // the skip's rows and lin^T over the stages, then its product
+  if (a.skip) {
+    for (int i = threadIdx.x; i < kTM * lds; i += NT) {
+      const int d = i / lds, c = i - d * lds;
+      sA[i] = (d < nd && c < a.Cs) ? a.skip[(size_t)(m0 + d) * a.Cs + c]
+                                   : 0.f;
+    }
+    for (int i = threadIdx.x; i < kCoutp * csp; i += NT) {
+      const int n = i / csp, k = i - n * csp;
+      sB[k * ldb + n] = (n < a.Cout && k < a.Cs)
+                            ? a.lin[(size_t)n * a.Cs + k] : 0.f;
+    }
+    __syncthreads();
+  }
+  if (warp >= kRows64Warps) return;
+  float sk[NH][4];
+  rows64_gemm<NH>(sA, lds, a.skip ? csp : 0, sB, DenseRows{ldb}, mt, nt0,
+                  sk);
+
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NH; ++j)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int r = mt * 16 + g + 8 * (f >> 1);
+      const int n = (nt0 + j) * 8 + 2 * t + (f & 1);
+      if (r >= nd || n >= a.Cout) continue;
+      float v = acc[j][f];
+      if (a.bias) v = v + a.bias[n];
+      if (a.bn.mean) v = a.bn(v, n);
+      if (a.skip) {
+        const float s = sk[j][f];
+        v = v + (a.bn_skip.mean ? a.bn_skip(s, n) : s);
+      }
+      const int m = m0 + r;
+      float out = activation(v, a.act);
+      if (a.mask && !a.mask[m]) out = 0.f;
+      a.out[(size_t)m * a.Cout + n] = out;
+    }
+}
+
+// The 64-row form's kernel at NTW.
+template <int NTW>
+auto rows64_kernel()
+    -> void (*)(ConvArgs, ChunkB, int, int, int, int, int, int) {
+  return spline_conv_block_kernel<NTW, kRows64Chunk>;
+}
+
+// The 64-row form's strides, edge entries, window and shared memory for
+// the 16-row tile t (its coutp and ldb): the window takes what the rest
+// leaves of 227 KB (less the kernel's static mbarriers and bounds);
+// false where Cout is not t's padded width (a tap block's rows are copied
+// dense) or ks is not kRows64Ks.
+struct Rows64Tile {
+  int lda, lds, ldb, bs, cap, wcap;
+  size_t smem;
+};
+
+bool rows64_tile(const Tile& t, int cout, int cs, int ks, int K,
+                 Rows64Tile* r) {
+  if (ks != kRows64Ks || cout != t.coutp || cout < 16) return false;
+  const int ka = (ks * ks * kRows64Chunk + kRows64Chunk + 7) / 8 * 8;
+  r->lda = ka + 4;
+  r->lds = (cs + 7) / 8 * 8 + 4;
+  r->ldb = t.ldb;
+  r->bs = kRows64Chunk * cout + 8;
+  r->cap = kTM * K;
+  const size_t a1 = (size_t)kRows64ABufs * kTM * r->lda;
+  const size_t a2 = (size_t)kTM * r->lds;
+  const size_t b1 = (size_t)kRows64Stages * (ks * ks + 1) * r->bs;
+  const size_t b2 = (size_t)(r->lds - 4) * r->ldb;
+  const size_t wa = a1 > a2 ? a1 : a2, wb = b1 > b2 ? b1 : b2;
+  const size_t rest = (wa + wb + (size_t)6 * r->cap) * sizeof(float);
+  const size_t room = (size_t)kRows64Smem;
+  if (rest > room) return false;
+  r->wcap = (int)((room - rest) / sizeof(float) / 4 * 4);
+  r->smem = rest + (size_t)r->wcap * sizeof(float);
+  return true;
+}
+
+// The 64-row form's estimated time over M rows, in tile_cost's units (a
+// 128-row slab of the 16-row tile, ~1.5 us): waves of its blocks (one an
+// SM: the window takes what shared memory is left), each as long as its
+// chunks (the skip's depth counted in chunks too) and its fixed cost (the
+// window and the entries, the epilogue); fitted to the per-launch device
+// times of DAGR-S's 16-row-tile calls at a batch of 1 and of 8 with the
+// form forced, when its products' TF32 splits were integer ops (H100
+// SXM: 61-68 us a wave at Cin 64-66; with split_tf32 66-76 us).  The
+// fit's fixed cost, 16.8, put the form 1% ahead of two waves of plain
+// tiles (2,113-4,224 rows: a window's 2,240-row conv), where it now loses
+// (74 against 71 us); 18.3 keeps those launches on the plain tile, and
+// the rule takes the faster of the two at every DAGR-S shape.
+constexpr double kRows64ChunkCost = 1.55;
+constexpr double kRows64Cost = 18.3;
+
+double rows64_cost(const Rows64Tile& r, int cin, int M) {
+  const long long tiles = (M + kTM - 1) / kTM;
+  const long long waves = (tiles + g_sms - 1) / g_sms;
+  const double chunks = (double)((cin + kRows64Chunk - 1) / kRows64Chunk)
+                        + (double)(r.lds - 4) / (r.lda - 4);
+  return (double)waves * (chunks * kRows64ChunkCost + kRows64Cost);
+}
+
+// A launch's form: the 64-row form (rows64, its tile r64) or the 16-row
+// tile split over ``split`` blocks a cluster (1: the plain kernel; the
+// tile it runs in ``run``), whichever the costs put first; the 64-row
+// tile and the gathered block (rows16) keep their plain kernel, and so
+// does a launch whose W or root is not 16-byte aligned (``aligned``
+// false: the 64-row form's bulk copies read both 16 bytes at a time).
+// Shapes, that alignment and the SM count alone decide, so the answer is
+// the same on every call.
+struct BlockForm {
+  int split;
+  bool rows64;
+  Tile run;
+  Rows64Tile r64;
+};
+
+BlockForm block_form(const Tile& t, int cin, int cout, int cs, int ks, int K,
+                     int M, bool rows16, bool aligned) {
+  BlockForm f;
+  double cost;
+  f.split = block_split(t, cin, cs, ks, M, &f.run, &cost);
+  f.rows64 = false;
+  if (t.mt != 1 || M <= 0 || rows16 || !aligned
+      || !rows64_tile(t, cout, cs, ks, K, &f.r64))
+    return f;
+  if (rows64_cost(f.r64, cin, M) < cost) {
+    f.rows64 = true;
+    f.split = 1;
+    f.run = t;
+  }
+  return f;
 }
 
 // ---- the wide eval block: Cout 65-128 -----------------------------------
@@ -1907,6 +2469,15 @@ extern "C" int dagr_spline_conv_init(void) {
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (err != cudaSuccess) return (int)err;
   }
+  // the 64-row form's static mbarriers and bounds take their share
+  const void* rows64[] = {(const void*)rows64_kernel<2>(),
+                          (const void*)rows64_kernel<4>(),
+                          (const void*)rows64_kernel<8>()};
+  for (const void* k : rows64) {
+    err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, kRows64Smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   err = split_smem_limits<SlotEdges>();
   if (err == cudaSuccess) err = split_smem_limits<RunEdges>();
   if (err == cudaSuccess) err = split_smem_limits<StencilEdges>();
@@ -1931,14 +2502,17 @@ extern "C" long long dagr_spline_conv_block_smem(int cin, int cout, int cs,
   return conv_tile(cin, cout, cs, ks, K, &t) ? (long long)t.smem : 0;
 }
 
-// The blocks a 16-row tile of dagr_spline_conv_block at (Cin, Cout, Cs,
-// ks, K) over M rows is split over (1: no cluster), or 0 if the kernel
-// does not take these shapes.
-extern "C" int dagr_spline_conv_block_split(int cin, int cout, int cs,
-                                            int ks, int K, int M) {
-  Tile t, run;
+// The form of dagr_spline_conv_block at (Cin, Cout, Cs, ks, K) over M
+// rows, its W and root 16-byte aligned or not: -1 the 16-row tile's
+// 64-row form, else the blocks a tile is split over (1: no cluster), or
+// 0 if the kernel does not take these shapes.
+extern "C" int dagr_spline_conv_block_form(int cin, int cout, int cs, int ks,
+                                           int K, int M, int aligned) {
+  Tile t;
   if (!conv_tile(cin, cout, cs, ks, K, &t)) return 0;
-  return block_split(t, cin, cs, ks, M, &run);
+  const BlockForm f = block_form(t, cin, cout, cs, ks, K, M, false,
+                                 aligned != 0);
+  return f.rows64 ? -1 : f.split;
 }
 
 namespace {
@@ -1962,8 +2536,17 @@ cudaError_t launch_cluster(const ConvArgs& a, const Tile& t, int tiles,
                             t.coutp, t.ldb);
 }
 
-// One launch of the fused block's kernel for the tile of a's widths:
-// split over a cluster where block_split says so.
+template <int NTW>
+void launch_rows64(const ConvArgs& a, const Rows64Tile& r, cudaStream_t st) {
+  const ChunkB b = chunk_b(a.W, a.root, a.ks * a.ks, a.Cin, a.Cout);
+  spline_conv_block_kernel<NTW, kRows64Chunk>
+      <<<(a.M + kTM - 1) / kTM, kRows64Threads, r.smem, st>>>(
+          a, b, r.lda, r.lds, r.ldb, r.bs, r.cap, r.wcap);
+}
+
+// One launch of the fused block's kernel for the tile of a's widths, in
+// the form block_form gives: the 64-row form, a cluster split, or the
+// plain kernel.
 int launch_block(const ConvArgs& a, bool rows16, void* stream) {
   Tile t;
   if (!conv_tile(a.Cin, a.Cout, a.Cs, a.ks, a.K, &t, rows16))
@@ -1972,15 +2555,24 @@ int launch_block(const ConvArgs& a, bool rows16, void* stream) {
   const int blocks = (a.M + tm - 1) / tm;
   if (blocks == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  Tile run;
-  const int split = block_split(t, a.Cin, a.Cs, a.ks, a.M, &run);
-  if (split > 1) {
+  const bool aligned = (((uintptr_t)a.W | (uintptr_t)a.root) & 15) == 0;
+  const BlockForm f = block_form(t, a.Cin, a.Cout, a.Cs, a.ks, a.K, a.M,
+                                 rows16, aligned);
+  if (f.rows64) {
+    switch (t.ntw) {
+      case 2: launch_rows64<2>(a, f.r64, s); break;
+      case 4: launch_rows64<4>(a, f.r64, s); break;
+      default: launch_rows64<8>(a, f.r64, s); break;
+    }
+    return (int)cudaGetLastError();
+  }
+  if (f.split > 1) {
     cudaError_t err;
     switch (t.ntw) {
-      case 1: err = launch_cluster<1>(a, run, blocks, split, s); break;
-      case 2: err = launch_cluster<2>(a, run, blocks, split, s); break;
-      case 4: err = launch_cluster<4>(a, run, blocks, split, s); break;
-      default: err = launch_cluster<8>(a, run, blocks, split, s); break;
+      case 1: err = launch_cluster<1>(a, f.run, blocks, f.split, s); break;
+      case 2: err = launch_cluster<2>(a, f.run, blocks, f.split, s); break;
+      case 4: err = launch_cluster<4>(a, f.run, blocks, f.split, s); break;
+      default: err = launch_cluster<8>(a, f.run, blocks, f.split, s); break;
     }
     return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
   }

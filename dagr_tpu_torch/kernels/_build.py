@@ -21,8 +21,9 @@ sets an attribute (a launch may be inside a CUDA-graph capture).
 purpose: a run resets it, drives the main path, and reads it to show
 which kernels the path went through.  ``spline_conv_block_cluster``
 counts the ``spline_conv_block`` calls (already counted there) whose
-16-row tiles were split over a thread-block cluster;
-``spline_conv_block_wide`` the wide eval block's calls
+16-row tiles were split over a thread-block cluster and
+``spline_conv_block_rows64`` those that ran the 16-row tile's 64-row
+form; ``spline_conv_block_wide`` the wide eval block's calls
 (``spline_conv_wide_block``) and ``spline_conv_block_wide_split`` those
 of them whose tiles were split over the depth (more than one block over
 a tile's input channels).
@@ -53,6 +54,7 @@ NVCC_FLAGS = ARCH_FLAGS + (
 
 LAUNCHES = {"graph_search": 0, "spline_conv": 0,
             "spline_conv_block": 0, "spline_conv_block_cluster": 0,
+            "spline_conv_block_rows64": 0,
             "spline_conv_block_wide": 0, "spline_conv_block_wide_split": 0,
             "voxel_pool": 0,
             "nms": 0, "graph_search_store": 0, "spline_gather_block": 0,

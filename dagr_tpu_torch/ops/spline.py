@@ -476,8 +476,9 @@ def spline_conv_block(
     (raises otherwise); ``spline_conv_block_plain`` on CPU tensors.  Not
     differentiable: the modules call it in eval mode under no_grad.  A
     call whose 16-row tiles the kernel splits over a thread-block cluster
-    (``block_split`` > 1) also counts a ``spline_conv_block_cluster``
-    launch."""
+    (``block_form`` > 1) also counts a ``spline_conv_block_cluster``
+    launch, and one that runs the 16-row tile's 64-row form
+    (``block_form`` -1) a ``spline_conv_block_rows64`` launch."""
     M, K = edges.nbr.shape
     _check_block_args(x, edges, weight, root, bias, bn, skip, lin, bn_skip,
                       act, mask, kernel_size)
@@ -506,8 +507,12 @@ def spline_conv_block(
             weight, root, bias, bn, skip, lin, bn_skip, mask),
         i(M), i(K), i(cin), i(cout), i(cs), i(kernel_size),
         i(ACT_CODES[act]), _build.ptr(out))
-    if block_split(cin, cout, cs, kernel_size, K, M) > 1:
+    form = block_form(cin, cout, cs, kernel_size, K, M,
+                      (weight.data_ptr() | root.data_ptr()) % 16 == 0)
+    if form > 1:
         _build.LAUNCHES["spline_conv_block_cluster"] += 1
+    elif form == -1:
+        _build.LAUNCHES["spline_conv_block_rows64"] += 1
     return out
 
 
@@ -566,17 +571,20 @@ def block_shared_memory(cin: int, cout: int, cs: int, kernel_size: int,
 
 
 @functools.lru_cache(maxsize=None)
-def block_split(cin: int, cout: int, cs: int, kernel_size: int, K: int,
-                M: int) -> int:
-    """How many blocks, one thread-block cluster, ``spline_conv_block``'s
-    kernel splits each 16-row tile's depth over at these widths and M
-    rows (1: one block a tile, the 64-row tile always), or 0 if the
-    kernel does not take the widths: ``dagr_spline_conv_block_split``,
-    chosen from the shapes and the card's SM count alone."""
-    fn = _build.library().dagr_spline_conv_block_split
-    fn.argtypes = [ctypes.c_int] * 6
+def block_form(cin: int, cout: int, cs: int, kernel_size: int, K: int,
+               M: int, aligned: bool = True) -> int:
+    """The form ``spline_conv_block``'s kernel takes at these widths and
+    M rows, its weight and root 16-byte aligned or not: -1 the 16-row
+    tile's 64-row form (a block over 64 rows, its A built a chunk of
+    input channels at a time), else how many blocks, one thread-block
+    cluster, split each 16-row tile's depth (1: one block a tile, the
+    64-row tile always), or 0 if the kernel does not take the widths:
+    ``dagr_spline_conv_block_form``, chosen from the shapes, the
+    alignment and the card's SM count alone."""
+    fn = _build.library().dagr_spline_conv_block_form
+    fn.argtypes = [ctypes.c_int] * 7
     fn.restype = ctypes.c_int
-    return int(fn(cin, cout, cs, kernel_size, K, M))
+    return int(fn(cin, cout, cs, kernel_size, K, M, int(aligned)))
 
 
 @functools.lru_cache(maxsize=None)

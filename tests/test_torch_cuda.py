@@ -15,7 +15,7 @@ with and without a skip branch, on its own plan and on pinned ones,
 against its twin (and TF32 products failing the same tolerance); a
 DAGR-L DSEC window's capture counting its 12 wide blocks.  The fused block's 16-row
 tile split over a thread-block cluster: at DAGR-S's pooled and head
-widths over 35-17920 rows, ``block_split`` against the rule, and a sync
+widths over 35-17920 rows, ``block_form`` against the rule, and a sync
 window's compiled forward with its cluster launches counted.
 
 K6 and K8's search on rings wrapped three times, not yet full or all
@@ -106,7 +106,7 @@ from dagr_tpu_torch.ops.pool import (
     pool_features_backward_plain, pool_graph, pool_graph_plain,
     ring_update_cells, ring_update_cells_plain)
 from dagr_tpu_torch.ops.spline import (
-    BatchNormStats, LevelEdges, block_shared_memory, block_split,
+    BatchNormStats, LevelEdges, block_form, block_shared_memory,
     fused_block_fits,
     level_edges, source_runs_plain, spline_conv, spline_conv_backward,
     spline_conv_backward_plain, spline_conv_block, spline_conv_block_plain,
@@ -1365,21 +1365,26 @@ def test_train_step_matches_cpu_and_eval_launches_no_backward(dev):
     assert after["spline_conv_block"] - before["spline_conv_block"] == 20
 
 
-def block_case(seed, M, K, cin, cout, mode, act, dev, cs=None):
+def block_case(seed, M, K, cin, cout, mode, act, dev, cs=None,
+               stencil=False):
     """Arguments of one fused block on ``dev``: destinations 100-149 have
     every slot masked, a seventh of the edges sit at attr x = 0 and an
     eleventh at y = 1; ``mode`` block (batch norm, activation), skip (and
     a skip branch of Cs = ``cs``, by default cin + 2) or pred (bias
-    only)."""
+    only).  Sources are random rows, or with ``stencil`` (K = 9) a pooled
+    level's: slot k of row m reads row m + (k / 3 - 1) 56 + k % 3 - 1 (a
+    grid 56 wide), clamped to the rows."""
     g = torch.Generator().manual_seed(seed)
     mask = torch.rand((M, K), generator=g) < 0.7
     mask[100:150] = False
     attr = torch.rand((M, K, 2), generator=g)
     attr[::7, :, 0] = 0.0
     attr[::11, :, 1] = 1.0
-    edges = LevelEdges(
-        nbr=torch.randint(0, M, (M, K), generator=g, dtype=torch.int32),
-        mask=mask, attr=attr)
+    nbr = torch.randint(0, M, (M, K), generator=g, dtype=torch.int32)
+    if stencil:
+        off = torch.tensor([(k // 3 - 1) * 56 + k % 3 - 1 for k in range(K)])
+        nbr = (torch.arange(M)[:, None] + off).clamp(0, M - 1).int()
+    edges = LevelEdges(nbr=nbr, mask=mask, attr=attr)
     vec = lambda lo, hi: lo + (hi - lo) * torch.rand(cout, generator=g)
     bn = lambda: BatchNormStats(vec(-0.1, 0.1), vec(0.5, 1.5), vec(0.8, 1.2),
                                 vec(-0.1, 0.1), 1e-5)
@@ -1445,16 +1450,27 @@ def test_spline_conv_block_refuses_what_it_does_not_take(dev):
         spline_conv_block(*args, **dict(kw, skip=kw["skip"].t().contiguous().t()))
 
 
-def split_rule(cin, cout, cs, K, M, sms):
-    """What ``block_split`` should answer (``csrc/spline_conv.cu``'s
-    ``block_split``, worked out here): 0 where the fused block does not
-    take the widths, 1 on the 64-row tile; on the 16-row tile the s in
-    1, 2, 4, 8 with the least waves x (the slice's depth in 128-row
-    slabs of B + 8, and 3 more for a cluster), waves of ``sms`` SMs at
-    two blocks an SM where a block takes at most 113 KB of shared
-    memory, else one; s > 1 only where each of the s ranks gets
-    ceil(Cin / s) channels or the rest, at least one, and that chunk's
-    slice (26 rows a channel, padded to 8) is a slab deep or more."""
+def block_form_rule(cin, cout, cs, K, M, sms):
+    """What ``block_form`` should answer at aligned weights
+    (``csrc/spline_conv.cu``'s ``block_form``, worked out here): 0 where
+    the fused block does not take the widths, 1 on the 64-row tile; on
+    the 16-row tile the least cost of three forms, in units of a 128-row
+    slab of B: the plain tile and its cluster form, s in 1, 2, 4, 8
+    (answered as s), at waves x (the slice's depth in 128-row slabs + 8,
+    and 3 more for a cluster), waves of ``sms`` SMs at two blocks an SM
+    where a block takes at most 113 KB of shared memory, else one, s > 1
+    only where each of the s ranks gets ceil(Cin / s) channels or the
+    rest, at least one, and that chunk's slice (26 rows a channel, padded
+    to 8) is a slab deep or more; and the 64-row form (answered as -1) at
+    waves of ceil(M / 64) blocks x (its chunks of 4 input channels, the skip's
+    depth in chunks, x ROWS64_CHUNK_COST, + ROWS64_COST) at one block an
+    SM (its window of source rows takes what shared memory is left),
+    where the rest of its shared memory (2 [64, 108] A chunks or the
+    skip's rows, 3 B chunks of 26 blocks [4, Cout] + 8 or lin^T, its
+    entries' source rows, taps and weights) fits 227 KB less 256 bytes
+    and Cout is its padded width and at least 16 (16, 32 or 64: a tap's
+    rows are copied dense, and two warps share an m-tile's n-tiles); ties
+    keep the plain tile or the cluster."""
     if not fused_block_fits(cin, cout, cs, 5, K):
         return 0
     ka, csp = (26 * cin + 7) // 8 * 8, (cs + 7) // 8 * 8
@@ -1466,10 +1482,12 @@ def split_rule(cin, cout, cs, K, M, sms):
     coutp = 8 * ntw
     ldb = coutp + (8 if coutp % 32 in (0, 16) else 0)
 
+    def waves(blocks, smem):
+        return -(-blocks // (sms * (2 if smem <= 113 * 1024 else 1)))
+
     def cost(ka, csp, smem, blocks, cluster):
-        resident = sms * (2 if smem <= 113 * 1024 else 1)
-        return -(-blocks // resident) * ((ka + csp) / 128 + 8.0
-                                         + (3.0 if cluster else 0.0))
+        return waves(blocks, smem) * ((ka + csp) / 128 + 8.0
+                                      + (3.0 if cluster else 0.0))
 
     tiles = -(-M // 16)
     best = cost(ka, csp, (16 * (max(ka, csp) + 4) + 256 * ldb) * 4, tiles,
@@ -1485,36 +1503,56 @@ def split_rule(cin, cout, cs, K, M, sms):
         c = cost(kac, cspc, smem, tiles * s, True)
         if c < best:
             best, pick = c, s
+    lda, lds = 104 + 4, csp + 4
+    rest = (max(2 * 64 * lda, 64 * lds)
+            + max(3 * 26 * (4 * cout + 8), csp * ldb) + 6 * 64 * K) * 4
+    if rest <= 232_448 - 256 and cout == coutp >= 16:
+        chunks = -(-cin // 4) + csp / 104
+        c = -(-M // (64 * sms)) * (chunks * ROWS64_CHUNK_COST + ROWS64_COST)
+        if c < best:
+            return -1
     return pick
+
+
+# the 64-row form's constants in ``block_form`` (``kRows64ChunkCost``,
+# ``kRows64Cost``)
+ROWS64_CHUNK_COST, ROWS64_COST = 1.55, 18.3
 
 
 # DAGR-S's 16-row-tile convs: level 1's second (skip 18), levels 2-4's
 # first (66) and second (skip 66), the heads' 64-wide convs, the
-# predictions (classes 2; 5 = box + objectness)
+# predictions (classes 2; 5 = box + objectness); DAGR-N's level 2 first
+# (66 -> 32) and a 16-wide output, whose large launches take the 64-row
+# form at its other widths
 CLUSTER_WIDTHS = [(64, 64, 18), (66, 64, 0), (64, 64, 66), (64, 64, 0),
-                  (64, 2, 0), (64, 5, 0)]
+                  (64, 2, 0), (64, 5, 0), (66, 32, 0), (64, 16, 0)]
 
 
-@pytest.mark.parametrize("K", [9, 16])
+@pytest.mark.parametrize("K,stencil", [(9, True), (9, False), (16, False)])
 @pytest.mark.parametrize("cin,cout,cs", CLUSTER_WIDTHS)
-@pytest.mark.parametrize("M", [35, 140, 560, 2240, 17920])
-def test_spline_conv_block_cluster_split(dev, M, cin, cout, cs, K):
+@pytest.mark.parametrize("M", [35, 140, 560, 2240, 4300, 4480, 5040, 17920])
+def test_spline_conv_block_cluster_split(dev, M, cin, cout, cs, K, stencil):
     """The fused block's 16-row tile at DAGR-S's pooled and head widths
-    and the rows of a window's grids (35-2240) and of a batch of 8's
-    level 1 (17920), whatever split over a thread-block cluster the
-    kernel takes there: within 1e-5 of the twin's output max, two calls
-    bit-identical, masked rows exactly 0, one launch a call, counted as
-    a cluster launch where it split; ``block_split`` as the rule gives
-    it, and 1 at the event level's widths (the 64-row tile)."""
+    and the rows of a window's grids (35-2240), of a batch of 8's levels
+    2 and 1 (4480, 17920), of a batch of 9's level 2 (5040) and of 4300
+    (the last 64 rows 48 and 12 short), in whatever form the kernel takes
+    there (the plain tile, its split over a thread-block cluster, or its
+    64-row form; sources random rows, or with ``stencil`` a pooled
+    level's 3x3 stencil, which the 64-row form copies as a window of
+    rows; random rows it reads from x): within 1e-5 of the twin's output
+    max, two calls bit-identical, masked rows exactly 0, one launch a
+    call, counted as a cluster launch where it split and as a
+    64-row-form launch where it took that; ``block_form`` as the rule
+    gives it, and 1 at the event level's widths (the 64-row tile)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    split = block_split(cin, cout, cs, 5, K, M)
-    assert split == split_rule(cin, cout, cs, K, M, sms)
+    form = block_form(cin, cout, cs, 5, K, M)
+    assert form == block_form_rule(cin, cout, cs, K, M, sms)
     for ev_cin, ev_cout, ev_cs in ((3, 16, 0), (16, 16, 3), (18, 64, 0)):
-        assert block_split(ev_cin, ev_cout, ev_cs, 5, 16, 50_000) == 1
+        assert block_form(ev_cin, ev_cout, ev_cs, 5, 16, 50_000) == 1
     mode = "pred" if cout < 64 else "skip" if cs else "block"
     args, kw = block_case(M + cin + cs + K, M, K, cin, cout, mode,
                           "relu" if mode != "pred" else None, dev,
-                          cs=cs or None)
+                          cs=cs or None, stencil=stencil)
     before = _build.launch_counts()
     a = spline_conv_block(*args, **kw)
     after = _build.launch_counts()
@@ -1523,10 +1561,62 @@ def test_spline_conv_block_cluster_split(dev, M, cin, cout, cs, K):
     torch.cuda.synchronize()
     assert after["spline_conv_block"] == before["spline_conv_block"] + 1
     assert (after["spline_conv_block_cluster"]
-            == before["spline_conv_block_cluster"] + (split > 1))
+            == before["spline_conv_block_cluster"] + (form > 1))
+    assert (after["spline_conv_block_rows64"]
+            == before["spline_conv_block_rows64"] + (form == -1))
     assert a.shape == (M, cout)
     err = float((a - b).abs().max())
-    assert err <= 1e-5 * max(1.0, float(b.abs().max())), (split, err)
+    assert err <= 1e-5 * max(1.0, float(b.abs().max())), (form, err)
+    assert torch.equal(a, a2)
+    assert not a[~kw["mask"]].any()
+
+
+@pytest.mark.parametrize("which", ["weight", "root", "both"])
+def test_spline_conv_block_keeps_unaligned_weights_off_the_64_row_form(
+        dev, which):
+    """Level 2's skip conv at a batch of 8 (4480 rows, Cin 64, skip 66),
+    which takes the 64-row form (on a 132-SM H100), with its weight, its
+    root or both given as contiguous views 4 bytes past a 16-byte
+    boundary: the 64-row form's bulk copies read them 16 bytes at a
+    time, so the kernel runs another form there (``block_form`` with
+    ``aligned`` false, no 64-row-form launch counted), within 1e-5 of the
+    twin's output max, two calls bit-identical, masked rows exactly 0."""
+    M, K, cin, cout, cs = 4480, 9, 64, 64, 66
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert block_form(cin, cout, cs, 5, K, M) == block_form_rule(
+        cin, cout, cs, K, M, sms)
+    if sms == 132:
+        assert block_form(cin, cout, cs, 5, K, M) == -1
+    form = block_form(cin, cout, cs, 5, K, M, False)
+    assert form >= 1
+    args, kw = block_case(M + cs, M, K, cin, cout, "skip", "relu", dev,
+                          cs=cs, stencil=True)
+
+    def offset(t):
+        v = torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16 == 4
+        return v
+
+    x, edges, weight, root = args[:4]
+    if which != "root":
+        weight = offset(weight)
+    if which != "weight":
+        root = offset(root)
+    moved = (x, edges, weight, root, *args[4:])
+    before = _build.launch_counts()
+    a = spline_conv_block(*moved, **kw)
+    after = _build.launch_counts()
+    a2 = spline_conv_block(*moved, **kw)
+    b = spline_conv_block_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert after["spline_conv_block"] == before["spline_conv_block"] + 1
+    assert (after["spline_conv_block_rows64"]
+            == before["spline_conv_block_rows64"])
+    assert (after["spline_conv_block_cluster"]
+            == before["spline_conv_block_cluster"] + (form > 1))
+    err = float((a - b).abs().max())
+    assert err <= 1e-5 * max(1.0, float(b.abs().max())), (form, err)
     assert torch.equal(a, a2)
     assert not a[~kw["mask"]].any()
 
@@ -1673,10 +1763,11 @@ def test_dagr_l_dsec_window_captures_its_wide_blocks(dev):
 def test_sync_window_compiled_forward_splits_its_tiles(dev):
     """A DAGR-S window (pooled grids 40x56 to 5x7) through
     ``Detector.make_forward``: the capture's 20 fused blocks count a
-    cluster launch for each call whose shapes ``split_rule`` splits (16
+    cluster launch for each call whose shapes ``block_form_rule`` splits (16
     of 20 on a 132-SM H100: the event level's two and level 1's first
-    run the 64-row tile, and level 1's second, 140 tiles, one block a
-    tile), and every replay equals the eager forward bit for bit."""
+    run the 64-row tile, and level 1's second, 140 tiles, is not split)
+    and a 64-row-form launch for each that ``block_form_rule`` gives that
+    form, and every replay equals the eager forward bit for bit."""
     from dagr_tpu_torch.ops import spline as spline_ops
 
     cfg = DagrConfig(n_nodes=4000)
@@ -1709,11 +1800,14 @@ def test_sync_window_compiled_forward_splits_its_tiles(dev):
         after = _build.launch_counts()
     finally:
         spline_ops.spline_conv_block = fn
-    want = sum(split_rule(*sh, sms) > 1 for sh in shapes)
+    want = sum(block_form_rule(*sh, sms) > 1 for sh in shapes)
+    want64 = sum(block_form_rule(*sh, sms) == -1 for sh in shapes)
     assert len(shapes) == 20
     assert after["spline_conv_block"] - before["spline_conv_block"] == 20
     assert (after["spline_conv_block_cluster"]
             - before["spline_conv_block_cluster"]) == want
+    assert (after["spline_conv_block_rows64"]
+            - before["spline_conv_block_rows64"]) == want64
     if sms == 132:
         assert want == 16
     for ev in windows[2:] * 2:
@@ -2319,6 +2413,65 @@ def test_server_make_chain_matches_run_chain(dev):
         else:
             assert_raw_close(out, want)
         assert chain.graphs.replays() > 0
+
+
+def test_serve_ring_step_captures_its_rows64_blocks(dev):
+    """An S=8 ring server's step (chunks of 256, rings of 2048 slots,
+    the tail at a batch of 8 on every step) through ``make_step``: the
+    capture's 18 fused blocks count a 64-row-form launch for each call
+    whose shapes ``block_form_rule`` gives that form (3 on a 132-SM
+    H100: level 1's second conv, 17,920 rows, and level 2's two, 4,480)
+    and a cluster launch for each it splits; the replays equal the eager
+    step on a second state to 1e-5 of the raw's max."""
+    from dagr_tpu_torch.ops import spline as spline_ops
+
+    cfg = DagrConfig(n_nodes=2048)
+    det = Detector(cfg, H, W, dev, seed=24)
+    srv = MultiStreamServer(det.model, H, W, 8, 256, ring=2048,
+                            window_mode="ring")
+    step = srv.make_step()
+    st, ref = srv.init_state(), srv.init_state()
+    chunks = stream_chunks(24, 1536, 256, dev, streams=8)
+    for c in chunks[:2]:                             # the eager warm-ups
+        step(st, *c)
+        ref, _, _ = srv.step(ref, *c)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes, fn = [], spline_ops.spline_conv_block
+
+    def counted(x, edges, weight, *args, **kw):
+        skip = kw.get("skip")
+        shapes.append((x.shape[1], weight.shape[2],
+                       0 if skip is None else skip.shape[1],
+                       edges.nbr.shape[1], x.shape[0]))
+        return fn(x, edges, weight, *args, **kw)
+
+    spline_ops.spline_conv_block = counted
+    try:
+        before = _build.launch_counts()
+        _, raw, _ = step(st, *chunks[2])             # the capture
+        after = _build.launch_counts()
+    finally:
+        spline_ops.spline_conv_block = fn
+    ref, want_raw, _ = srv.step(ref, *chunks[2])
+    torch.cuda.synchronize()
+    assert_raw_close(raw, want_raw)
+    want64 = sum(block_form_rule(*sh, sms) == -1 for sh in shapes)
+    assert len(shapes) == 18
+    assert max(sh[4] for sh in shapes) == 8 * 2240
+    assert after["spline_conv_block"] - before["spline_conv_block"] == 18
+    assert (after["spline_conv_block_rows64"]
+            - before["spline_conv_block_rows64"]) == want64
+    assert (after["spline_conv_block_cluster"]
+            - before["spline_conv_block_cluster"]) == sum(
+                block_form_rule(*sh, sms) > 1 for sh in shapes)
+    if sms == 132:
+        assert want64 == 3
+    for c in chunks[3:]:
+        _, raw, _ = step(st, *c)
+        ref, want_raw, _ = srv.step(ref, *c)
+        torch.cuda.synchronize()
+        assert_raw_close(raw, want_raw)
+    assert step.graphs.replays() == len(chunks) - 2
 
 
 def test_detector_make_forward_matches_call(dev):
